@@ -1,0 +1,364 @@
+"""Fully-fused batch solver: the whole iLQR loop in kernel layout
+(counterpart of ``ilqr_tpu/fused.py``).
+
+All solver state stays lane-last ((T, n, B), (B,), …) from the initial
+rollout to the end; the only relayouts are one transpose of the inputs and
+one of the Solution. Per iteration the main path launches ONE kernel
+(ops/kernel_iter.py); ``iter_kernel="split"`` runs the same iteration as a
+sweep kernel plus a line-search kernel.
+
+The JAX package's two ``lax.while_loop``s are host loops here:
+
+- the λ-escalation retry loop (ref ilqr_core.cpp:136-150) checks once per
+  attempt whether any live lane's backward pass failed — one host sync per
+  iteration when none did;
+- the outer loop checks ``any(~done & iteration < max_iter)`` once every
+  ``cfg.fused_unroll`` iterations; lanes that finished, or ran past
+  max_iter, are frozen by masking, so any unroll gives the same result.
+
+The per-lane bookkeeping (λ schedule, termination) is plain tensor code.
+Lanes never interact, so the TPU's padding to 1024-lane chunks is not
+needed: per-lane results are the same for any batch size.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ilqr_tpu_torch.config import SolverConfig
+from ilqr_tpu_torch.models.base import Model
+from ilqr_tpu_torch.ops.kernel_iter import iteration_packed
+from ilqr_tpu_torch.ops.kernel_rollout import (
+    linesearch_packed,
+    pack_params,
+    rollout_packed,
+)
+from ilqr_tpu_torch.ops.kernel_sweep import sweep_packed
+from ilqr_tpu_torch.types import Solution, TerminationReason
+
+F32 = torch.float32
+
+
+class FusedState(NamedTuple):
+    xs_body: torch.Tensor    # (T, n, B) — rows 0..T-1
+    x_term: torch.Tensor     # (n, B)    — terminal state (row T)
+    us: torch.Tensor         # (T, m, B)
+    cost: torch.Tensor       # (B,)
+    lam: torch.Tensor        # (B,)
+    dlam: torch.Tensor       # (B,)
+    k: torch.Tensor          # (T, m, B)
+    K: torch.Tensor          # (T, m, n, B)
+    iteration: torch.Tensor  # (B,) int32
+    done: torch.Tensor       # (B,) bool
+    reason: torch.Tensor     # (B,) int32
+    gnorm: torch.Tensor      # (B,)
+    dcost: torch.Tensor      # (B,)
+    expected: torch.Tensor   # (B,)
+
+
+def _host_any(flags: torch.Tensor) -> bool:
+    """``flags.any()`` read on the host — the solver's only syncs."""
+    _host_any.syncs += 1
+    return bool(flags.any().item())
+
+
+_host_any.syncs = 0
+
+
+def _escalate(failed, lam, dlam, factor, cfg):
+    """λ ← max(λ·dλ, λmin) with dλ ← max(dλ·f, f) on failed lanes
+    (ref ilqr_core.cpp:136-150)."""
+    dlam_n = torch.where(failed, torch.maximum(dlam * factor, factor), dlam)
+    lam_n = torch.where(failed, torch.clamp(lam * dlam_n, min=cfg.lambda_min),
+                        lam)
+    return lam_n, dlam_n
+
+
+def _merged_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
+                      factor):
+    """STEPs 1-4 as ONE kernel per backward attempt (ops/kernel_iter.py).
+    λ-escalation retries re-run the kernel with ``live`` restricted to the
+    failed lanes; passthrough lanes re-emit their state unchanged, so the
+    retry loop is exact."""
+
+    def run_iter(lam, live_f, xs_body, x_term, us, k_old, K_old):
+        # cost_prev is per-lane invariant across retries (a retrying lane
+        # never stepped), so state.cost is right for every attempt.
+        return iteration_packed(
+            model, cfg.integrator, cfg.clamp_forward, pp, x0, xs_body,
+            x_term, us, k_old, K_old, lam, state.cost, live_f, alphas,
+            mode=_kmode(cfg), use_limits=cfg.use_control_limits,
+            z_min=cfg.z_min, tol_grad=cfg.tol_grad,
+            lambda_grad_term=cfg.lambda_grad_term)
+
+    (xs, us, xf, k, K, lsc, _asel, accf, dc, ex, div,
+     g) = run_iter(state.lam, live.to(F32), state.xs_body, state.x_term,
+                   state.us, state.k, state.K)
+    ok = frozen | (div < 0.5)
+    lam, dlam = _escalate(live & ~ok, state.lam, state.dlam, factor, cfg)
+
+    while _host_any(~ok & (lam <= cfg.lambda_max)):
+        retry = ~ok
+        (xs, us, xf, k, K, lsc_n, _asel, acc_n, dc_n, ex_n, div_n,
+         g_n) = run_iter(lam, retry.to(F32), xs, xf, us, k, K)
+        lsc = torch.where(retry, lsc_n, lsc)
+        accf = torch.where(retry, acc_n, accf)
+        dc = torch.where(retry, dc_n, dc)
+        ex = torch.where(retry, ex_n, ex)
+        g = torch.where(retry, g_n, g)
+        new_ok = div_n < 0.5
+        lam, dlam = _escalate(retry & ~new_ok, lam, dlam, factor, cfg)
+        ok = ok | (retry & new_ok)
+    return lam, dlam, ok, g, xs, us, xf, k, K, lsc, accf, dc, ex
+
+
+def _split_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
+                     factor):
+    """The same iteration as a sweep kernel (re-run per λ attempt) and one
+    line-search kernel."""
+
+    def run_backward(lam):
+        return sweep_packed(model, cfg.integrator, pp, state.xs_body,
+                            state.x_term, state.us, lam, mode=_kmode(cfg),
+                            use_limits=cfg.use_control_limits)
+
+    k, K, dV, div, gnorm = run_backward(state.lam)
+    ok = frozen | (div < 0.5)
+    lam, dlam = _escalate(live & ~ok, state.lam, state.dlam, factor, cfg)
+    while _host_any(~ok & (lam <= cfg.lambda_max)):
+        k_n, K_n, dV_n, div_n, g_n = run_backward(lam)
+        retry = ~ok
+        new_ok = div_n < 0.5
+        k = torch.where(retry, k_n, k)
+        K = torch.where(retry, K_n, K)
+        dV = torch.where(retry, dV_n, dV)
+        gnorm = torch.where(retry, g_n, gnorm)
+        lam, dlam = _escalate(retry & ~new_ok, lam, dlam, factor, cfg)
+        ok = ok | (retry & new_ok)
+
+    grad_term = _grad_term(cfg, ok, gnorm, lam)
+    gate = (ok & ~grad_term & live).to(F32)
+    keep = (ok & live).to(F32)
+    (xs, us, xf, k_new, K_new, lsc, _asel, accf, dc,
+     ex) = linesearch_packed(
+        model, cfg.integrator, cfg.clamp_forward, pp, x0, state.us,
+        state.xs_body, state.x_term, K, k, state.K, state.k, alphas, dV,
+        state.cost, gate, keep, cfg.z_min)
+    return lam, dlam, ok, gnorm, xs, us, xf, k_new, K_new, lsc, accf, dc, ex
+
+
+def _kmode(cfg):
+    return "jvp" if cfg.deriv_mode == "analytic" else "fd"
+
+
+def _grad_term(cfg, back_ok, gnorm, lam):
+    """Gradient-norm termination (ref ilqr_core.cpp:153-159)."""
+    return (back_ok & (gnorm < cfg.tol_grad)
+            & (lam < cfg.lambda_grad_term))
+
+
+def _iteration(model: Model, cfg: SolverConfig, pp, x0, alphas, factor,
+               state: FusedState) -> FusedState:
+    _iteration.calls += 1
+    # Lanes past their budget are frozen exactly like done lanes: the outer
+    # loop runs in chunks of cfg.fused_unroll iterations (ref :285).
+    frozen = state.done | (state.iteration >= cfg.max_iter)
+    live = ~frozen
+    run = (_split_iteration if cfg.iter_kernel == "split"
+           else _merged_iteration)
+    (lam, dlam, back_ok, gnorm, xs_body, us, x_term, k, K, ls_cost, acc_f,
+     ls_dcost, ls_expected) = run(model, cfg, pp, x0, state, frozen, live,
+                                  alphas, factor)
+    grad_term = _grad_term(cfg, back_ok, gnorm, lam)
+    accepted = back_ok & (acc_f > 0.5)
+    take_step = accepted & ~grad_term & live
+    return _finish_iteration(
+        cfg, state, frozen, lam, dlam, gnorm, grad_term, accepted,
+        take_step, xs_body, us, x_term, k, K, ls_cost, ls_dcost,
+        ls_expected, factor)
+
+
+_iteration.calls = 0
+
+
+def _finish_iteration(cfg, state, frozen, lam, dlam, gnorm, grad_term,
+                      accepted, take_step, xs_body_new, us_new, xterm_new,
+                      k_new, K_new, ls_cost, ls_dcost, ls_expected,
+                      factor) -> FusedState:
+    """Per-lane bookkeeping after the line search: cost/λ schedule,
+    termination, and the lane-sized freeze selects (the kernels already
+    froze xs/us via the take gate and k/K via keep)."""
+    cost_new = torch.where(take_step, ls_cost, state.cost)
+
+    # λ schedule (ref :242-282)
+    dlam_acc = torch.minimum(dlam / factor, 1.0 / factor)
+    lam_acc = lam * dlam_acc * (lam > cfg.lambda_min).to(F32)
+    dlam_rej = torch.maximum(dlam * factor, factor)
+    lam_rej = torch.clamp(lam * dlam_rej, min=cfg.lambda_min)
+
+    sched = ~grad_term
+    lam_new = torch.where(sched, torch.where(accepted, lam_acc, lam_rej), lam)
+    dlam_new = torch.where(sched, torch.where(accepted, dlam_acc, dlam_rej),
+                           dlam)
+
+    # termination (refs :153-159, :257-262, :276-281)
+    fun_term = take_step & (ls_dcost < cfg.tol_fun)
+    lam_term = ~grad_term & ~accepted & (lam_new > cfg.lambda_max)
+    done = grad_term | fun_term | lam_term
+    R = TerminationReason
+    reason = torch.full_like(state.reason, int(R.RUNNING))
+    reason = torch.where(lam_term, int(R.LAMBDA_MAX), reason)
+    reason = torch.where(fun_term, int(R.FUN_TOL), reason)
+    reason = torch.where(grad_term, int(R.GRAD_TOL), reason)
+
+    def lane_freeze(old, new):
+        return torch.where(frozen, old, new)
+
+    return FusedState(
+        xs_body=xs_body_new, x_term=xterm_new, us=us_new,
+        k=k_new, K=K_new,
+        cost=lane_freeze(state.cost, cost_new),
+        lam=lane_freeze(state.lam, lam_new),
+        dlam=lane_freeze(state.dlam, dlam_new),
+        iteration=lane_freeze(state.iteration, state.iteration + 1),
+        done=lane_freeze(state.done, done),
+        reason=lane_freeze(state.reason, reason),
+        gnorm=lane_freeze(state.gnorm, gnorm),
+        dcost=lane_freeze(state.dcost, ls_dcost),
+        expected=lane_freeze(state.expected, ls_expected),
+    )
+
+
+def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
+    """True iff :func:`solve_batch_fused` accepts (model, cfg): acrobot
+    (the model the kernels are compiled for), m = 1, analytic derivatives,
+    the Euler step, control limits with the closed-form QP, shared params,
+    the merged sweep. Mirrors the guards of :func:`solve_batch_fused`."""
+    return (model.name == "acrobot" and model.m == 1 and model.has_soa
+            and model.has_analytic_soa and not cfg.full_ddp
+            and cfg.deriv_mode == "analytic" and cfg.integrator == "euler"
+            and cfg.use_control_limits
+            and cfg.boxqp_mode in ("auto", "enum", "pn_fixed")
+            and cfg.sweep_kernel == "merged"
+            and cfg.iter_kernel in ("auto", "merged", "split"))
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "solve_batch_fused runs on the GPU by default and no CUDA device "
+            "is available; pass device='cpu' for the plain PyTorch versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
+    if cfg.full_ddp:
+        raise ValueError(
+            "solve_batch_fused does not support full_ddp (the kernel bodies "
+            "are Gauss-Newton only)")
+    if cfg.use_control_limits and cfg.boxqp_mode not in (
+            "auto", "enum", "pn_fixed"):
+        raise ValueError(
+            "solve_batch_fused requires boxqp_mode='auto'/'enum'/'pn_fixed' "
+            "(the in-kernel QP is chosen by m)")
+    if cfg.iter_kernel not in ("auto", "merged", "split"):
+        raise ValueError(f"unknown iter_kernel {cfg.iter_kernel!r}")
+    if not model.has_soa:
+        raise ValueError("solve_batch_fused requires SoA model functions")
+    if params_batched:
+        raise NotImplementedError(
+            "params_batched=True is not ported to ilqr_tpu_torch yet")
+    if cfg.sweep_kernel != "merged":
+        raise NotImplementedError(
+            f"sweep_kernel={cfg.sweep_kernel!r} is not ported yet (the "
+            "derivative and backward kernels of the split sweep)")
+    if not fused_applicable(model, cfg):
+        raise NotImplementedError(
+            f"solve_batch_fused is ported for acrobot, m = 1, analytic "
+            f"derivatives, the Euler step and control limits only; got "
+            f"model {model.name!r} (m = {model.m}) with "
+            f"deriv_mode={cfg.deriv_mode!r}, integrator={cfg.integrator!r}, "
+            f"use_control_limits={cfg.use_control_limits}")
+
+
+def solve_batch_fused(model: Model, params, cfg: SolverConfig, dt, x0, u0,
+                      device=None, params_batched: bool = False) -> Solution:
+    """Batched solve entirely in kernel layout (see module docstring).
+
+    Args: x0 (B, n); u0 (T, m) shared or (B, T, m) — numpy arrays or
+    tensors; params a params NamedTuple shared by every problem. ``device``
+    defaults to ``"cuda"`` and raises when no card is present; with
+    ``device="cpu"`` every op runs its plain PyTorch version. Returns a
+    Solution with leading batch axis B, on ``device``.
+    """
+    _check_config(model, cfg, params_batched)
+    dev = _resolve_device(device)
+    x0 = torch.as_tensor(np.asarray(x0) if not isinstance(x0, torch.Tensor)
+                         else x0, dtype=F32).to(dev)
+    u0 = torch.as_tensor(np.asarray(u0) if not isinstance(u0, torch.Tensor)
+                         else u0, dtype=F32).to(dev)
+    B, n = x0.shape
+    if u0.ndim == 2:
+        u0 = u0.expand((B,) + tuple(u0.shape))
+    T, m = u0.shape[1], u0.shape[2]
+    if n != model.n or m != model.m:
+        raise ValueError(f"x0/u0 dims ({n}, {m}) do not match model "
+                         f"{model.name!r} ({model.n}, {model.m})")
+    pp = pack_params(params, dt, dev)
+
+    x0_p = x0.t().contiguous()                     # (n, B)
+    us_p = u0.permute(1, 2, 0).contiguous()        # (T, m, B)
+    zeros = lambda *shape: torch.zeros(shape, dtype=F32, device=dev)
+    # initial open-loop rollout (ref init_traj, ilqr_core.cpp:11-56)
+    xs_body, us_p, x_fin, cost = rollout_packed(
+        model, cfg.integrator, cfg.clamp_forward, pp, x0_p, us_p,
+        zeros(T, n, B), zeros(T, m, n, B))
+
+    state = FusedState(
+        xs_body=xs_body, x_term=x_fin, us=us_p, cost=cost,
+        lam=torch.full((B,), cfg.lambda_init, dtype=F32, device=dev),
+        dlam=torch.full((B,), cfg.dlambda_init, dtype=F32, device=dev),
+        k=zeros(T, m, B), K=zeros(T, m, n, B),
+        iteration=torch.zeros((B,), dtype=torch.int32, device=dev),
+        done=torch.zeros((B,), dtype=torch.bool, device=dev),
+        reason=torch.zeros((B,), dtype=torch.int32, device=dev),
+        gnorm=zeros(B), dcost=zeros(B), expected=zeros(B))
+
+    # Device constants made once: a host→device copy inside the loop would
+    # synchronise. factor stays a tensor so that dλ/f is a true division.
+    alphas = torch.tensor([float(a) for a in cfg.alphas], dtype=F32,
+                          device=dev)
+    factor = torch.tensor(cfg.lambda_factor, dtype=F32, device=dev)
+    unroll = max(1, int(cfg.fused_unroll))
+    while _host_any(~state.done & (state.iteration < cfg.max_iter)):
+        for _ in range(unroll):
+            state = _iteration(model, cfg, pp, x0_p, alphas, factor, state)
+
+    reason = torch.where(state.done, state.reason,
+                         int(TerminationReason.MAX_ITER))
+    xs_full = torch.cat([state.xs_body, state.x_term[None]], dim=0)
+    return Solution(
+        xs=xs_full.permute(2, 0, 1),        # (B, T+1, n)
+        us=state.us.permute(2, 0, 1),       # (B, T, m)
+        k=state.k.permute(2, 0, 1),         # (B, T, m)
+        K=state.K.permute(3, 0, 1, 2),      # (B, T, m, n)
+        cost=state.cost,
+        lam=state.lam,
+        dlam=state.dlam,
+        iterations=state.iteration,
+        reason=reason,
+        gnorm=state.gnorm,
+    )
+
+
+def solve_batch_fused_warm(model: Model, params, cfg: SolverConfig, dt, x0,
+                           prev: Solution, device=None) -> Solution:
+    """Warm-started fused batch solve — not ported yet."""
+    raise NotImplementedError(
+        "solve_batch_fused_warm is not ported to ilqr_tpu_torch yet")

@@ -1,0 +1,19 @@
+"""The fused solver's ops: each a plain PyTorch version beside a CUDA
+kernel (csrc/). ``launch_counts()`` reads, and ``reset_launch_counts()``
+zeroes, every op's count of kernel launches."""
+
+from ilqr_tpu_torch.ops.kernel_iter import iteration_packed
+from ilqr_tpu_torch.ops.kernel_rollout import linesearch_packed, rollout_packed
+from ilqr_tpu_torch.ops.kernel_sweep import sweep_packed
+
+KERNEL_OPS = (rollout_packed, linesearch_packed, sweep_packed,
+              iteration_packed)
+
+
+def launch_counts() -> dict:
+    return {op.__name__: op.launches for op in KERNEL_OPS}
+
+
+def reset_launch_counts() -> None:
+    for op in KERNEL_OPS:
+        op.launches = 0

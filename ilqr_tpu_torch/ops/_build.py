@@ -1,0 +1,146 @@
+"""Builds the CUDA kernels of ``csrc/`` with nvcc and binds them with ctypes.
+
+The library is built on first use into ``build/ilqr_tpu_torch/<hash>/`` at
+the repository root, keyed by a hash of the sources and the flags, so a
+fresh checkout builds everything it runs and a changed source rebuilds. Only
+the sources in ``csrc/`` are compiled; the library has a plain C interface
+(no PyTorch headers), which keeps the build to seconds.
+
+Every launcher takes its pointers as ``c_void_p`` and PyTorch's current
+stream, launches asynchronously and returns ``cudaGetLastError()``;
+:func:`launch` raises on a nonzero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ilqr_tpu_torch"
+LIB_NAME = "libilqr_tpu_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # keep a*b+c as two rounded operations, as the plain versions compute
+    # them; no --use_fast_math (IEEE division, full-accuracy sincosf)
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of csrc/kernels.cu, in argument order.
+_SIGNATURES = {
+    "ilqr_rollout": [_P] * 9 + [_I, _I, _I, _P],
+    "ilqr_sweep": [_P] * 10 + [_I, _I, _P],
+    "ilqr_linesearch": [_P] * 10 + [_I] + [_P] * 14 + [_F, _I, _I, _I, _P],
+    "ilqr_iteration": [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I,
+                                                    _P],
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+            Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the ilqr_tpu_torch CUDA kernels "
+            "are built from source on first use")
+    return found
+
+
+def build() -> Path:
+    """Compiles ``csrc/kernels.cu`` into the hashed build directory unless
+    the library is already there; returns its path. The compiler's
+    register/spill report is kept beside it in ``ptxas.log``."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / "kernels.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    (out_dir / "ptxas.log").write_text(proc.stderr)
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+def build_log() -> str:
+    """What ptxas reported (registers, spills) for the current build."""
+    log = BUILD_ROOT / source_hash() / "ptxas.log"
+    return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built if needed and loaded once per process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ilqr_error_string.argtypes = [ctypes.c_int]
+    lib.ilqr_error_string.restype = ctypes.c_char_p
+    lib.ilqr_max_alphas.argtypes = []
+    lib.ilqr_max_alphas.restype = ctypes.c_int
+    return lib
+
+
+def require(t: torch.Tensor, shape, name: str, device: torch.device):
+    """Checks what a kernel takes: f32, contiguous, on ``device``, with the
+    given shape; raises ValueError otherwise."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Calls launcher ``name`` on ``device``'s current stream with ``args``
+    (tensors become their data pointers); raises if the launch failed."""
+    lib = library()
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*conv, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {err}: "
+            f"{lib.ilqr_error_string(err).decode()}")

@@ -1,0 +1,296 @@
+"""Closed-loop rollout and line search (counterpart of
+``ilqr_tpu/ops/pallas_rollout.py``).
+
+Layout: every array keeps the lane (problem) index last — x0 (n, B),
+u (T, m, B), x̄ (T, n, B), K (T, m, n, B), per-lane scalars (B,). This is the
+JAX package's packed (…, NB, 8, 128) layout flattened.
+
+Each op has a plain PyTorch version (vectorized over lanes, a Python loop
+over T, line-search candidates as a batch dimension) and a CUDA kernel
+(csrc/kernels.cu). The op runs the plain version for CPU tensors and
+launches the kernel for CUDA tensors; it never falls back from one to the
+other. ``<op>.launches`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ilqr_tpu_torch.models.acrobot import AcrobotParams
+from ilqr_tpu_torch.ops import _build
+
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Param packing: params NamedTuple → one flat f32 vector, dt last
+# ---------------------------------------------------------------------------
+
+class PackedParams(NamedTuple):
+    vec: torch.Tensor  # (P,) f32: leaves in field order, then dt
+    cls: type          # the params NamedTuple type
+    shapes: tuple      # each field's shape
+
+
+def pack_params(params, dt, device=None) -> PackedParams:
+    """Flattens the params leaves in field order into one f32 vector with
+    ``dt`` as the last entry (the kernels read it from device memory).
+    Shared (unbatched) params."""
+    leaves = [torch.as_tensor(getattr(params, f), dtype=F32)
+              for f in params._fields]
+    shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+    flat = [leaf.reshape(-1).cpu() for leaf in leaves]
+    flat.append(torch.tensor([float(dt)], dtype=F32))
+    return PackedParams(torch.cat(flat).to(device), type(params), shapes)
+
+
+def unpack_params(pp: PackedParams):
+    """Inverse of :func:`pack_params`: (params with tensor leaves viewing
+    ``pp.vec``, dt as a 0-d tensor)."""
+    leaves = []
+    r = 0
+    for shape in pp.shapes:
+        size = math.prod(shape)
+        leaves.append(pp.vec[r:r + size].reshape(shape))
+        r += size
+    return pp.cls(*leaves), pp.vec[r]
+
+
+# ---------------------------------------------------------------------------
+# Dispatch helpers shared by the op modules
+# ---------------------------------------------------------------------------
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """Whether an op given ``t`` launches its kernel (CUDA) or runs its plain
+    version (CPU); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def require_kernel_model(model, integrator: str, pp: PackedParams, device):
+    """The CUDA kernels are compiled for acrobot with the Euler step."""
+    if model.name != "acrobot" or pp.cls is not AcrobotParams:
+        raise NotImplementedError(
+            f"CUDA kernels exist for acrobot only, not {model.name!r}")
+    if integrator != "euler":
+        raise NotImplementedError(
+            f"integrator {integrator!r} is not ported to the CUDA kernels "
+            "(Euler only)")
+    _build.require(pp.vec, (pp.vec.numel(),), "packed params", device)
+
+
+def require_plain_integrator(integrator: str):
+    if integrator != "euler":
+        raise NotImplementedError(
+            f"integrator {integrator!r} is not ported (Euler only)")
+
+
+def clip(v, lo, hi):
+    """jnp.clip: minimum(maximum(v, lo), hi), NaN-propagating."""
+    return torch.minimum(torch.maximum(v, lo), hi)
+
+
+def closed_loop_step(model, p, dt, clamp, x, u_ff, xsr, K):
+    """One step: u = u_ff + K (x − x̄), optional box clamp, running cost,
+    Euler x + f·dt. x (n, *batch), u_ff (m, *batch), xsr (n, B),
+    K (m, n, B); returns (u, cost, x_next)."""
+    n, m = model.n, model.m
+    us = []
+    for j in range(m):
+        acc = u_ff[j]
+        for i in range(n):
+            acc = acc + K[j, i] * (x[i] - xsr[i])
+        if clamp:
+            acc = clip(acc, p.u_min[j], p.u_max[j])
+        us.append(acc)
+    u = torch.stack(us)
+    c = model.cost_soa(p, x, u)
+    xn = x + model.dynamics_soa(p, x, u) * dt
+    return u, c, xn
+
+
+# ---------------------------------------------------------------------------
+# rollout_packed (full-output mode)
+# ---------------------------------------------------------------------------
+
+def rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K):
+    """Plain version of :func:`rollout_packed`."""
+    require_plain_integrator(integrator)
+    p, dt = unpack_params(pp)
+    T, m, n, B = K.shape
+    xs = torch.empty((T, n, B), dtype=F32, device=x0.device)
+    us = torch.empty((T, m, B), dtype=F32, device=x0.device)
+    x = x0
+    cost = torch.zeros((B,), dtype=F32, device=x0.device)
+    for t in range(T):
+        xs[t] = x
+        u, c, x = closed_loop_step(model, p, dt, clamp, x, uff[t], xsr[t],
+                                   K[t])
+        us[t] = u
+        cost = cost + c
+    return xs, us, x, cost + model.final_cost_soa(p, x)
+
+
+def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
+                   x0, uff, xsr, K):
+    """Closed-loop rollout u_t = u_ff,t + K_t (x_t − x̄_t) (clamped to the
+    box when ``clamp``), Euler steps, Σ running cost + final cost
+    (ref src/ilqr_core.cpp:305-337).
+
+    Shapes: x0 (n, B), uff (T, m, B), xsr (T, n, B), K (T, m, n, B).
+    Returns (xs (T, n, B) — rows 0..T-1, us (T, m, B), x_final (n, B),
+    cost (B,)).
+    """
+    if not on_cuda(x0):
+        return rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K)
+    dev = x0.device
+    require_kernel_model(model, integrator, pp, dev)
+    T, m, n, B = K.shape
+    for t, shape, name in ((x0, (n, B), "x0"), (uff, (T, m, B), "uff"),
+                           (xsr, (T, n, B), "xsr"), (K, (T, m, n, B), "K")):
+        _build.require(t, shape, name, dev)
+    xs = torch.empty((T, n, B), dtype=F32, device=dev)
+    us = torch.empty((T, m, B), dtype=F32, device=dev)
+    xfin = torch.empty((n, B), dtype=F32, device=dev)
+    cost = torch.empty((B,), dtype=F32, device=dev)
+    _build.launch("ilqr_rollout", dev, pp.vec, x0, uff, xsr, K, xs, us, xfin,
+                  cost, T, B, int(bool(clamp)))
+    rollout_packed.launches += 1
+    return xs, us, xfin, cost
+
+
+rollout_packed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# linesearch_packed (line search + iteration epilogue)
+# ---------------------------------------------------------------------------
+
+def _sign(d):
+    """jnp.sign: keeps ±0 and NaN (torch.sign maps NaN to 0)."""
+    return torch.where(d > 0.0, 1.0, torch.where(d < 0.0, -1.0, d))
+
+
+def select_alpha(cand, alphas, cprev, dv0, dv1, z_min):
+    """First accepted α over the candidate totals cand (A, B): z-ratio test
+    z = dcost/expected > z_min, with z = sign(dcost) where expected ≤ 0
+    (ref ilqr_core.cpp:199-213). Returns (alpha, cost, dcost, expected,
+    accepted (f32 0/1)), each (B,)."""
+    a0 = alphas[0]
+    chosen = torch.zeros_like(cprev, dtype=torch.bool)
+    asel = torch.full_like(cprev, 1.0) * a0
+    lsc = cand[0]
+    ldc = cprev - cand[0]
+    lexp = -a0 * (dv0 + a0 * dv1)
+    accepted = torch.zeros_like(cprev)
+    for a in range(alphas.shape[0]):
+        aa = alphas[a]
+        dcost = cprev - cand[a]
+        expected = -aa * (dv0 + aa * dv1)
+        z = torch.where(expected > 0.0, dcost / expected, _sign(dcost))
+        acc_a = z > z_min
+        take = acc_a & ~chosen
+        asel = torch.where(take, aa, asel)
+        lsc = torch.where(take, cand[a], lsc)
+        ldc = torch.where(take, dcost, ldc)
+        lexp = torch.where(take, expected, lexp)
+        chosen = chosen | acc_a
+        accepted = torch.maximum(accepted, acc_a.to(F32))
+    return asel, lsc, ldc, lexp, accepted
+
+
+def linesearch_plain(model, integrator, clamp, pp, x0, us, xsr, xterm, K, k,
+                     Kold, kold, alphas, dv, cost_prev, gate, keep, z_min):
+    """Plain version of :func:`linesearch_packed`."""
+    require_plain_integrator(integrator)
+    p, dt = unpack_params(pp)
+    T, m, n, B = K.shape
+    dev = x0.device
+    al = alphas[None, :, None]                          # (1, A, 1)
+
+    # phase 1: every α-candidate at once, costs only
+    xa = x0[:, None, :].expand(n, alphas.shape[0], B)    # (n, A, B)
+    ca = torch.zeros((alphas.shape[0], B), dtype=F32, device=dev)
+    for t in range(T):
+        u_ff = us[t][:, None, :] + al * k[t][:, None, :]
+        _u, c, xa = closed_loop_step(model, p, dt, clamp, xa, u_ff, xsr[t],
+                                     K[t])
+        ca = ca + c
+    cand = ca + model.final_cost_soa(p, xa)
+
+    asel, lsc, ldc, lexp, accepted = select_alpha(
+        cand, alphas, cost_prev, dv[0], dv[1], z_min)
+    take = (accepted * gate) > 0.5
+    keepm = keep > 0.5
+
+    # phase 2: the selected α with predicated writes
+    xs_out = torch.empty((T, n, B), dtype=F32, device=dev)
+    us_out = torch.empty((T, m, B), dtype=F32, device=dev)
+    x = x0
+    for t in range(T):
+        xs_out[t] = torch.where(take, x, xsr[t])
+        u, _c, x = closed_loop_step(model, p, dt, clamp, x,
+                                    us[t] + asel * k[t], xsr[t], K[t])
+        us_out[t] = torch.where(take, u, us[t])
+    k_out = torch.where(keepm, k, kold)
+    K_out = torch.where(keepm, K, Kold)
+    xfin = torch.where(take, x, xterm)
+    return xs_out, us_out, xfin, k_out, K_out, lsc, asel, accepted, ldc, lexp
+
+
+def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
+                      x0, us, xsr, xterm, K, k, Kold, kold, alphas, dv,
+                      cost_prev, gate, keep, z_min: float):
+    """Line search + iteration epilogue (ref ilqr_core.cpp:184-226,
+    242-255): A cost-only candidate rollouts at u + α_a·k, the first
+    accepted α, then the post-accept state with predicated writes —
+
+      xs/us ← the selected-α rollout on lanes taking the step
+              (accepted & gate), the current trajectory otherwise;
+      k/K   ← the new gains on keep lanes, the previous gains otherwise.
+
+    Shapes: x0 (n, B), us (T, m, B), xsr (T, n, B), xterm (n, B),
+    K/Kold (T, m, n, B), k/kold (T, m, B), alphas (A,), dv (2, B);
+    cost_prev, gate, keep (B,) with masks as f32 0/1. Returns (xs, us,
+    x_final, k_keep, K_keep, ls_cost, alpha_sel, accepted (f32 0/1, raw
+    z-test), dcost, expected).
+    """
+    if not on_cuda(x0):
+        return linesearch_plain(model, integrator, clamp, pp, x0, us, xsr,
+                                xterm, K, k, Kold, kold, alphas, dv,
+                                cost_prev, gate, keep, z_min)
+    dev = x0.device
+    require_kernel_model(model, integrator, pp, dev)
+    T, m, n, B = K.shape
+    A = alphas.shape[0]
+    max_a = _build.library().ilqr_max_alphas()
+    if not 1 <= A <= max_a:
+        raise ValueError(f"linesearch kernel takes 1..{max_a} alphas, got {A}")
+    for t, shape, name in (
+            (x0, (n, B), "x0"), (us, (T, m, B), "us"), (xsr, (T, n, B), "xsr"),
+            (xterm, (n, B), "xterm"), (K, (T, m, n, B), "K"),
+            (k, (T, m, B), "k"), (Kold, (T, m, n, B), "Kold"),
+            (kold, (T, m, B), "kold"), (alphas, (A,), "alphas"),
+            (dv, (2, B), "dv"), (cost_prev, (B,), "cost_prev"),
+            (gate, (B,), "gate"), (keep, (B,), "keep")):
+        _build.require(t, shape, name, dev)
+    outs = (torch.empty((T, n, B), dtype=F32, device=dev),
+            torch.empty((T, m, B), dtype=F32, device=dev),
+            torch.empty((n, B), dtype=F32, device=dev),
+            torch.empty((T, m, B), dtype=F32, device=dev),
+            torch.empty((T, m, n, B), dtype=F32, device=dev),
+            *(torch.empty((B,), dtype=F32, device=dev) for _ in range(5)))
+    _build.launch("ilqr_linesearch", dev, pp.vec, x0, us, xsr, xterm, K, k,
+                  Kold, kold, alphas, A, dv, cost_prev, gate, keep, *outs,
+                  float(z_min), T, B, int(bool(clamp)))
+    linesearch_packed.launches += 1
+    return outs
+
+
+linesearch_packed.launches = 0

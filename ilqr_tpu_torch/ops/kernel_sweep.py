@@ -1,0 +1,302 @@
+"""Merged linearize + backward sweep, m = 1 (counterpart of
+``ilqr_tpu/ops/pallas_sweep.py``).
+
+Per timestep, in reverse time: the analytic model derivatives at (x_t, u_t)
+(fx = I + dt·A, fu = dt·B, cost derivatives), the Q-terms, the
+λ-regularized QuuF, the closed-form m = 1 box QP clamp(−Qu/QuuF), K zeroed
+on a clamped control, dV, the exactly symmetric Vxx update, a latched
+divergence flag and the gradient norm (ref src/ilqr_core.cpp:350-401).
+
+Ported: analytic derivatives (``mode="jvp"`` with a model that has
+``jac_soa``), the Euler step, ``use_limits=True``, m = 1. Everything else
+raises ``NotImplementedError``: m ≥ 2 QPs, ``use_limits=False``, the
+in-kernel JVP / finite-difference re-derivation and RK4 in the sweep.
+
+Layout and dispatch as in ops/kernel_rollout.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ilqr_tpu_torch.ops import _build
+from ilqr_tpu_torch.ops.kernel_rollout import (
+    F32,
+    PackedParams,
+    clip,
+    on_cuda,
+    require_kernel_model,
+    unpack_params,
+)
+
+
+# --- constant folding -------------------------------------------------------
+# Models return plain Python floats for structurally constant Jacobian and
+# Hessian entries. These helpers drop products and sums with such constants,
+# as the JAX package folds them at trace time, so the plain version computes
+# the same terms in the same order as the JAX kernel and the CUDA kernel
+# (which skips the same structural zeros).
+
+def _is_const(v):
+    return isinstance(v, (int, float))
+
+
+def _fmul(a, b):
+    if _is_const(a):
+        if _is_const(b):
+            return a * b
+        if a == 0.0:
+            return 0.0
+        if a == 1.0:
+            return b
+    if _is_const(b):
+        if b == 0.0:
+            return 0.0
+        if b == 1.0:
+            return a
+    return a * b
+
+
+def _fadd(a, b):
+    if _is_const(a):
+        if _is_const(b):
+            return a + b
+        if a == 0.0:
+            return b
+    if _is_const(b) and b == 0.0:
+        return a
+    return a + b
+
+
+def _lane(v, like):
+    """``v`` (Python float or a tensor broadcastable to ``like``) as a
+    tensor shaped like ``like``."""
+    if _is_const(v):
+        return torch.full_like(like, v)
+    return torch.broadcast_to(v, like.shape)
+
+
+def check_supported(model, integrator: str, mode: str, use_limits: bool):
+    """Raises for what this slice of the port does not carry."""
+    if model.m != 1:
+        raise NotImplementedError(
+            f"the sweep is ported for m = 1 only (m = {model.m}): the m ≥ 2 "
+            "box QPs are not ported yet")
+    if not use_limits:
+        raise NotImplementedError(
+            "use_limits=False (unconstrained Newton step) is not ported yet")
+    if mode != "jvp" or not model.has_analytic_soa:
+        raise NotImplementedError(
+            "only the analytic model derivatives (jac_soa) are ported; the "
+            "in-kernel JVP and finite-difference modes are not")
+    if integrator != "euler":
+        raise NotImplementedError(
+            f"integrator {integrator!r} inside the sweep is not ported "
+            "(Euler only)")
+
+
+@dataclasses.dataclass
+class _Carry:
+    vx: list      # n lanes
+    vxx: list     # n × n lanes, exactly symmetric
+    dv0: torch.Tensor
+    dv1: torch.Tensor
+    div: torch.Tensor   # latched divergence, f32 0/1
+    gacc: torch.Tensor  # Σ_t max_j |k_j| / (|u_j| + 1)
+
+
+def _terminal_init(model, p, xT) -> _Carry:
+    """V_T from the final cost's analytic derivatives; zeroed accumulators."""
+    n = model.n
+    like = xT[0]
+    fcx, fcxx = model.final_cost_derivs_soa(p, xT)
+    zero = torch.zeros_like(like)
+    return _Carry(vx=[_lane(fcx[i], like) for i in range(n)],
+                  vxx=[[_lane(fcxx[i][j], like) for j in range(n)]
+                       for i in range(n)],
+                  dv0=zero, dv1=zero, div=zero, gacc=zero)
+
+
+def _qp_m1(quuF, qu, lo, hi):
+    """Closed-form 1-D box QP. Returns (k, free, bad, rq) with rq the one
+    reciprocal 1/QuuF (1 on bad lanes) that the feedback rows reuse."""
+    q11 = quuF[0][0]
+    g1 = qu[0]
+    bad = q11 <= 0.0
+    q_safe = torch.where(bad, torch.ones_like(q11), q11)
+    rq = 1.0 / q_safe
+    x1 = clip(-g1 * rq, lo[0], hi[0])
+    gk = q11 * x1 + g1
+    clamped = (((x1 <= lo[0]) & (gk > 0.0))
+               | ((x1 >= hi[0]) & (gk < 0.0)))
+    k = [torch.where(bad, torch.zeros_like(x1), x1)]
+    free = [~clamped & ~bad]
+    return k, free, bad, rq
+
+
+def _free_solve_rows_m1(rq, free, cols):
+    """Rows of −QuuF⁻¹·Qux on the free control, zero on a clamped one
+    (ref ilqr_core.cpp:377-385)."""
+    nrq = -rq
+    return [[torch.where(free[0], cols[0][i] * nrq, torch.zeros_like(nrq))
+             for i in range(len(cols[0]))]]
+
+
+def _sweep_step(model, p, dt, lam, c: _Carry, x, u):
+    """One backward step at (x, u); advances ``c`` and returns (k, Krow):
+    k a list of m lanes, Krow an m × n nested list of lanes."""
+    n, m = model.n, model.m
+    tile = x[0]
+    A, Bm = model.jac_soa(p, x, u)
+    fxc = [[_fadd(_fmul(dt, A[r][i]), 1.0 if r == i else 0.0)
+            for i in range(n)] for r in range(n)]
+    fuc = [[_fmul(dt, Bm[r][j]) for j in range(m)] for r in range(n)]
+    cx1, cu1, cxx1, cxu1, cuu1 = model.cost_derivs_soa(p, x, u)
+
+    vxl, vxxl = c.vx, c.vxx
+    fuT_vxx = [[None] * n for _ in range(m)]
+    for jm in range(m):
+        for jn in range(n):
+            acc = 0.0
+            for i in range(n):
+                acc = _fadd(acc, _fmul(fuc[i][jm], vxxl[i][jn]))
+            fuT_vxx[jm][jn] = acc
+
+    qu = []
+    for jm in range(m):
+        acc = cu1[jm]
+        for i in range(n):
+            acc = _fadd(acc, _fmul(fuc[i][jm], vxl[i]))
+        qu.append(_lane(acc, tile))
+
+    quu = [[None] * m for _ in range(m)]
+    for im in range(m):
+        for jm in range(im, m):
+            acc = cuu1[im][jm]
+            for i in range(n):
+                acc = _fadd(acc, _fmul(fuT_vxx[im][i], fuc[i][jm]))
+            acc = _lane(acc, tile)
+            quu[im][jm] = acc
+            quu[jm][im] = acc
+    quuF = [[_lane(_fadd(quu[im][jm], lam if im == jm else 0.0), tile)
+             for jm in range(m)] for im in range(m)]
+
+    qux = [[None] * n for _ in range(m)]
+    qx = [None] * n
+    for jn in range(n):
+        accx = cx1[jn]
+        for i in range(n):
+            accx = _fadd(accx, _fmul(fxc[i][jn], vxl[i]))
+        qx[jn] = _lane(accx, tile)
+        for jm in range(m):
+            accq = cxu1[jn][jm]
+            for i in range(n):
+                accq = _fadd(accq, _fmul(fuT_vxx[jm][i], fxc[i][jn]))
+            qux[jm][jn] = _lane(accq, tile)
+
+    w = [[None] * n for _ in range(n)]
+    for kk in range(n):
+        for j in range(n):
+            acc = 0.0
+            for l in range(n):
+                acc = _fadd(acc, _fmul(vxxl[kk][l], fxc[l][j]))
+            w[kk][j] = acc
+    qxx = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i, n):
+            acc = cxx1[i][j]
+            for kk in range(n):
+                acc = _fadd(acc, _fmul(fxc[kk][i], w[kk][j]))
+            acc = _lane(acc, tile)
+            qxx[i][j] = acc
+            qxx[j][i] = acc
+
+    lo = [p.u_min[jm] - u[jm] for jm in range(m)]
+    hi = [p.u_max[jm] - u[jm] for jm in range(m)]
+    k_i, free, bad, rq = _qp_m1(quuF, qu, lo, hi)
+    Krow = _free_solve_rows_m1(rq, free, qux)
+
+    c.div = torch.maximum(c.div, bad.to(F32))
+    d0 = k_i[0] * qu[0]
+    d1 = 0.5 * k_i[0] * quu[0][0] * k_i[0]
+    c.dv0 = c.dv0 + d0
+    c.dv1 = c.dv1 + d1
+
+    quu_k = [quu[im][0] * k_i[0] for im in range(m)]
+    vx_new = []
+    for i in range(n):
+        acc = qx[i]
+        for cm in range(m):
+            acc = (acc + Krow[cm][i] * quu_k[cm] + Krow[cm][i] * qu[cm]
+                   + qux[cm][i] * k_i[cm])
+        vx_new.append(acc)
+    vxx_new = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i, n):
+            acc = qxx[i][j]
+            for cm in range(m):
+                for d in range(m):
+                    acc = acc + Krow[cm][i] * quu[cm][d] * Krow[d][j]
+                acc = acc + Krow[cm][i] * qux[cm][j] + qux[cm][i] * Krow[cm][j]
+            vxx_new[i][j] = acc
+            vxx_new[j][i] = acc
+    c.vx, c.vxx = vx_new, vxx_new
+
+    gstep = torch.abs(k_i[0]) / (torch.abs(u[0]) + 1.0)
+    c.gacc = c.gacc + gstep
+    return k_i, Krow
+
+
+def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
+                use_limits=True):
+    """Plain version of :func:`sweep_packed`."""
+    check_supported(model, integrator, mode, use_limits)
+    p, dt = unpack_params(pp)
+    T, m, B = us.shape
+    n = xs_body.shape[1]
+    k = torch.empty((T, m, B), dtype=F32, device=us.device)
+    K = torch.empty((T, m, n, B), dtype=F32, device=us.device)
+    c = _terminal_init(model, p, xterm)
+    for t in reversed(range(T)):
+        k_i, Krow = _sweep_step(model, p, dt, lam, c, xs_body[t], us[t])
+        k[t] = torch.stack(k_i)
+        K[t] = torch.stack([torch.stack(row) for row in Krow])
+    dv = torch.stack([c.dv0, c.dv1])
+    return k, K, dv, c.div, c.gacc * (1.0 / T)
+
+
+def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
+                 us, lam, mode: str = "jvp", use_limits: bool = True):
+    """Merged linearize + backward sweep.
+
+    Shapes: xs_body (T, n, B) and xterm (n, B) — the trajectory body and
+    terminal state; us (T, m, B); lam (B,). Control limits come from the
+    packed params. Returns (k (T, m, B), K (T, m, n, B), dv (2, B),
+    diverged (B,) f32 0/1, gnorm (B,)).
+    """
+    check_supported(model, integrator, mode, use_limits)
+    if not on_cuda(us):
+        return sweep_plain(model, integrator, pp, xs_body, xterm, us, lam,
+                           mode, use_limits)
+    dev = us.device
+    require_kernel_model(model, integrator, pp, dev)
+    T, m, B = us.shape
+    n = model.n
+    for t, shape, name in ((xs_body, (T, n, B), "xs_body"),
+                           (xterm, (n, B), "xterm"), (us, (T, m, B), "us"),
+                           (lam, (B,), "lam")):
+        _build.require(t, shape, name, dev)
+    k = torch.empty((T, m, B), dtype=F32, device=dev)
+    K = torch.empty((T, m, n, B), dtype=F32, device=dev)
+    dv = torch.empty((2, B), dtype=F32, device=dev)
+    div = torch.empty((B,), dtype=F32, device=dev)
+    gnorm = torch.empty((B,), dtype=F32, device=dev)
+    _build.launch("ilqr_sweep", dev, pp.vec, xs_body, xterm, us, lam, k, K,
+                  dv, div, gnorm, T, B)
+    sweep_packed.launches += 1
+    return k, K, dv, div, gnorm
+
+
+sweep_packed.launches = 0

@@ -1,0 +1,138 @@
+"""ilqr_tpu_torch's CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs a CUDA device and skips without one.
+
+This file imports neither JAX nor ilqr_tpu, so it also runs where JAX is not
+installed; tests/conftest.py imports JAX, so there run it as
+``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ilqr_tpu_torch import SolverConfig, get_model, solve_batch_fused
+from ilqr_tpu_torch.models import acrobot as tac
+from ilqr_tpu_torch.ops import (
+    kernel_iter,
+    kernel_rollout,
+    kernel_sweep,
+    launch_counts,
+    reset_launch_counts,
+)
+
+T, N, M = 7, 4, 1
+ALPHAS = (1.0, 0.5, 0.1)
+MODEL = tac.MODEL
+# Kernel and plain version compute the same IEEE f32 operations in the same
+# order (the kernels are built with --fmad=false and without fast math), so
+# only the trig library (libdevice sincosf vs torch.sin/cos) could differ,
+# by an ulp: 1e-5 relative over T = 7 steps.
+TOL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, want, what, tol=TOL):
+    got, want = got.double().cpu(), want.double().cpu()
+    assert got.shape == want.shape, what
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), what
+    ok = ~torch.isnan(want)
+    err = (got[ok] - want[ok]).abs() / (1.0 + want[ok].abs())
+    assert err.max().item() <= tol, (what, err.max().item())
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain(dev):
+    """All four kernels at a lane count that is not a multiple of the block
+    (the lane guard), with λ < 0 on some lanes (divergence latch), mixed
+    live/gate/keep masks, against the plain versions on the same card."""
+    b = 200
+    rng = np.random.default_rng(14)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    x0 = f(0.3 * rng.normal(size=(N, b)))
+    us = f(2.0 * rng.normal(size=(T, M, b)))
+    xs = f(0.3 * rng.normal(size=(T, N, b)))
+    xT = f(0.3 * rng.normal(size=(N, b)))
+    K = f(0.1 * rng.normal(size=(T, M, N, b)))
+    k = f(0.5 * rng.normal(size=(T, M, b)))
+    lam = f(np.where(rng.uniform(size=b) < 0.1, -100.0, 1.0))
+    live = f(rng.uniform(size=b) > 0.5)
+    dv = f(np.stack([-np.abs(rng.normal(size=b)) * 5.0, rng.normal(size=b)]))
+    cprev = f(4000.0 + rng.normal(size=b) * 50.0)
+    gate = f(rng.uniform(size=b) > 0.5)
+    al = f(ALPHAS)
+    pp = kernel_rollout.pack_params(tac.default_params(), 0.02, dev)
+    reset_launch_counts()
+    cases = [
+        (kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
+         (MODEL, "euler", True, pp, x0, us, xs, K)),
+        (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+         (MODEL, "euler", pp, xs, xT, us, lam)),
+        (kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+         (MODEL, "euler", True, pp, x0, us, xs, xT, K, k, K * 2, k * 2, al,
+          dv, cprev, gate, live, 0.0)),
+        (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+         (MODEL, "euler", True, pp, x0, xs, xT, us, k, K, lam, cprev, live,
+          al)),
+    ]
+    for op, plain, args in cases:
+        got = op(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{op.__name__}[{i}]")
+    assert all(v == 1 for v in launch_counts().values()), launch_counts()
+
+
+@pytest.mark.cuda
+def test_kernels_reject_bad_inputs(dev):
+    pp = kernel_rollout.pack_params(tac.default_params(), 0.02, dev)
+    x0 = torch.zeros((N, 8), device=dev)
+    u = torch.zeros((T, M, 8), device=dev)
+    xs = torch.zeros((T, N, 8), device=dev)
+    K = torch.zeros((T, M, N, 8), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel_rollout.rollout_packed(MODEL, "euler", True, pp, x0.double(),
+                                      u, xs, K)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_rollout.rollout_packed(MODEL, "euler", True, pp, x0, u,
+                                      xs.transpose(0, 1).contiguous()
+                                      .transpose(0, 1), K)
+    with pytest.raises(ValueError, match="alphas"):
+        kernel_iter.iteration_packed(
+            MODEL, "euler", True, pp, x0, xs, x0, u, u, K,
+            torch.ones(8, device=dev), torch.ones(8, device=dev),
+            torch.ones(8, device=dev), torch.ones(12, device=dev))
+
+
+@pytest.mark.cuda
+def test_solve_on_card_matches_plain_solve(dev):
+    """A short acrobot solve through the kernels against the same solve
+    through the plain versions on the CPU. The CPU's sin/cos may differ from
+    the card's by an ulp, which a few iterations carry to ~1e-6: costs to
+    rtol 1e-4, equal iteration counts and reasons."""
+    rng = np.random.default_rng(0)
+    x0 = (0.05 * rng.normal(size=(64, 4))).astype(np.float32)
+    u0 = np.zeros((8, 1), np.float32)
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True, max_iter=5,
+                       alphas=(1.0, 0.3, 0.03))
+    m, p = get_model("acrobot"), tac.default_params()
+    reset_launch_counts()
+    card = solve_batch_fused(m, p, cfg, 0.02, x0, u0)
+    assert card.cost.device.type == "cuda"
+    plain = solve_batch_fused(m, p, cfg, 0.02, x0, u0, device="cpu")
+    np.testing.assert_allclose(card.cost.cpu().numpy(), plain.cost.numpy(),
+                               rtol=1e-4)
+    np.testing.assert_array_equal(card.iterations.cpu().numpy(),
+                                  plain.iterations.numpy())
+    np.testing.assert_array_equal(card.reason.cpu().numpy(),
+                                  plain.reason.numpy())
+    counts = launch_counts()
+    assert counts["rollout_packed"] == 1
+    assert counts["iteration_packed"] >= 5

@@ -1,0 +1,146 @@
+"""ilqr_tpu_torch stands alone: it imports neither JAX nor ilqr_tpu, runs on
+the card unless asked for the CPU, and on the CPU never touches a kernel."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ilqr_tpu_torch import SolverConfig, get_model, solve_batch_fused
+from ilqr_tpu_torch.models import acrobot as tac
+from ilqr_tpu_torch.ops import (
+    _build,
+    kernel_iter,
+    kernel_rollout,
+    kernel_sweep,
+    launch_counts,
+    reset_launch_counts,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_NO_JAX = """
+import sys
+{imports}
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "ilqr_tpu" or m.startswith("ilqr_tpu."))
+print("BAD", bad)
+"""
+
+
+def _run(code, cwd=REPO, extra_env=None):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(extra_env or {})
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("imports", [
+    "import ilqr_tpu_torch, ilqr_tpu_torch.fused, ilqr_tpu_torch.ops\n"
+    "import ilqr_tpu_torch.models.acrobot, ilqr_tpu_torch.ops._build",
+    "import chip_smoke",
+])
+def test_imports_no_jax_nor_ilqr_tpu(imports):
+    out = _run(_NO_JAX.format(imports=imports))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_batch_fused(get_model("acrobot"), tac.default_params(),
+                          SolverConfig(max_iter=1), 0.02,
+                          np.zeros((2, 4), np.float32),
+                          np.zeros((5, 1), np.float32))
+
+
+def test_chip_smoke_refuses_without_card_or_package(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    out = _run("import runpy; runpy.run_path('chip_smoke.py', "
+               "run_name='__main__')")
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    # alone in a directory, without the package beside it
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_cpu_tensors_run_plain_versions_and_launch_nothing(monkeypatch):
+    """Every op, given CPU tensors, returns its plain version's result and
+    never reaches the kernel library."""
+    def no_kernels(*a, **k):
+        raise AssertionError("a kernel launcher was called for CPU tensors")
+
+    monkeypatch.setattr(_build, "launch", no_kernels)
+    monkeypatch.setattr(_build, "library", no_kernels)
+    reset_launch_counts()
+    T, N, M, B = 5, 4, 1, 6
+    rng = np.random.default_rng(0)
+    f = lambda *s, sc=0.3: torch.as_tensor(
+        (sc * rng.normal(size=s)).astype(np.float32))
+    pp = kernel_rollout.pack_params(tac.default_params(), 0.02)
+    m = tac.MODEL
+    x0, us, xs, xT = f(N, B), f(T, M, B, sc=2.0), f(T, N, B), f(N, B)
+    K, k = f(T, M, N, B, sc=0.1), f(T, M, B)
+    lam, live = torch.ones(B), (torch.arange(B) % 2).float()
+    al = torch.tensor([1.0, 0.5, 0.1])
+    dv, cprev = torch.stack([-torch.ones(B), 0.1 * torch.ones(B)]), f(B)
+    cases = [
+        (kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
+         (m, "euler", True, pp, x0, us, xs, K)),
+        (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+         (m, "euler", pp, xs, xT, us, lam)),
+        (kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+         (m, "euler", True, pp, x0, us, xs, xT, K, k, K, k, al, dv, cprev,
+          live, live, 0.0)),
+        (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+         (m, "euler", True, pp, x0, xs, xT, us, k, K, lam, cprev, live, al)),
+    ]
+    for op, plain, args in cases:
+        for g, w in zip(op(*args), plain(*args)):
+            assert torch.equal(g, w), op.__name__
+    assert launch_counts() == {"rollout_packed": 0, "linesearch_packed": 0,
+                               "sweep_packed": 0, "iteration_packed": 0}
+
+
+def test_kernel_path_rejects_other_models_and_integrators():
+    """The CUDA kernels are compiled for acrobot with the Euler step; any
+    other request on a CUDA tensor raises before a launch (checked here
+    without a card through the guard the wrappers call first)."""
+    pp = kernel_rollout.pack_params(tac.default_params(), 0.02)
+    other = tac.MODEL.__class__(**{**tac.MODEL.__dict__, "name": "other"})
+    with pytest.raises(NotImplementedError, match="acrobot"):
+        kernel_rollout.require_kernel_model(other, "euler", pp, pp.vec.device)
+    with pytest.raises(NotImplementedError, match="rk4"):
+        kernel_rollout.require_kernel_model(tac.MODEL, "rk4", pp,
+                                            pp.vec.device)
+    kernel_rollout.require_kernel_model(tac.MODEL, "euler", pp, pp.vec.device)
+
+
+def test_pack_params_layout():
+    """The flat vector the kernels read: AcrobotParams leaves in field
+    order, then dt (csrc/acrobot.cuh load_params)."""
+    p = tac.default_params()
+    pp = kernel_rollout.pack_params(p, 0.02)
+    assert pp.vec.dtype == torch.float32 and pp.vec.shape == (21,)
+    np.testing.assert_array_equal(pp.vec[:4].numpy(), p.goal.numpy())
+    assert pp.vec[12].item() == pytest.approx(9.81)      # gravity
+    assert pp.vec[18].item() == -5.0 and pp.vec[19].item() == 5.0
+    assert pp.vec[20].item() == pytest.approx(0.02)      # dt last
+    back, dt = kernel_rollout.unpack_params(pp)
+    for f in tac.AcrobotParams._fields:
+        np.testing.assert_array_equal(getattr(back, f).numpy(),
+                                      getattr(p, f).numpy())
