@@ -5,19 +5,28 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: torch/CUDA versions and the card's name and power limit;
-  2. build: the four CUDA kernels from ilqr_tpu_torch/csrc with nvcc;
+  2. build: the six CUDA kernels from ilqr_tpu_torch/csrc with nvcc, one
+     process per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (B = 8192, T = 499, A = 11), with times (CUDA events);
-  4. the main path: acrobot swing-up through solve_batch_fused at B = 8192,
-     T = 499, max_iter = 100 — solves/s, cost, iterations, launch counts;
-     then one more solve under torch.profiler for the device time by
-     kernel and the device's busy share;
-  5. the split route (sweep + line-search kernels) against the merged one,
-     and the kernel path against the plain path on the card, at B = 1024,
-     max_iter = 12; beside them, not asserted, the plain path on the CPU and
-     the kernel path from an x0 moved by 1e-6, which show how far rounding
-     alone carries a lane on this chaotic workload;
-  6. one JSON line listing every kernel, the card's line, and the last
+     path's shapes (B = 8192, T = 499, A = 11; the derivative kernel in both
+     its modes), with times (CUDA events) and bounds;
+  4. the fused path: acrobot swing-up through solve_batch_fused at
+     B = 8192, T = 499, max_iter = 100 — solves/s, cost, iterations, launch
+     counts; then one more solve under torch.profiler for the device time
+     by kernel and the device's busy share;
+  5. the fused split route (sweep + line-search kernels) against the merged
+     one, and the kernel path against the plain path on the card, at
+     B = 1024, max_iter = 12; beside them, not asserted, the plain path on
+     the CPU and the kernel path from an x0 moved by 1e-6, which show how
+     far rounding alone carries a lane on this chaotic workload;
+  6. the composable path: solve_batch at the same size on the same x0
+     (derivative, backward and rollout kernels; the line search as one
+     rollout over B·A lanes) beside solve_batch_fused — solves/s, cost,
+     iterations, launches, λ retries — and one profiled solve;
+  7. equivalence at B = 1024, T = T_EQ, 12 iterations: the composable
+     path and the fused split sweep each against the fused merged route
+     (the gauge below), with the share of lanes a 1e-6 nudge of x0 forks;
+  8. one JSON line listing every kernel, the card's line, and the last
      line {"ok": true, "device": {...}}.
 
 It needs one CUDA device and the ilqr_tpu_torch package beside it; without
@@ -35,10 +44,19 @@ import time
 import numpy as np
 import torch
 
-from ilqr_tpu_torch import SolverConfig, fused, get_model, solve_batch_fused
+from ilqr_tpu_torch import (
+    SolverConfig,
+    fused,
+    get_model,
+    solve_batch,
+    solve_batch_fused,
+    solver,
+)
 from ilqr_tpu_torch.models import acrobot
 from ilqr_tpu_torch.ops import (
     _build,
+    kernel_backward,
+    kernel_derivs,
     kernel_iter,
     kernel_rollout,
     kernel_sweep,
@@ -48,6 +66,10 @@ from ilqr_tpu_torch.ops import (
 
 B_MAIN, T, DT, MAX_ITER = 8192, 499, 0.02, 100
 B_SPLIT, ITER_SPLIT = 1024, 12
+# Equivalence of whole solves across routes: a horizon short enough that
+# rounding alone (a 1e-6 nudge of x0) forks under 1% of lanes by iteration
+# 12; phase 7 prints that share.
+T_EQ = 50
 N, M = 4, 1
 # Kernel vs plain version: both run the same IEEE f32 operations in the
 # same order (nvcc --fmad=false, no fast math); the trig libraries
@@ -72,7 +94,15 @@ REPLACES = {
     "linesearch_packed": "ilqr_tpu/ops/pallas_rollout.py:484",
     "sweep_packed": "ilqr_tpu/ops/pallas_sweep.py:1108",
     "iteration_packed": "ilqr_tpu/ops/pallas_iter.py:281",
+    "derivs_packed": "ilqr_tpu/ops/pallas_derivs.py:173",
+    "backward_sweep_packed": "ilqr_tpu/ops/pallas_backward.py:185",
 }
+SOURCES = {
+    "derivs_packed": "ilqr_tpu_torch/csrc/derivs.cu",
+    "backward_sweep_packed": "ilqr_tpu_torch/csrc/backward.cu",
+}
+KERNEL_NAMES = ("iteration_kernel", "rollout_kernel", "sweep_kernel",
+                "linesearch_kernel", "derivs_kernel", "backward_kernel")
 
 
 def nvidia_smi() -> str:
@@ -122,6 +152,39 @@ def bound_ms(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_ARITH = {"add", "sub", "mul", "div", "neg", "rsub", "sin", "cos",
+          "reciprocal", "where", "maximum", "minimum", "clamp", "abs"}
+
+
+def count_ops(fn) -> int:
+    """f32 operations ``fn()`` performs, counted result element by result
+    element at PyTorch's dispatcher (each sin/cos as one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if (name in _ARITH and isinstance(out, torch.Tensor)
+                    and out.dtype == torch.float32):
+                Count.n += out.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def ops_per_step(plain_at):
+    """(per (t, lane), per lane once) operation counts of a plain version
+    that ``plain_at(T)`` runs on one CPU lane with horizon T: the
+    difference of T = 2 and T = 1, and what T = 1 does besides."""
+    one, two = count_ops(lambda: plain_at(1)), count_ops(lambda: plain_at(2))
+    return two - one, 2 * one - two
 
 
 def gauge(c1, c2):
@@ -175,45 +238,24 @@ def compare_kernels(dev, model, pp, cfg):
     }
     rows = {}
     for name, (op, plain, args) in cases.items():
-        got = op(*args)
-        torch.cuda.synchronize()
-        want = plain(*args)
-        abs_e, rel_e = max_errs(got, want)
-        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
-        ms = time_ms(lambda: op(*args), reps=5)
-        plain_ms = time_ms(lambda: plain(*args), reps=2)
-        # least bytes: every input read once, every output written once;
-        # the previous gains are read only on lanes that drop the new ones
-        total = nbytes(*[a for a in args if isinstance(a, torch.Tensor)],
-                       *got)
+        unread = None
         if name == "rollout_packed":
             ops = OPS_ROLLOUT_STEP * T * B
         elif name == "sweep_packed":
             ops = OPS_SWEEP_STEP * T * B
         else:
-            # A candidates and the emitted rollout (+ the sweep)
+            # A candidates and the emitted rollout (+ the sweep); the
+            # previous gains are read only on lanes that drop the new ones
             ops = (A + 1) * (OPS_ROLLOUT_STEP + 2) * T * B
             if name == "iteration_packed":
                 ops += OPS_SWEEP_STEP * T * B
-                kept = (got[10] < 0.5) & (live > 0.5)
+                kept = lambda got: (got[10] < 0.5) & (live > 0.5)
             else:
-                kept = keep > 0.5
-            total -= nbytes(kold, Kold) * kept.float().mean().item()
-        b_ms, b_by = bound_ms(total, ops)
-        rows[name] = dict(
-            name=name, route="cuda", source="ilqr_tpu_torch/csrc/kernels.cu",
-            replaces=REPLACES[name], launches=None, max_abs_err=abs_e,
-            max_err=rel_e, tol=KERNEL_TOL, bitwise_equal=bitwise, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            bound_bytes=total, bound_ops=ops, library_ms=None,
-            library_note="no single PyTorch call computes this function")
-        print(f"[kernel] {name}: max_abs_err {abs_e:.3e} max_err {rel_e:.3e} "
-              f"(tol {KERNEL_TOL:g}) bitwise {bitwise} | kernel {ms:.3f} ms "
-              f"plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}) "
-              f"at B={B} T={T} A={A}")
-        if not rel_e <= KERNEL_TOL:
-            raise AssertionError(f"{name} disagrees with its plain version: "
-                                 f"{rel_e} > {KERNEL_TOL}")
+                kept = lambda got: keep > 0.5
+            unread = lambda got, kept=kept: (
+                nbytes(kold, Kold) * kept(got).float().mean().item())
+        rows[name] = compare_stage(name, op, plain, args, ops,
+                                   f"at B={B} T={T} A={A}", unread)
     # this design's traffic per iteration_packed launch: xs and us read by
     # each of the three phases, the (T, 5, B) gain buffer written once and
     # read twice, the previous gains read, the new state written
@@ -224,6 +266,101 @@ def compare_kernels(dev, model, pp, cfg):
           f" GB per launch (~{design / PEAK_BYTES * 1e3:.3f} ms at the peak "
           f"rate); the least any design must move is ~"
           f"{2 * nbytes(xs0, us0, kold, Kold) / 1e9:.3f} GB")
+    rows.update(compare_stage_kernels(dev, model, pp, xs0, xT0, us0))
+    return {name: dict(
+        name=name, route="cuda",
+        source=SOURCES.get(name, "ilqr_tpu_torch/csrc/kernels.cu"),
+        replaces=REPLACES[name], launches=None, tol=KERNEL_TOL,
+        library_ms=None,
+        library_note="no single PyTorch call computes this function", **r)
+        for name, r in rows.items()}
+
+
+def compare_stage(label, op, plain, args, ops, where, unread=None):
+    """One kernel against its plain version on the same inputs: errors,
+    times, and the bound — every input read once and every output written
+    once, less ``unread(outputs)`` bytes the function need not read."""
+    got = op(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    abs_e, rel_e = max_errs(got, want)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    ms = time_ms(lambda: op(*args), reps=5)
+    plain_ms = time_ms(lambda: plain(*args), reps=2)
+    total = nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got)
+    if unread is not None:
+        total -= unread(got)
+    b_ms, b_by = bound_ms(total, ops)
+    print(f"[kernel] {label}: max_abs_err {abs_e:.3e} max_err {rel_e:.3e} "
+          f"(tol {KERNEL_TOL:g}) bitwise {bitwise} | kernel {ms:.3f} ms "
+          f"plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}; {total:.0f} "
+          f"B, {ops} ops) {where}")
+    if not rel_e <= KERNEL_TOL:
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{rel_e} > {KERNEL_TOL}")
+    return dict(max_abs_err=abs_e, max_err=rel_e, bitwise_equal=bitwise,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_bytes=total, bound_ops=ops)
+
+
+def compare_stage_kernels(dev, model, pp, xs0, xT0, us0):
+    """Phase 3, the composable path's kernels: derivs_packed in both modes
+    and backward_sweep_packed, at the main path's shapes, on the flagship's
+    open-loop trajectory and its derivatives; operations counted from the
+    plain versions (the same arithmetic as the kernels)."""
+    B = us0.shape[-1]
+    xs_full = torch.cat([xs0, xT0[None]]).contiguous()
+    pp_cpu = kernel_rollout.pack_params(acrobot.default_params(), DT)
+    rng = np.random.default_rng(3)
+
+    def lane_inputs(t):
+        xs = torch.as_tensor(0.3 * rng.normal(size=(t + 1, N, 1)),
+                             dtype=torch.float32)
+        us = torch.as_tensor(2.0 * rng.normal(size=(t, M, 1)),
+                             dtype=torch.float32)
+        return xs, us
+
+    rows = {}
+    for mode in ("jvp", "fd"):
+        step, rest = ops_per_step(lambda t: kernel_derivs.derivs_plain(
+            model, "euler", pp_cpu, *lane_inputs(t), mode=mode))
+        r = compare_stage(
+            f"derivs_packed ({mode})", kernel_derivs.derivs_packed,
+            kernel_derivs.derivs_plain,
+            (model, "euler", pp, xs_full, us0, mode), step * T * B + rest * B,
+            f"({step} per (t, lane)) at B={B} T={T}")
+        if mode == "jvp":   # the main path's mode (deriv_mode="analytic")
+            rows["derivs_packed"] = r
+            derivs = kernel_derivs.derivs_packed(model, "euler", pp,
+                                                 xs_full, us0)
+        else:
+            rows["derivs_packed"].update(
+                {f"fd_{k}": v for k, v in r.items()})
+
+    fx, fu, cx, cu, cxx, cxu, cuu = derivs
+    p, _dt = kernel_rollout.unpack_params(pp)
+    args = (fx, fu[:, :, 0], cx[:-1], cu[:, 0], cxx[:-1], cxu[:, :, 0],
+            cuu[:, 0, 0], p.u_min[0] - us0[:, 0], p.u_max[0] - us0[:, 0],
+            torch.ones(B, device=dev), cx[-1], cxx[-1])
+
+    def backward_at(t):
+        xs, us = lane_inputs(t)
+        d = kernel_derivs.derivs_plain(model, "euler", pp_cpu, xs, us)
+        return kernel_backward.backward_plain(
+            d[0], d[1][:, :, 0], d[2][:-1], d[3][:, 0], d[4][:-1],
+            d[5][:, :, 0], d[6][:, 0, 0], -5.0 - us[:, 0], 5.0 - us[:, 0],
+            torch.ones(1), d[2][-1], d[4][-1])
+
+    # the backward recursion's own operations: its count minus the
+    # derivative op that builds its inputs above
+    step_all, rest_all = ops_per_step(backward_at)
+    step_d, rest_d = ops_per_step(lambda t: kernel_derivs.derivs_plain(
+        model, "euler", pp_cpu, *lane_inputs(t)))
+    step, rest = step_all - step_d, rest_all - rest_d
+    rows["backward_sweep_packed"] = compare_stage(
+        "backward_sweep_packed", kernel_backward.backward_sweep_packed,
+        kernel_backward.backward_plain, args, step * T * B + rest * B,
+        f"({step} per (t, lane)) at B={B} T={T}")
     return rows
 
 
@@ -252,13 +389,15 @@ def run_main_path(dev, model, params, cfg):
         reset_launch_counts()
         fused._host_any.syncs = 0
         fused._iteration.calls = 0
+        fused._iteration.retried = 0
         t0 = time.perf_counter()
         sol = solve_batch_fused(model, params, cfg, DT, x0, u0)
         host = {k: v.cpu() for k, v in sol._asdict().items()}  # full D2H
         wall = time.perf_counter() - t0
         runs.append(dict(wall=wall, counts=launch_counts(),
                          syncs=fused._host_any.syncs,
-                         host_iters=fused._iteration.calls, sol=host))
+                         host_iters=fused._iteration.calls,
+                         retried=fused._iteration.retried, sol=host))
         print(f"[main] solve {rep}: {wall:.3f} s, {B_MAIN / wall:.1f} "
               f"solves/s, launches {runs[-1]['counts']}")
     first, last = runs[0], runs[-1]
@@ -290,6 +429,7 @@ def run_main_path(dev, model, params, cfg):
         launches=c, host_iterations=first["host_iters"],
         host_syncs=first["syncs"],
         syncs_per_iteration=first["syncs"] / max(1, first["host_iters"]),
+        retried_share=first["retried"] / max(1, first["host_iters"]),
         ms_per_iteration=float(np.median(walls)) * 1e3
         / max(1, first["host_iters"]))
     print(f"[main] B={B_MAIN} T={T} max_iter={MAX_ITER}: "
@@ -322,10 +462,10 @@ def plain_ops():
             setattr(fused, name, fn)
 
 
-def profile_main_path(model, params, cfg, wall_s):
-    """Where one flagship solve's time goes: device time by kernel from
-    torch.profiler (CUPTI), and the device's busy share of the unprofiled
-    median wall time ``wall_s`` of phase 4."""
+def profile_solve(label, solve_fn, wall_s):
+    """Where one flagship-size solve's time goes: device time by kernel
+    from torch.profiler (CUPTI), and the device's busy share of the
+    unprofiled median wall time ``wall_s``. ``solve_fn(x0, u0)`` runs it."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(2)
@@ -334,25 +474,25 @@ def profile_main_path(model, params, cfg, wall_s):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        solve_batch_fused(model, params, cfg, DT, x0, u0)
+        solve_fn(x0, u0)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("[profile] the profiler recorded no device time: not measured")
+        print(f"[profile] {label}: the profiler recorded no device time: "
+              "not measured")
         return None
     by_name = {}
     for e in kernels:
-        name = next((k for k in ("iteration_kernel", "rollout_kernel",
-                                 "sweep_kernel", "linesearch_kernel")
-                     if k in e.name), "other (PyTorch ops, copies)")
+        name = next((k for k in KERNEL_NAMES if k in e.name),
+                    "other (PyTorch ops, copies)")
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3
     out = dict(device_ms_by_kernel={k: v / 1e3 for k, v in by_name.items()},
                device_busy_ms=busy_ms, wall_ms=wall_s * 1e3,
                device_busy_share=busy_ms / (wall_s * 1e3),
                device_events=len(kernels))
-    print(f"[profile] one solve: device busy {busy_ms:.1f} ms of the "
+    print(f"[profile] {label}, one solve: device busy {busy_ms:.1f} ms of the "
           f"{wall_s * 1e3:.1f} ms median wall (share "
           f"{out['device_busy_share']:.3f}); by kernel (ms) "
           + ", ".join(f"{k} {v / 1e3:.1f}" for k, v in by_name.items())
@@ -415,6 +555,186 @@ def run_split_path(dev, model, params, cfg):
     return counts, res
 
 
+def run_composable_path(dev, model, params, cfg, fused_out):
+    """Phase 6: solve_batch at the flagship size on the x0 draws of phase 4
+    (so each timed solve faces the same problems as the fused one there),
+    then one profiled solve."""
+    rng = np.random.default_rng(0)
+    draw = lambda: (0.05 * rng.normal(size=(B_MAIN, N))).astype(np.float32)
+    u0 = np.zeros((B_MAIN, T, M), np.float32)
+    t0 = time.perf_counter()
+    solve_batch(model, params, cfg, DT, draw(), u0)
+    torch.cuda.synchronize()
+    print(f"[composable] warm-up solve {time.perf_counter() - t0:.2f} s")
+    runs = []
+    for rep in range(3):
+        x0 = draw()
+        reset_launch_counts()
+        solver._host_any.syncs = 0
+        solver.ilqr_iteration.calls = 0
+        solver.ilqr_iteration.retried = 0
+        t0 = time.perf_counter()
+        sol = solve_batch(model, params, cfg, DT, x0, u0)
+        host = {k: v.cpu() for k, v in sol._asdict().items()}  # full D2H
+        wall = time.perf_counter() - t0
+        runs.append(dict(wall=wall, counts=launch_counts(),
+                         syncs=solver._host_any.syncs,
+                         host_iters=solver.ilqr_iteration.calls,
+                         retried=solver.ilqr_iteration.retried, sol=host))
+        print(f"[composable] solve {rep}: {wall:.3f} s, {B_MAIN / wall:.1f} "
+              f"solves/s, launches {runs[-1]['counts']}")
+    first, sol = runs[0], runs[-1]["sol"]
+    cost = sol["cost"].numpy()
+    c = first["counts"]
+    if not np.all(np.isfinite(cost)):
+        raise AssertionError("non-finite costs on the composable path")
+    for name in ("rollout_packed", "derivs_packed", "backward_sweep_packed"):
+        if c[name] < 1:
+            raise AssertionError(f"the composable path never launched {name}")
+    if c["iteration_packed"] or c["sweep_packed"] or c["linesearch_packed"]:
+        raise AssertionError(f"the composable path launched fused kernels: "
+                             f"{c}")
+    mean_cost = float(cost.mean())
+    init = fused_out["init_mean_cost"]
+    if not mean_cost < 0.05 * init:
+        raise AssertionError(f"composable mean cost {mean_cost} did not fall "
+                             f"well below the initial rollout's {init}")
+    rel = abs(mean_cost - fused_out["mean_cost"]) / fused_out["mean_cost"]
+    if not rel <= 0.01:
+        raise AssertionError(f"composable mean cost {mean_cost} is not within "
+                             f"1% of the fused path's {fused_out['mean_cost']}")
+    walls = [r["wall"] for r in runs]
+    iters = first["host_iters"]
+    hist = {int(k): int(v) for k, v in
+            zip(*np.unique(sol["reason"].numpy(), return_counts=True))}
+    out = dict(
+        solves_per_s=B_MAIN / float(np.median(walls)), wall_s=walls,
+        mean_cost=mean_cost, mean_iters=float(sol["iterations"].float()
+                                              .mean()),
+        reason_hist=hist, launches=c, host_iterations=iters,
+        host_syncs=first["syncs"], syncs_per_iteration=first["syncs"] / iters,
+        backward_launches_per_iteration=c["backward_sweep_packed"] / iters,
+        retried_share=first["retried"] / iters,
+        ms_per_iteration=float(np.median(walls)) * 1e3 / iters,
+        mean_cost_rel_diff_to_fused=rel)
+    f = fused_out
+    print(f"[composable] B={B_MAIN} T={T} max_iter={MAX_ITER}: "
+          f"{out['solves_per_s']:.1f} solves/s against the fused path's "
+          f"{f['solves_per_s']:.1f} on the same x0 ({nvidia_smi()}); "
+          f"{out['ms_per_iteration']:.3f} vs {f['ms_per_iteration']:.3f} "
+          f"ms/iteration; mean_cost {mean_cost:.4f} vs {f['mean_cost']:.4f} "
+          f"(rel. diff {rel:.2e}, ≤ 1e-2); mean_iters {out['mean_iters']:.2f}"
+          f" vs {f['mean_iters']:.2f}; reasons {hist} vs {f['reason_hist']};"
+          f" backward launches/iteration {out['backward_launches_per_iteration']:.3f},"
+          f" iterations that retried {out['retried_share']:.3f} (fused merged"
+          f" {f['retried_share']:.3f}); host syncs/iteration "
+          f"{out['syncs_per_iteration']:.3f}")
+    # the fused split sweep on the last x0: the same derivative and backward
+    # kernels, the line search as one kernel (one call, not a median)
+    reset_launch_counts()
+    fused._iteration.calls = fused._iteration.retried = 0
+    t0 = time.perf_counter()
+    ssol = solve_batch_fused(model, params, cfg.replace(sweep_kernel="split"),
+                             DT, x0, u0)
+    scost = ssol.cost.cpu().numpy()
+    swall = time.perf_counter() - t0
+    sc, its = launch_counts(), max(1, fused._iteration.calls)
+    out["split_sweep"] = dict(
+        solves_per_s=B_MAIN / swall, wall_s=swall,
+        mean_cost=float(scost.mean()),
+        mean_iters=float(ssol.iterations.float().mean().item()),
+        launches=sc, backward_launches_per_iteration=(
+            sc["backward_sweep_packed"] / its),
+        retried_share=fused._iteration.retried / its,
+        ms_per_iteration=swall * 1e3 / its)
+    ss = out["split_sweep"]
+    print(f"[composable] the fused split sweep on the last x0 (one call): "
+          f"{ss['solves_per_s']:.1f} solves/s, {ss['ms_per_iteration']:.3f} "
+          f"ms/iteration, mean_cost {ss['mean_cost']:.4f}, mean_iters "
+          f"{ss['mean_iters']:.2f}, backward launches/iteration "
+          f"{ss['backward_launches_per_iteration']:.3f}, iterations that "
+          f"retried {ss['retried_share']:.3f}, launches {sc}")
+    if not np.all(np.isfinite(scost)):
+        raise AssertionError("non-finite costs on the fused split sweep")
+    out["rollout_ba"] = time_rollout_ba(dev, model, params, len(cfg.alphas))
+    out["profile"] = profile_solve(
+        "composable", lambda x0, u0: solve_batch(model, params, cfg, DT, x0,
+                                                 u0),
+        float(np.median(walls)))
+    return out
+
+
+def time_rollout_ba(dev, model, params, A):
+    """rollout_packed as the composable line search launches it: one
+    closed-loop rollout over B·A lanes (the α candidates folded into the
+    lanes), timed against its bound."""
+    rng = np.random.default_rng(5)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    L = B_MAIN * A
+    pp = kernel_rollout.pack_params(params, DT, dev)
+    x0 = f(0.05 * rng.normal(size=(N, L)))
+    uff = f(0.5 * rng.normal(size=(T, M, L)))
+    K = f(0.05 * rng.normal(size=(T, M, N, L)))
+    xsr = kernel_rollout.rollout_packed(model, "euler", True, pp, x0, uff,
+                                        torch.zeros_like(uff).expand(
+                                            T, N, L).contiguous(),
+                                        torch.zeros_like(K))[0]
+    args = (model, "euler", True, pp, x0, uff, xsr, K)
+    ms = time_ms(lambda: kernel_rollout.rollout_packed(*args), reps=5)
+    got = kernel_rollout.rollout_packed(*args)
+    total = nbytes(x0, uff, xsr, K, *got)
+    b_ms, b_by = bound_ms(total, OPS_ROLLOUT_STEP * T * L)
+    print(f"[composable] rollout_packed at B·A = {L} lanes: {ms:.3f} ms per "
+          f"launch, bound {b_ms:.4f} ms ({b_by}; {total} B), "
+          f"{total / (ms * 1e-3) / 1e12:.2f} TB/s")
+    return dict(lanes=L, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                bound_bytes=total)
+
+
+def run_equivalence(dev, model, params, cfg):
+    """Phase 7: at B = 1024, T = T_EQ, 12 iterations, the composable path
+    and the fused split sweep each against the fused merged route under the
+    gauge, and the share of lanes a 1e-6 nudge of x0 forks (printed)."""
+    rng = np.random.default_rng(4)
+    x0 = (0.05 * rng.normal(size=(B_SPLIT, N))).astype(np.float32)
+    u0 = np.zeros((T_EQ, M), np.float32)
+    c12 = cfg.replace(max_iter=ITER_SPLIT)
+    merged = solve_batch_fused(model, params, c12, DT, x0, u0)
+    reset_launch_counts()
+    fused._iteration.calls = fused._iteration.retried = 0
+    split = solve_batch_fused(model, params,
+                              c12.replace(sweep_kernel="split"), DT, x0, u0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if (counts["derivs_packed"] < 1 or counts["backward_sweep_packed"] < 1
+            or counts["linesearch_packed"] < 1
+            or counts["iteration_packed"] or counts["sweep_packed"]):
+        raise AssertionError(f"the split sweep ran other kernels: {counts}")
+    split_retried = fused._iteration.retried / max(1, fused._iteration.calls)
+    comp = solve_batch(model, params, c12, DT, x0, u0)
+    nudged = solve_batch_fused(model, params, c12, DT, x0 + np.float32(1e-6),
+                               u0)
+    cm = merged.cost.cpu().numpy()
+    res = dict(split_sweep_launches=counts, split_retried_share=split_retried)
+    for label, a, asserted in (
+            ("composable_vs_merged", comp.cost.cpu().numpy(), True),
+            ("split_sweep_vs_merged", split.cost.cpu().numpy(), True),
+            ("card_x0+1e-6_vs_merged", nudged.cost.cpu().numpy(), False)):
+        p99, mx = gauge(a, cm)
+        share = float(np.mean(np.abs(a - cm) / (1.0 + np.abs(cm)) > 1e-3))
+        res[label] = dict(p99=p99, max=mx, share_over_1e3=share)
+        print(f"[equiv] {label} at B={B_SPLIT} T={T_EQ} max_iter="
+              f"{ITER_SPLIT}: p99 {p99:.3e} (≤ {GAUGE_P99:g}), max {mx:.3e} "
+              f"(≤ {GAUGE_MAX:g}), share of lanes over 1e-3 {share:.4f}"
+              + ("" if asserted else " (information, not asserted)"))
+        if asserted and not (np.isfinite(a).all() and p99 <= GAUGE_P99
+                             and mx <= GAUGE_MAX):
+            raise AssertionError(f"{label} outside the gauge")
+    print(f"[equiv] split sweep launches {counts}; iterations that retried "
+          f"{split_retried:.3f}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -429,8 +749,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    print(f"[build] {lib.name} from {len(_build.sources())} sources in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          f"{' '.join(_build.NVCC_FLAGS)}, one process per .cu)")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
@@ -445,15 +766,22 @@ def main() -> int:
     main_out = run_main_path(dev, model, params, cfg)
     for name in ("rollout_packed", "iteration_packed"):
         rows[name]["launches"] = main_out["launches"][name]
-    main_out["profile"] = profile_main_path(model, params, cfg,
-                                            float(np.median(main_out["wall_s"])))
+    main_out["profile"] = profile_solve(
+        "fused", lambda x0, u0: solve_batch_fused(model, params, cfg, DT, x0,
+                                                  u0),
+        float(np.median(main_out["wall_s"])))
     split_counts, gauges = run_split_path(dev, model, params, cfg)
     for name in ("sweep_packed", "linesearch_packed"):
         rows[name]["launches"] = split_counts[name]
+    comp_out = run_composable_path(dev, model, params, cfg, main_out)
+    for name in ("derivs_packed", "backward_sweep_packed"):
+        rows[name]["launches"] = comp_out["launches"][name]
+    equiv = run_equivalence(dev, model, params, cfg)
     if not all(r["launches"] for r in rows.values()):
         raise AssertionError(f"a kernel was never launched: {rows}")
 
-    print(json.dumps({"main_path": main_out, "split_path": gauges}))
+    print(json.dumps({"main_path": main_out, "split_path": gauges,
+                      "composable_path": comp_out, "equivalence": equiv}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of ilqr_tpu: batched iLQR/DDP on an NVIDIA H100.
 
-This slice carries the fused batch solver for acrobot (n = 4, m = 1) and its
-four CUDA kernels (ops/, csrc/). It imports neither JAX nor ilqr_tpu.
+It carries, for acrobot (n = 4, m = 1), the fused batch solver
+(``solve_batch_fused``, fused.py) and the composable solve (``solve``,
+solver.py; ``solve_batch``, batch.py), and the six CUDA kernels they run
+(ops/, csrc/). It imports neither JAX nor ilqr_tpu.
 """
 
 from ilqr_tpu_torch.config import (
@@ -10,8 +12,10 @@ from ilqr_tpu_torch.config import (
     BoxQPConfig,
     SolverConfig,
 )
+from ilqr_tpu_torch.batch import convergence_stats, solve_batch
 from ilqr_tpu_torch.fused import solve_batch_fused
 from ilqr_tpu_torch.models import get_model
+from ilqr_tpu_torch.solver import solve
 from ilqr_tpu_torch.types import Solution, TerminationReason
 
 __all__ = [
@@ -21,6 +25,9 @@ __all__ = [
     "Solution",
     "SolverConfig",
     "TerminationReason",
+    "convergence_stats",
     "get_model",
+    "solve",
+    "solve_batch",
     "solve_batch_fused",
 ]

@@ -9,6 +9,8 @@
 // off the TPU.
 #pragma once
 
+#include "dual.cuh"
+
 namespace acrobot {
 
 constexpr int N = 4;   // state dims
@@ -51,51 +53,61 @@ __device__ __forceinline__ Params load_params(const float* __restrict__ p) {
   return q;
 }
 
+// The model functions are templates on the scalar type S: float for the
+// rollouts and the sweep, dual::Dual<float> and dual::Dual<dual::Dual<float>>
+// for the derivative kernel's exact first and second derivatives
+// (dual.cuh). Params stay float: they are constants of every derivative.
+// With S = float the code is the same sequence of IEEE operations as before
+// templating.
+
 // f(x, u): [q̇1, q̇2, q̈1, q̈2] with the 2×2 H-solve through one reciprocal
 // determinant. C(0,1) uses l2 (reference quirk, include/acrobot.h:53-61).
-__device__ __forceinline__ void dynamics(const Params& p, const float x[N],
-                                         float u, float dx[N]) {
-  const float qd1 = x[2], qd2 = x[3];
-  float s1, c1, s2, c2;
-  sincosf(x[0], &s1, &c1);
-  sincosf(x[1], &s2, &c2);
-  const float s12 = s1 * c2 + c1 * s2;
+template <class S>
+__device__ __forceinline__ void dynamics(const Params& p, const S x[N],
+                                         const S& u, S dx[N]) {
+  using dual::sincos_of;
+  const S qd1 = x[2], qd2 = x[3];
+  S s1, c1, s2, c2;
+  sincos_of(x[0], &s1, &c1);
+  sincos_of(x[1], &s2, &c2);
+  const S s12 = s1 * c2 + c1 * s2;
 
   const float kk = p.m2 * p.l1 * p.lc2;
-  const float kkc2 = kk * c2;
-  const float h11 = p.i1 + p.i2 + p.m2 * p.l1 * p.l1 + 2.0f * kkc2;
-  const float h12 = p.i2 + kkc2;
+  const S kkc2 = kk * c2;
+  const S h11 = p.i1 + p.i2 + p.m2 * p.l1 * p.l1 + 2.0f * kkc2;
+  const S h12 = p.i2 + kkc2;
   const float h22 = p.i2;
-  const float kks2 = kk * s2;
+  const S kks2 = kk * s2;
 
-  const float gBs12 = p.m2 * p.g * p.lc2 * s12;
-  const float g1 = (p.m1 * p.g * p.lc1 + p.m2 * p.g * p.l1) * s1 + gBs12;
-  const float b1 =
+  const S gBs12 = p.m2 * p.g * p.lc2 * s12;
+  const S g1 = (p.m1 * p.g * p.lc1 + p.m2 * p.g * p.l1) * s1 + gBs12;
+  const S b1 =
       (2.0f * kks2 * qd1 + (p.m2 * p.l2 * p.lc2) * s2 * qd2) * qd2 - g1;
-  const float b2 = u - kks2 * qd1 * qd1 - gBs12;
+  const S b2 = u - kks2 * qd1 * qd1 - gBs12;
 
-  const float rdet = 1.0f / (h11 * h22 - h12 * h12);
+  const S rdet = 1.0f / (h11 * h22 - h12 * h12);
   dx[0] = qd1;
   dx[1] = qd2;
   dx[2] = (h22 * b1 - h12 * b2) * rdet;
   dx[3] = (h11 * b2 - h12 * b1) * rdet;
 }
 
-__device__ __forceinline__ float cost(const Params& p, const float x[N],
-                                      float u) {
-  const float e0 = p.goal[0] - x[0];
-  const float e1 = p.goal[1] - x[1];
-  const float e2 = p.goal[2] - x[2];
-  const float e3 = p.goal[3] - x[3];
+template <class S>
+__device__ __forceinline__ S cost(const Params& p, const S x[N], const S& u) {
+  const S e0 = p.goal[0] - x[0];
+  const S e1 = p.goal[1] - x[1];
+  const S e2 = p.goal[2] - x[2];
+  const S e3 = p.goal[3] - x[3];
   return p.ks * p.ks * (e0 * e0 + e1 * e1) + p.kd * p.kd * (e2 * e2 + e3 * e3)
          + p.kr * p.kr * u * u;
 }
 
-__device__ __forceinline__ float final_cost(const Params& p, const float x[N]) {
-  const float e0 = p.goal[0] - x[0];
-  const float e1 = p.goal[1] - x[1];
-  const float e2 = p.goal[2] - x[2];
-  const float e3 = p.goal[3] - x[3];
+template <class S>
+__device__ __forceinline__ S final_cost(const Params& p, const S x[N]) {
+  const S e0 = p.goal[0] - x[0];
+  const S e1 = p.goal[1] - x[1];
+  const S e2 = p.goal[2] - x[2];
+  const S e3 = p.goal[3] - x[3];
   return p.kfs * p.kfs * (e0 * e0 + e1 * e1)
          + p.kfd * p.kfd * (e2 * e2 + e3 * e3);
 }

@@ -5,7 +5,9 @@ All solver state stays lane-last ((T, n, B), (B,), …) from the initial
 rollout to the end; the only relayouts are one transpose of the inputs and
 one of the Solution. Per iteration the main path launches ONE kernel
 (ops/kernel_iter.py); ``iter_kernel="split"`` runs the same iteration as a
-sweep kernel plus a line-search kernel.
+sweep kernel plus a line-search kernel; ``sweep_kernel="split"`` replaces
+the sweep by the derivative kernel (once per iteration) and the backward
+kernel (once per λ attempt).
 
 The JAX package's two ``lax.while_loop``s are host loops here:
 
@@ -25,18 +27,21 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model
+from ilqr_tpu_torch.ops.kernel_backward import backward_sweep_packed
+from ilqr_tpu_torch.ops.kernel_derivs import derivs_packed
 from ilqr_tpu_torch.ops.kernel_iter import iteration_packed
 from ilqr_tpu_torch.ops.kernel_rollout import (
     linesearch_packed,
     pack_params,
     rollout_packed,
+    unpack_params,
 )
 from ilqr_tpu_torch.ops.kernel_sweep import sweep_packed
+from ilqr_tpu_torch.solver import as_f32, resolve_device
 from ilqr_tpu_torch.types import Solution, TerminationReason
 
 F32 = torch.float32
@@ -100,7 +105,9 @@ def _merged_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
     ok = frozen | (div < 0.5)
     lam, dlam = _escalate(live & ~ok, state.lam, state.dlam, factor, cfg)
 
+    retried = False
     while _host_any(~ok & (lam <= cfg.lambda_max)):
+        retried = True
         retry = ~ok
         (xs, us, xf, k, K, lsc_n, _asel, acc_n, dc_n, ex_n, div_n,
          g_n) = run_iter(lam, retry.to(F32), xs, xf, us, k, K)
@@ -112,23 +119,55 @@ def _merged_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
         new_ok = div_n < 0.5
         lam, dlam = _escalate(retry & ~new_ok, lam, dlam, factor, cfg)
         ok = ok | (retry & new_ok)
+    _iteration.retried += retried
     return lam, dlam, ok, g, xs, us, xf, k, K, lsc, accf, dc, ex
 
 
-def _split_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
-                     factor):
-    """The same iteration as a sweep kernel (re-run per λ attempt) and one
-    line-search kernel."""
-
+def _merged_sweep(model, cfg, pp, state):
+    """The backward attempt of ``iter_kernel="split"``: the merged
+    linearize + backward sweep kernel."""
     def run_backward(lam):
         return sweep_packed(model, cfg.integrator, pp, state.xs_body,
                             state.x_term, state.us, lam, mode=_kmode(cfg),
                             use_limits=cfg.use_control_limits)
+    return run_backward
+
+
+def _split_sweep(model, cfg, pp, state):
+    """The backward attempt of ``sweep_kernel="split"``: the derivative
+    kernel once per iteration (ref ilqr_core.cpp:115-120), then the
+    backward kernel per λ attempt; gnorm from the packed k."""
+    xs_full = torch.cat([state.xs_body, state.x_term[None]])
+    fx, fu, cx, cu, cxx, cxu, cuu = derivs_packed(
+        model, cfg.integrator, pp, xs_full, state.us, mode=_kmode(cfg),
+        eps=cfg.fd_eps)
+    p, _dt = unpack_params(pp)
+    lo = p.u_min[0] - state.us[:, 0]
+    hi = p.u_max[0] - state.us[:, 0]
+
+    def run_backward(lam):
+        k, K, dv, div = backward_sweep_packed(
+            fx, fu[:, :, 0], cx[:-1], cu[:, 0], cxx[:-1], cxu[:, :, 0],
+            cuu[:, 0, 0], lo, hi, lam, cx[-1], cxx[-1])
+        k = k[:, None]
+        gnorm = (k.abs() / (state.us.abs() + 1.0)).amax(dim=1).mean(dim=0)
+        return k, K[:, None], dv, div, gnorm
+    return run_backward
+
+
+def _split_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
+                     factor):
+    """The iteration as a backward attempt (re-run per λ attempt) and one
+    line-search kernel."""
+    make = _split_sweep if cfg.sweep_kernel == "split" else _merged_sweep
+    run_backward = make(model, cfg, pp, state)
 
     k, K, dV, div, gnorm = run_backward(state.lam)
     ok = frozen | (div < 0.5)
     lam, dlam = _escalate(live & ~ok, state.lam, state.dlam, factor, cfg)
+    retried = False
     while _host_any(~ok & (lam <= cfg.lambda_max)):
+        retried = True
         k_n, K_n, dV_n, div_n, g_n = run_backward(lam)
         retry = ~ok
         new_ok = div_n < 0.5
@@ -138,6 +177,7 @@ def _split_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
         gnorm = torch.where(retry, g_n, gnorm)
         lam, dlam = _escalate(retry & ~new_ok, lam, dlam, factor, cfg)
         ok = ok | (retry & new_ok)
+    _iteration.retried += retried
 
     grad_term = _grad_term(cfg, ok, gnorm, lam)
     gate = (ok & ~grad_term & live).to(F32)
@@ -160,6 +200,22 @@ def _grad_term(cfg, back_ok, gnorm, lam):
             & (lam < cfg.lambda_grad_term))
 
 
+def _use_iter_kernel(cfg: SolverConfig) -> bool:
+    """Whether the whole-iteration kernel runs: it embeds the merged sweep,
+    so ``sweep_kernel="split"`` takes the split iteration and an explicit
+    ``iter_kernel="merged"`` with it raises (ilqr_tpu/fused.py:87-101)."""
+    if cfg.iter_kernel == "split":
+        return False
+    if cfg.sweep_kernel != "merged":
+        if cfg.iter_kernel == "merged":
+            raise ValueError(
+                "iter_kernel='merged' requires sweep_kernel='merged' (the "
+                "whole-iteration kernel embeds the merged linearize+backward "
+                "sweep)")
+        return False
+    return True
+
+
 def _iteration(model: Model, cfg: SolverConfig, pp, x0, alphas, factor,
                state: FusedState) -> FusedState:
     _iteration.calls += 1
@@ -167,8 +223,8 @@ def _iteration(model: Model, cfg: SolverConfig, pp, x0, alphas, factor,
     # loop runs in chunks of cfg.fused_unroll iterations (ref :285).
     frozen = state.done | (state.iteration >= cfg.max_iter)
     live = ~frozen
-    run = (_split_iteration if cfg.iter_kernel == "split"
-           else _merged_iteration)
+    run = (_merged_iteration if _use_iter_kernel(cfg)
+           else _split_iteration)
     (lam, dlam, back_ok, gnorm, xs_body, us, x_term, k, K, ls_cost, acc_f,
      ls_dcost, ls_expected) = run(model, cfg, pp, x0, state, frozen, live,
                                   alphas, factor)
@@ -182,6 +238,7 @@ def _iteration(model: Model, cfg: SolverConfig, pp, x0, alphas, factor,
 
 
 _iteration.calls = 0
+_iteration.retried = 0   # iterations whose backward attempt was re-run
 
 
 def _finish_iteration(cfg, state, frozen, lam, dlam, gnorm, grad_term,
@@ -234,27 +291,22 @@ def _finish_iteration(cfg, state, frozen, lam, dlam, gnorm, grad_term,
 
 def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
     """True iff :func:`solve_batch_fused` accepts (model, cfg): acrobot
-    (the model the kernels are compiled for), m = 1, analytic derivatives,
-    the Euler step, control limits with the closed-form QP, shared params,
-    the merged sweep. Mirrors the guards of :func:`solve_batch_fused`."""
+    (the model the kernels are compiled for), m = 1, the Euler step,
+    control limits with the closed-form QP, shared params; analytic
+    derivatives, or the reference's stencils on the split sweep (whose
+    derivative kernel carries both). Mirrors the guards of
+    :func:`solve_batch_fused` and ilqr_tpu/fused.py:390-442 (the split
+    sweep needs m = 1 and control limits)."""
+    split = cfg.sweep_kernel == "split"
     return (model.name == "acrobot" and model.m == 1 and model.has_soa
             and model.has_analytic_soa and not cfg.full_ddp
-            and cfg.deriv_mode == "analytic" and cfg.integrator == "euler"
+            and (cfg.deriv_mode == "analytic"
+                 or (split and cfg.deriv_mode == "fd"))
+            and cfg.integrator == "euler"
             and cfg.use_control_limits
             and cfg.boxqp_mode in ("auto", "enum", "pn_fixed")
-            and cfg.sweep_kernel == "merged"
+            and cfg.sweep_kernel in ("merged", "split")
             and cfg.iter_kernel in ("auto", "merged", "split"))
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "solve_batch_fused runs on the GPU by default and no CUDA device "
-            "is available; pass device='cpu' for the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
@@ -269,21 +321,26 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
             "(the in-kernel QP is chosen by m)")
     if cfg.iter_kernel not in ("auto", "merged", "split"):
         raise ValueError(f"unknown iter_kernel {cfg.iter_kernel!r}")
+    if cfg.sweep_kernel not in ("merged", "split"):
+        raise ValueError(f"unknown sweep_kernel {cfg.sweep_kernel!r}")
+    if cfg.sweep_kernel == "split" and (model.m >= 2
+                                        or not cfg.use_control_limits):
+        raise ValueError(
+            "sweep_kernel='split' needs m = 1 and control limits (the "
+            "backward kernel's closed-form QP)")
+    _use_iter_kernel(cfg)
     if not model.has_soa:
         raise ValueError("solve_batch_fused requires SoA model functions")
     if params_batched:
         raise NotImplementedError(
             "params_batched=True is not ported to ilqr_tpu_torch yet")
-    if cfg.sweep_kernel != "merged":
-        raise NotImplementedError(
-            f"sweep_kernel={cfg.sweep_kernel!r} is not ported yet (the "
-            "derivative and backward kernels of the split sweep)")
     if not fused_applicable(model, cfg):
         raise NotImplementedError(
-            f"solve_batch_fused is ported for acrobot, m = 1, analytic "
-            f"derivatives, the Euler step and control limits only; got "
-            f"model {model.name!r} (m = {model.m}) with "
-            f"deriv_mode={cfg.deriv_mode!r}, integrator={cfg.integrator!r}, "
+            f"solve_batch_fused is ported for acrobot, m = 1, the Euler step "
+            f"and control limits, with analytic derivatives (or fd on the "
+            f"split sweep) only; got model {model.name!r} (m = {model.m}) "
+            f"with deriv_mode={cfg.deriv_mode!r}, "
+            f"integrator={cfg.integrator!r}, "
             f"use_control_limits={cfg.use_control_limits}")
 
 
@@ -298,11 +355,9 @@ def solve_batch_fused(model: Model, params, cfg: SolverConfig, dt, x0, u0,
     Solution with leading batch axis B, on ``device``.
     """
     _check_config(model, cfg, params_batched)
-    dev = _resolve_device(device)
-    x0 = torch.as_tensor(np.asarray(x0) if not isinstance(x0, torch.Tensor)
-                         else x0, dtype=F32).to(dev)
-    u0 = torch.as_tensor(np.asarray(u0) if not isinstance(u0, torch.Tensor)
-                         else u0, dtype=F32).to(dev)
+    dev = resolve_device(device)
+    x0 = as_f32(x0, dev)
+    u0 = as_f32(u0, dev)
     B, n = x0.shape
     if u0.ndim == 2:
         u0 = u0.expand((B,) + tuple(u0.shape))

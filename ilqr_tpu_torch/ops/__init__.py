@@ -1,13 +1,15 @@
-"""The fused solver's ops: each a plain PyTorch version beside a CUDA
-kernel (csrc/). ``launch_counts()`` reads, and ``reset_launch_counts()``
+"""The kernel ops: each a plain PyTorch version beside a CUDA kernel
+(csrc/). ``launch_counts()`` reads, and ``reset_launch_counts()``
 zeroes, every op's count of kernel launches."""
 
+from ilqr_tpu_torch.ops.kernel_backward import backward_sweep_packed
+from ilqr_tpu_torch.ops.kernel_derivs import derivs_packed
 from ilqr_tpu_torch.ops.kernel_iter import iteration_packed
 from ilqr_tpu_torch.ops.kernel_rollout import linesearch_packed, rollout_packed
 from ilqr_tpu_torch.ops.kernel_sweep import sweep_packed
 
 KERNEL_OPS = (rollout_packed, linesearch_packed, sweep_packed,
-              iteration_packed)
+              iteration_packed, derivs_packed, backward_sweep_packed)
 
 
 def launch_counts() -> dict:

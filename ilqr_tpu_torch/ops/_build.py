@@ -2,9 +2,11 @@
 
 The library is built on first use into ``build/ilqr_tpu_torch/<hash>/`` at
 the repository root, keyed by a hash of the sources and the flags, so a
-fresh checkout builds everything it runs and a changed source rebuilds. Only
-the sources in ``csrc/`` are compiled; the library has a plain C interface
-(no PyTorch headers), which keeps the build to seconds.
+fresh checkout builds everything it runs and a changed source rebuilds. Each
+``csrc/*.cu`` is compiled to an object by its own nvcc process, all started
+together, and the objects are linked into one shared library; the library
+has a plain C interface (no PyTorch headers), which keeps the build to
+seconds.
 
 Every launcher takes its pointers as ``c_void_p`` and PyTorch's current
 stream, launches asynchronously and returns ``cudaGetLastError()``;
@@ -32,17 +34,19 @@ NVCC_FLAGS = (
     # keep a*b+c as two rounded operations, as the plain versions compute
     # them; no --use_fast_math (IEEE division, full-accuracy sincosf)
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of csrc/kernels.cu, in argument order.
+# C signatures of the launchers in csrc/*.cu, in argument order.
 _SIGNATURES = {
     "ilqr_rollout": [_P] * 9 + [_I, _I, _I, _P],
     "ilqr_sweep": [_P] * 10 + [_I, _I, _P],
     "ilqr_linesearch": [_P] * 10 + [_I] + [_P] * 14 + [_F, _I, _I, _I, _P],
     "ilqr_iteration": [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I,
                                                     _P],
+    "ilqr_derivs": [_P] * 10 + [_I, _F, _F, _F, _I, _I, _P],
+    "ilqr_backward": [_P] * 16 + [_I, _I, _P],
 }
 
 
@@ -73,25 +77,47 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compiles ``csrc/kernels.cu`` into the hashed build directory unless
-    the library is already there; returns its path. The compiler's
-    register/spill report is kept beside it in ``ptxas.log``."""
+    """Compiles every ``csrc/*.cu`` into the hashed build directory unless
+    the library is already there; returns its path. The sources compile in
+    parallel, one nvcc each; the compiler's register/spill report is kept
+    beside the library in ``ptxas.log``."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / "kernels.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    (out_dir / "ptxas.log").write_text(proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                   str(Path(tmp) / (src.stem + ".o")), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                for _c, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{out}{err}")
+            logs.append(err)
+        fd, tmp_lib = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, "-shared", "-o", tmp_lib,
+               *sorted(str(o) for o in Path(tmp).glob("*.o"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp_lib)
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+    (out_dir / "ptxas.log").write_text("".join(logs))
+    os.replace(tmp_lib, lib)  # atomic: a concurrent build never sees half
     return lib
 
 

@@ -1,0 +1,166 @@
+"""The m = 1 backward recursion from precomputed derivatives (counterpart of
+``ilqr_tpu/ops/pallas_backward.py``).
+
+Per lane, in reverse time: Q-terms, QuuF = Quu + λ, the closed-form box QP
+clamp(−Qu/QuuF) on [lo, hi], K zeroed on a clamped control or a divergent
+step, dV, the V update and a latched divergence flag (ref
+src/ilqr_core.cpp:350-401). The plain version, :func:`backward_plain`,
+follows the JAX kernel's arithmetic term by term (pallas_backward.py:72-153):
+the dense fx, every n×n entry of Qxx and Vxx on its own (so Vxx is not
+exactly symmetric), −Qu/q and −Qux_j/q as divisions, dV[1] = 0.5·k·Quu·k.
+It is not the merged sweep's step (ops/kernel_sweep.py).
+
+Layout (lane last, m = 1 squeezed): fx (T, n, n, B), fu/cx/cxu (T, n, B),
+cu/cuu/lo/hi (T, B), lam (B,), cxT (n, B), cxxT (n, n, B). Dispatch as in
+ops/kernel_rollout.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ilqr_tpu_torch.ops import _build
+from ilqr_tpu_torch.ops.kernel_rollout import (
+    F32,
+    batch_first,
+    clip,
+    lane_last,
+    on_cuda,
+)
+
+
+def backward_plain(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT, cxxT):
+    """Plain version of :func:`backward_sweep_packed`."""
+    T, n, B = fu.shape
+    dev = fu.device
+    vx = [cxT[i] for i in range(n)]
+    vxx = [[cxxT[i, j] for j in range(n)] for i in range(n)]
+    zero = torch.zeros((B,), dtype=F32, device=dev)
+    dv0, dv1, div = zero, zero, zero
+    k_out = torch.empty((T, B), dtype=F32, device=dev)
+    K_out = torch.empty((T, n, B), dtype=F32, device=dev)
+    for t in reversed(range(T)):
+        fuv = [fu[t, i] for i in range(n)]
+        f = [[fx[t, i, j] for j in range(n)] for i in range(n)]
+        fvv = []
+        for j in range(n):
+            acc = fuv[0] * vxx[0][j]
+            for i in range(1, n):
+                acc = acc + fuv[i] * vxx[i][j]
+            fvv.append(acc)
+        qu = cu[t]
+        for i in range(n):
+            qu = qu + fuv[i] * vx[i]
+        quu = cuu[t]
+        for j in range(n):
+            quu = quu + fvv[j] * fuv[j]
+        quuF = quu + lam
+        qux = []
+        for j in range(n):
+            acc = cxu[t, j]
+            for i in range(n):
+                acc = acc + fvv[i] * f[i][j]
+            qux.append(acc)
+        qx = []
+        for j in range(n):
+            acc = cx[t, j]
+            for i in range(n):
+                acc = acc + f[i][j] * vx[i]
+            qx.append(acc)
+        w = [[None] * n for _ in range(n)]
+        for kk in range(n):
+            for j in range(n):
+                acc = vxx[kk][0] * f[0][j]
+                for l in range(1, n):
+                    acc = acc + vxx[kk][l] * f[l][j]
+                w[kk][j] = acc
+        qxx = [[None] * n for _ in range(n)]
+        for i in range(n):
+            for j in range(n):
+                acc = cxx[t, i, j]
+                for kk in range(n):
+                    acc = acc + f[kk][i] * w[kk][j]
+                qxx[i][j] = acc
+
+        bad = quuF <= 0.0
+        q_safe = torch.where(bad, torch.ones_like(quuF), quuF)
+        x1 = clip(-qu / q_safe, lo[t], hi[t])
+        gk = quuF * x1 + qu
+        clamped = ((x1 <= lo[t]) & (gk > 0.0)) | ((x1 >= hi[t]) & (gk < 0.0))
+        k = torch.where(bad, torch.zeros_like(x1), x1)
+        zero_K = clamped | bad
+        Kr = [torch.where(zero_K, torch.zeros_like(qux[j]), -qux[j] / q_safe)
+              for j in range(n)]
+
+        div = torch.maximum(div, bad.to(F32))
+        dv0 = dv0 + k * qu
+        dv1 = dv1 + 0.5 * k * quu * k
+        kq = k * quu
+        vx = [qx[j] + Kr[j] * kq + Kr[j] * qu + qux[j] * k for j in range(n)]
+        vxx = [[qxx[i][j] + Kr[i] * quu * Kr[j] + Kr[i] * qux[j]
+                + qux[i] * Kr[j] for j in range(n)] for i in range(n)]
+        k_out[t] = k
+        K_out[t] = torch.stack(Kr)
+    return k_out, K_out, torch.stack([dv0, dv1]), div
+
+
+def backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT,
+                          cxxT):
+    """The m = 1 backward recursion (see module docstring).
+
+    Returns (k (T, B), K (T, n, B), dv (2, B), diverged (B,) f32 0/1).
+    """
+    if not on_cuda(fu):
+        return backward_plain(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam,
+                              cxT, cxxT)
+    dev = fu.device
+    T, n, B = fu.shape
+    if n != 4:
+        raise NotImplementedError(
+            f"the backward kernel is compiled for n = 4 (acrobot), got {n}")
+    for t, shape, name in (
+            (fx, (T, n, n, B), "fx"), (fu, (T, n, B), "fu"),
+            (cx, (T, n, B), "cx"), (cu, (T, B), "cu"),
+            (cxx, (T, n, n, B), "cxx"), (cxu, (T, n, B), "cxu"),
+            (cuu, (T, B), "cuu"), (lo, (T, B), "lo"), (hi, (T, B), "hi"),
+            (lam, (B,), "lam"), (cxT, (n, B), "cxT"),
+            (cxxT, (n, n, B), "cxxT")):
+        _build.require(t, shape, name, dev)
+    k = torch.empty((T, B), dtype=F32, device=dev)
+    K = torch.empty((T, n, B), dtype=F32, device=dev)
+    dv = torch.empty((2, B), dtype=F32, device=dev)
+    div = torch.empty((B,), dtype=F32, device=dev)
+    _build.launch("ilqr_backward", dev, fx, fu, cx, cu, cxx, cxu, cuu, lo, hi,
+                  lam, cxT, cxxT, k, K, dv, div, T, B)
+    backward_sweep_packed.launches += 1
+    return k, K, dv, div
+
+
+backward_sweep_packed.launches = 0
+
+
+def backward_sweep_batched(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam):
+    """Batch-major wrapper (counterpart of
+    ``pallas_backward.backward_sweep_batched`` and of ``backward_m1``'s
+    batched rule; a single problem runs as one lane). Lanes are
+    independent, so no padding is needed.
+
+    Args: fx (B,T,n,n), fu (B,T,n,1), cx (B,T+1,n), cu (B,T,1),
+    cxx (B,T+1,n,n), cxu (B,T,n,1), cuu (B,T,1,1), lo/hi (B,T,1) =
+    limits − us, lam (B,). Returns (k (B,T,1), K (B,T,1,n), dV (B,2),
+    diverged (B,) bool).
+    """
+    if fu.shape[-1] != 1:
+        raise NotImplementedError(
+            "the backward kernel is specialized to m = 1 (the closed-form "
+            f"QP); got m = {fu.shape[-1]}")
+    k, K, dv, div = backward_sweep_packed(
+        lane_last(fx), lane_last(fu[..., 0]), lane_last(cx[:, :-1]),
+        lane_last(cu[..., 0]), lane_last(cxx[:, :-1]),
+        lane_last(cxu[..., 0]), lane_last(cuu[..., 0, 0]),
+        lane_last(lo[..., 0]), lane_last(hi[..., 0]),
+        lam.to(F32).contiguous(), lane_last(cx[:, -1]),
+        lane_last(cxx[:, -1]))
+    return (batch_first(k)[..., None], batch_first(K)[:, :, None, :],
+            batch_first(dv), div > 0.5)
+

@@ -91,6 +91,17 @@ def require_plain_integrator(integrator: str):
             f"integrator {integrator!r} is not ported (Euler only)")
 
 
+def lane_last(a):
+    """Batch-major (B, …) → lane-last (…, B), contiguous: free where ``a``
+    is the batch-major view of a lane-last kernel output."""
+    return a.permute(*range(1, a.ndim), 0).contiguous()
+
+
+def batch_first(a):
+    """Lane-last (…, B) → a batch-major (B, …) view."""
+    return a.permute(a.ndim - 1, *range(a.ndim - 1))
+
+
 def clip(v, lo, hi):
     """jnp.clip: minimum(maximum(v, lo), hi), NaN-propagating."""
     return torch.minimum(torch.maximum(v, lo), hi)
@@ -166,6 +177,18 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
 
 
 rollout_packed.launches = 0
+
+
+def rollout_batched(model, integrator: str, clamp: bool, pp: PackedParams,
+                    x0, u_ff, xs_ref, K):
+    """Batch-major wrapper of :func:`rollout_packed` (counterpart of
+    ``pallas_rollout.rollout_batched``): x0 (B, n), u_ff (B, T, m),
+    xs_ref (B, T+1, n) (row T unused), K (B, T, m, n) → (xs (B, T+1, n),
+    us (B, T, m), cost (B,))."""
+    xs, us, xfin, cost = rollout_packed(
+        model, integrator, clamp, pp, lane_last(x0), lane_last(u_ff),
+        lane_last(xs_ref[:, :-1]), lane_last(K))
+    return batch_first(torch.cat([xs, xfin[None]])), batch_first(us), cost
 
 
 # ---------------------------------------------------------------------------

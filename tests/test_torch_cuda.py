@@ -10,9 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from ilqr_tpu_torch import SolverConfig, get_model, solve_batch_fused
+from ilqr_tpu_torch import (
+    SolverConfig,
+    get_model,
+    solve,
+    solve_batch,
+    solve_batch_fused,
+)
 from ilqr_tpu_torch.models import acrobot as tac
 from ilqr_tpu_torch.ops import (
+    kernel_backward,
+    kernel_derivs,
     kernel_iter,
     kernel_rollout,
     kernel_sweep,
@@ -87,7 +95,8 @@ def test_kernels_match_plain(dev):
         assert len(got) == len(want)
         for i, (g, w) in enumerate(zip(got, want)):
             _close(g, w, f"{op.__name__}[{i}]")
-    assert all(v == 1 for v in launch_counts().values()), launch_counts()
+    counts = launch_counts()
+    assert all(counts[op.__name__] == 1 for op, _p, _a in cases), counts
 
 
 @pytest.mark.cuda
@@ -136,3 +145,106 @@ def test_solve_on_card_matches_plain_solve(dev):
     counts = launch_counts()
     assert counts["rollout_packed"] == 1
     assert counts["iteration_packed"] >= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["jvp", "fd"])
+def test_derivs_kernel_matches_plain(dev, mode):
+    """The derivative kernel against its plain version on the same card, at
+    a lane count that is not a multiple of the block. Both evaluate the same
+    dual-number rules or stencils op by op, so they agree to an ulp (fd's
+    stencils would turn any ulp of the cost into ~1e-1 in cxx)."""
+    b = 200
+    rng = np.random.default_rng(15)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    xs = f(0.5 * rng.normal(size=(T + 1, N, b)))
+    us = f(2.0 * rng.normal(size=(T, M, b)))
+    pp = kernel_rollout.pack_params(tac.default_params(), 0.02, dev)
+    reset_launch_counts()
+    got = kernel_derivs.derivs_packed(MODEL, "euler", pp, xs, us, mode=mode)
+    torch.cuda.synchronize()
+    want = kernel_derivs.derivs_plain(MODEL, "euler", pp, xs, us, mode=mode)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g, w, f"derivs {mode}[{i}]")
+    assert launch_counts()["derivs_packed"] == 1
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_plain(dev):
+    """The backward kernel against its plain version on the same card, with
+    clamped controls and λ < 0 on some lanes (divergence latch)."""
+    b = 200
+    rng = np.random.default_rng(16)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    xs = f(0.3 * rng.normal(size=(T + 1, N, b)))
+    us = f(3.0 * rng.normal(size=(T, M, b)))
+    pp = kernel_rollout.pack_params(tac.default_params(), 0.02, dev)
+    fx, fu, cx, cu, cxx, cxu, cuu = kernel_derivs.derivs_plain(
+        MODEL, "euler", pp, xs, us)
+    lam = f(np.where(rng.uniform(size=b) < 0.1, -100.0, 1.0))
+    args = (fx, fu[:, :, 0], cx[:-1], cu[:, 0], cxx[:-1], cxu[:, :, 0],
+            cuu[:, 0, 0], -5.0 - us[:, 0], 5.0 - us[:, 0], lam, cx[-1],
+            cxx[-1])
+    reset_launch_counts()
+    got = kernel_backward.backward_sweep_packed(*args)
+    torch.cuda.synchronize()
+    want = kernel_backward.backward_plain(*args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g, w, f"backward[{i}]")
+    assert launch_counts()["backward_sweep_packed"] == 1
+    assert got[3][lam < 0].min().item() == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["composable", "split_sweep"])
+def test_stage_kernel_solves_on_card_match_cpu(dev, path):
+    """solve_batch, and solve_batch_fused with sweep_kernel="split", through
+    the derivative, backward and rollout / line-search kernels against the
+    same solve through the plain versions on the CPU, at T = 8: costs to
+    rtol 1e-4 (sin/cos ulps carried a few iterations), equal iteration
+    counts and reasons."""
+    rng = np.random.default_rng(0)
+    x0 = (0.05 * rng.normal(size=(64, 4))).astype(np.float32)
+    u0 = np.zeros((8, 1), np.float32)
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True, max_iter=5,
+                       alphas=(1.0, 0.3, 0.03))
+    m, p = get_model("acrobot"), tac.default_params()
+    if path == "composable":
+        run = lambda device=None: solve_batch(m, p, cfg, 0.02, x0, u0,
+                                              device=device)
+        used = ("rollout_packed", "derivs_packed", "backward_sweep_packed")
+    else:
+        run = lambda device=None: solve_batch_fused(
+            m, p, cfg.replace(sweep_kernel="split"), 0.02, x0, u0,
+            device=device)
+        used = ("rollout_packed", "derivs_packed", "backward_sweep_packed",
+                "linesearch_packed")
+    reset_launch_counts()
+    card = run()
+    assert card.cost.device.type == "cuda"
+    counts = launch_counts()
+    plain = run("cpu")
+    np.testing.assert_allclose(card.cost.cpu().numpy(), plain.cost.numpy(),
+                               rtol=1e-4)
+    np.testing.assert_array_equal(card.iterations.cpu().numpy(),
+                                  plain.iterations.numpy())
+    np.testing.assert_array_equal(card.reason.cpu().numpy(),
+                                  plain.reason.numpy())
+    assert all(counts[name] >= 1 for name in used), counts
+    assert counts["iteration_packed"] == counts["sweep_packed"] == 0, counts
+
+
+@pytest.mark.cuda
+def test_single_problem_solve_on_card(dev):
+    """solve runs one problem as one lane through the same kernels."""
+    x0 = np.array([0.01, -0.02, 0.0, 0.03], np.float32)
+    u0 = np.zeros((8, 1), np.float32)
+    cfg = SolverConfig(clamp_forward=True, max_iter=5, alphas=(1.0, 0.3, 0.03))
+    m, p = get_model("acrobot"), tac.default_params()
+    reset_launch_counts()
+    card = solve(m, p, cfg, 0.02, x0, u0)
+    assert launch_counts()["derivs_packed"] >= 1
+    plain = solve(m, p, cfg, 0.02, x0, u0, device="cpu")
+    assert card.xs.shape == (9, 4)
+    np.testing.assert_allclose(card.cost.item(), plain.cost.item(),
+                               rtol=1e-4)

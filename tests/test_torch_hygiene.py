@@ -10,10 +10,19 @@ import numpy as np
 import pytest
 import torch
 
-from ilqr_tpu_torch import SolverConfig, get_model, solve_batch_fused
+from ilqr_tpu_torch import (
+    SolverConfig,
+    get_model,
+    solve,
+    solve_batch,
+    solve_batch_fused,
+)
 from ilqr_tpu_torch.models import acrobot as tac
 from ilqr_tpu_torch.ops import (
+    KERNEL_OPS,
     _build,
+    kernel_backward,
+    kernel_derivs,
     kernel_iter,
     kernel_rollout,
     kernel_sweep,
@@ -42,7 +51,11 @@ def _run(code, cwd=REPO, extra_env=None):
 
 @pytest.mark.parametrize("imports", [
     "import ilqr_tpu_torch, ilqr_tpu_torch.fused, ilqr_tpu_torch.ops\n"
-    "import ilqr_tpu_torch.models.acrobot, ilqr_tpu_torch.ops._build",
+    "import ilqr_tpu_torch.models.acrobot, ilqr_tpu_torch.ops._build\n"
+    "import ilqr_tpu_torch.batch, ilqr_tpu_torch.solver\n"
+    "import ilqr_tpu_torch.ops.derivatives, ilqr_tpu_torch.ops.backward\n"
+    "import ilqr_tpu_torch.ops.rollout, ilqr_tpu_torch.ops.kernel_derivs\n"
+    "import ilqr_tpu_torch.ops.kernel_backward",
     "import chip_smoke",
 ])
 def test_imports_no_jax_nor_ilqr_tpu(imports):
@@ -51,14 +64,17 @@ def test_imports_no_jax_nor_ilqr_tpu(imports):
     assert "BAD []" in out.stdout, out.stdout
 
 
-def test_default_device_is_the_card():
+@pytest.mark.parametrize("entry", ["solve_batch_fused", "solve_batch",
+                                   "solve"])
+def test_default_device_is_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")
+    fn = {"solve_batch_fused": solve_batch_fused, "solve_batch": solve_batch,
+          "solve": solve}[entry]
+    x0 = np.zeros((4,) if entry == "solve" else (2, 4), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
-        solve_batch_fused(get_model("acrobot"), tac.default_params(),
-                          SolverConfig(max_iter=1), 0.02,
-                          np.zeros((2, 4), np.float32),
-                          np.zeros((5, 1), np.float32))
+        fn(get_model("acrobot"), tac.default_params(),
+           SolverConfig(max_iter=1), 0.02, x0, np.zeros((5, 1), np.float32))
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):
@@ -98,6 +114,11 @@ def test_cpu_tensors_run_plain_versions_and_launch_nothing(monkeypatch):
     lam, live = torch.ones(B), (torch.arange(B) % 2).float()
     al = torch.tensor([1.0, 0.5, 0.1])
     dv, cprev = torch.stack([-torch.ones(B), 0.1 * torch.ones(B)]), f(B)
+    xs_full = torch.cat([xs, xT[None]])
+    d = kernel_derivs.derivs_plain(m, "euler", pp, xs_full, us)
+    bargs = (d[0], d[1][:, :, 0], d[2][:-1], d[3][:, 0], d[4][:-1],
+             d[5][:, :, 0], d[6][:, 0, 0], -5.0 - us[:, 0], 5.0 - us[:, 0],
+             lam, d[2][-1], d[4][-1])
     cases = [
         (kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
          (m, "euler", True, pp, x0, us, xs, K)),
@@ -108,12 +129,26 @@ def test_cpu_tensors_run_plain_versions_and_launch_nothing(monkeypatch):
           live, live, 0.0)),
         (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
          (m, "euler", True, pp, x0, xs, xT, us, k, K, lam, cprev, live, al)),
+        (kernel_derivs.derivs_packed, kernel_derivs.derivs_plain,
+         (m, "euler", pp, xs_full, us, "jvp")),
+        (kernel_derivs.derivs_packed, kernel_derivs.derivs_plain,
+         (m, "euler", pp, xs_full, us, "fd")),
+        (kernel_backward.backward_sweep_packed,
+         kernel_backward.backward_plain, bargs),
     ]
     for op, plain, args in cases:
         for g, w in zip(op(*args), plain(*args)):
             assert torch.equal(g, w), op.__name__
-    assert launch_counts() == {"rollout_packed": 0, "linesearch_packed": 0,
-                               "sweep_packed": 0, "iteration_packed": 0}
+    # and whole solves on every path
+    cfg = SolverConfig(max_iter=2, clamp_forward=True, alphas=(1.0, 0.3))
+    x0b, u0 = np.zeros((2, 4), np.float32), np.zeros((5, 1), np.float32)
+    solve_batch(m, tac.default_params(), cfg, 0.02, x0b, u0, device="cpu")
+    solve(m, tac.default_params(), cfg, 0.02, x0b[0], u0, device="cpu")
+    for extra in ({}, dict(iter_kernel="split"), dict(sweep_kernel="split")):
+        solve_batch_fused(m, tac.default_params(), cfg.replace(**extra), 0.02,
+                          x0b, u0, device="cpu")
+    assert launch_counts() == {op.__name__: 0 for op in KERNEL_OPS}
+    assert len(KERNEL_OPS) == 6
 
 
 def test_kernel_path_rejects_other_models_and_integrators():
@@ -144,3 +179,40 @@ def test_pack_params_layout():
     for f in tac.AcrobotParams._fields:
         np.testing.assert_array_equal(getattr(back, f).numpy(),
                                       getattr(p, f).numpy())
+
+
+@pytest.mark.parametrize("bad", [
+    dict(integrator="rk4"), dict(boxqp_mode="iterative"),
+    dict(boxqp_mode="enum"), dict(use_control_limits=False),
+    dict(backward_mode="assoc"), dict(backward_mode="assoc_frozen"),
+    dict(full_ddp=True), "params_batched", "other_model",
+])
+def test_uncarried_configs_raise_before_running(bad, monkeypatch):
+    """What the kernels do not carry raises NotImplementedError before any
+    stage runs; no plain op takes a missing kernel's place."""
+    from ilqr_tpu_torch import solver
+
+    def no_stage(*a, **k):
+        raise AssertionError("a stage ran for an uncarried configuration")
+
+    monkeypatch.setattr(solver, "init_state", no_stage)
+    model, kw, cfg = tac.MODEL, {}, SolverConfig()
+    if bad == "params_batched":
+        kw = dict(params_batched=True)
+    elif bad == "other_model":
+        model = tac.MODEL.__class__(**{**tac.MODEL.__dict__,
+                                       "name": "pendulum"})
+    else:
+        cfg = SolverConfig(**bad)
+    with pytest.raises(NotImplementedError):
+        solve_batch(model, tac.default_params(), cfg, 0.02,
+                    np.zeros((2, 4), np.float32),
+                    np.zeros((5, 1), np.float32), device="cpu", **kw)
+
+
+def test_unknown_kernel_route_raises():
+    with pytest.raises(ValueError, match="deriv_kernel"):
+        solve_batch(tac.MODEL, tac.default_params(),
+                    SolverConfig(deriv_kernel="cuda"), 0.02,
+                    np.zeros((2, 4), np.float32),
+                    np.zeros((5, 1), np.float32), device="cpu")
