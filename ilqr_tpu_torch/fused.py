@@ -200,10 +200,14 @@ def _grad_term(cfg, back_ok, gnorm, lam):
             & (lam < cfg.lambda_grad_term))
 
 
-def _use_iter_kernel(cfg: SolverConfig) -> bool:
-    """Whether the whole-iteration kernel runs: it embeds the merged sweep,
-    so ``sweep_kernel="split"`` takes the split iteration and an explicit
-    ``iter_kernel="merged"`` with it raises (ilqr_tpu/fused.py:87-101)."""
+def _use_iter_kernel(model: Model, cfg: SolverConfig) -> bool:
+    """Whether the whole-iteration kernel runs (ilqr_tpu/fused.py:87-112).
+    It embeds the merged sweep, so ``sweep_kernel="split"`` takes the split
+    iteration and an explicit ``iter_kernel="merged"`` with it raises.
+    ``"auto"`` takes the split iteration for large models (m·n ≥ 32, e.g.
+    the quadrotor), as the JAX package does. The JAX package's VMEM fit
+    check of the gain buffer has no counterpart: on the card the gains
+    live in device memory."""
     if cfg.iter_kernel == "split":
         return False
     if cfg.sweep_kernel != "merged":
@@ -213,7 +217,9 @@ def _use_iter_kernel(cfg: SolverConfig) -> bool:
                 "whole-iteration kernel embeds the merged linearize+backward "
                 "sweep)")
         return False
-    return True
+    if cfg.iter_kernel == "merged":
+        return True
+    return model.m * model.n < 32
 
 
 def _iteration(model: Model, cfg: SolverConfig, pp, x0, alphas, factor,
@@ -223,7 +229,7 @@ def _iteration(model: Model, cfg: SolverConfig, pp, x0, alphas, factor,
     # loop runs in chunks of cfg.fused_unroll iterations (ref :285).
     frozen = state.done | (state.iteration >= cfg.max_iter)
     live = ~frozen
-    run = (_merged_iteration if _use_iter_kernel(cfg)
+    run = (_merged_iteration if _use_iter_kernel(model, cfg)
            else _split_iteration)
     (lam, dlam, back_ok, gnorm, xs_body, us, x_term, k, K, ls_cost, acc_f,
      ls_dcost, ls_expected) = run(model, cfg, pp, x0, state, frozen, live,
@@ -328,7 +334,7 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
         raise ValueError(
             "sweep_kernel='split' needs m = 1 and control limits (the "
             "backward kernel's closed-form QP)")
-    _use_iter_kernel(cfg)
+    _use_iter_kernel(model, cfg)
     if not model.has_soa:
         raise ValueError("solve_batch_fused requires SoA model functions")
     if params_batched:
