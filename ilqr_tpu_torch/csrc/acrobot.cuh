@@ -19,16 +19,6 @@ constexpr int M = 1;   // control dims
 // field order, then dt.
 constexpr int P = 21;
 
-// Structural pattern of the continuous-time Jacobians returned by jac():
-// entries where a_nz/b_nz are false are the Python-float zeros of jac_soa,
-// which the sweep skips exactly as ops/kernel_sweep._fmul/_fadd fold them.
-// (A[0][2] = A[1][3] = 1 are structural ones: nonzero.) The running cost's
-// cxx is diagonal and its cxu structurally zero.
-__host__ __device__ constexpr bool a_nz(int r, int i) {
-  return r >= 2 || (r == 0 && i == 2) || (r == 1 && i == 3);
-}
-__host__ __device__ constexpr bool b_nz(int r) { return r >= 2; }
-
 struct Params {
   float goal[N];
   float i1, i2, l1, l2, m1, m2, lc1, lc2, g;
@@ -112,8 +102,9 @@ __device__ __forceinline__ S final_cost(const Params& p, const S x[N]) {
          + p.kfd * p.kfd * (e2 * e2 + e3 * e3);
 }
 
-// Continuous-time Jacobians A = ∂f/∂x, Bu = ∂f/∂u (jac_soa). Entries with
-// a_nz/b_nz false are left unset: callers never read them.
+// Continuous-time Jacobians A = ∂f/∂x, Bu = ∂f/∂u (jac_soa). Entries that
+// Model::a_kind/b_kind mark structural zeros are left unset: callers never
+// read them.
 __device__ __forceinline__ void jac(const Params& p, const float x[N], float u,
                                     float A[N][N], float Bu[N]) {
   const float qd1 = x[2], qd2 = x[3];
@@ -203,5 +194,74 @@ __device__ __forceinline__ void final_cost_derivs(const Params& p,
     cxx_diag[i] = 2.0f * w[i];
   }
 }
+
+// The model as the fused kernels take it (sweep_step.cuh, rollout_step.cuh,
+// kernels.cuh): the functions above with the control as an array.
+struct Model {
+  static constexpr int N = acrobot::N, M = acrobot::M;
+  using Params = acrobot::Params;
+
+  // Structural pattern of jac(), row by row: '.' a Python-float zero of
+  // jac_soa, '1' a Python-float one, 'x' a live entry
+  // (tests/test_torch_models.py holds it against the JAX package's jac_soa).
+  // The sweep skips the constant terms exactly as ops/kernel_sweep.py's
+  // _fmul/_fadd fold them. The running cost's cxx and the final cost's
+  // are diagonal, its cxu structurally zero.
+  __host__ __device__ static constexpr char a_kind(int r, int i) {
+    return "..1."
+           "...1"
+           "xxxx"
+           "xxxx"[r * N + i];
+  }
+  __host__ __device__ static constexpr char b_kind(int r, int j) {
+    return "."
+           "."
+           "x"
+           "x"[r * M + j];
+  }
+
+  __device__ __forceinline__ static Params load(const float* __restrict__ p) {
+    return load_params(p);
+  }
+  __device__ __forceinline__ static float u_lo(const Params& p, int) {
+    return p.u_min;
+  }
+  __device__ __forceinline__ static float u_hi(const Params& p, int) {
+    return p.u_max;
+  }
+  __device__ __forceinline__ static void dynamics(const Params& p,
+                                                  const float x[N],
+                                                  const float u[M],
+                                                  float dx[N]) {
+    acrobot::dynamics(p, x, u[0], dx);
+  }
+  __device__ __forceinline__ static float cost(const Params& p,
+                                               const float x[N],
+                                               const float u[M]) {
+    return acrobot::cost(p, x, u[0]);
+  }
+  __device__ __forceinline__ static float final_cost(const Params& p,
+                                                     const float x[N]) {
+    return acrobot::final_cost(p, x);
+  }
+  __device__ __forceinline__ static void jac(const Params& p,
+                                             const float x[N],
+                                             const float u[M],
+                                             float A[N][N], float Bu[N][M]) {
+    float b[N];
+    acrobot::jac(p, x, u[0], A, b);
+    Bu[2][0] = b[2];
+    Bu[3][0] = b[3];
+  }
+  __device__ __forceinline__ static void cost_derivs(
+      const Params& p, const float x[N], const float u[M], float cx[N],
+      float cu[M], float cxx[N], float cuu[M]) {
+    acrobot::cost_derivs(p, x, u[0], cx, &cu[0], cxx, &cuu[0]);
+  }
+  __device__ __forceinline__ static void final_cost_derivs(
+      const Params& p, const float x[N], float cx[N], float cxx[N]) {
+    acrobot::final_cost_derivs(p, x, cx, cxx);
+  }
+};
 
 }  // namespace acrobot

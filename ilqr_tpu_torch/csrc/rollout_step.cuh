@@ -1,66 +1,79 @@
-// Closed-loop rollout step and the line-search phases, per lane
-// (counterpart of the rollout bodies of ilqr_tpu/ops/pallas_rollout.py
-// _kernel/_ls_kernel and ilqr_tpu/ops/pallas_iter.py rollout_step,
-// ref src/ilqr_core.cpp:184-226, :305-337).
+// Closed-loop rollout step and the line-search phases, per lane, for a
+// model given as a traits struct (acrobot.cuh Model): counterpart of the
+// rollout bodies of ilqr_tpu/ops/pallas_rollout.py _kernel/_ls_kernel and
+// ilqr_tpu/ops/pallas_iter.py rollout_step, ref src/ilqr_core.cpp:184-226,
+// :305-337.
 //
 // The line-search phases are shared by the line-search kernel and the
 // whole-iteration kernel; they differ only in where the gains are read
 // from (struct Gains).
 #pragma once
 
-#include "acrobot.cuh"
-#include "sweep_step.cuh"
+#include "jnp.cuh"
 
 namespace rollout {
 
-using acrobot::N;
-using acrobot::Params;
-
-// Gains k_t (T,1,B-strided) and K_t rows (T,1,N,B-strided) in device memory.
+// Gains k_t (M rows) and K_t (M·N rows) in device memory, each row B apart.
+template <class Model>
 struct Gains {
+  static constexpr int N = Model::N, M = Model::M;
   const float* k;
   const float* K;
   size_t k_tstride;  // elements between k_t and k_{t+1}
-  size_t K_tstride;  // elements between K_t and K_{t+1}; rows are B apart
+  size_t K_tstride;  // elements between K_t and K_{t+1}
   size_t B;
 
-  __device__ __forceinline__ void load(int t, int lane, float* kv,
-                                       float Kv[N]) const {
-    *kv = k[t * k_tstride + lane];
+  __device__ __forceinline__ void load(int t, int lane, float kv[M],
+                                       float Kv[M][N]) const {
 #pragma unroll
-    for (int i = 0; i < N; ++i) Kv[i] = K[t * K_tstride + i * B + lane];
+    for (int j = 0; j < M; ++j) {
+      kv[j] = k[t * k_tstride + j * B + lane];
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        Kv[j][i] = K[t * K_tstride + (j * N + i) * B + lane];
+    }
   }
 };
 
 // One step: u = u_ff + K (x − x̄) (u_ff already holds u + α·k where the
 // caller has one), optional box clamp, running cost, Euler x += f·dt.
 // Advances x in place; returns the running cost.
-__device__ __forceinline__ float step(const Params& p, float x[N], float u_ff,
-                                      const float xsr[N], const float Krow[N],
-                                      bool clamp, float* u_out) {
-  float u = u_ff;
+template <class Model>
+__device__ __forceinline__ float step(const typename Model::Params& p,
+                                      float x[Model::N],
+                                      const float u_ff[Model::M],
+                                      const float xsr[Model::N],
+                                      const float Krow[Model::M][Model::N],
+                                      bool clamp, float u[Model::M]) {
+  constexpr int N = Model::N, M = Model::M;
 #pragma unroll
-  for (int i = 0; i < N; ++i) u = u + Krow[i] * (x[i] - xsr[i]);
-  if (clamp) u = sweep::clip(u, p.u_min, p.u_max);
-  const float c = acrobot::cost(p, x, u);
+  for (int j = 0; j < M; ++j) {
+    float acc = u_ff[j];
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc = acc + Krow[j][i] * (x[i] - xsr[i]);
+    if (clamp) acc = jnp::clip(acc, Model::u_lo(p, j), Model::u_hi(p, j));
+    u[j] = acc;
+  }
+  const float c = Model::cost(p, x, u);
   float dx[N];
-  acrobot::dynamics(p, x, u, dx);
+  Model::dynamics(p, x, u, dx);
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = x[i] + dx[i] * p.dt;
-  *u_out = u;
   return c;
 }
 
 // Line-search phase 1: all A candidates advanced together from x0, each row
 // of (us, x̄, k, K) read once per timestep for every candidate. The
-// candidate states and running costs stay in registers: every index into
-// them is a compile-time constant after unrolling (a < MAX_A, guarded by
-// a < A).
-template <int MAX_A>
+// candidate states and running costs stay in registers (or spill to local
+// memory for large models): every index into them is a compile-time
+// constant after unrolling (a < MAX_A, guarded by a < A).
+template <class Model, int MAX_A>
 __device__ __forceinline__ void candidate_costs(
-    const Params& p, const float x0[N], const float* __restrict__ us,
-    const float* __restrict__ xs, const Gains& g, const float al[MAX_A],
-    int A, int T, size_t B, int lane, bool clamp, float cand[MAX_A]) {
+    const typename Model::Params& p, const float x0[Model::N],
+    const float* __restrict__ us, const float* __restrict__ xs,
+    const Gains<Model>& g, const float al[MAX_A], int A, int T, size_t B,
+    int lane, bool clamp, float cand[MAX_A]) {
+  constexpr int N = Model::N, M = Model::M;
   float xa[MAX_A][N];
 #pragma unroll
   for (int a = 0; a < MAX_A; ++a) {
@@ -69,23 +82,25 @@ __device__ __forceinline__ void candidate_costs(
     cand[a] = 0.0f;
   }
   for (int t = 0; t < T; ++t) {
-    const float u_row = us[t * B + lane];
-    float xsr[N], Kr[N], kr;
+    float u_row[M], xsr[N], Kr[M][N], kr[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) u_row[j] = us[(t * M + j) * B + lane];
 #pragma unroll
     for (int i = 0; i < N; ++i) xsr[i] = xs[(t * N + i) * B + lane];
-    g.load(t, lane, &kr, Kr);
+    g.load(t, lane, kr, Kr);
 #pragma unroll
     for (int a = 0; a < MAX_A; ++a) {
       if (a < A) {
-        float u;
-        const float c = step(p, xa[a], u_row + al[a] * kr, xsr, Kr, clamp, &u);
-        cand[a] = cand[a] + c;
+        float uff[M], u[M];
+#pragma unroll
+        for (int j = 0; j < M; ++j) uff[j] = u_row[j] + al[a] * kr[j];
+        cand[a] = cand[a] + step<Model>(p, xa[a], uff, xsr, Kr, clamp, u);
       }
     }
   }
 #pragma unroll
   for (int a = 0; a < MAX_A; ++a)
-    if (a < A) cand[a] = cand[a] + acrobot::final_cost(p, xa[a]);
+    if (a < A) cand[a] = cand[a] + Model::final_cost(p, xa[a]);
 }
 
 struct Selection {
@@ -138,34 +153,44 @@ __device__ __forceinline__ Selection select(const float cand[MAX_A],
 // Lanes that take the step get the new trajectory, the others re-emit the
 // current one; keep lanes get the new gains, the others the previous ones
 // (which are then the only ones read).
+template <class Model>
 __device__ __forceinline__ void emit(
-    const Params& p, const float x0[N], const float* __restrict__ us,
-    const float* __restrict__ xs, const float* __restrict__ xterm,
-    const Gains& g, const float* __restrict__ kold,
-    const float* __restrict__ Kold, float alpha, bool take, bool keep, int T,
-    size_t B, int lane, bool clamp, float* __restrict__ xs_out,
-    float* __restrict__ us_out, float* __restrict__ k_out,
-    float* __restrict__ K_out, float* __restrict__ xfin_out) {
+    const typename Model::Params& p, const float x0[Model::N],
+    const float* __restrict__ us, const float* __restrict__ xs,
+    const float* __restrict__ xterm, const Gains<Model>& g,
+    const float* __restrict__ kold, const float* __restrict__ Kold,
+    float alpha, bool take, bool keep, int T, size_t B, int lane, bool clamp,
+    float* __restrict__ xs_out, float* __restrict__ us_out,
+    float* __restrict__ k_out, float* __restrict__ K_out,
+    float* __restrict__ xfin_out) {
+  constexpr int N = Model::N, M = Model::M;
   float x[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = x0[i];
   for (int t = 0; t < T; ++t) {
-    const float u_row = us[t * B + lane];
-    float xsr[N], Kr[N], kr;
+    float u_row[M], xsr[N], Kr[M][N], kr[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) u_row[j] = us[(t * M + j) * B + lane];
 #pragma unroll
     for (int i = 0; i < N; ++i) xsr[i] = xs[(t * N + i) * B + lane];
-    g.load(t, lane, &kr, Kr);
+    g.load(t, lane, kr, Kr);
 #pragma unroll
     for (int i = 0; i < N; ++i)
       xs_out[(t * N + i) * B + lane] = take ? x[i] : xsr[i];
-    float u;
-    step(p, x, u_row + alpha * kr, xsr, Kr, clamp, &u);
-    us_out[t * B + lane] = take ? u : u_row;
-    k_out[t * B + lane] = keep ? kr : kold[t * B + lane];
+    float uff[M], u[M];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const size_t o = (t * N + i) * B + lane;
-      K_out[o] = keep ? Kr[i] : Kold[o];
+    for (int j = 0; j < M; ++j) uff[j] = u_row[j] + alpha * kr[j];
+    step<Model>(p, x, uff, xsr, Kr, clamp, u);
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const size_t o = (t * M + j) * B + lane;
+      us_out[o] = take ? u[j] : u_row[j];
+      k_out[o] = keep ? kr[j] : kold[o];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const size_t oK = ((t * M + j) * N + i) * B + lane;
+        K_out[oK] = keep ? Kr[j][i] : Kold[oK];
+      }
     }
   }
 #pragma unroll

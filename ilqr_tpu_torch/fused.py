@@ -4,10 +4,11 @@
 All solver state stays lane-last ((T, n, B), (B,), …) from the initial
 rollout to the end; the only relayouts are one transpose of the inputs and
 one of the Solution. Per iteration the main path launches ONE kernel
-(ops/kernel_iter.py); ``iter_kernel="split"`` runs the same iteration as a
-sweep kernel plus a line-search kernel; ``sweep_kernel="split"`` replaces
-the sweep by the derivative kernel (once per iteration) and the backward
-kernel (once per λ attempt).
+(ops/kernel_iter.py); ``iter_kernel="split"`` (and ``"auto"`` for models
+with m·n ≥ 32, such as the quadrotor) runs the same iteration as a sweep
+kernel plus a line-search kernel; ``sweep_kernel="split"`` (m = 1 with
+limits) replaces the sweep by the derivative kernel (once per iteration)
+and the backward kernel (once per λ attempt).
 
 The JAX package's two ``lax.while_loop``s are host loops here:
 
@@ -31,6 +32,7 @@ import torch
 
 from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model
+from ilqr_tpu_torch.ops import qp
 from ilqr_tpu_torch.ops.kernel_backward import backward_sweep_packed
 from ilqr_tpu_torch.ops.kernel_derivs import derivs_packed
 from ilqr_tpu_torch.ops.kernel_iter import iteration_packed
@@ -295,27 +297,37 @@ def _finish_iteration(cfg, state, frozen, lam, dlam, gnorm, grad_term,
     )
 
 
+# The widest control dimension of the JAX package's in-kernel QPs
+# (ilqr_tpu/ops/pallas_sweep.py MAX_FUSED_M); the port carries m ≤ 4.
+MAX_FUSED_M = 24
+
+
 def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
-    """True iff :func:`solve_batch_fused` accepts (model, cfg): acrobot
-    (the model the kernels are compiled for), m = 1, the Euler step,
-    control limits with the closed-form QP, shared params; analytic
-    derivatives, or the reference's stencils on the split sweep (whose
-    derivative kernel carries both). Mirrors the guards of
-    :func:`solve_batch_fused` and ilqr_tpu/fused.py:390-442 (the split
-    sweep needs m = 1 and control limits)."""
+    """True iff :func:`solve_batch_fused` accepts (model, cfg). Mirrors the
+    guards of ilqr_tpu/fused.py:390-442 for what is ported: m ≤ 4 (the
+    closed-form and enumeration QPs, or the Newton step without limits), a
+    model with analytic SoA derivatives, the Euler step, shared params;
+    ``sweep_kernel="split"`` needs m = 1 and control limits (the backward
+    kernel's closed-form QP) and also takes the reference's stencils
+    (``deriv_mode="fd"``). On the card the kernels exist for the models of
+    ``ops.kernel_rollout.FUSED_KERNEL_MODELS``; any other raises there."""
     split = cfg.sweep_kernel == "split"
-    return (model.name == "acrobot" and model.m == 1 and model.has_soa
+    return (model.m <= qp.MAX_ENUM_M and model.has_soa
             and model.has_analytic_soa and not cfg.full_ddp
             and (cfg.deriv_mode == "analytic"
                  or (split and cfg.deriv_mode == "fd"))
             and cfg.integrator == "euler"
-            and cfg.use_control_limits
-            and cfg.boxqp_mode in ("auto", "enum", "pn_fixed")
+            and not (split and (model.m >= 2
+                                or not cfg.use_control_limits))
+            and (not cfg.use_control_limits
+                 or cfg.boxqp_mode in ("auto", "enum", "pn_fixed"))
             and cfg.sweep_kernel in ("merged", "split")
             and cfg.iter_kernel in ("auto", "merged", "split"))
 
 
 def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
+    if model.m > MAX_FUSED_M:
+        raise ValueError(f"solve_batch_fused requires m <= {MAX_FUSED_M}")
     if cfg.full_ddp:
         raise ValueError(
             "solve_batch_fused does not support full_ddp (the kernel bodies "
@@ -333,21 +345,25 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
                                         or not cfg.use_control_limits):
         raise ValueError(
             "sweep_kernel='split' needs m = 1 and control limits (the "
-            "backward kernel's closed-form QP)")
+            "backward kernel's closed-form QP); m >= 2 and the "
+            "unconstrained Newton step need sweep_kernel='merged'")
     _use_iter_kernel(model, cfg)
     if not model.has_soa:
         raise ValueError("solve_batch_fused requires SoA model functions")
     if params_batched:
         raise NotImplementedError(
             "params_batched=True is not ported to ilqr_tpu_torch yet")
+    if model.m > qp.MAX_ENUM_M:
+        raise NotImplementedError(
+            f"solve_batch_fused is ported for m <= {qp.MAX_ENUM_M} "
+            f"(model {model.name!r} has m = {model.m}): the in-kernel "
+            "projected-Newton QP for 5 <= m <= 24 comes in the next slice")
     if not fused_applicable(model, cfg):
         raise NotImplementedError(
-            f"solve_batch_fused is ported for acrobot, m = 1, the Euler step "
-            f"and control limits, with analytic derivatives (or fd on the "
-            f"split sweep) only; got model {model.name!r} (m = {model.m}) "
-            f"with deriv_mode={cfg.deriv_mode!r}, "
-            f"integrator={cfg.integrator!r}, "
-            f"use_control_limits={cfg.use_control_limits}")
+            f"solve_batch_fused is ported for the Euler step with analytic "
+            f"SoA derivatives (or fd on the split sweep) only; got model "
+            f"{model.name!r} (analytic SoA: {model.has_analytic_soa}) with "
+            f"deriv_mode={cfg.deriv_mode!r}, integrator={cfg.integrator!r}")
 
 
 def solve_batch_fused(model: Model, params, cfg: SolverConfig, dt, x0, u0,

@@ -1,23 +1,30 @@
 """Model registry (counterpart of ``ilqr_tpu/models/__init__.py``).
 
-Only acrobot is ported so far; the other registered names of the JAX
-package raise ``NotImplementedError``.
+Ported so far: acrobot, double_integrator, point_mass_3d and quadrotor; the
+other registered names of the JAX package raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from ilqr_tpu_torch.models import acrobot
+from ilqr_tpu_torch.models import (
+    acrobot,
+    double_integrator,
+    point_mass_3d,
+    quadrotor,
+)
 from ilqr_tpu_torch.models.base import Model, euler_step, get_integrator, rk4_step
 
-_REGISTRY: Dict[str, Model] = {acrobot.MODEL.name: acrobot.MODEL}
+_REGISTRY: Dict[str, Model] = {
+    mod.MODEL.name: mod.MODEL
+    for mod in (acrobot, double_integrator, point_mass_3d, quadrotor)}
 
 # Models of the JAX package that this package does not carry yet.
 _NOT_YET_PORTED = (
-    "bicycle", "cartpole", "double_integrator", "free_flyer",
-    "omni_thruster", "pendulum", "point_mass_3d", "power_mass", "quadrotor",
-    "thruster_ring", "thruster_ring16", "thruster_ring20", "thruster_ring24",
+    "bicycle", "cartpole", "free_flyer", "omni_thruster", "pendulum",
+    "power_mass", "thruster_ring", "thruster_ring16", "thruster_ring20",
+    "thruster_ring24",
 )
 
 

@@ -38,16 +38,30 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the launchers in csrc/*.cu, in argument order.
+# C signatures of the launchers in csrc/*.cu, in argument order. The fused
+# solver's four kernels have one launcher per model, ilqr_<model>_<kernel>
+# (each model's own csrc/kernels*.cu), all with the signature of <kernel>.
+_FUSED_SIGNATURES = {
+    "rollout": [_P] * 9 + [_I, _I, _I, _P],
+    "sweep": [_P] * 10 + [_I, _I, _I, _P],
+    "linesearch": [_P] * 10 + [_I] + [_P] * 14 + [_F, _I, _I, _I, _P],
+    "iteration": [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I, _I,
+                                               _P],
+}
 _SIGNATURES = {
-    "ilqr_rollout": [_P] * 9 + [_I, _I, _I, _P],
-    "ilqr_sweep": [_P] * 10 + [_I, _I, _P],
-    "ilqr_linesearch": [_P] * 10 + [_I] + [_P] * 14 + [_F, _I, _I, _I, _P],
-    "ilqr_iteration": [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I,
-                                                    _P],
     "ilqr_derivs": [_P] * 10 + [_I, _F, _F, _F, _I, _I, _P],
     "ilqr_backward": [_P] * 16 + [_I, _I, _P],
 }
+
+
+def signature(name: str):
+    """The ctypes argument types of launcher ``name``."""
+    if name in _SIGNATURES:
+        return _SIGNATURES[name]
+    kernel = name.rsplit("_", 1)[-1]
+    if name.startswith("ilqr_") and kernel in _FUSED_SIGNATURES:
+        return _FUSED_SIGNATURES[kernel]
+    raise KeyError(f"no launcher {name!r}")
 
 
 def sources():
@@ -131,15 +145,20 @@ def build_log() -> str:
 def library() -> ctypes.CDLL:
     """The kernel library, built if needed and loaded once per process."""
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
     lib.ilqr_error_string.argtypes = [ctypes.c_int]
     lib.ilqr_error_string.restype = ctypes.c_char_p
     lib.ilqr_max_alphas.argtypes = []
     lib.ilqr_max_alphas.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    """Launcher ``name`` of the library, its argument types bound."""
+    fn = getattr(library(), name)
+    fn.argtypes = signature(name)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def require(t: torch.Tensor, shape, name: str, device: torch.device):
@@ -161,12 +180,12 @@ def require(t: torch.Tensor, shape, name: str, device: torch.device):
 def launch(name: str, device: torch.device, *args) -> None:
     """Calls launcher ``name`` on ``device``'s current stream with ``args``
     (tensors become their data pointers); raises if the launch failed."""
-    lib = library()
+    fn = _launcher(name)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*conv, stream)
+        err = fn(*conv, stream)
     if err != 0:
         raise RuntimeError(
             f"{name}: CUDA error {err}: "
-            f"{lib.ilqr_error_string(err).decode()}")
+            f"{library().ilqr_error_string(err).decode()}")

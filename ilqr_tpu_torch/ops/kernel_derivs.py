@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ilqr_tpu_torch.models.acrobot import AcrobotParams
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
@@ -298,7 +299,9 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
     if not on_cuda(us):
         return derivs_plain(model, integrator, pp, xs, us, mode, eps)
     dev = us.device
-    require_kernel_model(model, integrator, pp, dev)
+    # csrc/derivs.cu is compiled for acrobot alone
+    require_kernel_model(model, integrator, pp, dev,
+                         have={"acrobot": AcrobotParams})
     T, m, B = us.shape
     n = model.n
     _build.require(xs, (T + 1, n, B), "xs", dev)

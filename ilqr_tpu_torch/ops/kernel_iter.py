@@ -66,7 +66,7 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
                                alphas, mode, use_limits, z_min, tol_grad,
                                lambda_grad_term)
     dev = us.device
-    require_kernel_model(model, integrator, pp, dev)
+    prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, B = us.shape
     n = model.n
     A = alphas.shape[0]
@@ -87,10 +87,11 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             torch.empty((T, m, n, B), dtype=F32, device=dev),
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(7)))
     gains = torch.empty((T, m * (n + 1), B), dtype=F32, device=dev)
-    _build.launch("ilqr_iteration", dev, pp.vec, x0, xs_body, xterm, us,
-                  Kold, kold, alphas, A, lam, cost_prev, live, *outs, gains,
-                  float(z_min), float(tol_grad), float(lambda_grad_term), T,
-                  B, int(bool(clamp)))
+    _build.launch(f"{prefix}_iteration", dev, pp.vec, x0, xs_body, xterm,
+                  us, Kold, kold, alphas, A, lam, cost_prev, live, *outs,
+                  gains, float(z_min), float(tol_grad),
+                  float(lambda_grad_term), T, B, int(bool(clamp)),
+                  int(bool(use_limits)))
     iteration_packed.launches += 1
     return outs
 

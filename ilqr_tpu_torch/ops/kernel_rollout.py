@@ -20,6 +20,9 @@ from typing import NamedTuple
 import torch
 
 from ilqr_tpu_torch.models.acrobot import AcrobotParams
+from ilqr_tpu_torch.models.double_integrator import DoubleIntegratorParams
+from ilqr_tpu_torch.models.point_mass_3d import PointMass3DParams
+from ilqr_tpu_torch.models.quadrotor import QuadrotorParams
 from ilqr_tpu_torch.ops import _build
 
 F32 = torch.float32
@@ -73,16 +76,33 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def require_kernel_model(model, integrator: str, pp: PackedParams, device):
-    """The CUDA kernels are compiled for acrobot with the Euler step."""
-    if model.name != "acrobot" or pp.cls is not AcrobotParams:
+# The models the fused solver's four kernels are compiled for (one
+# csrc/kernels*.cu each), with their params types.
+FUSED_KERNEL_MODELS = {
+    "acrobot": AcrobotParams,
+    "double_integrator": DoubleIntegratorParams,
+    "point_mass_3d": PointMass3DParams,
+    "quadrotor": QuadrotorParams,
+}
+
+
+def require_kernel_model(model, integrator: str, pp: PackedParams, device,
+                         have=None) -> str:
+    """Checks that CUDA kernels are compiled for ``model`` (with params of
+    its type) and the Euler step, among ``have`` (name → params type;
+    default the fused kernels' models). Returns the prefix of the model's
+    launchers, ``ilqr_<model>``."""
+    have = FUSED_KERNEL_MODELS if have is None else have
+    if have.get(model.name) is not pp.cls:
         raise NotImplementedError(
-            f"CUDA kernels exist for acrobot only, not {model.name!r}")
+            f"CUDA kernels exist for {', '.join(have)}, not {model.name!r} "
+            f"with {pp.cls.__name__}")
     if integrator != "euler":
         raise NotImplementedError(
             f"integrator {integrator!r} is not ported to the CUDA kernels "
             "(Euler only)")
     _build.require(pp.vec, (pp.vec.numel(),), "packed params", device)
+    return f"ilqr_{model.name}"
 
 
 def require_plain_integrator(integrator: str):
@@ -161,7 +181,7 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     if not on_cuda(x0):
         return rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K)
     dev = x0.device
-    require_kernel_model(model, integrator, pp, dev)
+    prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, n, B = K.shape
     for t, shape, name in ((x0, (n, B), "x0"), (uff, (T, m, B), "uff"),
                            (xsr, (T, n, B), "xsr"), (K, (T, m, n, B), "K")):
@@ -170,7 +190,7 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     us = torch.empty((T, m, B), dtype=F32, device=dev)
     xfin = torch.empty((n, B), dtype=F32, device=dev)
     cost = torch.empty((B,), dtype=F32, device=dev)
-    _build.launch("ilqr_rollout", dev, pp.vec, x0, uff, xsr, K, xs, us, xfin,
+    _build.launch(f"{prefix}_rollout", dev, pp.vec, x0, uff, xsr, K, xs, us, xfin,
                   cost, T, B, int(bool(clamp)))
     rollout_packed.launches += 1
     return xs, us, xfin, cost
@@ -289,7 +309,7 @@ def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
                                 xterm, K, k, Kold, kold, alphas, dv,
                                 cost_prev, gate, keep, z_min)
     dev = x0.device
-    require_kernel_model(model, integrator, pp, dev)
+    prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, n, B = K.shape
     A = alphas.shape[0]
     max_a = _build.library().ilqr_max_alphas()
@@ -309,7 +329,7 @@ def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             torch.empty((T, m, B), dtype=F32, device=dev),
             torch.empty((T, m, n, B), dtype=F32, device=dev),
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(5)))
-    _build.launch("ilqr_linesearch", dev, pp.vec, x0, us, xsr, xterm, K, k,
+    _build.launch(f"{prefix}_linesearch", dev, pp.vec, x0, us, xsr, xterm, K, k,
                   Kold, kold, alphas, A, dv, cost_prev, gate, keep, *outs,
                   float(z_min), T, B, int(bool(clamp)))
     linesearch_packed.launches += 1

@@ -1,16 +1,18 @@
-"""Merged linearize + backward sweep, m = 1 (counterpart of
+"""Merged linearize + backward sweep (counterpart of
 ``ilqr_tpu/ops/pallas_sweep.py``).
 
 Per timestep, in reverse time: the analytic model derivatives at (x_t, u_t)
 (fx = I + dt·A, fu = dt·B, cost derivatives), the Q-terms, the
-λ-regularized QuuF, the closed-form m = 1 box QP clamp(−Qu/QuuF), K zeroed
-on a clamped control, dV, the exactly symmetric Vxx update, a latched
-divergence flag and the gradient norm (ref src/ilqr_core.cpp:350-401).
+λ-regularized QuuF, the in-kernel QP (ops/qp.py: the closed-form m = 1 box
+QP, the exact enumeration for m = 2…4, or with ``use_limits=False`` the
+unconstrained Newton step), the feedback rows zeroed on clamped controls,
+dV, the exactly symmetric Vxx update, a latched divergence flag and the
+gradient norm (ref src/ilqr_core.cpp:350-401).
 
 Ported: analytic derivatives (``mode="jvp"`` with a model that has
-``jac_soa``), the Euler step, ``use_limits=True``, m = 1. Everything else
-raises ``NotImplementedError``: m ≥ 2 QPs, ``use_limits=False``, the
-in-kernel JVP / finite-difference re-derivation and RK4 in the sweep.
+``jac_soa``), the Euler step, m ≤ 4. Everything else raises
+``NotImplementedError``: the projected-Newton QP for m ≥ 5, the in-kernel
+JVP / finite-difference re-derivation and RK4 in the sweep.
 
 Layout and dispatch as in ops/kernel_rollout.py.
 """
@@ -21,11 +23,10 @@ import dataclasses
 
 import torch
 
-from ilqr_tpu_torch.ops import _build
+from ilqr_tpu_torch.ops import _build, qp
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
-    clip,
     on_cuda,
     require_kernel_model,
     unpack_params,
@@ -80,13 +81,10 @@ def _lane(v, like):
 
 def check_supported(model, integrator: str, mode: str, use_limits: bool):
     """Raises for what this slice of the port does not carry."""
-    if model.m != 1:
+    if model.m > qp.MAX_ENUM_M:
         raise NotImplementedError(
-            f"the sweep is ported for m = 1 only (m = {model.m}): the m ≥ 2 "
-            "box QPs are not ported yet")
-    if not use_limits:
-        raise NotImplementedError(
-            "use_limits=False (unconstrained Newton step) is not ported yet")
+            f"the sweep is ported for m <= {qp.MAX_ENUM_M} (m = {model.m}): "
+            "the projected-Newton QP for 5 <= m <= 24 is not ported yet")
     if mode != "jvp" or not model.has_analytic_soa:
         raise NotImplementedError(
             "only the analytic model derivatives (jac_soa) are ported; the "
@@ -119,32 +117,7 @@ def _terminal_init(model, p, xT) -> _Carry:
                   dv0=zero, dv1=zero, div=zero, gacc=zero)
 
 
-def _qp_m1(quuF, qu, lo, hi):
-    """Closed-form 1-D box QP. Returns (k, free, bad, rq) with rq the one
-    reciprocal 1/QuuF (1 on bad lanes) that the feedback rows reuse."""
-    q11 = quuF[0][0]
-    g1 = qu[0]
-    bad = q11 <= 0.0
-    q_safe = torch.where(bad, torch.ones_like(q11), q11)
-    rq = 1.0 / q_safe
-    x1 = clip(-g1 * rq, lo[0], hi[0])
-    gk = q11 * x1 + g1
-    clamped = (((x1 <= lo[0]) & (gk > 0.0))
-               | ((x1 >= hi[0]) & (gk < 0.0)))
-    k = [torch.where(bad, torch.zeros_like(x1), x1)]
-    free = [~clamped & ~bad]
-    return k, free, bad, rq
-
-
-def _free_solve_rows_m1(rq, free, cols):
-    """Rows of −QuuF⁻¹·Qux on the free control, zero on a clamped one
-    (ref ilqr_core.cpp:377-385)."""
-    nrq = -rq
-    return [[torch.where(free[0], cols[0][i] * nrq, torch.zeros_like(nrq))
-             for i in range(len(cols[0]))]]
-
-
-def _sweep_step(model, p, dt, lam, c: _Carry, x, u):
+def _sweep_step(model, p, dt, lam, use_limits, c: _Carry, x, u):
     """One backward step at (x, u); advances ``c`` and returns (k, Krow):
     k a list of m lanes, Krow an m × n nested list of lanes."""
     n, m = model.n, model.m
@@ -213,18 +186,34 @@ def _sweep_step(model, p, dt, lam, c: _Carry, x, u):
             qxx[i][j] = acc
             qxx[j][i] = acc
 
-    lo = [p.u_min[jm] - u[jm] for jm in range(m)]
-    hi = [p.u_max[jm] - u[jm] for jm in range(m)]
-    k_i, free, bad, rq = _qp_m1(quuF, qu, lo, hi)
-    Krow = _free_solve_rows_m1(rq, free, qux)
+    if use_limits:
+        lo = [p.u_min[jm] - u[jm] for jm in range(m)]
+        hi = [p.u_max[jm] - u[jm] for jm in range(m)]
+        k_i, free, bad = qp.box_qp(quuF, qu, lo, hi, m)
+    else:
+        k_i, free, bad = qp.qp_newton(quuF, qu, m)
+    Krow = qp.free_solve_rows(quuF, free, qux, m)
 
+    # dV and the divergence latch; the JAX kernel sums onto a zero tile,
+    # which leaves every value as the first term's
     c.div = torch.maximum(c.div, bad.to(F32))
     d0 = k_i[0] * qu[0]
-    d1 = 0.5 * k_i[0] * quu[0][0] * k_i[0]
+    for jm in range(1, m):
+        d0 = d0 + k_i[jm] * qu[jm]
+    d1 = None
+    for im in range(m):
+        for jm in range(m):
+            t = 0.5 * k_i[im] * quu[im][jm] * k_i[jm]
+            d1 = t if d1 is None else d1 + t
     c.dv0 = c.dv0 + d0
     c.dv1 = c.dv1 + d1
 
-    quu_k = [quu[im][0] * k_i[0] for im in range(m)]
+    quu_k = []
+    for im in range(m):
+        acc = quu[im][0] * k_i[0]
+        for jm in range(1, m):
+            acc = acc + quu[im][jm] * k_i[jm]
+        quu_k.append(acc)
     vx_new = []
     for i in range(n):
         acc = qx[i]
@@ -245,6 +234,9 @@ def _sweep_step(model, p, dt, lam, c: _Carry, x, u):
     c.vx, c.vxx = vx_new, vxx_new
 
     gstep = torch.abs(k_i[0]) / (torch.abs(u[0]) + 1.0)
+    for jm in range(1, m):
+        gstep = torch.maximum(gstep,
+                              torch.abs(k_i[jm]) / (torch.abs(u[jm]) + 1.0))
     c.gacc = c.gacc + gstep
     return k_i, Krow
 
@@ -260,7 +252,8 @@ def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
     K = torch.empty((T, m, n, B), dtype=F32, device=us.device)
     c = _terminal_init(model, p, xterm)
     for t in reversed(range(T)):
-        k_i, Krow = _sweep_step(model, p, dt, lam, c, xs_body[t], us[t])
+        k_i, Krow = _sweep_step(model, p, dt, lam, use_limits, c,
+                                xs_body[t], us[t])
         k[t] = torch.stack(k_i)
         K[t] = torch.stack([torch.stack(row) for row in Krow])
     dv = torch.stack([c.dv0, c.dv1])
@@ -273,7 +266,8 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
 
     Shapes: xs_body (T, n, B) and xterm (n, B) — the trajectory body and
     terminal state; us (T, m, B); lam (B,). Control limits come from the
-    packed params. Returns (k (T, m, B), K (T, m, n, B), dv (2, B),
+    packed params; ``use_limits=False`` takes the unconstrained Newton
+    step instead. Returns (k (T, m, B), K (T, m, n, B), dv (2, B),
     diverged (B,) f32 0/1, gnorm (B,)).
     """
     check_supported(model, integrator, mode, use_limits)
@@ -281,7 +275,7 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
         return sweep_plain(model, integrator, pp, xs_body, xterm, us, lam,
                            mode, use_limits)
     dev = us.device
-    require_kernel_model(model, integrator, pp, dev)
+    prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, B = us.shape
     n = model.n
     for t, shape, name in ((xs_body, (T, n, B), "xs_body"),
@@ -293,8 +287,8 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     dv = torch.empty((2, B), dtype=F32, device=dev)
     div = torch.empty((B,), dtype=F32, device=dev)
     gnorm = torch.empty((B,), dtype=F32, device=dev)
-    _build.launch("ilqr_sweep", dev, pp.vec, xs_body, xterm, us, lam, k, K,
-                  dv, div, gnorm, T, B)
+    _build.launch(f"{prefix}_sweep", dev, pp.vec, xs_body, xterm, us, lam, k, K, dv,
+                  div, gnorm, T, B, int(bool(use_limits)))
     sweep_packed.launches += 1
     return k, K, dv, div, gnorm
 

@@ -13,6 +13,8 @@ cprev − cost — and with it the λ schedule and the next step — is decided
 by rounding and may differ between any two f32 implementations.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from ilqr_tpu import SolverConfig as JaxConfig
 from ilqr_tpu.fused import solve_batch_fused as jax_solve
 from ilqr_tpu.models import acrobot as jac
 from ilqr_tpu_torch import SolverConfig, get_model, solve_batch_fused
+from ilqr_tpu_torch.fused import fused_applicable
 from ilqr_tpu_torch.models import acrobot as tac
 
 FAST_ALPHAS = (1.0, 0.3, 0.03)
@@ -175,7 +178,8 @@ def test_unsupported_configurations_raise():
     for bad, exc in ((dict(sweep_kernel="split", iter_kernel="merged"),
                       ValueError),
                      (dict(sweep_kernel="fused"), ValueError),
-                     (dict(use_control_limits=False), NotImplementedError),
+                     (dict(sweep_kernel="split", use_control_limits=False),
+                      ValueError),
                      (dict(deriv_mode="fd"), NotImplementedError),
                      (dict(integrator="rk4"), NotImplementedError),
                      (dict(full_ddp=True), ValueError),
@@ -186,14 +190,36 @@ def test_unsupported_configurations_raise():
     with pytest.raises(NotImplementedError):
         solve_batch_fused(m, p, SolverConfig(), 0.02, x0, u0, device="cpu",
                           params_batched=True)
-    from ilqr_tpu_torch.fused import fused_applicable, solve_batch_fused_warm
+    # m >= 2 runs on the merged sweep only (the split sweep's backward
+    # kernel is the closed-form m = 1 QP)
+    di = get_model("double_integrator")
+    with pytest.raises(ValueError, match="sweep_kernel"):
+        solve_batch_fused(di, di.default_params(),
+                          SolverConfig(sweep_kernel="split"), 0.02,
+                          np.zeros((2, 4), np.float32),
+                          np.zeros((5, 2), np.float32), device="cpu")
+    # m >= 5 waits for the projected-Newton QP; m > 24 is past the JAX
+    # package's cap
+    for mm, exc in ((6, NotImplementedError), (25, ValueError)):
+        wide = dataclasses.replace(m, name=f"m{mm}", m=mm)
+        with pytest.raises(exc):
+            solve_batch_fused(wide, p, SolverConfig(), 0.02, x0,
+                              np.zeros((5, mm), np.float32), device="cpu")
+        assert not fused_applicable(wide, SolverConfig())
+    from ilqr_tpu_torch.fused import solve_batch_fused_warm
 
     with pytest.raises(NotImplementedError):
         solve_batch_fused_warm(m, p, SolverConfig(), 0.02, x0, None,
                                device="cpu")
     assert fused_applicable(m, SolverConfig())
+    assert fused_applicable(m, SolverConfig(use_control_limits=False))
     assert not fused_applicable(m, SolverConfig(deriv_mode="fd"))
     assert fused_applicable(m, SolverConfig(sweep_kernel="split",
                                             deriv_mode="fd"))
     assert not fused_applicable(m, SolverConfig(sweep_kernel="split",
                                                 use_control_limits=False))
+    for name in ("double_integrator", "point_mass_3d", "quadrotor"):
+        mm = get_model(name)
+        assert fused_applicable(mm, SolverConfig())
+        assert fused_applicable(mm, SolverConfig(use_control_limits=False))
+        assert not fused_applicable(mm, SolverConfig(sweep_kernel="split"))
