@@ -26,8 +26,20 @@ Phases (any failure raises and the script exits non-zero):
   7. equivalence at B = 1024, T = T_EQ, 12 iterations: the composable
      path and the fused split sweep each against the fused merged route
      (the gauge below), with the share of lanes a 1e-6 nudge of x0 forks;
-  8. one JSON line listing every kernel, the card's line, and the last
-     line {"ok": true, "device": {...}}.
+  8. the m = 2…4 slice (experiments/secondary_bench.py's workloads): each
+     model's four kernels against their plain versions at its path's
+     shapes (the quadrotor at B = 1024, T = 80, A = 11; the double
+     integrator and the 3-D point mass at B = 1024, T = 99); the quadrotor
+     path at full width (B = 1024, T = 80, max_iter = 40: solves/s, cost,
+     iterations, reasons, launches, a profiled solve, and unasserted at
+     B = 8192) and its merged route against its split one under the gauge;
+     the double integrator (with and without limits) and 3-D point mass
+     paths, and their split routes against the merged ones; the double
+     integrator's reference solve against golden/integrator_golden.csv, and
+     short solves of the point mass and the quadrotor against the plain
+     path on the CPU;
+  9. one JSON line listing every kernel × model instantiation launched, the
+     card's line, and the last line {"ok": true, "device": {...}}.
 
 It needs one CUDA device and the ilqr_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -52,7 +64,12 @@ from ilqr_tpu_torch import (
     solve_batch_fused,
     solver,
 )
-from ilqr_tpu_torch.models import acrobot
+from ilqr_tpu_torch.models import (
+    acrobot,
+    double_integrator,
+    point_mass_3d,
+    quadrotor,
+)
 from ilqr_tpu_torch.ops import (
     _build,
     kernel_backward,
@@ -276,17 +293,28 @@ def compare_kernels(dev, model, pp, cfg):
         for name, r in rows.items()}
 
 
-def compare_stage(label, op, plain, args, ops, where, unread=None):
+def compare_stage(label, op, plain, args, ops, where, unread=None,
+                  plain_reps=2):
     """One kernel against its plain version on the same inputs: errors,
     times, and the bound — every input read once and every output written
-    once, less ``unread(outputs)`` bytes the function need not read."""
+    once, less ``unread(outputs)`` bytes the function need not read. With
+    ``plain_reps=0`` the plain version's time is that of the comparison
+    call itself (CUDA events), for plain versions that take seconds."""
     got = op(*args)
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = plain(*args)
+    end.record()
+    end.synchronize()
     abs_e, rel_e = max_errs(got, want)
-    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    # bit for bit, NaNs in the same places counting as equal
+    bitwise = all(bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+                  for g, w in zip(got, want))
     ms = time_ms(lambda: op(*args), reps=5)
-    plain_ms = time_ms(lambda: plain(*args), reps=2)
+    plain_ms = (time_ms(lambda: plain(*args), reps=plain_reps) if plain_reps
+                else start.elapsed_time(end))
     total = nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got)
     if unread is not None:
         total -= unread(got)
@@ -462,15 +490,17 @@ def plain_ops():
             setattr(fused, name, fn)
 
 
-def profile_solve(label, solve_fn, wall_s):
-    """Where one flagship-size solve's time goes: device time by kernel
-    from torch.profiler (CUPTI), and the device's busy share of the
-    unprofiled median wall time ``wall_s``. ``solve_fn(x0, u0)`` runs it."""
+def profile_solve(label, solve_fn, wall_s, x0=None, u0=None):
+    """Where one solve's time goes: device time by kernel from
+    torch.profiler (CUPTI), and the device's busy share of the unprofiled
+    median wall time ``wall_s``. ``solve_fn(x0, u0)`` runs it; x0 and u0
+    default to a flagship-size acrobot draw."""
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(2)
-    x0 = (0.05 * rng.normal(size=(B_MAIN, N))).astype(np.float32)
-    u0 = np.zeros((T, M), np.float32)
+    if x0 is None:
+        rng = np.random.default_rng(2)
+        x0 = (0.05 * rng.normal(size=(B_MAIN, N))).astype(np.float32)
+        u0 = np.zeros((T, M), np.float32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -734,6 +764,367 @@ def run_equivalence(dev, model, params, cfg):
           f"{split_retried:.3f}")
     return res
 
+# ---------------------------------------------------------------------------
+# The m = 2…4 slice: experiments/secondary_bench.py's workloads, the
+# quadrotor at :88-116 (full width, uncut), the double integrator and the
+# 3-D point mass at :55-70.
+
+B_M = 1024
+B_WIDE = 8192          # the quadrotor path again: printed, not asserted
+QUAD_T, QUAD_ITERS = 80, 40
+M23_T, M23_ITERS = 99, 100
+SLICE_MODELS = {"double_integrator": double_integrator,
+                "point_mass_3d": point_mass_3d, "quadrotor": quadrotor}
+# The reference binary's integrator solve from x0 = (-1, 0, 0, -0.2): its
+# converged cost (its log) and trajectory (golden/integrator_golden.csv),
+# as tests/test_solver.py:30-46 holds the JAX package to them.
+GOLDEN_CSV = "golden/integrator_golden.csv"
+GOLDEN_COST, GOLDEN_COST_TOL, GOLDEN_US_TOL = 356.1685, 1e-2, 1e-3
+# Short solves on the card against the plain path on the CPU: the models
+# without trig agree to the bit; 1e-3 covers the quadrotor's sin/cos ulps.
+CPU_RTOL = {"point_mass_3d": 1e-4, "quadrotor": 1e-3}
+
+
+def workload(name, B=B_M):
+    """(model, params, cfg, T, u0 (T, m), draw(rng) -> x0 (B, n)) of the
+    slice's path for ``name``, as secondary_bench.py draws it."""
+    model = get_model(name)
+    params = SLICE_MODELS[name].default_params()
+    if name == "quadrotor":
+        T, iters = QUAD_T, QUAD_ITERS
+        u0 = np.tile(quadrotor.hover_control(params).numpy()[None], (T, 1))
+        draw = lambda rng: 0.05 * rng.normal(size=(B, 12))
+    elif name == "double_integrator":
+        T, iters = M23_T, M23_ITERS
+        u0 = np.zeros((T, 2))
+        draw = lambda rng: (np.asarray([-1.0, 0.0, 0.0, -0.2])
+                            + 0.1 * rng.normal(size=(B, 4)))
+    else:
+        T, iters = M23_T, M23_ITERS
+        u0 = np.zeros((T, 3))
+        draw = lambda rng: 0.3 * rng.normal(size=(B, 6))
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       use_control_limits=True, max_iter=iters)
+    return (model, params, cfg, T, u0.astype(np.float32),
+            lambda rng: draw(rng).astype(np.float32))
+
+
+def lane_ops(model, params, kind, use_limits=True, A=11):
+    """f32 operations per (t, lane) and per lane of a kernel, counted from
+    its plain version (the same arithmetic) on one CPU lane."""
+    rng = np.random.default_rng(6)
+    pp = kernel_rollout.pack_params(params, DT)
+    n, m = model.n, model.m
+    f = lambda *s: torch.as_tensor(0.1 * rng.normal(size=s),
+                                   dtype=torch.float32)
+    al = torch.linspace(1.0, 0.001, A)
+    one = torch.ones(1)
+
+    def at(t):
+        x0, xs, xT, us = f(n, 1), f(t, n, 1), f(n, 1), 1.0 + f(t, m, 1)
+        K, k = f(t, m, n, 1), f(t, m, 1)
+        if kind == "rollout":
+            return kernel_rollout.rollout_plain(model, "euler", True, pp, x0,
+                                                us, xs, K)
+        if kind == "sweep":
+            return kernel_sweep.sweep_plain(model, "euler", pp, xs, xT, us,
+                                            one, "jvp", use_limits)
+        if kind == "linesearch":
+            return kernel_rollout.linesearch_plain(
+                model, "euler", True, pp, x0, us, xs, xT, K, k, K, k, al,
+                torch.stack([-one, one]), one, one, one, 0.0)
+        return kernel_iter.iteration_plain(
+            model, "euler", True, pp, x0, xs, xT, us, k, K, one, one, one,
+            al, "jvp", use_limits)
+    return ops_per_step(at)
+
+
+def compare_model_kernels(dev, name):
+    """Phase 8a: the model's four kernels (and, for the double integrator,
+    the whole iteration without limits, which its unconstrained path runs)
+    against their plain versions on the card at its path's shapes, on its
+    path's x0, open-loop rollout and first gains; masks mixed."""
+    model, params, cfg, T, u0, draw = workload(name)
+    B, A, n, m = B_M, len(cfg.alphas), model.n, model.m
+    rng = np.random.default_rng(0)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(params, DT, dev)
+    x0 = f(draw(rng)).t().contiguous()
+    us_in = f(u0)[:, :, None].expand(T, m, B).contiguous()
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    xs0, us0, xT0, c0 = kernel_rollout.rollout_plain(
+        model, "euler", True, pp, x0, us_in, zeros(T, n, B),
+        zeros(T, m, n, B))
+    lam = torch.ones(B, device=dev)
+    # the first iteration's gains, as the line search receives them (from
+    # the kernel: its plain version takes seconds here)
+    k1, K1, dv1, _d, _g = kernel_sweep.sweep_packed(model, "euler", pp, xs0,
+                                                    xT0, us0, lam)
+    live, gate, keep = (f(rng.uniform(size=B) > 0.5) for _ in range(3))
+    alphas = f(cfg.alphas)
+    xsr = xs0 + f(0.01 * rng.normal(size=(T, n, B)))
+    Kr = f(0.05 * rng.normal(size=(T, m, n, B)))
+    uff = us0 + f(0.2 * rng.normal(size=(T, m, B)))
+    kold, Kold = f(rng.normal(size=(T, m, B))), f(rng.normal(size=(T, m, n,
+                                                                   B)))
+    old_bytes = nbytes(kold, Kold)
+    cases = {
+        "rollout_packed": (kernel_rollout.rollout_packed,
+                           kernel_rollout.rollout_plain,
+                           (model, "euler", True, pp, x0, uff, xsr, Kr),
+                           "rollout", True, None),
+        "sweep_packed": (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+                         (model, "euler", pp, xs0, xT0, us0, lam), "sweep",
+                         True, None),
+        "linesearch_packed": (
+            kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+            (model, "euler", True, pp, x0, us0, xs0, xT0, K1, k1, Kold, kold,
+             alphas, dv1, c0, gate, keep, cfg.z_min), "linesearch", True,
+            lambda got: old_bytes * (keep > 0.5).float().mean().item()),
+        "iteration_packed": (
+            kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+            (model, "euler", True, pp, x0, xs0, xT0, us0, kold, Kold, lam,
+             c0, live, alphas, "jvp", True, cfg.z_min, cfg.tol_grad,
+             cfg.lambda_grad_term), "iteration", True,
+            lambda got: old_bytes * ((got[10] < 0.5) & (live > 0.5))
+            .float().mean().item()),
+    }
+    if name == "double_integrator":
+        cases["iteration_packed/unconstrained"] = (
+            kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+            (model, "euler", False, pp, x0, xs0, xT0, us0, kold, Kold, lam,
+             c0, live, alphas, "jvp", False, cfg.z_min, cfg.tol_grad,
+             cfg.lambda_grad_term), "iteration", False,
+            lambda got: old_bytes * ((got[10] < 0.5) & (live > 0.5))
+            .float().mean().item())
+    rows = {}
+    for label, (op, plain, args, kind, limits, unread) in cases.items():
+        key = f"{label.split('/')[0]}/{name}" + (
+            "" if limits else "/unconstrained")
+        step, rest = lane_ops(model, params, kind, limits, A)
+        row = compare_stage(
+            key, op, plain, args, step * T * B + rest * B,
+            f"({step} per (t, lane)) at B={B} T={T} A={A}", unread,
+            plain_reps=0)
+        rows[key] = dict(row, kernel=f"{kind}_kernel", model=name,
+                         limits=limits)
+    return rows
+
+
+def run_model_path(dev, name, label, B=B_M, reps=3, **cfg_extra):
+    """One slice path through solve_batch_fused: a warm-up solve on the
+    first x0 draw, then ``reps`` timed solves on new draws, each ending in
+    a full device-to-host copy, with the launch counts of the first timed
+    solve (set to 0 just before it, read just after)."""
+    model, params, cfg, T, u0, draw = workload(name, B)
+    cfg = cfg.replace(**cfg_extra)
+    rng = np.random.default_rng(0)
+    x0_first = draw(rng)
+    pp = kernel_rollout.pack_params(params, DT, dev)
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    us_in = torch.as_tensor(u0, device=dev)[:, :, None].expand(
+        T, model.m, B).contiguous()
+    init = kernel_rollout.rollout_packed(
+        model, "euler", cfg.clamp_forward, pp,
+        torch.as_tensor(x0_first, device=dev).t().contiguous(), us_in,
+        zeros(T, model.n, B), zeros(T, model.m, model.n, B))[3]
+    init_cost = float(init.mean().item())
+    first = solve_batch_fused(model, params, cfg, DT, x0_first, u0)
+    first_cost = first.cost.cpu().numpy()
+    runs = []
+    for rep in range(reps):
+        x0 = draw(rng)
+        reset_launch_counts()
+        fused._host_any.syncs = 0
+        fused._iteration.calls = 0
+        fused._iteration.retried = 0
+        t0 = time.perf_counter()
+        sol = solve_batch_fused(model, params, cfg, DT, x0, u0)
+        host = {k: v.cpu() for k, v in sol._asdict().items()}  # full D2H
+        wall = time.perf_counter() - t0
+        runs.append(dict(wall=wall, counts=launch_counts(),
+                         host_iters=fused._iteration.calls,
+                         syncs=fused._host_any.syncs,
+                         retried=fused._iteration.retried, sol=host))
+    walls = [r["wall"] for r in runs]
+    sol, c = runs[-1]["sol"], runs[0]["counts"]
+    cost = sol["cost"].numpy()
+    its = max(1, runs[0]["host_iters"])
+    hist = {int(k): int(v) for k, v in
+            zip(*np.unique(sol["reason"].numpy(), return_counts=True))}
+    out = dict(
+        B=B, T=T, max_iter=cfg.max_iter, solves_per_s=B / float(
+            np.median(walls)), wall_s=walls, mean_cost=float(cost.mean()),
+        init_mean_cost=init_cost,
+        mean_iters=float(sol["iterations"].float().mean()),
+        reason_hist=hist, launches=c, host_iterations=runs[0]["host_iters"],
+        syncs_per_iteration=runs[0]["syncs"] / its,
+        retried_share=runs[0]["retried"] / its,
+        ms_per_iteration=float(np.median(walls)) * 1e3 / its)
+    print(f"[slice] {label}: B={B} T={T} max_iter={cfg.max_iter}: "
+          f"{out['solves_per_s']:.1f} solves/s (median of {reps}; "
+          f"{nvidia_smi()}), {out['ms_per_iteration']:.3f} ms/iteration, "
+          f"mean_cost {out['mean_cost']:.4f} (initial rollout "
+          f"{init_cost:.4f}), mean_iters {out['mean_iters']:.2f}, reasons "
+          f"{hist}, launches {c}, host syncs/iteration "
+          f"{out['syncs_per_iteration']:.3f}, iterations that retried "
+          f"{out['retried_share']:.3f}")
+    if not np.all(np.isfinite(cost)):
+        raise AssertionError(f"non-finite costs on the {label} path")
+    if not out["mean_cost"] < init_cost:
+        raise AssertionError(f"{label}: mean cost {out['mean_cost']} is not "
+                             f"below the initial rollout's {init_cost}")
+    if c["rollout_packed"] != 1:
+        raise AssertionError(f"{label}: rollout_packed ran "
+                             f"{c['rollout_packed']} times in one solve")
+    return out, (x0_first, first_cost, walls)
+
+
+def route_gauge(dev, name, label, x0, ref_cost, **cfg_extra):
+    """The same first x0 through another route (launch counts set to 0 just
+    before, read just after), held against ``ref_cost`` under the gauge."""
+    model, params, cfg, T, u0, _draw = workload(name)
+    reset_launch_counts()
+    sol = solve_batch_fused(model, params, cfg.replace(**cfg_extra), DT, x0,
+                            u0)
+    cost = sol.cost.cpu().numpy()
+    counts = launch_counts()
+    p99, mx = gauge(cost, ref_cost)
+    print(f"[slice] {label} at B={len(x0)} T={T} max_iter={cfg.max_iter}: "
+          f"per-lane |c1-c2|/(1+|c2|) p99 {p99:.3e} (≤ {GAUGE_P99:g}), max "
+          f"{mx:.3e} (≤ {GAUGE_MAX:g}); launches {counts}")
+    if not (np.isfinite(cost).all() and p99 <= GAUGE_P99
+            and mx <= GAUGE_MAX):
+        raise AssertionError(f"{label} outside the gauge")
+    return dict(p99=p99, max=mx, launches=counts)
+
+
+def check_references(dev):
+    """The slice's solutions against the repo's references on small
+    inputs: the double integrator's reference solve against the reference
+    binary's golden trajectory and cost, and short point-mass and
+    quadrotor solves against the plain path on the CPU."""
+    out = {}
+    model, params, cfg, T, u0, _d = workload("double_integrator")
+    sol = solve_batch_fused(model, params, cfg, DT,
+                            np.asarray([[-1.0, 0.0, 0.0, -0.2]], np.float32),
+                            u0)
+    rows = [[float(v) for v in line.replace(",", " ").split()]
+            for line in open(GOLDEN_CSV).read().splitlines()[1:]]
+    gu = np.asarray([r[4:6] for r in rows[:-1]])
+    cost = float(sol.cost.item())
+    us_err = float(np.abs(sol.us[0].cpu().numpy() - gu).max())
+    out["integrator_golden"] = dict(cost=cost, golden_cost=GOLDEN_COST,
+                                    max_us_err=us_err,
+                                    iterations=int(sol.iterations.item()))
+    print(f"[slice] double integrator from (-1, 0, 0, -0.2): cost {cost:.4f} "
+          f"(reference {GOLDEN_COST}, ≤ {GOLDEN_COST_TOL}), max |u − u_ref| "
+          f"{us_err:.2e} (≤ {GOLDEN_US_TOL:g}) after "
+          f"{int(sol.iterations.item())} iterations")
+    if not (abs(cost - GOLDEN_COST) <= GOLDEN_COST_TOL
+            and us_err <= GOLDEN_US_TOL):
+        raise AssertionError("the double integrator left the reference's "
+                             "solution")
+    for name, T_c, iters in (("point_mass_3d", M23_T, 10),
+                             ("quadrotor", 20, 5)):
+        model, params, cfg, _T, u0, draw = workload(name, B=4)
+        cfg = cfg.replace(max_iter=iters)
+        x0 = draw(np.random.default_rng(9))
+        card = solve_batch_fused(model, params, cfg, DT, x0, u0[:T_c])
+        cpu = solve_batch_fused(model, params, cfg, DT, x0, u0[:T_c],
+                                device="cpu")
+        c_card, c_cpu = card.cost.cpu().numpy(), cpu.cost.numpy()
+        rel = float(np.max(np.abs(c_card - c_cpu) / np.abs(c_cpu)))
+        out[f"{name}_card_vs_cpu"] = dict(T=T_c, max_iter=iters, lanes=4,
+                                          max_rel_cost_diff=rel)
+        print(f"[slice] {name}, 4 lanes, T={T_c}, max_iter={iters}: card vs "
+              f"the plain path on the CPU, max relative cost difference "
+              f"{rel:.2e} (≤ {CPU_RTOL[name]:g})")
+        if not rel <= CPU_RTOL[name]:
+            raise AssertionError(f"{name}: the card left the CPU's solve")
+    return out
+
+
+def ptxas_table(log: str):
+    """(kernel, model, limits) → registers and spills, from ptxas -v."""
+    table, entry = {}, None
+    models = ("double_integrator", "point_mass_3d", "quadrotor", "acrobot")
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            kernel = next((k for k in KERNEL_NAMES if k in name), name)
+            model = next((m for m in models if m in name), "acrobot")
+            limits = None   # the sweep and iteration kernels' template flag
+            if kernel in ("sweep_kernel", "iteration_kernel"):
+                limits = "Lb1E" in name
+            entry = table.setdefault((kernel, model, limits), {})
+        elif entry is not None and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            entry.update(stack_bytes=nums[0], spill_stores=nums[1],
+                         spill_loads=nums[2])
+        elif entry is not None and "Used" in line and "registers" in line:
+            entry["registers"] = int(line.split("Used")[1].split()[0])
+            entry = None
+    return table
+
+
+def run_slice(dev):
+    """Phase 8: the m = 2…4 slice. Returns (kernel rows, results)."""
+    rows = {}
+    for name in SLICE_MODELS:
+        rows.update(compare_model_kernels(dev, name))
+    res = {}
+    quad, (qx0, qcost, qwalls) = run_model_path(dev, "quadrotor",
+                                                "quadrotor")
+    c = quad["launches"]
+    if (c["sweep_packed"] < quad["host_iterations"]
+            or c["linesearch_packed"] < 1 or c["iteration_packed"]):
+        raise AssertionError(f"the quadrotor's auto route is the split "
+                             f"iteration (m·n ≥ 32): {c}")
+    model, params, cfg, T, u0, draw = workload("quadrotor")
+    quad["profile"] = profile_solve(
+        "quadrotor", lambda x0, u0_: solve_batch_fused(model, params, cfg,
+                                                       DT, x0, u0_),
+        float(np.median(qwalls)), draw(np.random.default_rng(2)), u0)
+    quad["wide"], _w = run_model_path(dev, "quadrotor",
+                                      "quadrotor at B = 8192 (not asserted)",
+                                      B=B_WIDE, reps=1)
+    quad["merged_route"] = route_gauge(
+        dev, "quadrotor", "quadrotor merged route vs split", qx0, qcost,
+        iter_kernel="merged")
+    res["quadrotor"] = quad
+    for key in ("rollout_packed", "sweep_packed", "linesearch_packed"):
+        rows[f"{key}/quadrotor"]["launches"] = c[key]
+    rows["iteration_packed/quadrotor"]["launches"] = (
+        quad["merged_route"]["launches"]["iteration_packed"])
+
+    for name in ("double_integrator", "point_mass_3d"):
+        out, (x0, cost, _w) = run_model_path(dev, name, name)
+        c = out["launches"]
+        if (c["iteration_packed"] < out["host_iterations"]
+                or c["sweep_packed"] or c["linesearch_packed"]):
+            raise AssertionError(f"{name}: the auto route is the whole "
+                                 f"iteration kernel (m·n < 32): {c}")
+        out["split_route"] = route_gauge(
+            dev, name, f"{name} split route vs merged", x0, cost,
+            iter_kernel="split")
+        for key in ("rollout_packed", "iteration_packed"):
+            rows[f"{key}/{name}"]["launches"] = c[key]
+        for key in ("sweep_packed", "linesearch_packed"):
+            rows[f"{key}/{name}"]["launches"] = (
+                out["split_route"]["launches"][key])
+        res[name] = out
+    free, _x = run_model_path(dev, "double_integrator",
+                              "double integrator without limits",
+                              use_control_limits=False, clamp_forward=False)
+    rows["iteration_packed/double_integrator/unconstrained"]["launches"] = (
+        free["launches"]["iteration_packed"])
+    res["double_integrator_unconstrained"] = free
+    res["references"] = check_references(dev)
+    return rows, res
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -752,9 +1143,14 @@ def main() -> int:
     print(f"[build] {lib.name} from {len(_build.sources())} sources in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{' '.join(_build.NVCC_FLAGS)}, one process per .cu)")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    ptxas = ptxas_table(_build.build_log())
+    for (kernel, model_name, limits), e in sorted(
+            ptxas.items(), key=lambda kv: str(kv[0])):
+        print(f"[build] {kernel}<{model_name}"
+              + ("" if limits is None else f", limits={limits}")
+              + f">: {e.get('registers')} registers, "
+              f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} B "
+              f"spill stores, {e.get('spill_loads')} B spill loads")
 
     model = get_model("acrobot")
     params = acrobot.default_params()
@@ -777,11 +1173,28 @@ def main() -> int:
     for name in ("derivs_packed", "backward_sweep_packed"):
         rows[name]["launches"] = comp_out["launches"][name]
     equiv = run_equivalence(dev, model, params, cfg)
-    if not all(r["launches"] for r in rows.values()):
+    rows = {f"{name}/acrobot": dict(r, kernel=name.replace(
+        "_packed", "_kernel").replace("backward_sweep", "backward"),
+        model="acrobot", limits=True) for name, r in rows.items()}
+    slice_rows, slice_out = run_slice(dev)
+    rows.update(slice_rows)
+    for name, r in rows.items():
+        r["name"] = name
+        if r["model"] != "acrobot":
+            r.update(route="cuda",
+                     source=f"ilqr_tpu_torch/csrc/kernels_{r['model']}.cu",
+                     replaces=REPLACES[name.split("/")[0]], tol=KERNEL_TOL,
+                     library_ms=None, library_note=(
+                         "no single PyTorch call computes this function"))
+        limits = r["limits"] if r["kernel"] in (
+            "sweep_kernel", "iteration_kernel") else None
+        r.update(ptxas.get((r["kernel"], r["model"], limits), {}))
+    if not all(r.get("launches") for r in rows.values()):
         raise AssertionError(f"a kernel was never launched: {rows}")
 
     print(json.dumps({"main_path": main_out, "split_path": gauges,
-                      "composable_path": comp_out, "equivalence": equiv}))
+                      "composable_path": comp_out, "equivalence": equiv,
+                      "slice": slice_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,9 @@ from ilqr_tpu_torch import (
     solve_batch_fused,
 )
 from ilqr_tpu_torch.models import acrobot as tac
+from ilqr_tpu_torch.models import double_integrator as tdi
+from ilqr_tpu_torch.models import point_mass_3d as tpm
+from ilqr_tpu_torch.models import quadrotor as tqd
 from ilqr_tpu_torch.ops import (
     kernel_backward,
     kernel_derivs,
@@ -248,3 +251,85 @@ def test_single_problem_solve_on_card(dev):
     assert card.xs.shape == (9, 4)
     np.testing.assert_allclose(card.cost.item(), plain.cost.item(),
                                rtol=1e-4)
+
+
+MODS = {"acrobot": tac, "double_integrator": tdi, "point_mass_3d": tpm,
+        "quadrotor": tqd}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MODS))
+@pytest.mark.parametrize("use_limits", [True, False])
+def test_model_kernels_match_plain(dev, name, use_limits):
+    """Each model's four kernels, the sweep and the iteration with the box
+    QP (use_limits) or the Newton step, against the plain versions on the
+    same card, at a lane count that is not a multiple of the block. The
+    models without trig agree to the bit; 1e-5 relative covers the
+    trig ulps of the others."""
+    m = get_model(name)
+    n, mm, b, t = m.n, m.m, 200, 9
+    rng = np.random.default_rng(17)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(MODS[name].default_params(), 0.02, dev)
+    u_mid = 1.2 if name == "quadrotor" else 0.0
+    x0 = f(0.3 * rng.normal(size=(n, b)))
+    us = f(u_mid + 0.6 * rng.normal(size=(t, mm, b)))
+    xs = f(0.3 * rng.normal(size=(t, n, b)))
+    xT = f(0.3 * rng.normal(size=(n, b)))
+    K = f(0.1 * rng.normal(size=(t, mm, n, b)))
+    k = f(0.2 * rng.normal(size=(t, mm, b)))
+    lam = f(np.where(rng.uniform(size=b) < 0.1, -100.0, 1.0))
+    live = f(rng.uniform(size=b) > 0.5)
+    dv = f(np.stack([-np.abs(rng.normal(size=b)) * 5.0, rng.normal(size=b)]))
+    cprev = f(100.0 + rng.normal(size=b))
+    al = f(ALPHAS)
+    reset_launch_counts()
+    cases = [
+        (kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
+         (m, "euler", True, pp, x0, us, xs, K)),
+        (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+         (m, "euler", pp, xs, xT, us, lam, "jvp", use_limits)),
+        (kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+         (m, "euler", True, pp, x0, us, xs, xT, K, k, K * 2, k * 2, al, dv,
+          cprev, live, live, 0.0)),
+        (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+         (m, "euler", True, pp, x0, xs, xT, us, k, K, lam, cprev, live, al,
+          "jvp", use_limits)),
+    ]
+    for op, plain, args in cases:
+        got = op(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{name} {op.__name__}[{i}]")
+    counts = launch_counts()
+    assert all(counts[op.__name__] == 1 for op, _p, _a in cases), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["double_integrator", "point_mass_3d",
+                                  "quadrotor"])
+def test_model_solve_on_card_matches_plain_solve(dev, name):
+    """A short solve of each model through the kernels against the same
+    solve through the plain versions on the CPU: costs to rtol 1e-4, equal
+    iteration counts and reasons."""
+    m = get_model(name)
+    p = MODS[name].default_params()
+    rng = np.random.default_rng(0)
+    x0 = (0.3 * rng.normal(size=(64, m.n))).astype(np.float32)
+    u0 = (np.tile(tqd.hover_control(p).numpy()[None], (8, 1))
+          if name == "quadrotor" else np.zeros((8, m.m), np.float32))
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True, max_iter=5,
+                       alphas=(1.0, 0.3, 0.03))
+    reset_launch_counts()
+    card = solve_batch_fused(m, p, cfg, 0.02, x0, u0)
+    counts = launch_counts()
+    plain = solve_batch_fused(m, p, cfg, 0.02, x0, u0, device="cpu")
+    np.testing.assert_allclose(card.cost.cpu().numpy(), plain.cost.numpy(),
+                               rtol=1e-4)
+    np.testing.assert_array_equal(card.iterations.cpu().numpy(),
+                                  plain.iterations.numpy())
+    np.testing.assert_array_equal(card.reason.cpu().numpy(),
+                                  plain.reason.numpy())
+    route = ("sweep_packed" if m.m * m.n >= 32 else "iteration_packed")
+    assert counts["rollout_packed"] == 1 and counts[route] >= 5, counts

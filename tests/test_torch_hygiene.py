@@ -55,7 +55,10 @@ def _run(code, cwd=REPO, extra_env=None):
     "import ilqr_tpu_torch.batch, ilqr_tpu_torch.solver\n"
     "import ilqr_tpu_torch.ops.derivatives, ilqr_tpu_torch.ops.backward\n"
     "import ilqr_tpu_torch.ops.rollout, ilqr_tpu_torch.ops.kernel_derivs\n"
-    "import ilqr_tpu_torch.ops.kernel_backward",
+    "import ilqr_tpu_torch.ops.kernel_backward, ilqr_tpu_torch.ops.qp\n"
+    "import ilqr_tpu_torch.models.double_integrator\n"
+    "import ilqr_tpu_torch.models.point_mass_3d\n"
+    "import ilqr_tpu_torch.models.quadrotor",
     "import chip_smoke",
 ])
 def test_imports_no_jax_nor_ilqr_tpu(imports):
@@ -163,6 +166,29 @@ def test_kernel_path_rejects_other_models_and_integrators():
         kernel_rollout.require_kernel_model(tac.MODEL, "rk4", pp,
                                             pp.vec.device)
     kernel_rollout.require_kernel_model(tac.MODEL, "euler", pp, pp.vec.device)
+
+
+def test_every_cuda_source_is_built_and_packaged():
+    """Each csrc/*.cu and *.cuh is one of the build's sources (a header
+    change rebuilds) and lies under the package data of pyproject.toml (a
+    wheel carries it); each model with fused kernels has its own .cu."""
+    import fnmatch
+    import tomllib
+
+    csrc = _build.CSRC
+    on_disk = sorted(csrc.glob("*.cu*"))
+    assert on_disk and sorted(_build.sources()) == on_disk
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    patterns = data["ilqr_tpu_torch"]
+    for path in on_disk:
+        rel = path.relative_to(csrc.parent).as_posix()
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
+    units = {p.name for p in csrc.glob("*.cu")}
+    for name in kernel_rollout.FUSED_KERNEL_MODELS:
+        unit = "kernels.cu" if name == "acrobot" else f"kernels_{name}.cu"
+        assert unit in units, name
+        assert f"ILQR_FUSED_LAUNCHERS({name}," in (csrc / unit).read_text()
 
 
 def test_pack_params_layout():
