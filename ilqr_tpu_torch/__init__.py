@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of ilqr_tpu: batched iLQR/DDP on an NVIDIA H100.
 
-It carries, for acrobot (n = 4, m = 1), the fused batch solver
-(``solve_batch_fused``, fused.py) and the composable solve (``solve``,
-solver.py; ``solve_batch``, batch.py), and the six CUDA kernels they run
-(ops/, csrc/). It imports neither JAX nor ilqr_tpu.
+It carries the fused batch solver (``solve_batch_fused``, fused.py) for
+acrobot (n = 4, m = 1), the double integrator (m = 2), the 3-D point mass
+(m = 3) and the quadrotor (m = 4), the composable solve for acrobot
+(``solve``, solver.py; ``solve_batch``, batch.py), and the six CUDA
+kernels they run (ops/, csrc/). It imports neither JAX nor ilqr_tpu.
 """
 
 from ilqr_tpu_torch.config import (

@@ -59,7 +59,7 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     accepted (f32 0/1, raw z-test), dcost, expected, diverged (f32 0/1),
     gnorm).
     """
-    check_supported(model, integrator, mode, use_limits)
+    check_supported(model, integrator, mode)
     if not on_cuda(us):
         return iteration_plain(model, integrator, clamp, pp, x0, xs_body,
                                xterm, us, kold, Kold, lam, cost_prev, live,

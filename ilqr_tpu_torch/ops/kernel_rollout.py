@@ -190,8 +190,8 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     us = torch.empty((T, m, B), dtype=F32, device=dev)
     xfin = torch.empty((n, B), dtype=F32, device=dev)
     cost = torch.empty((B,), dtype=F32, device=dev)
-    _build.launch(f"{prefix}_rollout", dev, pp.vec, x0, uff, xsr, K, xs, us, xfin,
-                  cost, T, B, int(bool(clamp)))
+    _build.launch(f"{prefix}_rollout", dev, pp.vec, x0, uff, xsr, K, xs, us,
+                  xfin, cost, T, B, int(bool(clamp)))
     rollout_packed.launches += 1
     return xs, us, xfin, cost
 
@@ -329,9 +329,9 @@ def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             torch.empty((T, m, B), dtype=F32, device=dev),
             torch.empty((T, m, n, B), dtype=F32, device=dev),
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(5)))
-    _build.launch(f"{prefix}_linesearch", dev, pp.vec, x0, us, xsr, xterm, K, k,
-                  Kold, kold, alphas, A, dv, cost_prev, gate, keep, *outs,
-                  float(z_min), T, B, int(bool(clamp)))
+    _build.launch(f"{prefix}_linesearch", dev, pp.vec, x0, us, xsr, xterm,
+                  K, k, Kold, kold, alphas, A, dv, cost_prev, gate, keep,
+                  *outs, float(z_min), T, B, int(bool(clamp)))
     linesearch_packed.launches += 1
     return outs
 

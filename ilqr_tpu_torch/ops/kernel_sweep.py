@@ -79,7 +79,7 @@ def _lane(v, like):
     return torch.broadcast_to(v, like.shape)
 
 
-def check_supported(model, integrator: str, mode: str, use_limits: bool):
+def check_supported(model, integrator: str, mode: str):
     """Raises for what this slice of the port does not carry."""
     if model.m > qp.MAX_ENUM_M:
         raise NotImplementedError(
@@ -244,7 +244,7 @@ def _sweep_step(model, p, dt, lam, use_limits, c: _Carry, x, u):
 def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
                 use_limits=True):
     """Plain version of :func:`sweep_packed`."""
-    check_supported(model, integrator, mode, use_limits)
+    check_supported(model, integrator, mode)
     p, dt = unpack_params(pp)
     T, m, B = us.shape
     n = xs_body.shape[1]
@@ -270,7 +270,7 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     step instead. Returns (k (T, m, B), K (T, m, n, B), dv (2, B),
     diverged (B,) f32 0/1, gnorm (B,)).
     """
-    check_supported(model, integrator, mode, use_limits)
+    check_supported(model, integrator, mode)
     if not on_cuda(us):
         return sweep_plain(model, integrator, pp, xs_body, xterm, us, lam,
                            mode, use_limits)
@@ -287,8 +287,8 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     dv = torch.empty((2, B), dtype=F32, device=dev)
     div = torch.empty((B,), dtype=F32, device=dev)
     gnorm = torch.empty((B,), dtype=F32, device=dev)
-    _build.launch(f"{prefix}_sweep", dev, pp.vec, xs_body, xterm, us, lam, k, K, dv,
-                  div, gnorm, T, B, int(bool(use_limits)))
+    _build.launch(f"{prefix}_sweep", dev, pp.vec, xs_body, xterm, us, lam,
+                  k, K, dv, div, gnorm, T, B, int(bool(use_limits)))
     sweep_packed.launches += 1
     return k, K, dv, div, gnorm
 
