@@ -357,8 +357,8 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
         raise NotImplementedError(
             f"solve_batch_fused is ported for m <= {qp.MAX_ENUM_M} "
             f"(model {model.name!r} has m = {model.m}): the in-kernel "
-            "projected-Newton QP for 5 <= m <= 24 is the next slice of the "
-            "port (ROADMAP.md B3)")
+            "projected-Newton QP for 5 <= m <= 24 is not ported yet; it is "
+            "next in ROADMAP.md (B3)")
     if not fused_applicable(model, cfg):
         raise NotImplementedError(
             f"solve_batch_fused is ported for the Euler step with analytic "
