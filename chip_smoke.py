@@ -1125,7 +1125,6 @@ def run_slice(dev):
     return rows, res
 
 
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
