@@ -5,8 +5,9 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: torch/CUDA versions and the card's name and power limit;
-  2. build: the six CUDA kernels from ilqr_tpu_torch/csrc with nvcc, one
-     process per source, all started together;
+  2. build: the CUDA kernels from ilqr_tpu_torch/csrc with nvcc, one
+     process per source, all started together (each source's seconds and
+     each kernel's registers, stack and spills printed);
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes (B = 8192, T = 499, A = 11; the derivative kernel in both
      its modes), with times (CUDA events) and bounds;
@@ -38,8 +39,22 @@ Phases (any failure raises and the script exits non-zero):
      integrator's reference solve against golden/integrator_golden.csv, and
      short solves of the point mass and the quadrotor against the plain
      path on the CPU;
-  9. one JSON line listing every kernel × model instantiation launched, the
-     card's line, and the last line {"ok": true, "device": {...}}.
+  9. the m ≥ 5 slice (projected Newton in the sweep): the four kernels of
+     omni_thruster, free_flyer and thruster_ring against their plain
+     versions at B = 1024, T = 80, A = 11 (and omni_thruster's sweep and
+     iteration without limits), those of thruster_ring16/20/24 with the
+     sweep and iteration at T = 4; the thruster_ring path at full width
+     (B = 1024, T = 80, max_iter = 40: solves/s, cost, iterations,
+     reasons, the share of controls on the lower bound, launches, a
+     profiled solve, and unasserted at B = 8192) and its merged route; the
+     omni_thruster (with and without limits) and free_flyer paths and their
+     merged routes under the gauge; thruster_ring24 at the cap (one solve,
+     max_iter cut if it would take over a minute) and thruster_ring16/20
+     at a cut depth; short omni_thruster and thruster_ring solves against
+     the plain path on the CPU;
+ 10. one JSON line listing every kernel × model instantiation launched, the
+     card's line, and the last line {"ok": true, "device": {...}}. Each
+     phase prints its seconds.
 
 It needs one CUDA device and the ilqr_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -64,12 +79,7 @@ from ilqr_tpu_torch import (
     solve_batch_fused,
     solver,
 )
-from ilqr_tpu_torch.models import (
-    acrobot,
-    double_integrator,
-    point_mass_3d,
-    quadrotor,
-)
+from ilqr_tpu_torch.models import acrobot, omni_thruster, quadrotor
 from ilqr_tpu_torch.ops import (
     _build,
     kernel_backward,
@@ -773,8 +783,7 @@ B_M = 1024
 B_WIDE = 8192          # the quadrotor path again: printed, not asserted
 QUAD_T, QUAD_ITERS = 80, 40
 M23_T, M23_ITERS = 99, 100
-SLICE_MODELS = {"double_integrator": double_integrator,
-                "point_mass_3d": point_mass_3d, "quadrotor": quadrotor}
+SLICE_MODELS = ("double_integrator", "point_mass_3d", "quadrotor")
 # The reference binary's integrator solve from x0 = (-1, 0, 0, -0.2): its
 # converged cost (its log) and trajectory (golden/integrator_golden.csv),
 # as tests/test_solver.py:30-46 holds the JAX package to them.
@@ -782,15 +791,42 @@ GOLDEN_CSV = "golden/integrator_golden.csv"
 GOLDEN_COST, GOLDEN_COST_TOL, GOLDEN_US_TOL = 356.1685, 1e-2, 1e-3
 # Short solves on the card against the plain path on the CPU: the models
 # without trig agree to the bit; 1e-3 covers the quadrotor's sin/cos ulps.
-CPU_RTOL = {"point_mass_3d": 1e-4, "quadrotor": 1e-3}
+CPU_RTOL = {"point_mass_3d": 1e-4, "quadrotor": 1e-3,
+            "omni_thruster": 1e-3, "thruster_ring": 1e-3}
+
+# The m ≥ 5 slice: experiments/secondary_bench.py's m12_fused (:176-232,
+# thruster_ring: the full-width path, uncut), m6_fused (:146-175,
+# omni_thruster) and m8_fused (:117-145, free_flyer), and the wider rings,
+# thruster_ring24 at the fused solver's m = 24 cap.
+WIDE_MODELS = ("omni_thruster", "free_flyer", "thruster_ring",
+               "thruster_ring16", "thruster_ring20", "thruster_ring24")
+WIDE_T, WIDE_ITERS, WIDE_DT = 80, 40, 0.05
+# thruster_ring16/20/24: the sweep and iteration kernels against their
+# plain versions at T = 4 (the plain sweep at m = 24 runs ~10⁵ PyTorch ops
+# per step on the card)
+WIDE_T_BACKWARD = 4
+CAP_SOLVE_S = 60.0    # thruster_ring24: max_iter is cut if a solve would
+#                       take longer
+SHORT_ITERS = 2       # thruster_ring16/20's solves (and ring24's merged
+#                       route): a cut depth that launches every kernel
+LOWER_SHARE = 0.3     # controls on the lower bound where limits apply
+#                       (tests/test_fused_solver.py:423,991)
 
 
 def workload(name, B=B_M):
-    """(model, params, cfg, T, u0 (T, m), draw(rng) -> x0 (B, n)) of the
-    slice's path for ``name``, as secondary_bench.py draws it."""
+    """(model, params, cfg, T, dt, u0 (T, m), draw(rng) -> x0 (B, n)) of
+    the path for ``name``, as secondary_bench.py draws it."""
     model = get_model(name)
-    params = SLICE_MODELS[name].default_params()
-    if name == "quadrotor":
+    params = model.default_params()
+    dt = DT
+    if name in WIDE_MODELS:      # m6_fused, m8_fused, m12_fused
+        T, iters, dt = WIDE_T, WIDE_ITERS, WIDE_DT
+        scale = 0.3 if name == "free_flyer" else 0.2
+        u0 = (np.tile(omni_thruster.hover_control(params).numpy()[None],
+                      (T, 1)) if name == "omni_thruster"
+              else np.zeros((T, model.m)))
+        draw = lambda rng: scale * rng.normal(size=(B, 6))
+    elif name == "quadrotor":
         T, iters = QUAD_T, QUAD_ITERS
         u0 = np.tile(quadrotor.hover_control(params).numpy()[None], (T, 1))
         draw = lambda rng: 0.05 * rng.normal(size=(B, 12))
@@ -805,15 +841,15 @@ def workload(name, B=B_M):
         draw = lambda rng: 0.3 * rng.normal(size=(B, 6))
     cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
                        use_control_limits=True, max_iter=iters)
-    return (model, params, cfg, T, u0.astype(np.float32),
+    return (model, params, cfg, T, dt, u0.astype(np.float32),
             lambda rng: draw(rng).astype(np.float32))
 
 
-def lane_ops(model, params, kind, use_limits=True, A=11):
+def lane_ops(model, params, kind, use_limits=True, A=11, dt=DT):
     """f32 operations per (t, lane) and per lane of a kernel, counted from
     its plain version (the same arithmetic) on one CPU lane."""
     rng = np.random.default_rng(6)
-    pp = kernel_rollout.pack_params(params, DT)
+    pp = kernel_rollout.pack_params(params, dt)
     n, m = model.n, model.m
     f = lambda *s: torch.as_tensor(0.1 * rng.normal(size=s),
                                    dtype=torch.float32)
@@ -839,16 +875,19 @@ def lane_ops(model, params, kind, use_limits=True, A=11):
     return ops_per_step(at)
 
 
-def compare_model_kernels(dev, name):
-    """Phase 8a: the model's four kernels (and, for the double integrator,
-    the whole iteration without limits, which its unconstrained path runs)
-    against their plain versions on the card at its path's shapes, on its
-    path's x0, open-loop rollout and first gains; masks mixed."""
-    model, params, cfg, T, u0, draw = workload(name)
+def compare_model_kernels(dev, name, t_backward=None):
+    """Phases 8a and 9a: the model's four kernels (and, for the double
+    integrator and omni_thruster, the whole iteration without limits, which
+    their unconstrained paths run) against their plain versions on the card
+    at its path's shapes, on its path's x0, open-loop rollout and first
+    gains; masks mixed. ``t_backward`` cuts the horizon of the sweep and
+    iteration cases (their plain versions at m = 16…24 take minutes at the
+    path's T)."""
+    model, params, cfg, T, dt, u0, draw = workload(name)
     B, A, n, m = B_M, len(cfg.alphas), model.n, model.m
     rng = np.random.default_rng(0)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    pp = kernel_rollout.pack_params(params, DT, dev)
+    pp = kernel_rollout.pack_params(params, dt, dev)
     x0 = f(draw(rng)).t().contiguous()
     us_in = f(u0)[:, :, None].expand(T, m, B).contiguous()
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
@@ -868,13 +907,20 @@ def compare_model_kernels(dev, name):
     kold, Kold = f(rng.normal(size=(T, m, B))), f(rng.normal(size=(T, m, n,
                                                                    B)))
     old_bytes = nbytes(kold, Kold)
+    Tb = T if t_backward is None else t_backward
+    # the sweep and iteration cases on the first Tb steps of the same
+    # trajectory (x_Tb its terminal state)
+    xsb, usb = xs0[:Tb].contiguous(), us0[:Tb].contiguous()
+    xTb = xT0 if Tb == T else xs0[Tb].contiguous()
+    koldb, Koldb = kold[:Tb].contiguous(), Kold[:Tb].contiguous()
+    old_b = nbytes(koldb, Koldb)
     cases = {
         "rollout_packed": (kernel_rollout.rollout_packed,
                            kernel_rollout.rollout_plain,
                            (model, "euler", True, pp, x0, uff, xsr, Kr),
                            "rollout", True, None),
         "sweep_packed": (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
-                         (model, "euler", pp, xs0, xT0, us0, lam), "sweep",
+                         (model, "euler", pp, xsb, xTb, usb, lam), "sweep",
                          True, None),
         "linesearch_packed": (
             kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
@@ -883,44 +929,52 @@ def compare_model_kernels(dev, name):
             lambda got: old_bytes * (keep > 0.5).float().mean().item()),
         "iteration_packed": (
             kernel_iter.iteration_packed, kernel_iter.iteration_plain,
-            (model, "euler", True, pp, x0, xs0, xT0, us0, kold, Kold, lam,
+            (model, "euler", True, pp, x0, xsb, xTb, usb, koldb, Koldb, lam,
              c0, live, alphas, "jvp", True, cfg.z_min, cfg.tol_grad,
              cfg.lambda_grad_term), "iteration", True,
-            lambda got: old_bytes * ((got[10] < 0.5) & (live > 0.5))
+            lambda got: old_b * ((got[10] < 0.5) & (live > 0.5))
             .float().mean().item()),
     }
-    if name == "double_integrator":
+    if name == "omni_thruster":   # its unconstrained path is the split one
+        cases["sweep_packed/unconstrained"] = (
+            kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+            (model, "euler", pp, xsb, xTb, usb, lam, "jvp", False), "sweep",
+            False, None)
+    if name in ("double_integrator", "omni_thruster"):
         cases["iteration_packed/unconstrained"] = (
             kernel_iter.iteration_packed, kernel_iter.iteration_plain,
-            (model, "euler", False, pp, x0, xs0, xT0, us0, kold, Kold, lam,
+            (model, "euler", False, pp, x0, xsb, xTb, usb, koldb, Koldb, lam,
              c0, live, alphas, "jvp", False, cfg.z_min, cfg.tol_grad,
              cfg.lambda_grad_term), "iteration", False,
-            lambda got: old_bytes * ((got[10] < 0.5) & (live > 0.5))
+            lambda got: old_b * ((got[10] < 0.5) & (live > 0.5))
             .float().mean().item())
     rows = {}
     for label, (op, plain, args, kind, limits, unread) in cases.items():
         key = f"{label.split('/')[0]}/{name}" + (
             "" if limits else "/unconstrained")
-        step, rest = lane_ops(model, params, kind, limits, A)
+        Tc = Tb if kind in ("sweep", "iteration") else T
+        step, rest = lane_ops(model, params, kind, limits, A, dt)
         row = compare_stage(
-            key, op, plain, args, step * T * B + rest * B,
-            f"({step} per (t, lane)) at B={B} T={T} A={A}", unread,
+            key, op, plain, args, step * Tc * B + rest * B,
+            f"({step} per (t, lane)) at B={B} T={Tc} A={A}", unread,
             plain_reps=0)
         rows[key] = dict(row, kernel=f"{kind}_kernel", model=name,
-                         limits=limits)
+                         limits=limits, T=Tc)
     return rows
 
 
-def run_model_path(dev, name, label, B=B_M, reps=3, **cfg_extra):
+def run_model_path(dev, name, label, B=B_M, reps=3, warmup=True,
+                   **cfg_extra):
     """One slice path through solve_batch_fused: a warm-up solve on the
-    first x0 draw, then ``reps`` timed solves on new draws, each ending in
-    a full device-to-host copy, with the launch counts of the first timed
-    solve (set to 0 just before it, read just after)."""
-    model, params, cfg, T, u0, draw = workload(name, B)
+    first x0 draw (unless ``warmup`` is False), then ``reps`` timed solves
+    on new draws, each ending in a full device-to-host copy, with the
+    launch counts of the first timed solve (set to 0 just before it, read
+    just after)."""
+    model, params, cfg, T, dt, u0, draw = workload(name, B)
     cfg = cfg.replace(**cfg_extra)
     rng = np.random.default_rng(0)
     x0_first = draw(rng)
-    pp = kernel_rollout.pack_params(params, DT, dev)
+    pp = kernel_rollout.pack_params(params, dt, dev)
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
     us_in = torch.as_tensor(u0, device=dev)[:, :, None].expand(
         T, model.m, B).contiguous()
@@ -929,8 +983,10 @@ def run_model_path(dev, name, label, B=B_M, reps=3, **cfg_extra):
         torch.as_tensor(x0_first, device=dev).t().contiguous(), us_in,
         zeros(T, model.n, B), zeros(T, model.m, model.n, B))[3]
     init_cost = float(init.mean().item())
-    first = solve_batch_fused(model, params, cfg, DT, x0_first, u0)
-    first_cost = first.cost.cpu().numpy()
+    first_cost = None
+    if warmup:
+        first = solve_batch_fused(model, params, cfg, dt, x0_first, u0)
+        first_cost = first.cost.cpu().numpy()
     runs = []
     for rep in range(reps):
         x0 = draw(rng)
@@ -939,7 +995,7 @@ def run_model_path(dev, name, label, B=B_M, reps=3, **cfg_extra):
         fused._iteration.calls = 0
         fused._iteration.retried = 0
         t0 = time.perf_counter()
-        sol = solve_batch_fused(model, params, cfg, DT, x0, u0)
+        sol = solve_batch_fused(model, params, cfg, dt, x0, u0)
         host = {k: v.cpu() for k, v in sol._asdict().items()}  # full D2H
         wall = time.perf_counter() - t0
         runs.append(dict(wall=wall, counts=launch_counts(),
@@ -952,23 +1008,28 @@ def run_model_path(dev, name, label, B=B_M, reps=3, **cfg_extra):
     its = max(1, runs[0]["host_iters"])
     hist = {int(k): int(v) for k, v in
             zip(*np.unique(sol["reason"].numpy(), return_counts=True))}
+    # controls exactly on their lower bound (the clamped rollout puts
+    # them there): the one-sided thrusters' share
+    at_lower = float((sol["us"] <= params.u_min.reshape(-1) + 1e-5)
+                     .float().mean())
     out = dict(
-        B=B, T=T, max_iter=cfg.max_iter, solves_per_s=B / float(
+        B=B, T=T, dt=dt, max_iter=cfg.max_iter, solves_per_s=B / float(
             np.median(walls)), wall_s=walls, mean_cost=float(cost.mean()),
         init_mean_cost=init_cost,
         mean_iters=float(sol["iterations"].float().mean()),
         reason_hist=hist, launches=c, host_iterations=runs[0]["host_iters"],
         syncs_per_iteration=runs[0]["syncs"] / its,
         retried_share=runs[0]["retried"] / its,
-        ms_per_iteration=float(np.median(walls)) * 1e3 / its)
+        ms_per_iteration=float(np.median(walls)) * 1e3 / its,
+        lower_bound_share=at_lower)
     print(f"[slice] {label}: B={B} T={T} max_iter={cfg.max_iter}: "
           f"{out['solves_per_s']:.1f} solves/s (median of {reps}; "
           f"{nvidia_smi()}), {out['ms_per_iteration']:.3f} ms/iteration, "
           f"mean_cost {out['mean_cost']:.4f} (initial rollout "
           f"{init_cost:.4f}), mean_iters {out['mean_iters']:.2f}, reasons "
-          f"{hist}, launches {c}, host syncs/iteration "
-          f"{out['syncs_per_iteration']:.3f}, iterations that retried "
-          f"{out['retried_share']:.3f}")
+          f"{hist}, controls at the lower bound {at_lower:.3f}, launches "
+          f"{c}, host syncs/iteration {out['syncs_per_iteration']:.3f}, "
+          f"iterations that retried {out['retried_share']:.3f}")
     if not np.all(np.isfinite(cost)):
         raise AssertionError(f"non-finite costs on the {label} path")
     if not out["mean_cost"] < init_cost:
@@ -983,9 +1044,9 @@ def run_model_path(dev, name, label, B=B_M, reps=3, **cfg_extra):
 def route_gauge(dev, name, label, x0, ref_cost, **cfg_extra):
     """The same first x0 through another route (launch counts set to 0 just
     before, read just after), held against ``ref_cost`` under the gauge."""
-    model, params, cfg, T, u0, _draw = workload(name)
+    model, params, cfg, T, dt, u0, _draw = workload(name)
     reset_launch_counts()
-    sol = solve_batch_fused(model, params, cfg.replace(**cfg_extra), DT, x0,
+    sol = solve_batch_fused(model, params, cfg.replace(**cfg_extra), dt, x0,
                             u0)
     cost = sol.cost.cpu().numpy()
     counts = launch_counts()
@@ -1005,8 +1066,8 @@ def check_references(dev):
     binary's golden trajectory and cost, and short point-mass and
     quadrotor solves against the plain path on the CPU."""
     out = {}
-    model, params, cfg, T, u0, _d = workload("double_integrator")
-    sol = solve_batch_fused(model, params, cfg, DT,
+    model, params, cfg, T, dt, u0, _d = workload("double_integrator")
+    sol = solve_batch_fused(model, params, cfg, dt,
                             np.asarray([[-1.0, 0.0, 0.0, -0.2]], np.float32),
                             u0)
     rows = [[float(v) for v in line.replace(",", " ").split()]
@@ -1027,33 +1088,43 @@ def check_references(dev):
                              "solution")
     for name, T_c, iters in (("point_mass_3d", M23_T, 10),
                              ("quadrotor", 20, 5)):
-        model, params, cfg, _T, u0, draw = workload(name, B=4)
-        cfg = cfg.replace(max_iter=iters)
-        x0 = draw(np.random.default_rng(9))
-        card = solve_batch_fused(model, params, cfg, DT, x0, u0[:T_c])
-        cpu = solve_batch_fused(model, params, cfg, DT, x0, u0[:T_c],
-                                device="cpu")
-        c_card, c_cpu = card.cost.cpu().numpy(), cpu.cost.numpy()
-        rel = float(np.max(np.abs(c_card - c_cpu) / np.abs(c_cpu)))
-        out[f"{name}_card_vs_cpu"] = dict(T=T_c, max_iter=iters, lanes=4,
-                                          max_rel_cost_diff=rel)
-        print(f"[slice] {name}, 4 lanes, T={T_c}, max_iter={iters}: card vs "
-              f"the plain path on the CPU, max relative cost difference "
-              f"{rel:.2e} (≤ {CPU_RTOL[name]:g})")
-        if not rel <= CPU_RTOL[name]:
-            raise AssertionError(f"{name}: the card left the CPU's solve")
+        out[f"{name}_card_vs_cpu"] = card_vs_cpu(name, T_c, iters)
     return out
 
 
+def card_vs_cpu(name, T_c, iters, lanes=4):
+    """A short solve on the card against the plain path on the CPU (the
+    path's first ``T_c`` steps), held to CPU_RTOL[name] in relative cost."""
+    model, params, cfg, _T, dt, u0, draw = workload(name, B=lanes)
+    cfg = cfg.replace(max_iter=iters)
+    x0 = draw(np.random.default_rng(9))
+    card = solve_batch_fused(model, params, cfg, dt, x0, u0[:T_c])
+    cpu = solve_batch_fused(model, params, cfg, dt, x0, u0[:T_c],
+                            device="cpu")
+    c_card, c_cpu = card.cost.cpu().numpy(), cpu.cost.numpy()
+    rel = float(np.max(np.abs(c_card - c_cpu) / np.abs(c_cpu)))
+    print(f"[slice] {name}, {lanes} lanes, T={T_c}, max_iter={iters}: card "
+          f"vs the plain path on the CPU, max relative cost difference "
+          f"{rel:.2e} (≤ {CPU_RTOL[name]:g})")
+    if not (np.isfinite(c_card).all() and rel <= CPU_RTOL[name]):
+        raise AssertionError(f"{name}: the card left the CPU's solve")
+    return dict(T=T_c, max_iter=iters, lanes=lanes, max_rel_cost_diff=rel)
+
+
 def ptxas_table(log: str):
-    """(kernel, model, limits) → registers and spills, from ptxas -v."""
+    """(kernel, model, limits) → registers and spills, from ptxas -v. A
+    kernel's model is the longest model name in its mangled name (each
+    model's traits type carries its name: thruster_ring16::Model, …), so
+    one name that contains another (thruster_ring, thruster_ring16) does
+    not capture its rows; kernels that name no model are acrobot's."""
     table, entry = {}, None
-    models = ("double_integrator", "point_mass_3d", "quadrotor", "acrobot")
+    models = tuple(kernel_rollout.FUSED_KERNEL_MODELS)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             kernel = next((k for k in KERNEL_NAMES if k in name), name)
-            model = next((m for m in models if m in name), "acrobot")
+            model = max((m for m in models if m in name), key=len,
+                        default="acrobot")
             limits = None   # the sweep and iteration kernels' template flag
             if kernel in ("sweep_kernel", "iteration_kernel"):
                 limits = "Lb1E" in name
@@ -1082,10 +1153,10 @@ def run_slice(dev):
             or c["linesearch_packed"] < 1 or c["iteration_packed"]):
         raise AssertionError(f"the quadrotor's auto route is the split "
                              f"iteration (m·n ≥ 32): {c}")
-    model, params, cfg, T, u0, draw = workload("quadrotor")
+    model, params, cfg, T, dt, u0, draw = workload("quadrotor")
     quad["profile"] = profile_solve(
         "quadrotor", lambda x0, u0_: solve_batch_fused(model, params, cfg,
-                                                       DT, x0, u0_),
+                                                       dt, x0, u0_),
         float(np.median(qwalls)), draw(np.random.default_rng(2)), u0)
     quad["wide"], _w = run_model_path(dev, "quadrotor",
                                       "quadrotor at B = 8192 (not asserted)",
@@ -1125,6 +1196,148 @@ def run_slice(dev):
     return rows, res
 
 
+def short_solve(name, label, max_iter, **cfg_extra):
+    """One solve of ``name``'s workload cut to ``max_iter`` iterations (the
+    cut printed), launch counts set to 0 just before it and read just
+    after; costs must be finite."""
+    model, params, cfg, T, dt, u0, draw = workload(name)
+    cfg = cfg.replace(max_iter=max_iter, **cfg_extra)
+    x0 = draw(np.random.default_rng(0))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = solve_batch_fused(model, params, cfg, dt, x0, u0)
+    cost = sol.cost.cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"[wide] {label}: B={len(x0)} T={T} max_iter={max_iter} (cut from "
+          f"{WIDE_ITERS}) {wall:.3f} s, mean_cost {cost.mean():.4f}, "
+          f"launches {counts}")
+    if not np.isfinite(cost).all():
+        raise AssertionError(f"{label}: non-finite costs")
+    return dict(max_iter=max_iter, wall_s=wall, mean_cost=float(cost.mean()),
+                launches=counts)
+
+
+def run_wide_slice(dev):
+    """Phase 9: the m ≥ 5 slice. Returns (kernel rows, results)."""
+    rows, res = {}, {}
+    t0 = time.perf_counter()
+    for name in WIDE_MODELS:
+        rows.update(compare_model_kernels(
+            dev, name, t_backward=None if name in (
+                "omni_thruster", "free_flyer", "thruster_ring")
+            else WIDE_T_BACKWARD))
+    print(f"[time] phase 9a (kernels against plain versions) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def split_route(out, label):
+        c = out["launches"]
+        if (c["sweep_packed"] < out["host_iterations"]
+                or c["linesearch_packed"] < 1 or c["iteration_packed"]
+                or c["rollout_packed"] != 1):
+            raise AssertionError(f"{label}: the auto route is the split "
+                                 f"iteration (m·n ≥ 32): {c}")
+
+    def record(name, split_counts, merged_counts, suffix=""):
+        for key in ("rollout_packed", "sweep_packed", "linesearch_packed"):
+            if f"{key}/{name}{suffix}" in rows:
+                rows[f"{key}/{name}{suffix}"]["launches"] = split_counts[key]
+        rows[f"iteration_packed/{name}{suffix}"]["launches"] = (
+            merged_counts["iteration_packed"])
+
+    # (b) thruster_ring, the full-width path
+    t0 = time.perf_counter()
+    ring, (rx0, rcost, rwalls) = run_model_path(
+        dev, "thruster_ring", "thruster_ring (m = 12, full width)")
+    split_route(ring, "thruster_ring")
+    model, params, cfg, T, dt, u0, draw = workload("thruster_ring")
+    ring["profile"] = profile_solve(
+        "thruster_ring", lambda x0, u0_: solve_batch_fused(
+            model, params, cfg, dt, x0, u0_),
+        float(np.median(rwalls)), draw(np.random.default_rng(2)), u0)
+    ring["wide"], _w = run_model_path(
+        dev, "thruster_ring", "thruster_ring at B = 8192 (not asserted)",
+        B=B_WIDE, reps=1, warmup=False)
+    ring["merged_route"] = route_gauge(
+        dev, "thruster_ring", "thruster_ring merged route vs split", rx0,
+        rcost, iter_kernel="merged")
+    record("thruster_ring", ring["launches"],
+           ring["merged_route"]["launches"])
+    res["thruster_ring"] = ring
+    print(f"[time] phase 9b (thruster_ring) {time.perf_counter() - t0:.1f} s")
+
+    # (c) omni_thruster with and without limits, free_flyer; (e) their
+    # merged routes against the split ones
+    t0 = time.perf_counter()
+    for name, label, extra in (
+            ("omni_thruster", "omni_thruster", {}),
+            ("omni_thruster", "omni_thruster without limits",
+             dict(use_control_limits=False, clamp_forward=False)),
+            ("free_flyer", "free_flyer", {})):
+        out, (x0, cost, _w) = run_model_path(dev, name, label, **extra)
+        split_route(out, label)
+        limits = extra.get("use_control_limits", True)
+        if limits and not out["lower_bound_share"] > LOWER_SHARE:
+            raise AssertionError(
+                f"{label}: {out['lower_bound_share']} of the controls on "
+                f"the lower bound (expected > {LOWER_SHARE})")
+        out["merged_route"] = route_gauge(
+            dev, name, f"{label}: merged route vs split", x0, cost,
+            iter_kernel="merged", **extra)
+        record(name, out["launches"], out["merged_route"]["launches"],
+               "" if limits else "/unconstrained")
+        res[label] = out
+    print(f"[time] phase 9c (omni_thruster, free_flyer) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (d) thruster_ring24 at the cap; thruster_ring16/20 at a cut depth
+    t0 = time.perf_counter()
+    model, params, cfg, T, dt, u0, draw = workload("thruster_ring24")
+    pp = kernel_rollout.pack_params(params, dt, dev)
+    x0 = torch.as_tensor(draw(np.random.default_rng(0)), device=dev)
+    z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+    us_in = torch.as_tensor(u0, device=dev)[:, :, None].expand(
+        T, model.m, B_M).contiguous()
+    xs0, us0, xT0, _c = kernel_rollout.rollout_packed(
+        model, "euler", True, pp, x0.t().contiguous(), us_in,
+        z(T, model.n, B_M), z(T, model.m, model.n, B_M))
+    sweep_ms = time_ms(lambda: kernel_sweep.sweep_packed(
+        model, "euler", pp, xs0, xT0, us0, torch.ones(B_M, device=dev)),
+        reps=1)
+    # a solve runs about one sweep and one line search per iteration
+    cap_iters = min(WIDE_ITERS, max(1, int(CAP_SOLVE_S * 1e3
+                                           / (1.5 * sweep_ms))))
+    print(f"[wide] thruster_ring24: one sweep launch {sweep_ms:.1f} ms at "
+          f"B={B_M} T={T}; max_iter {cap_iters}"
+          + ("" if cap_iters == WIDE_ITERS else
+             f" (cut from {WIDE_ITERS} to keep one solve under "
+             f"{CAP_SOLVE_S:g} s)"))
+    cap, _r = run_model_path(dev, "thruster_ring24",
+                             "thruster_ring24 (m = 24, the cap)", reps=1,
+                             warmup=False, max_iter=cap_iters)
+    split_route(cap, "thruster_ring24")
+    cap["sweep_ms_per_launch"] = sweep_ms
+    cap["merged_short"] = short_solve(
+        "thruster_ring24", "thruster_ring24 merged route", SHORT_ITERS,
+        iter_kernel="merged")
+    record("thruster_ring24", cap["launches"],
+           cap["merged_short"]["launches"])
+    res["thruster_ring24"] = cap
+    for name in ("thruster_ring16", "thruster_ring20"):
+        split = short_solve(name, name, SHORT_ITERS)
+        merged = short_solve(name, f"{name} merged route", SHORT_ITERS,
+                             iter_kernel="merged")
+        record(name, split["launches"], merged["launches"])
+        res[name] = dict(split=split, merged=merged)
+    print(f"[time] phase 9d (thruster_ring16/20/24) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (f) card against CPU on short solves
+    res["card_vs_cpu"] = {name: card_vs_cpu(name, 10, 3) for name in
+                          ("omni_thruster", "thruster_ring")}
+    return rows, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1141,7 +1354,8 @@ def main() -> int:
     _build.library()
     print(f"[build] {lib.name} from {len(_build.sources())} sources in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
-          f"{' '.join(_build.NVCC_FLAGS)}, one process per .cu)")
+          f"{' '.join(_build.NVCC_FLAGS)}, one process per .cu); seconds "
+          f"per source {json.dumps(_build.compile_seconds())}")
     ptxas = ptxas_table(_build.build_log())
     for (kernel, model_name, limits), e in sorted(
             ptxas.items(), key=lambda kv: str(kv[0])):
@@ -1151,12 +1365,22 @@ def main() -> int:
               f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} B "
               f"spill stores, {e.get('spill_loads')} B spill loads")
 
+    t_phase = t0
+
+    def tick(label):
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"[time] {label} {now - t_phase:.1f} s", flush=True)
+        t_phase = now
+
+    tick("phases 1-2 (environment, build)")
     model = get_model("acrobot")
     params = acrobot.default_params()
     cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
                        use_control_limits=True, max_iter=MAX_ITER)
     pp = kernel_rollout.pack_params(params, DT, dev)
     rows = compare_kernels(dev, model, pp, cfg)
+    tick("phase 3 (acrobot kernels against plain versions)")
 
     main_out = run_main_path(dev, model, params, cfg)
     for name in ("rollout_packed", "iteration_packed"):
@@ -1165,18 +1389,27 @@ def main() -> int:
         "fused", lambda x0, u0: solve_batch_fused(model, params, cfg, DT, x0,
                                                   u0),
         float(np.median(main_out["wall_s"])))
+    tick("phase 4 (the flagship path)")
     split_counts, gauges = run_split_path(dev, model, params, cfg)
     for name in ("sweep_packed", "linesearch_packed"):
         rows[name]["launches"] = split_counts[name]
+    tick("phase 5 (split route, plain path)")
     comp_out = run_composable_path(dev, model, params, cfg, main_out)
     for name in ("derivs_packed", "backward_sweep_packed"):
         rows[name]["launches"] = comp_out["launches"][name]
+    tick("phase 6 (composable path)")
     equiv = run_equivalence(dev, model, params, cfg)
+    tick("phase 7 (equivalence)")
     rows = {f"{name}/acrobot": dict(r, kernel=name.replace(
         "_packed", "_kernel").replace("backward_sweep", "backward"),
         model="acrobot", limits=True) for name, r in rows.items()}
     slice_rows, slice_out = run_slice(dev)
     rows.update(slice_rows)
+    tick("phase 8 (the m = 2…4 slice)")
+    wide_rows, wide_out = run_wide_slice(dev)
+    rows.update(wide_rows)
+    tick("phase 9 (the m ≥ 5 slice)")
+    print(f"[time] phases 2-9 {time.perf_counter() - t0:.1f} s", flush=True)
     for name, r in rows.items():
         r["name"] = name
         if r["model"] != "acrobot":
@@ -1193,7 +1426,7 @@ def main() -> int:
 
     print(json.dumps({"main_path": main_out, "split_path": gauges,
                       "composable_path": comp_out, "equivalence": equiv,
-                      "slice": slice_out}))
+                      "slice": slice_out, "wide_slice": wide_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,138 @@
+// Omnidirectional 6-thruster craft device functions (counterpart of the SoA
+// functions of ilqr_tpu/models/omni_thruster.py and
+// ilqr_tpu_torch/models/omni_thruster.py), as the fused kernels take a
+// model (see acrobot.cuh Model). Every expression keeps the operation order
+// of the Python SoA code.
+#pragma once
+
+namespace omni_thruster {
+
+struct Model {
+  static constexpr int N = 6;  // [px, py, pz, vx, vy, vz]
+  static constexpr int M = 6;  // [f+x, f−x, f+y, f−y, f+z, f−z]
+
+  // Packed params: the params leaves in field order, then dt.
+  struct Params {
+    float goal[N], mass, drag, gravity, w_state[N], w_control[M], w_fuel,
+        w_final[N], u_min[M], u_max[M], dt;
+  };
+
+  // Structural pattern of jac(): '.' zero, '1' one, 'x' live.
+  __host__ __device__ static constexpr char a_kind(int r, int i) {
+    return "...1.."
+           "....1."
+           ".....1"
+           "...x.."
+           "....x."
+           ".....x"[r * N + i];
+  }
+  __host__ __device__ static constexpr char b_kind(int r, int j) {
+    return "......"
+           "......"
+           "......"
+           "xx...."
+           "..xx.."
+           "....xx"[r * M + j];
+  }
+
+  __device__ __forceinline__ static Params load(const float* __restrict__ p) {
+    Params q;
+    for (int i = 0; i < N; ++i) q.goal[i] = p[i];
+    q.mass = p[6];
+    q.drag = p[7];
+    q.gravity = p[8];
+    for (int i = 0; i < N; ++i) q.w_state[i] = p[9 + i];
+    for (int j = 0; j < M; ++j) q.w_control[j] = p[15 + j];
+    q.w_fuel = p[21];
+    for (int i = 0; i < N; ++i) q.w_final[i] = p[22 + i];
+    for (int j = 0; j < M; ++j) q.u_min[j] = p[28 + j];
+    for (int j = 0; j < M; ++j) q.u_max[j] = p[34 + j];
+    q.dt = p[40];
+    return q;
+  }
+  __device__ __forceinline__ static float u_lo(const Params& p, int j) {
+    return p.u_min[j];
+  }
+  __device__ __forceinline__ static float u_hi(const Params& p, int j) {
+    return p.u_max[j];
+  }
+
+  __device__ __forceinline__ static void dynamics(const Params& p,
+                                                  const float x[N],
+                                                  const float u[M],
+                                                  float dx[N]) {
+    const float inv_m = 1.0f / p.mass;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float v = x[3 + a];
+      float acc = (u[2 * a] - u[2 * a + 1]) * inv_m - p.drag * fabsf(v) * v;
+      if (a == 2) acc = acc - p.gravity;
+      dx[a] = v;
+      dx[3 + a] = acc;
+    }
+  }
+  __device__ __forceinline__ static float weighted_sq(const Params& p,
+                                                      const float w[N],
+                                                      const float x[N]) {
+    float e = p.goal[0] - x[0];
+    float acc = e * w[0] * e;
+#pragma unroll
+    for (int i = 1; i < N; ++i) {
+      e = p.goal[i] - x[i];
+      acc = acc + e * w[i] * e;
+    }
+    return acc;
+  }
+  __device__ __forceinline__ static float cost(const Params& p,
+                                               const float x[N],
+                                               const float u[M]) {
+    float acc = weighted_sq(p, p.w_state, x);
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+      acc = acc + u[j] * (p.w_control[j] * u[j] + p.w_fuel);
+    return acc;
+  }
+  __device__ __forceinline__ static float final_cost(const Params& p,
+                                                     const float x[N]) {
+    return weighted_sq(p, p.w_final, x);
+  }
+
+  // Continuous-time Jacobians (jac_soa); only the entries a_kind/b_kind
+  // mark live are set. d|v|·v/dv = 2|v|.
+  __device__ __forceinline__ static void jac(const Params& p,
+                                             const float x[N],
+                                             const float*, float A[N][N],
+                                             float Bu[N][M]) {
+    const float inv_m = 1.0f / p.mass;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      A[3 + a][3 + a] = -2.0f * p.drag * fabsf(x[3 + a]);
+      Bu[3 + a][2 * a] = inv_m;
+      Bu[3 + a][2 * a + 1] = -inv_m;
+    }
+  }
+  __device__ __forceinline__ static void cost_derivs(
+      const Params& p, const float x[N], const float u[M], float cx[N],
+      float cu[M], float cxx[N], float cuu[M]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      cx[i] = -2.0f * p.w_state[i] * (p.goal[i] - x[i]);
+      cxx[i] = 2.0f * p.w_state[i];
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      cu[j] = 2.0f * p.w_control[j] * u[j] + p.w_fuel;
+      cuu[j] = 2.0f * p.w_control[j];
+    }
+  }
+  __device__ __forceinline__ static void final_cost_derivs(
+      const Params& p, const float x[N], float cx[N], float cxx[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      cx[i] = -2.0f * p.w_final[i] * (p.goal[i] - x[i]);
+      cxx[i] = 2.0f * p.w_final[i];
+    }
+  }
+};
+
+}  // namespace omni_thruster

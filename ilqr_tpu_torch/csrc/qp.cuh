@@ -1,18 +1,20 @@
-// The merged sweep's per-lane QPs for m ≤ 4 (counterpart of
+// The merged sweep's per-lane QPs (counterpart of
 // ilqr_tpu/ops/pallas_sweep.py _qp_m1 … _qp_m4, _subdet, _adj_det,
-// _qp_newton and _free_solve_rows for m ≤ 4; plain version
-// ilqr_tpu_torch/ops/qp.py).
+// _chol_masked_tiles, _chol_solve_tiles, _qp_pn, _qp_newton and
+// _free_solve_rows; plain version ilqr_tpu_torch/ops/qp.py).
 //
 // Every expression repeats the JAX tile code's operations in its order, so
 // that with --fmad=false each value is the IEEE f32 result the plain
-// version computes: the candidate order of itertools.product((0,1,2),
-// repeat=m) (lower / free / upper), a strict v < best from 3e38 (ties go to
-// the first candidate), one shared reciprocal where JAX takes one, the
-// Sylvester minors for the PD check, the identity-padded free-subspace
-// inverse for the feedback rows. The combinatorics (candidates, free
-// subsets, cofactor expansions) are resolved at compile time: candidate C
-// and subset masks are template parameters, so every index into the
-// per-lane registers is a constant.
+// version computes. For m ≤ 4: the candidate order of
+// itertools.product((0,1,2), repeat=m) (lower / free / upper), a strict
+// v < best from 3e38 (ties go to the first candidate), one shared
+// reciprocal where JAX takes one, the Sylvester minors for the PD check,
+// the identity-padded free-subspace inverse for the feedback rows. The
+// combinatorics (candidates, free subsets, cofactor expansions) are
+// resolved at compile time: candidate C and subset masks are template
+// parameters (template recursion over distinct instantiations), so every
+// index into the per-lane registers is a constant. For 5 ≤ m ≤ 24:
+// projected Newton over a masked Cholesky, in runtime loops (below).
 #pragma once
 
 #include "jnp.cuh"
@@ -417,6 +419,172 @@ __device__ __forceinline__ void box4(const float q[4][4], const float g[4],
 }
 
 // ---------------------------------------------------------------------------
+// General m (5 ≤ M ≤ 24): the masked Cholesky (_chol_masked_tiles), its
+// solve (_chol_solve_tiles) and projected Newton (_qp_pn).
+//
+// The JAX kernel unrolls O(m³)·(m + 6) operations per timestep, which took
+// Mosaic minutes to compile at m ≥ 12. Here the Newton iterations, the
+// ladder, the Cholesky rows and every loop over the control dims are
+// runtime loops (#pragma unroll 1): the matrices live in the thread's local
+// memory, indexed at run time, and the code stays O(1) in m. Each loop is a
+// loop, never a recursion, so the frame (a few KB at m = 24) is sized at
+// compile time.
+// ---------------------------------------------------------------------------
+constexpr int kMaxFusedM = 24;  // pallas_sweep.py MAX_FUSED_M
+
+// Cholesky of P = mask(q): the free principal block of q, identity rows and
+// columns on clamped dims (P_ij = free_i·free_j·q_ij + (1 − free_i)·δ_ij).
+// Writes the lower triangle of L and rdiag_i = 1/L_ii; returns whether a
+// free dim has a non-positive pivot. The reciprocal square root is
+// 1.0f / sqrtf(d), IEEE-rounded like the plain version's 1.0 / torch.sqrt.
+template <int M>
+__device__ __forceinline__ bool chol_masked(const float q[M][M],
+                                            const float free_f[M],
+                                            float L[M][M], float rdiag[M]) {
+  bool bad = false;
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    float d = free_f[i] * q[i][i] + (1.0f - free_f[i]);
+#pragma unroll 1
+    for (int k = 0; k < i; ++k) d = d - L[i][k] * L[i][k];
+    bad = bad || (free_f[i] > 0.5f && d <= 0.0f);
+    const float d_safe = d <= 0.0f ? 1.0f : d;
+    const float rd = 1.0f / sqrtf(d_safe);
+    rdiag[i] = rd;
+    L[i][i] = d_safe * rd;
+#pragma unroll 1
+    for (int j = i + 1; j < M; ++j) {
+      float acc = free_f[i] * free_f[j] * q[j][i];
+#pragma unroll 1
+      for (int k = 0; k < i; ++k) acc = acc - L[j][k] * L[i][k];
+      L[j][i] = acc * rd;
+    }
+  }
+  return bad;
+}
+
+// L·Lᵀ·x = b by forward and back substitution (b and x distinct)
+template <int M>
+__device__ __forceinline__ void chol_solve(const float L[M][M],
+                                           const float rdiag[M],
+                                           const float b[M], float x[M]) {
+  float y[M];
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    float acc = b[i];
+#pragma unroll 1
+    for (int k = 0; k < i; ++k) acc = acc - L[i][k] * y[k];
+    y[i] = acc * rdiag[i];
+  }
+#pragma unroll 1
+  for (int i = M - 1; i >= 0; --i) {
+    float acc = y[i];
+#pragma unroll 1
+    for (int k = i + 1; k < M; ++k) acc = acc - L[k][i] * x[k];
+    x[i] = acc * rdiag[i];
+  }
+}
+
+// ½xᵀqx + gᵀx in the tile code's order: the diagonal terms first, then
+// q_ij·x_i·x_j over i < j
+template <int M>
+__device__ __forceinline__ float pn_val(const float q[M][M], const float g[M],
+                                        const float x[M]) {
+  float v = 0.0f;
+#pragma unroll 1
+  for (int i = 0; i < M; ++i)
+    v = v + g[i] * x[i] + 0.5f * q[i][i] * x[i] * x[i];
+#pragma unroll 1
+  for (int i = 0; i < M; ++i)
+#pragma unroll 1
+    for (int j = i + 1; j < M; ++j) v = v + q[i][j] * x[i] * x[j];
+  return v;
+}
+
+// row i of q·x + g, summed from g_i in j order
+template <int M>
+__device__ __forceinline__ float pn_grad_row(const float q[M][M],
+                                             const float g[M],
+                                             const float x[M], int i) {
+  float acc = g[i];
+#pragma unroll 1
+  for (int j = 0; j < M; ++j) acc = acc + q[i][j] * x[j];
+  return acc;
+}
+
+__device__ __forceinline__ bool kkt_clamped(float x, float gr, float lo,
+                                            float hi) {
+  return (x <= lo && gr > 0.0f) || (x >= hi && gr < 0.0f);
+}
+
+// Projected Newton (_qp_pn): from clamp(−q⁻¹g), M + 6 iterations of {KKT
+// active set → masked-Cholesky solve on the free dims → the clamped
+// candidates x + s·(x_N − x), s = 1, ½, ¼, ⅛, 1/16, the best one strictly
+// below the current value taken}. The f32 0/1 masks carry the active set;
+// every factorization's pivots feed the PD flag.
+template <int M>
+__device__ __forceinline__ void pn(const float q[M][M], const float g[M],
+                                   const float lo[M], const float hi[M],
+                                   float k[M], bool is_free[M], bool& bad) {
+  float L[M][M], rdiag[M], ff[M], rhs[M], x[M], d[M], xn[M], best[M], c[M];
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    ff[i] = 1.0f;
+    rhs[i] = -g[i];
+  }
+  bad = chol_masked<M>(q, ff, L, rdiag);
+  chol_solve<M>(L, rdiag, rhs, x);
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) x[i] = jnp::clip(x[i], lo[i], hi[i]);
+  float v_cur = pn_val<M>(q, g, x);
+#pragma unroll 1
+  for (int it = 0; it < M + 6; ++it) {
+#pragma unroll 1
+    for (int i = 0; i < M; ++i)
+      ff[i] = kkt_clamped(x[i], pn_grad_row<M>(q, g, x, i), lo[i], hi[i])
+                  ? 0.0f : 1.0f;
+    const bool bad_it = chol_masked<M>(q, ff, L, rdiag);
+    bad = bad || bad_it;
+#pragma unroll 1
+    for (int i = 0; i < M; ++i) {
+      float acc = g[i];
+#pragma unroll 1
+      for (int j = 0; j < M; ++j) acc = acc + q[i][j] * ((1.0f - ff[j]) * x[j]);
+      rhs[i] = ff[i] * acc;
+    }
+    chol_solve<M>(L, rdiag, rhs, d);
+#pragma unroll 1
+    for (int i = 0; i < M; ++i) {
+      xn[i] = ff[i] * (-d[i]) + (1.0f - ff[i]) * x[i];
+      best[i] = x[i];
+    }
+    float v_best = v_cur;
+    float step = 1.0f;
+#pragma unroll 1
+    for (int s = 0; s < 5; ++s, step = step * 0.5f) {
+#pragma unroll 1
+      for (int i = 0; i < M; ++i)
+        c[i] = jnp::clip(x[i] + step * (xn[i] - x[i]), lo[i], hi[i]);
+      const float v_c = pn_val<M>(q, g, c);
+      if (v_c < v_best) {
+        v_best = v_c;
+#pragma unroll 1
+        for (int i = 0; i < M; ++i) best[i] = c[i];
+      }
+    }
+#pragma unroll 1
+    for (int i = 0; i < M; ++i) x[i] = best[i];
+    v_cur = v_best;
+  }
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    is_free[i] =
+        !kkt_clamped(x[i], pn_grad_row<M>(q, g, x, i), lo[i], hi[i]) && !bad;
+    k[i] = bad ? 0.0f : x[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Dispatch by m, the Newton step (_qp_newton) and the feedback rows
 // (_free_solve_rows)
 // ---------------------------------------------------------------------------
@@ -424,21 +592,32 @@ template <int M>
 __device__ __forceinline__ void box(const float q[M][M], const float g[M],
                                     const float lo[M], const float hi[M],
                                     float k[M], bool is_free[M], bool& bad) {
-  static_assert(M >= 1 && M <= 4, "the enumeration QPs cover m <= 4");
+  static_assert(M >= 1 && M <= kMaxFusedM, "the in-kernel QPs cover m <= 24");
   if constexpr (M == 1) box1(q, g, lo, hi, k, is_free, bad);
   if constexpr (M == 2) box2(q, g, lo, hi, k, is_free, bad);
   if constexpr (M == 3) box3(q, g, lo, hi, k, is_free, bad);
   if constexpr (M == 4) box4(q, g, lo, hi, k, is_free, bad);
+  if constexpr (M >= 5) pn<M>(q, g, lo, hi, k, is_free, bad);
 }
 
-// Unconstrained regularized Newton step k = −QuuF⁻¹·Qu with a Sylvester PD
-// check (ref src/ilqr_core.cpp:369 with no active limits); all dims free.
+// Unconstrained regularized Newton step k = −QuuF⁻¹·Qu (ref
+// src/ilqr_core.cpp:369 with no active limits); all dims free. The PD check
+// is Sylvester's for m ≤ 4, the all-free Cholesky's pivots above.
 template <int M>
 __device__ __forceinline__ void newton(const float q[M][M], const float g[M],
                                        float k[M], bool is_free[M], bool& bad) {
-  static_assert(M >= 1 && M <= 4, "the Newton step covers m <= 4");
+  static_assert(M >= 1 && M <= kMaxFusedM, "the Newton step covers m <= 24");
   float x[M];
-  if constexpr (M == 1) {
+  if constexpr (M >= 5) {
+    float L[M][M], rdiag[M], ff[M], rhs[M];
+#pragma unroll 1
+    for (int i = 0; i < M; ++i) {
+      ff[i] = 1.0f;
+      rhs[i] = -g[i];
+    }
+    bad = chol_masked<M>(q, ff, L, rdiag);
+    chol_solve<M>(L, rdiag, rhs, x);
+  } else if constexpr (M == 1) {
     bad = q[0][0] <= 0.0f;
     x[0] = -g[0] / safe(q[0][0]);
   } else if constexpr (M == 2) {
@@ -479,14 +658,28 @@ __device__ __forceinline__ void newton(const float q[M][M], const float g[M],
 
 // Rows of −(Q_free)⁻¹·Qux with identity padding on clamped dims and zeroed
 // clamped rows (ref ilqr_core.cpp:377-385); one reciprocal determinant
-// shared by all N columns.
+// (m ≤ 4) or one masked Cholesky (m ≥ 5) shared by all N columns.
 template <int M, int N>
 __device__ __forceinline__ void free_rows(const float q[M][M],
                                           const bool is_free[M],
                                           const float qux[M][N],
                                           float K[M][N]) {
-  static_assert(M >= 1 && M <= 4, "the free-subspace rows cover m <= 4");
-  if constexpr (M == 1) {
+  static_assert(M >= 1 && M <= kMaxFusedM,
+                "the free-subspace rows cover m <= 24");
+  if constexpr (M >= 5) {
+    float L[M][M], rdiag[M], ff[M], v[M], sv[M];
+#pragma unroll 1
+    for (int j = 0; j < M; ++j) ff[j] = is_free[j] ? 1.0f : 0.0f;
+    chol_masked<M>(q, ff, L, rdiag);
+#pragma unroll 1
+    for (int i = 0; i < N; ++i) {
+#pragma unroll 1
+      for (int j = 0; j < M; ++j) v[j] = qux[j][i];
+      chol_solve<M>(L, rdiag, v, sv);
+#pragma unroll 1
+      for (int j = 0; j < M; ++j) K[j][i] = is_free[j] ? -sv[j] : 0.0f;
+    }
+  } else if constexpr (M == 1) {
     const float rq = -(1.0f / (q[0][0] <= 0.0f ? 1.0f : q[0][0]));
 #pragma unroll
     for (int i = 0; i < N; ++i) K[0][i] = is_free[0] ? qux[0][i] * rq : 0.0f;

@@ -68,6 +68,10 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
                                      Carry<Model>& c, float k[Model::M],
                                      float Krow[Model::M][Model::N]) {
   constexpr int N = Model::N, M = Model::M;
+  // Loops over the controls unroll fully for m ≤ 4 and stay loops for
+  // m ≥ 5, where unrolling them would emit O(n²m²) operations per step
+  // (the unroll factor changes the code, not the order of its operations).
+  constexpr int kUnrollM = M <= 4 ? 4 : 1;
   // --- linearization: fx = I + dt·A, fu = dt·B (Euler), cost derivatives
   float A[N][N], Bu[N][M];
   Model::jac(p, x, u, A, Bu);
@@ -93,7 +97,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
 
   // --- Q-terms (ref ilqr_core.cpp:359-363)
   float fvv[M][N];  // fuᵀ Vxx
-#pragma unroll
+#pragma unroll(kUnrollM)
   for (int jm = 0; jm < M; ++jm)
 #pragma unroll
     for (int jn = 0; jn < N; ++jn) {
@@ -106,7 +110,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
       fvv[jm][jn] = acc;
     }
   float qu[M];
-#pragma unroll
+#pragma unroll(kUnrollM)
   for (int jm = 0; jm < M; ++jm) {
     float acc = cu[jm];
 #pragma unroll
@@ -115,9 +119,9 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
     qu[jm] = acc;
   }
   float quu[M][M], quuF[M][M];
-#pragma unroll
+#pragma unroll(kUnrollM)
   for (int im = 0; im < M; ++im)
-#pragma unroll
+#pragma unroll(kUnrollM)
     for (int jm = im; jm < M; ++jm) {
       float acc = (im == jm) ? cuu[im] : 0.0f;
       bool live = im == jm;
@@ -142,7 +146,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
       if (fk == 'x') ax = ax + fx[i][jn] * c.vx[i];
     }
     qx[jn] = ax;
-#pragma unroll
+#pragma unroll(kUnrollM)
     for (int jm = 0; jm < M; ++jm) {
       float aq = 0.0f;  // cxu is structurally zero
       bool live = false;
@@ -205,12 +209,12 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   // --- divergence latch, dV, value update (ref :386-393)
   c.div = fmaxf(c.div, bad ? 1.0f : 0.0f);
   float d0 = k[0] * qu[0];
-#pragma unroll
+#pragma unroll(kUnrollM)
   for (int jm = 1; jm < M; ++jm) d0 = d0 + k[jm] * qu[jm];
   float d1 = 0.0f;
-#pragma unroll
+#pragma unroll(kUnrollM)
   for (int im = 0; im < M; ++im)
-#pragma unroll
+#pragma unroll(kUnrollM)
     for (int jm = 0; jm < M; ++jm) {
       const float t = 0.5f * k[im] * quu[im][jm] * k[jm];
       d1 = (im == 0 && jm == 0) ? t : d1 + t;
@@ -218,10 +222,10 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   c.dv0 = c.dv0 + d0;
   c.dv1 = c.dv1 + d1;
   float quu_k[M];
-#pragma unroll
+#pragma unroll(kUnrollM)
   for (int im = 0; im < M; ++im) {
     float acc = quu[im][0] * k[0];
-#pragma unroll
+#pragma unroll(kUnrollM)
     for (int jm = 1; jm < M; ++jm) acc = acc + quu[im][jm] * k[jm];
     quu_k[im] = acc;
   }
@@ -229,7 +233,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     float acc = qx[i];
-#pragma unroll
+#pragma unroll(kUnrollM)
     for (int cm = 0; cm < M; ++cm)
       acc = acc + Krow[cm][i] * quu_k[cm] + Krow[cm][i] * qu[cm]
             + qux[cm][i] * k[cm];
@@ -241,9 +245,9 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
 #pragma unroll
     for (int j = i; j < N; ++j) {
       float acc = qxx[i][j];
-#pragma unroll
+#pragma unroll(kUnrollM)
       for (int cm = 0; cm < M; ++cm) {
-#pragma unroll
+#pragma unroll(kUnrollM)
         for (int d = 0; d < M; ++d)
           acc = acc + Krow[cm][i] * quu[cm][d] * Krow[d][j];
         acc = acc + Krow[cm][i] * qux[cm][j] + qux[cm][i] * Krow[cm][j];
@@ -256,7 +260,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   // gradient-norm epilogue (ref :153-159): the mean over t is taken once
   // the sweep ends
   float gstep = fabsf(k[0]) / (fabsf(u[0]) + 1.0f);
-#pragma unroll
+#pragma unroll(kUnrollM)
   for (int jm = 1; jm < M; ++jm)
     gstep = jnp::maximum(gstep, fabsf(k[jm]) / (fabsf(u[jm]) + 1.0f));
   c.gacc = c.gacc + gstep;

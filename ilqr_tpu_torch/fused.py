@@ -297,22 +297,23 @@ def _finish_iteration(cfg, state, frozen, lam, dlam, gnorm, grad_term,
     )
 
 
-# The widest control dimension of the JAX package's in-kernel QPs
-# (ilqr_tpu/ops/pallas_sweep.py MAX_FUSED_M); the port carries m ≤ 4.
-MAX_FUSED_M = 24
+# The widest control dimension of the in-kernel QPs
+# (ilqr_tpu/ops/pallas_sweep.py MAX_FUSED_M).
+MAX_FUSED_M = qp.MAX_FUSED_M
 
 
 def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
     """True iff :func:`solve_batch_fused` accepts (model, cfg). Mirrors the
-    guards of ilqr_tpu/fused.py:390-442 for what is ported: m ≤ 4 (the
-    closed-form and enumeration QPs, or the Newton step without limits), a
-    model with analytic SoA derivatives, the Euler step, shared params;
+    guards of ilqr_tpu/fused.py:390-442 for what is ported: m ≤ 24 (the
+    closed-form, enumeration and projected-Newton QPs, or the Newton step
+    without limits), a model with analytic SoA derivatives, the Euler
+    step, shared params;
     ``sweep_kernel="split"`` needs m = 1 and control limits (the backward
     kernel's closed-form QP) and also takes the reference's stencils
     (``deriv_mode="fd"``). On the card the kernels exist for the models of
     ``ops.kernel_rollout.FUSED_KERNEL_MODELS``; any other raises there."""
     split = cfg.sweep_kernel == "split"
-    return (model.m <= qp.MAX_ENUM_M and model.has_soa
+    return (model.m <= MAX_FUSED_M and model.has_soa
             and model.has_analytic_soa and not cfg.full_ddp
             and (cfg.deriv_mode == "analytic"
                  or (split and cfg.deriv_mode == "fd"))
@@ -336,7 +337,8 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
             "auto", "enum", "pn_fixed"):
         raise ValueError(
             "solve_batch_fused requires boxqp_mode='auto'/'enum'/'pn_fixed' "
-            "(the in-kernel QP is chosen by m)")
+            "(the in-kernel QP is chosen by m: exact enumeration for "
+            "m <= 4, projected Newton above)")
     if cfg.iter_kernel not in ("auto", "merged", "split"):
         raise ValueError(f"unknown iter_kernel {cfg.iter_kernel!r}")
     if cfg.sweep_kernel not in ("merged", "split"):
@@ -353,12 +355,6 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
     if params_batched:
         raise NotImplementedError(
             "params_batched=True is not ported to ilqr_tpu_torch yet")
-    if model.m > qp.MAX_ENUM_M:
-        raise NotImplementedError(
-            f"solve_batch_fused is ported for m <= {qp.MAX_ENUM_M} "
-            f"(model {model.name!r} has m = {model.m}): the in-kernel "
-            "projected-Newton QP for 5 <= m <= 24 is not ported yet; it is "
-            "next in ROADMAP.md (B3)")
     if not fused_applicable(model, cfg):
         raise NotImplementedError(
             f"solve_batch_fused is ported for the Euler step with analytic "

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``ilqr_tpu/models/__init__.py``).
 
-Ported so far: acrobot, double_integrator, point_mass_3d and quadrotor; the
-other registered names of the JAX package raise ``NotImplementedError``.
+Ported so far: acrobot, double_integrator, point_mass_3d, quadrotor,
+omni_thruster, free_flyer and the four thruster rings; the other
+registered names of the JAX package raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -11,21 +12,22 @@ from typing import Dict
 from ilqr_tpu_torch.models import (
     acrobot,
     double_integrator,
+    free_flyer,
+    omni_thruster,
     point_mass_3d,
     quadrotor,
+    thruster_ring,
 )
 from ilqr_tpu_torch.models.base import Model, euler_step, get_integrator, rk4_step
 
 _REGISTRY: Dict[str, Model] = {
-    mod.MODEL.name: mod.MODEL
-    for mod in (acrobot, double_integrator, point_mass_3d, quadrotor)}
+    model.name: model
+    for model in (acrobot.MODEL, double_integrator.MODEL, point_mass_3d.MODEL,
+                  quadrotor.MODEL, omni_thruster.MODEL, free_flyer.MODEL,
+                  *thruster_ring.MODELS)}
 
 # Models of the JAX package that this package does not carry yet.
-_NOT_YET_PORTED = (
-    "bicycle", "cartpole", "free_flyer", "omni_thruster", "pendulum",
-    "power_mass", "thruster_ring", "thruster_ring16", "thruster_ring20",
-    "thruster_ring24",
-)
+_NOT_YET_PORTED = ("bicycle", "cartpole", "pendulum", "power_mass")
 
 
 def get_model(name: str) -> Model:

@@ -5,8 +5,9 @@ the repository root, keyed by a hash of the sources and the flags, so a
 fresh checkout builds everything it runs and a changed source rebuilds. Each
 ``csrc/*.cu`` is compiled to an object by its own nvcc process, all started
 together, and the objects are linked into one shared library; the library
-has a plain C interface (no PyTorch headers), which keeps the build to
-seconds.
+has a plain C interface (no PyTorch headers). Each source's nvcc seconds
+are kept beside the library (``compile_seconds()``), with ptxas's report
+(``build_log()``).
 
 Every launcher takes its pointers as ``c_void_p`` and PyTorch's current
 stream, launches asynchronously and returns ``cudaGetLastError()``;
@@ -18,10 +19,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -101,25 +105,21 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    units = sorted(CSRC.glob("*.cu"))
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        procs = []
-        for src in sorted(CSRC.glob("*.cu")):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
-                   str(Path(tmp) / (src.stem + ".o")), str(src)]
-            procs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        logs = []
-        for cmd, proc in procs:
-            out, err = proc.communicate()
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o",
+                 str(Path(tmp) / (src.stem + ".o")), str(src)]
+                for src in units]
+        # one thread per nvcc, so that each source's own seconds are known
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            results = list(pool.map(_compile, cmds))
+        for cmd, (proc, _s) in zip(cmds, results):
             if proc.returncode != 0:
-                for _c, other in procs:
-                    other.kill()
-                    other.wait()
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{out}{err}")
-            logs.append(err)
+                    f"{proc.stdout}{proc.stderr}")
+        logs = [f"ptxas log of {src.name}\n{proc.stderr}"
+                for src, (proc, _s) in zip(units, results)]
         fd, tmp_lib = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         cmd = [nvcc, "-shared", "-o", tmp_lib,
@@ -131,14 +131,30 @@ def build() -> Path:
                 f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}")
     (out_dir / "ptxas.log").write_text("".join(logs))
+    (out_dir / "compile_seconds.json").write_text(json.dumps(
+        {src.name: round(sec, 1) for src, (_p, sec) in zip(units, results)}))
     os.replace(tmp_lib, lib)  # atomic: a concurrent build never sees half
     return lib
+
+
+def _compile(cmd):
+    """Runs one nvcc; returns (the completed process, its seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc, time.perf_counter() - t0
 
 
 def build_log() -> str:
     """What ptxas reported (registers, spills) for the current build."""
     log = BUILD_ROOT / source_hash() / "ptxas.log"
     return log.read_text() if log.exists() else ""
+
+
+def compile_seconds() -> dict:
+    """Each source's nvcc seconds in the build that made the current
+    library ({} if it was built before this record existed)."""
+    rec = BUILD_ROOT / source_hash() / "compile_seconds.json"
+    return json.loads(rec.read_text()) if rec.exists() else {}
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,6 +14,7 @@ other. ``<op>.launches`` counts the kernel launches.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -21,8 +22,11 @@ import torch
 
 from ilqr_tpu_torch.models.acrobot import AcrobotParams
 from ilqr_tpu_torch.models.double_integrator import DoubleIntegratorParams
+from ilqr_tpu_torch.models.free_flyer import FreeFlyerParams
+from ilqr_tpu_torch.models.omni_thruster import OmniThrusterParams
 from ilqr_tpu_torch.models.point_mass_3d import PointMass3DParams
 from ilqr_tpu_torch.models.quadrotor import QuadrotorParams
+from ilqr_tpu_torch.models.thruster_ring import ThrusterRingParams
 from ilqr_tpu_torch.ops import _build
 
 F32 = torch.float32
@@ -83,7 +87,19 @@ FUSED_KERNEL_MODELS = {
     "double_integrator": DoubleIntegratorParams,
     "point_mass_3d": PointMass3DParams,
     "quadrotor": QuadrotorParams,
+    "omni_thruster": OmniThrusterParams,
+    "free_flyer": FreeFlyerParams,
+    "thruster_ring": ThrusterRingParams,
+    "thruster_ring16": ThrusterRingParams,
+    "thruster_ring20": ThrusterRingParams,
+    "thruster_ring24": ThrusterRingParams,
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(model) -> tuple:
+    """The leaf shapes of ``model``'s default params."""
+    return pack_params(model.default_params(), 0.0).shapes
 
 
 def require_kernel_model(model, integrator: str, pp: PackedParams, device,
@@ -97,6 +113,11 @@ def require_kernel_model(model, integrator: str, pp: PackedParams, device,
         raise NotImplementedError(
             f"CUDA kernels exist for {', '.join(have)}, not {model.name!r} "
             f"with {pp.cls.__name__}")
+    # the loader reads a fixed layout (the rings share one params type)
+    if pp.shapes != _param_shapes(model):
+        raise ValueError(
+            f"{model.name}: params leaf shapes {pp.shapes}, the CUDA loader "
+            f"reads {_param_shapes(model)}")
     if integrator != "euler":
         raise NotImplementedError(
             f"integrator {integrator!r} is not ported to the CUDA kernels "

@@ -4,15 +4,16 @@
 Per timestep, in reverse time: the analytic model derivatives at (x_t, u_t)
 (fx = I + dt·A, fu = dt·B, cost derivatives), the Q-terms, the
 λ-regularized QuuF, the in-kernel QP (ops/qp.py: the closed-form m = 1 box
-QP, the exact enumeration for m = 2…4, or with ``use_limits=False`` the
-unconstrained Newton step), the feedback rows zeroed on clamped controls,
-dV, the exactly symmetric Vxx update, a latched divergence flag and the
-gradient norm (ref src/ilqr_core.cpp:350-401).
+QP, the exact enumeration for m = 2…4, projected Newton for 5 ≤ m ≤ 24,
+or with ``use_limits=False`` the unconstrained Newton step), the feedback
+rows zeroed on clamped controls, dV, the exactly symmetric Vxx update, a
+latched divergence flag and the gradient norm (ref
+src/ilqr_core.cpp:350-401).
 
 Ported: analytic derivatives (``mode="jvp"`` with a model that has
-``jac_soa``), the Euler step, m ≤ 4. Everything else raises
-``NotImplementedError``: the projected-Newton QP for m ≥ 5, the in-kernel
-JVP / finite-difference re-derivation and RK4 in the sweep.
+``jac_soa``), the Euler step, m ≤ 24 (past it ``ValueError``, as in the
+JAX package). The in-kernel JVP / finite-difference re-derivation and RK4
+in the sweep raise ``NotImplementedError``.
 
 Layout and dispatch as in ops/kernel_rollout.py.
 """
@@ -81,10 +82,9 @@ def _lane(v, like):
 
 def check_supported(model, integrator: str, mode: str):
     """Raises for what this slice of the port does not carry."""
-    if model.m > qp.MAX_ENUM_M:
-        raise NotImplementedError(
-            f"the sweep is ported for m <= {qp.MAX_ENUM_M} (m = {model.m}): "
-            "the projected-Newton QP for 5 <= m <= 24 is not ported yet")
+    if model.m > qp.MAX_FUSED_M:
+        raise ValueError(
+            f"merged sweep kernel supports m <= {qp.MAX_FUSED_M}")
     if mode != "jvp" or not model.has_analytic_soa:
         raise NotImplementedError(
             "only the analytic model derivatives (jac_soa) are ported; the "

@@ -1,12 +1,15 @@
-"""The merged sweep's per-lane box QPs for m ≤ 4 and the unconstrained
-Newton step, plain PyTorch (counterpart of the in-kernel QPs of
+"""The merged sweep's per-lane box QPs and the unconstrained Newton step,
+plain PyTorch (counterpart of the in-kernel QPs of
 ``ilqr_tpu/ops/pallas_sweep.py``: ``_qp_m1`` … ``_qp_m4``, ``_subdet``,
-``_adj_det``, ``_qp_newton`` and ``_free_solve_rows`` for m ≤ 4).
+``_adj_det``, ``_chol_masked_tiles``, ``_chol_solve_tiles``, ``_qp_pn``,
+``_qp_newton`` and ``_free_solve_rows``).
 
 Every matrix is a nested list of per-lane tensors (``q[i][j]`` of shape
-(B,)), every vector a list of them. Each function repeats the JAX tile
-code's operations in its order, and csrc/qp.cuh repeats them again for the
-CUDA kernels, so the three agree bitwise where the trig does not enter.
+(B,)), every vector a list of them; the m > 4 helpers (``chol_masked``,
+``chol_solve``) take them stacked, (m, m, …) and (m, …). Each function
+repeats the JAX tile code's operations in its order, and csrc/qp.cuh
+repeats them again for the CUDA kernels, so the plain versions and the
+kernels agree bitwise where the trig does not enter.
 
 - m = 1: closed form clamp(−Qu/QuuF);
 - m = 2, 3, 4: exact active-set enumeration: all 3^m (lower/free/upper)
@@ -15,12 +18,39 @@ CUDA kernels, so the three agree bitwise where the trig does not enter.
   best so far (ties go to the first candidate); at m = 4 the 15
   per-free-subset adjugates and reciprocal determinants are shared by the
   81 candidates;
-- unconstrained: k = −QuuF⁻¹·Qu with a Sylvester PD check.
+- 5 ≤ m ≤ 24: projected Newton (ref src/boxqp.cpp:26-139, fixed shape):
+  from the box-clamped Newton point, m + 6 iterations of KKT active set →
+  masked Cholesky of the identity-padded free block → the clamped ladder
+  of steps 1, ½, ¼, ⅛, 1/16, keeping the best candidate whose value is
+  strictly below the current one;
+- unconstrained: k = −QuuF⁻¹·Qu with a Sylvester PD check (m ≤ 4) or the
+  pivots of the all-free Cholesky (m > 4).
 
 The ``bad`` flag (QuuF not positive definite by its leading principal
-minors) zeroes k and marks the lane diverged. The feedback rows come from
-the identity-padded free-subspace inverse, zero on clamped controls
-(ref src/ilqr_core.cpp:377-385).
+minors, or a non-positive pivot on a free dim) zeroes k and marks the lane
+diverged. The feedback rows come from the identity-padded free-subspace
+inverse, zero on clamped controls (ref src/ilqr_core.cpp:377-385).
+
+The m > 4 code is vectorized over the trailing index of each update (a
+column of the Cholesky factor, the rows of the gradient, the five ladder
+candidates, the n feedback columns), so each entry still sees exactly the
+f32 operations of the JAX tile code, in its order, and the sums that JAX
+accumulates in sequence (the objective, the substitutions) stay
+sequential.
+
+The reciprocal square root of a Cholesky pivot is the IEEE-rounded 1/√d
+(a correctly rounded square root, then a division): ``1.0f / sqrtf(d)`` in
+csrc/qp.cuh, and here ``_rsqrt``, which picks the PyTorch op that rounds so
+on the tensor's device: ``1.0 / torch.sqrt(d)`` on the card (where
+``torch.rsqrt`` is the approximate ``rsqrtf``), ``torch.rsqrt`` on the CPU
+(where the vectorized ``torch.sqrt`` of a large f32 tensor is not
+correctly rounded: it differs from IEEE in 0.6% of 10⁵ uniform inputs in
+[1e-3, 1e3], and ``torch.rsqrt`` matches 1/√d on all of them). So the
+plain version and the kernel agree bit for bit. The JAX tile code takes
+``jax.lax.rsqrt``, which on XLA:CPU differs from the IEEE 1/√d in 29% of
+f32 inputs by at most 2 ulp (10⁶ uniform inputs in [1e-3, 1e3]), so the
+port matches the JAX package's projected Newton to a tolerance, not bit
+for bit.
 """
 
 from __future__ import annotations
@@ -32,7 +62,10 @@ import torch
 from ilqr_tpu_torch.ops.kernel_rollout import clip
 
 MAX_ENUM_M = 4
+# The widest in-kernel QP (ilqr_tpu/ops/pallas_sweep.py MAX_FUSED_M).
+MAX_FUSED_M = 24
 BIG = 3.0e38   # the enumeration's starting best value
+PN_STEPS = (1.0, 0.5, 0.25, 0.125, 0.0625)   # the projected Newton's ladder
 
 
 def _safe(d):
@@ -349,11 +382,13 @@ def qp_newton(quuF, qu, m):
             for i in range(1, 4):
                 s = s + adj[j][i] * qu[i]
             x.append(-s * rsdet)
+    elif m <= MAX_FUSED_M:
+        # all-free masked Cholesky (its pivots are the PD check) + a solve
+        Q = _stack(quuF)
+        L, rdiag, bad = chol_masked(Q, torch.ones_like(Q[0]))
+        x = list(chol_solve(L, rdiag, -torch.stack(qu)).unbind(0))
     else:
-        raise NotImplementedError(
-            f"the Newton step is ported for m <= {MAX_ENUM_M} (m = {m}); "
-            "the masked-Cholesky m > 4 branch comes with the "
-            "projected-Newton QP")
+        raise ValueError(f"in-kernel Newton supports m <= {MAX_FUSED_M}")
     k = [torch.where(bad, zero, xi) for xi in x]
     return k, [~bad for _ in range(m)], bad
 
@@ -423,8 +458,156 @@ def free_solve_rows(quuF, free, cols, m):
                     s = s + adj[j][b] * v[b]
                 out[j].append(torch.where(free[j], -s * rdet, zero))
         return out
-    raise NotImplementedError(
-        f"free-subspace rows are ported for m <= {MAX_ENUM_M} (m = {m})")
+    if m > MAX_FUSED_M:
+        raise ValueError(f"free-subspace rows support m <= {MAX_FUSED_M}")
+    # one masked Cholesky of the identity-padded matrix shared by the n
+    # columns, solved together (clamped rows pass through, zeroed on output)
+    free_b = torch.stack(free)
+    L, rdiag, _bad = chol_masked(
+        _stack(quuF), torch.where(free_b, one, zero))
+    b = torch.stack([torch.stack(row) for row in cols])        # (m, n, B)
+    sv = chol_solve(L[:, :, None], rdiag[:, None], b)
+    out = torch.where(free_b[:, None], -sv, zero)
+    return [list(row.unbind(0)) for row in out.unbind(0)]
+
+
+# --- general m (m > 4): masked Cholesky and projected Newton ---------------
+
+def _stack(q):
+    """A nested list of per-lane tensors as one (m, m, …) tensor."""
+    return torch.stack([torch.stack(row) for row in q])
+
+
+def _rsqrt(d):
+    """The IEEE-rounded 1/√d on d's device (see the module docstring)."""
+    return torch.rsqrt(d) if d.device.type == "cpu" else 1.0 / torch.sqrt(d)
+
+
+def chol_masked(Q, free_f):
+    """Cholesky of P = mask(Q), where P has the free principal block of Q and
+    identity rows and columns on clamped dims (P_ij = free_i·free_j·Q_ij +
+    (1 − free_i)·δ_ij); the factor keeps that padding, so solves pass
+    clamped entries through (_chol_masked_tiles).
+
+    Q (m, m, …) symmetric, free_f (m, …) f32 0/1. Returns (L (m, m, …),
+    lower-triangular, rdiag (m, …) = 1/L_ii, bad (…) bool: a non-positive
+    pivot on a free dim). Column i of L is computed for all rows j > i at
+    once; each entry subtracts its terms in k order, as the tile code does.
+    """
+    m = Q.shape[0]
+    L = torch.zeros_like(Q)
+    rdiag = torch.empty_like(free_f)
+    bad = torch.zeros(Q.shape[2:], dtype=torch.bool, device=Q.device)
+    for i in range(m):
+        d = free_f[i] * Q[i, i] + (1.0 - free_f[i])
+        for k in range(i):
+            d = d - L[i, k] * L[i, k]
+        bad = bad | ((free_f[i] > 0.5) & (d <= 0.0))
+        d_safe = torch.where(d <= 0.0, torch.ones_like(d), d)
+        rd = _rsqrt(d_safe)
+        rdiag[i] = rd
+        L[i, i] = d_safe * rd
+        if i + 1 < m:
+            acc = free_f[i] * free_f[i + 1:] * Q[i + 1:, i]
+            for k in range(i):
+                acc = acc - L[i + 1:, k] * L[i, k]
+            L[i + 1:, i] = acc * rd
+    return L, rdiag, bad
+
+
+def chol_solve(L, rdiag, b):
+    """Solves L·Lᵀ·x = b by forward and back substitution
+    (_chol_solve_tiles). b (m, …) broadcasts against L's trailing dims. The
+    forward pass updates the pending rows a column at a time (row i still
+    subtracts L_ik·y_k in k order); the back substitution sums each row's
+    terms in ascending k, so it runs entry by entry."""
+    m = b.shape[0]
+    acc = b.clone()
+    for k in range(m):
+        acc[k] = acc[k] * rdiag[k]            # y_k
+        if k + 1 < m:
+            acc[k + 1:] = acc[k + 1:] - L[k + 1:, k] * acc[k]
+    y = acc
+    x = [None] * m
+    for i in range(m - 1, -1, -1):
+        s = y[i]
+        for k in range(i + 1, m):
+            s = s - L[k, i] * x[k]
+        x[i] = s * rdiag[i]
+    return torch.stack(x)
+
+
+def _pn_val(Q, g, x):
+    """½xᵀQx + gᵀx as the tile code sums it: the diagonal terms
+    g_i·x_i + ½q_ii·x_i·x_i in i order, then q_ij·x_i·x_j over i < j.
+    Q (m, m, B), g (m, B), x (m, …, B) with any candidate dims between."""
+    m = x.shape[0]
+    extra = (1,) * (x.dim() - 2)
+    Qe = Q.reshape(Q.shape[:2] + extra + Q.shape[2:])
+    ge = g.reshape(g.shape[:1] + extra + g.shape[1:])
+    t1 = ge * x
+    t2 = 0.5 * torch.diagonal(Qe, dim1=0, dim2=1).movedim(-1, 0) * x * x
+    prod = Qe * x[:, None] * x[None, :]
+    v = torch.zeros_like(x[0])
+    for i in range(m):
+        v = v + t1[i] + t2[i]
+    for i in range(m):
+        for j in range(i + 1, m):
+            v = v + prod[i, j]
+    return v
+
+
+def _pn_grad(Q, g, x):
+    """Qx + g, each row summed from g_i in j order."""
+    acc = g
+    for j in range(x.shape[0]):
+        acc = acc + Q[:, j] * x[j]
+    return acc
+
+
+def _kkt_clamped(x, gr, lo, hi):
+    return ((x <= lo) & (gr > 0.0)) | ((x >= hi) & (gr < 0.0))
+
+
+def qp_pn(quuF, qu, lo, hi, m):
+    """Box QP for 5 ≤ m ≤ 24 by projected Newton (_qp_pn): from
+    clamp(−QuuF⁻¹·Qu), m + 6 iterations of {KKT active set → masked
+    Cholesky free-subspace solve → the clamped candidates x + s·(x_N − x)
+    for s in PN_STEPS, the best whose value is strictly below the current
+    one taken}; the all-free and every iteration's factorization flag a
+    non-PD free block (``bad``). Returns (k, free, bad) as the enumeration
+    QPs do: ``free`` is the final KKT-free set."""
+    if m > MAX_FUSED_M:
+        raise ValueError(f"the in-kernel box QP supports m <= {MAX_FUSED_M}")
+    Q, g = _stack(quuF), torch.stack(qu)
+    lo, hi = torch.stack(lo), torch.stack(hi)
+    one = torch.ones_like(g)
+    zero = torch.zeros_like(g)
+    L, rdiag, bad = chol_masked(Q, one)
+    x = clip(chol_solve(L, rdiag, -g), lo, hi)
+    v_cur = _pn_val(Q, g, x)
+    steps = torch.tensor(PN_STEPS, dtype=g.dtype, device=g.device)[:, None]
+    for _ in range(m + 6):
+        free_f = torch.where(_kkt_clamped(x, _pn_grad(Q, g, x), lo, hi),
+                             zero, one)
+        L, rdiag, bad_it = chol_masked(Q, free_f)
+        bad = bad | bad_it
+        rhs = free_f * _pn_grad(Q, g, (1.0 - free_f) * x)
+        d = chol_solve(L, rdiag, rhs)
+        xn = free_f * (-d) + (1.0 - free_f) * x
+        # the ladder's five candidates at once: (m, 5, B)
+        cand = clip(x[:, None] + steps * (xn - x)[:, None], lo[:, None],
+                    hi[:, None])
+        v_c = _pn_val(Q, g, cand)
+        best, v_best = x, v_cur
+        for s in range(len(PN_STEPS)):
+            take = v_c[s] < v_best
+            best = torch.where(take, cand[:, s], best)
+            v_best = torch.where(take, v_c[s], v_best)
+        x, v_cur = best, v_best
+    free = ~_kkt_clamped(x, _pn_grad(Q, g, x), lo, hi) & ~bad
+    k = torch.where(bad, zero, x)
+    return list(k.unbind(0)), list(free.unbind(0)), bad
 
 
 _BOX_QPS = {1: qp_m1, 2: qp_m2, 3: qp_m3, 4: qp_m4}
@@ -432,9 +615,6 @@ _BOX_QPS = {1: qp_m1, 2: qp_m2, 3: qp_m3, 4: qp_m4}
 
 def box_qp(quuF, qu, lo, hi, m):
     """The in-kernel box QP for control dimension m (k, free, bad)."""
-    if m not in _BOX_QPS:
-        raise NotImplementedError(
-            f"the in-kernel box QP is ported for m <= {MAX_ENUM_M} "
-            f"(m = {m}); the projected-Newton QP for 5 <= m <= 24 is not "
-            "ported yet")
-    return _BOX_QPS[m](quuF, qu, lo, hi)
+    if m in _BOX_QPS:
+        return _BOX_QPS[m](quuF, qu, lo, hi)
+    return qp_pn(quuF, qu, lo, hi, m)

@@ -187,6 +187,6 @@ def test_params_from_numpy_round_trips_default_params():
 def test_registry_has_acrobot_only():
     assert get_model("acrobot") is tac.MODEL
     assert (get_model("acrobot").n, get_model("acrobot").m) == (4, 1)
-    for name in ("pendulum", "omni_thruster", "no_such_model"):
+    for name in ("pendulum", "bicycle", "no_such_model"):
         with pytest.raises(NotImplementedError):
             get_model(name)

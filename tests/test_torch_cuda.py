@@ -19,8 +19,11 @@ from ilqr_tpu_torch import (
 )
 from ilqr_tpu_torch.models import acrobot as tac
 from ilqr_tpu_torch.models import double_integrator as tdi
+from ilqr_tpu_torch.models import free_flyer as tff
+from ilqr_tpu_torch.models import omni_thruster as tot
 from ilqr_tpu_torch.models import point_mass_3d as tpm
 from ilqr_tpu_torch.models import quadrotor as tqd
+from ilqr_tpu_torch.models import thruster_ring as ttr
 from ilqr_tpu_torch.ops import (
     kernel_backward,
     kernel_derivs,
@@ -254,7 +257,12 @@ def test_single_problem_solve_on_card(dev):
 
 
 MODS = {"acrobot": tac, "double_integrator": tdi, "point_mass_3d": tpm,
-        "quadrotor": tqd}
+        "quadrotor": tqd, "omni_thruster": tot, "free_flyer": tff,
+        "thruster_ring": ttr, "thruster_ring24": ttr}
+# controls around which the inputs are drawn (the thrusters' boxes are
+# [0, u_max]: about a third of the draws lands on the lower bound)
+U_MID = {"quadrotor": 1.2, "omni_thruster": 1.0, "free_flyer": 1.0,
+         "thruster_ring": 1.0, "thruster_ring24": 1.0}
 
 
 @pytest.mark.cuda
@@ -270,8 +278,8 @@ def test_model_kernels_match_plain(dev, name, use_limits):
     n, mm, b, t = m.n, m.m, 200, 9
     rng = np.random.default_rng(17)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    pp = kernel_rollout.pack_params(MODS[name].default_params(), 0.02, dev)
-    u_mid = 1.2 if name == "quadrotor" else 0.0
+    pp = kernel_rollout.pack_params(m.default_params(), 0.02, dev)
+    u_mid = U_MID.get(name, 0.0)
     x0 = f(0.3 * rng.normal(size=(n, b)))
     us = f(u_mid + 0.6 * rng.normal(size=(t, mm, b)))
     xs = f(0.3 * rng.normal(size=(t, n, b)))
@@ -308,17 +316,19 @@ def test_model_kernels_match_plain(dev, name, use_limits):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["double_integrator", "point_mass_3d",
-                                  "quadrotor"])
+                                  "quadrotor", "omni_thruster", "free_flyer",
+                                  "thruster_ring"])
 def test_model_solve_on_card_matches_plain_solve(dev, name):
     """A short solve of each model through the kernels against the same
     solve through the plain versions on the CPU: costs to rtol 1e-4, equal
     iteration counts and reasons."""
     m = get_model(name)
-    p = MODS[name].default_params()
+    p = m.default_params()
     rng = np.random.default_rng(0)
     x0 = (0.3 * rng.normal(size=(64, m.n))).astype(np.float32)
-    u0 = (np.tile(tqd.hover_control(p).numpy()[None], (8, 1))
-          if name == "quadrotor" else np.zeros((8, m.m), np.float32))
+    u0 = (np.tile(MODS[name].hover_control(p).numpy()[None], (8, 1))
+          if name in ("quadrotor", "omni_thruster")
+          else np.zeros((8, m.m), np.float32))
     cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True, max_iter=5,
                        alphas=(1.0, 0.3, 0.03))
     reset_launch_counts()

@@ -198,14 +198,15 @@ def test_unsupported_configurations_raise():
                           SolverConfig(sweep_kernel="split"), 0.02,
                           np.zeros((2, 4), np.float32),
                           np.zeros((5, 2), np.float32), device="cpu")
-    # m >= 5 waits for the projected-Newton QP; m > 24 is past the JAX
-    # package's cap
-    for mm, exc in ((6, NotImplementedError), (25, ValueError)):
-        wide = dataclasses.replace(m, name=f"m{mm}", m=mm)
-        with pytest.raises(exc):
-            solve_batch_fused(wide, p, SolverConfig(), 0.02, x0,
-                              np.zeros((5, mm), np.float32), device="cpu")
-        assert not fused_applicable(wide, SolverConfig())
+    # m up to 24 runs (projected Newton from m = 5); m > 24 is past the
+    # JAX package's cap
+    assert fused_applicable(dataclasses.replace(m, name="m6", m=6),
+                            SolverConfig())
+    wide = dataclasses.replace(m, name="m25", m=25)
+    with pytest.raises(ValueError):
+        solve_batch_fused(wide, p, SolverConfig(), 0.02, x0,
+                          np.zeros((5, 25), np.float32), device="cpu")
+    assert not fused_applicable(wide, SolverConfig())
     from ilqr_tpu_torch.fused import solve_batch_fused_warm
 
     with pytest.raises(NotImplementedError):

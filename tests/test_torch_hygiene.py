@@ -58,7 +58,10 @@ def _run(code, cwd=REPO, extra_env=None):
     "import ilqr_tpu_torch.ops.kernel_backward, ilqr_tpu_torch.ops.qp\n"
     "import ilqr_tpu_torch.models.double_integrator\n"
     "import ilqr_tpu_torch.models.point_mass_3d\n"
-    "import ilqr_tpu_torch.models.quadrotor",
+    "import ilqr_tpu_torch.models.quadrotor\n"
+    "import ilqr_tpu_torch.models.omni_thruster\n"
+    "import ilqr_tpu_torch.models.free_flyer\n"
+    "import ilqr_tpu_torch.models.thruster_ring",
     "import chip_smoke",
 ])
 def test_imports_no_jax_nor_ilqr_tpu(imports):
@@ -242,3 +245,61 @@ def test_unknown_kernel_route_raises():
                     SolverConfig(deriv_kernel="cuda"), 0.02,
                     np.zeros((2, 4), np.float32),
                     np.zeros((5, 1), np.float32), device="cpu")
+
+
+def test_qp_helpers_are_not_recursive():
+    """No function of csrc/qp.cuh calls itself by its own name: a recursive
+    device function called with a loop index stays a real call, and its
+    stack can no longer be sized at compile time (it faulted the m = 4
+    kernels once). Template recursion over distinct instantiations
+    (``cand3<C + 1>``) is resolved at compile time and allowed."""
+    import re
+
+    src = (_build.CSRC / "qp.cuh").read_text()
+    defs = list(re.finditer(
+        r"^(?:template <[^>]*>\n)?__(?:host__ __)?device__[^(]*?(\w+)\(",
+        src, re.M))
+    assert len(defs) >= 20
+    for k, d in enumerate(defs):
+        name = d.group(1)
+        end = defs[k + 1].start() if k + 1 < len(defs) else len(src)
+        body = src[src.index("{", d.end()):end]
+        assert not re.search(rf"\b{name}\s*\(", body), name
+    for name in ("chol_masked", "chol_solve", "pn", "pn_val"):
+        assert any(d.group(1) == name for d in defs), name
+
+
+def test_ptxas_table_files_rows_under_their_own_model():
+    """chip_smoke's ptxas table over a synthetic log: a kernel's row goes to
+    the longest model name in its mangled name, so thruster_ring16's rows
+    are not filed under thruster_ring, whose name its name contains."""
+    import chip_smoke
+
+    def entry(mangled, regs, stack):
+        return (f"ptxas info    : Compiling entry function '{mangled}' for "
+                f"'sm_90a'\nptxas info    : Function properties for "
+                f"{mangled}\n    {stack} bytes stack frame, 8 bytes spill "
+                f"stores, 12 bytes spill loads\nptxas info    : Used {regs} "
+                f"registers, used 0 barriers\n")
+
+    log = "ptxas log of kernels_thruster_ring.cu\n" + "".join([
+        entry("_ZN5fused12sweep_kernelIN13thruster_ring5ModelILi12EEELb1EEEv"
+              "PKfS5_", 200, 4096),
+        entry("_ZN5fused12sweep_kernelIN15thruster_ring165ModelELb1EEEvPKf",
+              201, 5000),
+        entry("_ZN5fused14rollout_kernelIN15thruster_ring245ModelEEEvPKf",
+              202, 64),
+        entry("_ZN5fused16iteration_kernelIN13omni_thruster5ModelELb0EEEv"
+              "PKf", 203, 2048),
+        entry("_ZN5fused17linesearch_kernelIN9quadrotor5ModelEEEvPKf", 204,
+              0),
+        entry("_Z13derivs_kernelILb1EEvPKf", 64, 0)])
+    t = chip_smoke.ptxas_table(log)
+    assert t[("sweep_kernel", "thruster_ring", True)]["registers"] == 200
+    assert t[("sweep_kernel", "thruster_ring16", True)] == dict(
+        registers=201, stack_bytes=5000, spill_stores=8, spill_loads=12)
+    assert t[("rollout_kernel", "thruster_ring24", None)]["registers"] == 202
+    assert t[("iteration_kernel", "omni_thruster", False)]["registers"] == 203
+    assert t[("linesearch_kernel", "quadrotor", None)]["registers"] == 204
+    assert t[("derivs_kernel", "acrobot", None)]["registers"] == 64
+    assert len(t) == 6

@@ -1,13 +1,16 @@
-"""The port's double_integrator, point_mass_3d and quadrotor against the
-JAX package's models, and the structural patterns that the CUDA kernels
+"""The port's models of m ≥ 2 (double_integrator, point_mass_3d,
+quadrotor, omni_thruster, free_flyer and the four thruster rings) against
+the JAX package's models, and the structural patterns that the CUDA kernels
 compile in (csrc/<model>.cuh ``a_kind``/``b_kind``) against the constants
 the JAX package's ``jac_soa`` returns.
 
 Inputs are drawn with numpy in f32 and handed to both sides. Tolerance:
 |port − JAX| ≤ 1e-5·(1 + |JAX|). The two sides run the same f32
 operations in the same order, so the models without trig agree to the bit;
-the quadrotor's sin/cos (torch vs XLA) may differ by an ulp, which the
-Jacobian's divisions by cos θ carry to a few ulps.
+the quadrotor's and the rings' sin/cos (torch vs XLA) may differ by an
+ulp, which the Jacobian's divisions by cos θ carry to a few ulps. The
+rings' geometry tables in csrc/thruster_ring.cuh are held to the JAX
+package's ``_ring_geometry`` cast to f32 bit for bit.
 """
 
 import pathlib
@@ -19,33 +22,47 @@ import numpy as np
 import pytest
 import torch
 
+from ilqr_tpu import get_model as jax_get_model
 from ilqr_tpu.models import acrobot as jac_acrobot
 from ilqr_tpu.models import double_integrator as jdi
+from ilqr_tpu.models import free_flyer as jff
+from ilqr_tpu.models import omni_thruster as jot
 from ilqr_tpu.models import point_mass_3d as jpm
 from ilqr_tpu.models import quadrotor as jqd
+from ilqr_tpu.models import thruster_ring as jtr
 from ilqr_tpu_torch import get_model
 from ilqr_tpu_torch.models import acrobot as tac
 from ilqr_tpu_torch.models import double_integrator as tdi
+from ilqr_tpu_torch.models import free_flyer as tff
+from ilqr_tpu_torch.models import omni_thruster as tot
 from ilqr_tpu_torch.models import point_mass_3d as tpm
 from ilqr_tpu_torch.models import quadrotor as tqd
+from ilqr_tpu_torch.models import thruster_ring as ttr
 from ilqr_tpu_torch.ops import kernel_rollout
 
 CSRC = (pathlib.Path(__file__).resolve().parents[1] / "ilqr_tpu_torch"
         / "csrc")
 TOL = 1e-5
+RINGS = {"thruster_ring": 12, "thruster_ring16": 16, "thruster_ring20": 20,
+         "thruster_ring24": 24}
+# name → (JAX module, port module): the port module's params_from_numpy
 PAIRS = {
     "acrobot": (jac_acrobot, tac),
     "double_integrator": (jdi, tdi),
     "point_mass_3d": (jpm, tpm),
     "quadrotor": (jqd, tqd),
+    "omni_thruster": (jot, tot),
+    "free_flyer": (jff, tff),
+    **{name: (jtr, ttr) for name in RINGS},
 }
-NEW = ("double_integrator", "point_mass_3d", "quadrotor")
+NEW = ("double_integrator", "point_mass_3d", "quadrotor", "omni_thruster",
+       "free_flyer", *RINGS)
 
 
 def _params(name):
-    jmod, tmod = PAIRS[name]
+    _jmod, tmod = PAIRS[name]
     jp = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
-                                jmod.default_params())
+                                jax_get_model(name).default_params())
     return jax.tree_util.tree_map(jnp.asarray, jp), tmod.params_from_numpy(jp)
 
 
@@ -83,7 +100,7 @@ def _same_entries(got, want, what):
 
 @pytest.mark.parametrize("name", NEW)
 def test_soa_functions_match_jax(name):
-    jmod, tmod = PAIRS[name]
+    jmod, tmod = jax_get_model(name), get_model(name)
     jp, tp = _params(name)
     x, u = _xu(name)
     jx, ju = jnp.asarray(x), jnp.asarray(u)
@@ -103,7 +120,7 @@ def test_soa_functions_match_jax(name):
 
 @pytest.mark.parametrize("name", NEW)
 def test_single_problem_functions_match_jax(name):
-    jmod, tmod = PAIRS[name]
+    jmod, tmod = jax_get_model(name), get_model(name)
     jp, tp = _params(name)
     x, u = _xu(name, B=3, seed=1)
     for b in range(3):
@@ -119,23 +136,61 @@ def test_single_problem_functions_match_jax(name):
 
 def test_default_params_and_hover_control_match_jax():
     for name in NEW:
-        jmod, tmod = PAIRS[name]
-        jd, td = jmod.default_params(), tmod.default_params()
+        jd = jax_get_model(name).default_params()
+        td = get_model(name).default_params()
         assert type(td)._fields == type(jd)._fields
         for f in type(jd)._fields:   # in the port's default dtype, f32
             np.testing.assert_array_equal(
                 getattr(td, f).to(torch.float32).numpy(),
                 np.asarray(getattr(jd, f), np.float32))
-    jp, tp = _params("quadrotor")
-    np.testing.assert_array_equal(
-        tqd.hover_control(tp).to(torch.float32).numpy(),
-        np.asarray(jqd.hover_control(jp), np.float32))
-    assert float(tqd.hover_control(tp)[0]) == pytest.approx(0.5 * 9.81 / 4)
+    for jmod, tmod in ((jqd, tqd), (jot, tot)):
+        jp, tp = _params(tmod.MODEL.name)
+        np.testing.assert_array_equal(
+            tmod.hover_control(tp).to(torch.float32).numpy(),
+            np.asarray(jmod.hover_control(jp), np.float32))
+    assert float(tqd.hover_control(_params("quadrotor")[1])[0]) == (
+        pytest.approx(0.5 * 9.81 / 4))
+    hover = tot.hover_control(_params("omni_thruster")[1])
+    assert float(hover[4]) == pytest.approx(9.81)
+    assert float(hover.abs().sum()) == pytest.approx(9.81)
+
+
+@pytest.mark.parametrize("name", sorted(RINGS))
+def test_ring_tables_match_jax_geometry(name):
+    """csrc/thruster_ring.cuh's Geometry<M> literals are the JAX package's
+    _ring_geometry(M) cast to f32, bit for bit, zeros where it snapped them
+    to zero; the port's own copy of the geometry is the same."""
+    M = RINGS[name]
+    dirs, torque = jtr._ring_geometry(M)
+    src = (CSRC / "thruster_ring.cuh").read_text()
+    block = re.search(rf"struct Geometry<{M}> \{{(.*?)\n\}};", src,
+                      re.S).group(1)
+    for fn, want in (("d0", dirs[:, 0]), ("d1", dirs[:, 1]),
+                     ("arm", torque)):
+        body = re.search(rf"float {fn}\(int i\) \{{\s*constexpr float "
+                         rf"v\[{M}\] = \{{(.*?)\}};", block, re.S).group(1)
+        got = np.array([np.float32(w.strip().rstrip("f"))
+                        for w in body.split(",")], np.float32)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.astype(np.float32).view(np.uint32))
+        assert np.array_equal(got == 0.0, want == 0.0), fn
+    pdirs, ptorque = ttr.ring_geometry(M)
+    np.testing.assert_array_equal(pdirs, dirs)
+    np.testing.assert_array_equal(ptorque, torque)
 
 
 def _cuda_pattern(name, fn):
-    """The string rows of ``fn`` (a_kind or b_kind) in csrc/<name>.cuh."""
-    src = (CSRC / f"{name}.cuh").read_text()
+    """The string rows of ``fn`` (a_kind or b_kind) in csrc/<name>.cuh; a
+    ring's b_kind is its Geometry<M>'s in csrc/thruster_ring.cuh."""
+    if name in RINGS:
+        src = (CSRC / "thruster_ring.cuh").read_text()
+        if fn == "b_kind":
+            src = re.search(rf"struct Geometry<{RINGS[name]}> \{{(.*?)\n\}};",
+                            src, re.S).group(1)
+        else:
+            src = src[src.index("struct Model {"):]
+    else:
+        src = (CSRC / f"{name}.cuh").read_text()
     body = re.search(rf"constexpr char {fn}\(int r, int \w\) \{{(.*?)\}}",
                      src, re.S).group(1)
     return re.findall(r'"([.1x]+)"', body)
@@ -153,8 +208,7 @@ def test_cuda_structural_patterns_match_jax(name):
     Python float the JAX package's jac_soa returns there, and every live
     entry is an array; the cost Hessians the kernels take as diagonal (and
     cxu as zero) are so in the JAX package."""
-    jmod, _t = PAIRS[name]
-    m = get_model(name)
+    jmod, m = jax_get_model(name), get_model(name)
     jp, _tp = _params(name)
     x, u = _xu(name, B=8)
     A, Bm = jmod.jac_soa(jp, jnp.asarray(x), jnp.asarray(u))
@@ -176,9 +230,10 @@ def test_cuda_structural_patterns_match_jax(name):
 def test_packed_params_match_cuda_loader(name):
     """The flat params vector has the length the model's CUDA loader reads:
     dt is its last entry (csrc/<name>.cuh load)."""
-    _jmod, tmod = PAIRS[name]
-    src = (CSRC / f"{name}.cuh").read_text()
-    dt_at = int(re.search(r"q\.dt = p\[(\d+)\];", src).group(1))
-    pp = kernel_rollout.pack_params(tmod.default_params(), 0.02)
+    src = (CSRC / ("thruster_ring.cuh" if name in RINGS
+                   else f"{name}.cuh")).read_text()
+    at = re.search(r"q\.dt = p\[([^\]]+)\];", src).group(1)
+    dt_at = int(eval(at, {"M": RINGS.get(name)}))   # e.g. "23 + 3 * M"
+    pp = kernel_rollout.pack_params(get_model(name).default_params(), 0.02)
     assert pp.vec.numel() == dt_at + 1
     assert pp.vec[dt_at].item() == pytest.approx(0.02)

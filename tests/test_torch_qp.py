@@ -156,9 +156,16 @@ def test_qp_m4_boundary_tie_matches_jax():
 
 
 def test_m5_raises():
-    one = [[torch.ones(2)] * 5 for _ in range(5)]
-    with pytest.raises(NotImplementedError, match="projected-Newton"):
-        qp.box_qp(one, [torch.ones(2)] * 5, [-torch.ones(2)] * 5,
-                  [torch.ones(2)] * 5, 5)
-    with pytest.raises(NotImplementedError):
-        qp.qp_newton(one, [torch.ones(2)] * 5, 5)
+    """m = 5 takes projected Newton (tests/test_torch_qp_pn.py holds it
+    against JAX); past m = 24, the JAX package's cap, the QPs raise."""
+    eye = [[torch.full((2,), float(i == j)) for j in range(5)]
+           for i in range(5)]
+    k, free, bad = qp.box_qp(eye, [torch.ones(2)] * 5, [-torch.ones(2)] * 5,
+                             [torch.ones(2)] * 5, 5)
+    assert not bad.any() and all(bool((ki == -1.0).all()) for ki in k)
+    one = [[torch.ones(2)] * 25 for _ in range(25)]
+    with pytest.raises(ValueError):
+        qp.box_qp(one, [torch.ones(2)] * 25, [-torch.ones(2)] * 25,
+                  [torch.ones(2)] * 25, 25)
+    with pytest.raises(ValueError):
+        qp.qp_newton(one, [torch.ones(2)] * 25, 25)
