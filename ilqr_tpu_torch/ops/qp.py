@@ -61,7 +61,6 @@ import torch
 
 from ilqr_tpu_torch.ops.kernel_rollout import clip
 
-MAX_ENUM_M = 4
 # The widest in-kernel QP (ilqr_tpu/ops/pallas_sweep.py MAX_FUSED_M).
 MAX_FUSED_M = 24
 BIG = 3.0e38   # the enumeration's starting best value
@@ -503,7 +502,7 @@ def chol_masked(Q, free_f):
         for k in range(i):
             d = d - L[i, k] * L[i, k]
         bad = bad | ((free_f[i] > 0.5) & (d <= 0.0))
-        d_safe = torch.where(d <= 0.0, torch.ones_like(d), d)
+        d_safe = _safe(d)
         rd = _rsqrt(d_safe)
         rdiag[i] = rd
         L[i, i] = d_safe * rd
