@@ -17,7 +17,7 @@ Phases (any failure raises and the script exits non-zero):
      by kernel and the device's busy share;
   5. the fused split route (sweep + line-search kernels) against the merged
      one, and the kernel path against the plain path on the card, at
-     B = 1024, max_iter = 12; beside them, not asserted, the plain path on
+     B = 1024, max_iter = 4; beside them, not asserted, the plain path on
      the CPU and the kernel path from an x0 moved by 1e-6, which show how
      far rounding alone carries a lane on this chaotic workload;
   6. the composable path: solve_batch at the same size on the same x0
@@ -92,11 +92,13 @@ from ilqr_tpu_torch.ops import (
 )
 
 B_MAIN, T, DT, MAX_ITER = 8192, 499, 0.02, 100
-B_SPLIT, ITER_SPLIT = 1024, 12
+# Phase 5 at a cut depth: its plain path takes ~7 s per iteration at
+# T = 499 on an H100 80GB HBM3 (700 W).
+B_SPLIT, ITER_SPLIT = 1024, 4
 # Equivalence of whole solves across routes: a horizon short enough that
 # rounding alone (a 1e-6 nudge of x0) forks under 1% of lanes by iteration
 # 12; phase 7 prints that share.
-T_EQ = 50
+T_EQ, ITER_EQ = 50, 12
 N, M = 4, 1
 # Kernel vs plain version: both run the same IEEE f32 operations in the
 # same order (nvcc --fmad=false, no fast math); the trig libraries
@@ -547,10 +549,10 @@ def run_split_path(dev, model, params, cfg):
     rng = np.random.default_rng(1)
     x0 = (0.05 * rng.normal(size=(B_SPLIT, N))).astype(np.float32)
     u0 = np.zeros((T, M), np.float32)
-    c12 = cfg.replace(max_iter=ITER_SPLIT)
-    merged = solve_batch_fused(model, params, c12, DT, x0, u0)
+    c4 = cfg.replace(max_iter=ITER_SPLIT)
+    merged = solve_batch_fused(model, params, c4, DT, x0, u0)
     reset_launch_counts()
-    split = solve_batch_fused(model, params, c12.replace(iter_kernel="split"),
+    split = solve_batch_fused(model, params, c4.replace(iter_kernel="split"),
                               DT, x0, u0)
     torch.cuda.synchronize()
     counts = launch_counts()
@@ -558,7 +560,7 @@ def run_split_path(dev, model, params, cfg):
         raise AssertionError(f"split path skipped its kernels: {counts}")
     t0 = time.perf_counter()
     with plain_ops():
-        plain = solve_batch_fused(model, params, c12, DT, x0, u0)
+        plain = solve_batch_fused(model, params, c4, DT, x0, u0)
         torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     cm, cs = merged.cost.cpu().numpy(), split.cost.cpu().numpy()
@@ -578,11 +580,11 @@ def run_split_path(dev, model, params, cfg):
 
     # Not asserted: the CPU's sin/cos round differently from the card's in
     # the last ulp, and an x0 moved by 1e-6 shows how far such a difference
-    # alone can carry a lane by iteration 12 (experiments/equiv_tpu.py).
+    # alone can carry a lane by iteration 4 (experiments/equiv_tpu.py).
     t0 = time.perf_counter()
-    cpu = solve_batch_fused(model, params, c12, DT, x0, u0, device="cpu")
+    cpu = solve_batch_fused(model, params, c4, DT, x0, u0, device="cpu")
     cpu_s = time.perf_counter() - t0
-    nudged = solve_batch_fused(model, params, c12, DT, x0 + np.float32(1e-6),
+    nudged = solve_batch_fused(model, params, c4, DT, x0 + np.float32(1e-6),
                                u0)
     for label, a in (("cpu_plain_vs_card", cpu.cost.numpy()),
                      ("card_x0+1e-6_vs_card", nudged.cost.cpu().numpy())):
@@ -738,7 +740,7 @@ def run_equivalence(dev, model, params, cfg):
     rng = np.random.default_rng(4)
     x0 = (0.05 * rng.normal(size=(B_SPLIT, N))).astype(np.float32)
     u0 = np.zeros((T_EQ, M), np.float32)
-    c12 = cfg.replace(max_iter=ITER_SPLIT)
+    c12 = cfg.replace(max_iter=ITER_EQ)
     merged = solve_batch_fused(model, params, c12, DT, x0, u0)
     reset_launch_counts()
     fused._iteration.calls = fused._iteration.retried = 0
@@ -764,7 +766,7 @@ def run_equivalence(dev, model, params, cfg):
         share = float(np.mean(np.abs(a - cm) / (1.0 + np.abs(cm)) > 1e-3))
         res[label] = dict(p99=p99, max=mx, share_over_1e3=share)
         print(f"[equiv] {label} at B={B_SPLIT} T={T_EQ} max_iter="
-              f"{ITER_SPLIT}: p99 {p99:.3e} (≤ {GAUGE_P99:g}), max {mx:.3e} "
+              f"{ITER_EQ}: p99 {p99:.3e} (≤ {GAUGE_P99:g}), max {mx:.3e} "
               f"(≤ {GAUGE_MAX:g}), share of lanes over 1e-3 {share:.4f}"
               + ("" if asserted else " (information, not asserted)"))
         if asserted and not (np.isfinite(a).all() and p99 <= GAUGE_P99
@@ -1112,23 +1114,27 @@ def card_vs_cpu(name, T_c, iters, lanes=4):
 
 
 def ptxas_table(log: str):
-    """(kernel, model, limits) → registers and spills, from ptxas -v. A
-    kernel's model is the longest model name in its mangled name (each
-    model's traits type carries its name: thruster_ring16::Model, …), so
-    one name that contains another (thruster_ring, thruster_ring16) does
-    not capture its rows; kernels that name no model are acrobot's."""
-    table, entry = {}, None
-    models = tuple(kernel_rollout.FUSED_KERNEL_MODELS)
+    """(kernel, model, limits) → registers, spills and source file, from
+    ptxas -v. The build log heads each source's report with "ptxas log of
+    <file>": each csrc/kernels_<model>.cu (and kernels_<model>_iteration.cu,
+    where a model's iteration kernels compile apart) instantiates one
+    model, and the other sources (kernels.cu, derivs.cu, backward.cu) are
+    acrobot's."""
+    table, entry, model, source = {}, None, "acrobot", None
     for line in log.splitlines():
-        if "Compiling entry function" in line:
+        if line.startswith("ptxas log of "):
+            source = line[len("ptxas log of "):].strip()
+            stem = source.removesuffix(".cu")
+            model = (stem[len("kernels_"):].removesuffix("_iteration")
+                     if stem.startswith("kernels_") else "acrobot")
+        elif "Compiling entry function" in line:
             name = line.split("'")[1]
             kernel = next((k for k in KERNEL_NAMES if k in name), name)
-            model = max((m for m in models if m in name), key=len,
-                        default="acrobot")
             limits = None   # the sweep and iteration kernels' template flag
             if kernel in ("sweep_kernel", "iteration_kernel"):
                 limits = "Lb1E" in name
             entry = table.setdefault((kernel, model, limits), {})
+            entry["source"] = f"ilqr_tpu_torch/csrc/{source}"
         elif entry is not None and "bytes stack frame" in line:
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]

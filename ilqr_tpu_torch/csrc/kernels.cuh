@@ -316,7 +316,15 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
 // The four extern "C" launchers of one model, ilqr_<NAME>_<kernel>, with the
 // signatures ops/_build.py binds. The sweep and iteration launchers pick the
 // kernel with control limits (the box QP) or without (the Newton step).
-#define ILQR_FUSED_LAUNCHERS(NAME, MODEL)                                      \
+// ILQR_FUSED_LAUNCHERS instantiates all four; a model whose kernels take
+// nvcc minutes (the quadrotor's 81-candidate QP) puts
+// ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
+// ILQR_ITERATION_LAUNCHER in two sources, which compile in parallel.
+#define ILQR_FUSED_LAUNCHERS(NAME, MODEL) \
+  ILQR_SPLIT_LAUNCHERS(NAME, MODEL)       \
+  ILQR_ITERATION_LAUNCHER(NAME, MODEL)
+
+#define ILQR_SPLIT_LAUNCHERS(NAME, MODEL)                                      \
   extern "C" {                                                                 \
   int ilqr_##NAME##_rollout(const void* params, const void* x0,                \
                             const void* uff, const void* xsr, const void* K,   \
@@ -357,6 +365,10 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
         (float*)k_out, (float*)K_out, (float*)lscost, (float*)alpha_sel,       \
         (float*)acc, (float*)dcost, (float*)expected, z_min, T, B, clamp);     \
   }                                                                            \
+  }
+
+#define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                   \
+  extern "C" {                                                                 \
   int ilqr_##NAME##_iteration(                                                 \
       const void* params, const void* x0, const void* xs, const void* xterm,   \
       const void* us, const void* Kold, const void* kold, const void* alphas,  \

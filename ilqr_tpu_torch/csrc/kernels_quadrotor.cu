@@ -1,6 +1,8 @@
-// The fused solver's four kernels instantiated for the quadrotor
-// (n = 12, m = 4). See kernels.cuh.
+// The fused solver's rollout, sweep and line-search kernels instantiated for
+// the quadrotor (n = 12, m = 4); its iteration kernels compile in
+// kernels_quadrotor_iteration.cu, in parallel, as each kernel that holds the
+// 81-candidate QP takes nvcc minutes. See kernels.cuh.
 #include "quadrotor.cuh"
 #include "kernels.cuh"
 
-ILQR_FUSED_LAUNCHERS(quadrotor, quadrotor::Model)
+ILQR_SPLIT_LAUNCHERS(quadrotor, quadrotor::Model)

@@ -3,4 +3,4 @@
 #include "thruster_ring.cuh"
 #include "kernels.cuh"
 
-ILQR_FUSED_LAUNCHERS(thruster_ring16, thruster_ring16::Model)
+ILQR_FUSED_LAUNCHERS(thruster_ring16, thruster_ring::Model<16>)

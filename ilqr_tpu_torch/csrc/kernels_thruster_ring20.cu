@@ -3,4 +3,4 @@
 #include "thruster_ring.cuh"
 #include "kernels.cuh"
 
-ILQR_FUSED_LAUNCHERS(thruster_ring20, thruster_ring20::Model)
+ILQR_FUSED_LAUNCHERS(thruster_ring20, thruster_ring::Model<20>)

@@ -3,4 +3,4 @@
 #include "thruster_ring.cuh"
 #include "kernels.cuh"
 
-ILQR_FUSED_LAUNCHERS(thruster_ring24, thruster_ring24::Model)
+ILQR_FUSED_LAUNCHERS(thruster_ring24, thruster_ring::Model<24>)

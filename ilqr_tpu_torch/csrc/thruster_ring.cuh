@@ -1,11 +1,11 @@
 // Thruster-ring device functions (counterpart of the SoA functions of
 // ilqr_tpu/models/thruster_ring.py build_ring_model and
 // ilqr_tpu_torch/models/thruster_ring.py), as the fused kernels take a model
-// (see acrobot.cuh Model): one traits template on the ring size M, with
-// thruster_ring = Model<12> and thruster_ring16/20/24 named types over
-// Model<16/20/24> (so that each instantiation's kernels carry its model's
-// name). Every expression keeps the operation order of the Python SoA code;
-// the trig is the full-accuracy sincosf.
+// (see acrobot.cuh Model): one traits template on the ring size M, the
+// registered rings being Model<12> (thruster_ring) and Model<16/20/24>
+// (thruster_ring16/20/24), one csrc/kernels_<model>.cu each. Every
+// expression keeps the operation order of the Python SoA code; the trig is
+// the full-accuracy sincosf.
 //
 // Geometry<M> holds the JAX package's _ring_geometry(M) as f32 literals:
 // the thrust directions (d0, d1) and torque arms, each the Python float
@@ -335,14 +335,3 @@ struct Model {
 
 }  // namespace thruster_ring
 
-// The registered ring models past the first, as named types over the
-// template (thruster_ring itself is thruster_ring::Model<12>).
-namespace thruster_ring16 {
-struct Model : thruster_ring::Model<16> {};
-}  // namespace thruster_ring16
-namespace thruster_ring20 {
-struct Model : thruster_ring::Model<20> {};
-}  // namespace thruster_ring20
-namespace thruster_ring24 {
-struct Model : thruster_ring::Model<24> {};
-}  // namespace thruster_ring24

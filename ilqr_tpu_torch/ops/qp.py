@@ -43,9 +43,10 @@ The reciprocal square root of a Cholesky pivot is the IEEE-rounded 1/√d
 csrc/qp.cuh, and here ``_rsqrt``, which picks the PyTorch op that rounds so
 on the tensor's device: ``1.0 / torch.sqrt(d)`` on the card (where
 ``torch.rsqrt`` is the approximate ``rsqrtf``), ``torch.rsqrt`` on the CPU
-(where the vectorized ``torch.sqrt`` of a large f32 tensor is not
-correctly rounded: it differs from IEEE in 0.6% of 10⁵ uniform inputs in
-[1e-3, 1e3], and ``torch.rsqrt`` matches 1/√d on all of them). So the
+(where the f32 ``torch.sqrt`` is not correctly rounded: it differs from
+the correctly rounded square root in 0.6% of 10⁵ uniform inputs in
+[1e-3, 1e3], and ``torch.rsqrt`` matches the IEEE 1/√d on all of them;
+tests/test_torch_qp_pn.py holds both facts). So the
 plain version and the kernel agree bit for bit. The JAX tile code takes
 ``jax.lax.rsqrt``, which on XLA:CPU differs from the IEEE 1/√d in 29% of
 f32 inputs by at most 2 ulp (10⁶ uniform inputs in [1e-3, 1e3]), so the
@@ -491,7 +492,8 @@ def chol_masked(Q, free_f):
     Q (m, m, …) symmetric, free_f (m, …) f32 0/1. Returns (L (m, m, …),
     lower-triangular, rdiag (m, …) = 1/L_ii, bad (…) bool: a non-positive
     pivot on a free dim). Column i of L is computed for all rows j > i at
-    once; each entry subtracts its terms in k order, as the tile code does.
+    once, its products L_jk·L_ik for all k at once; each entry subtracts
+    them in k order, as the tile code does.
     """
     m = Q.shape[0]
     L = torch.zeros_like(Q)
@@ -499,8 +501,9 @@ def chol_masked(Q, free_f):
     bad = torch.zeros(Q.shape[2:], dtype=torch.bool, device=Q.device)
     for i in range(m):
         d = free_f[i] * Q[i, i] + (1.0 - free_f[i])
-        for k in range(i):
-            d = d - L[i, k] * L[i, k]
+        if i:
+            for sq in (L[i, :i] * L[i, :i]).unbind(0):
+                d = d - sq
         bad = bad | ((free_f[i] > 0.5) & (d <= 0.0))
         d_safe = _safe(d)
         rd = _rsqrt(d_safe)
@@ -508,8 +511,9 @@ def chol_masked(Q, free_f):
         L[i, i] = d_safe * rd
         if i + 1 < m:
             acc = free_f[i] * free_f[i + 1:] * Q[i + 1:, i]
-            for k in range(i):
-                acc = acc - L[i + 1:, k] * L[i, k]
+            if i:
+                for prod in (L[i + 1:, :i] * L[i, :i]).unbind(1):
+                    acc = acc - prod
             L[i + 1:, i] = acc * rd
     return L, rdiag, bad
 
@@ -518,8 +522,8 @@ def chol_solve(L, rdiag, b):
     """Solves L·Lᵀ·x = b by forward and back substitution
     (_chol_solve_tiles). b (m, …) broadcasts against L's trailing dims. The
     forward pass updates the pending rows a column at a time (row i still
-    subtracts L_ik·y_k in k order); the back substitution sums each row's
-    terms in ascending k, so it runs entry by entry."""
+    subtracts L_ik·y_k in k order); the back substitution forms each row's
+    products at once and subtracts them in ascending k."""
     m = b.shape[0]
     acc = b.clone()
     for k in range(m):
@@ -527,40 +531,43 @@ def chol_solve(L, rdiag, b):
         if k + 1 < m:
             acc[k + 1:] = acc[k + 1:] - L[k + 1:, k] * acc[k]
     y = acc
-    x = [None] * m
+    x = torch.empty_like(y)
     for i in range(m - 1, -1, -1):
         s = y[i]
-        for k in range(i + 1, m):
-            s = s - L[k, i] * x[k]
+        if i + 1 < m:
+            for prod in (L[i + 1:, i] * x[i + 1:]).unbind(0):
+                s = s - prod
         x[i] = s * rdiag[i]
-    return torch.stack(x)
+    return x
 
 
 def _pn_val(Q, g, x):
     """½xᵀQx + gᵀx as the tile code sums it: the diagonal terms
-    g_i·x_i + ½q_ii·x_i·x_i in i order, then q_ij·x_i·x_j over i < j.
+    g_i·x_i + ½q_ii·x_i·x_i in i order, then q_ij·x_i·x_j over i < j in
+    (i, j) order (only those pairs are multiplied).
     Q (m, m, B), g (m, B), x (m, …, B) with any candidate dims between."""
     m = x.shape[0]
     extra = (1,) * (x.dim() - 2)
-    Qe = Q.reshape(Q.shape[:2] + extra + Q.shape[2:])
-    ge = g.reshape(g.shape[:1] + extra + g.shape[1:])
+    iu, ju = torch.triu_indices(m, m, 1, device=x.device)
+    qd = torch.diagonal(Q, dim1=0, dim2=1).movedim(-1, 0)
+    ge, qd, qu = (a.reshape(a.shape[:1] + extra + a.shape[1:])
+                  for a in (g, qd, Q[iu, ju]))
     t1 = ge * x
-    t2 = 0.5 * torch.diagonal(Qe, dim1=0, dim2=1).movedim(-1, 0) * x * x
-    prod = Qe * x[:, None] * x[None, :]
+    t2 = 0.5 * qd * x * x
+    prod = qu * x[iu] * x[ju]
     v = torch.zeros_like(x[0])
-    for i in range(m):
-        v = v + t1[i] + t2[i]
-    for i in range(m):
-        for j in range(i + 1, m):
-            v = v + prod[i, j]
+    for a, b in zip(t1.unbind(0), t2.unbind(0)):
+        v = v + a + b
+    for p in prod.unbind(0):
+        v = v + p
     return v
 
 
 def _pn_grad(Q, g, x):
     """Qx + g, each row summed from g_i in j order."""
     acc = g
-    for j in range(x.shape[0]):
-        acc = acc + Q[:, j] * x[j]
+    for prod in (Q * x[None]).unbind(1):
+        acc = acc + prod
     return acc
 
 
@@ -597,13 +604,17 @@ def qp_pn(quuF, qu, lo, hi, m):
         # the ladder's five candidates at once: (m, 5, B)
         cand = clip(x[:, None] + steps * (xn - x)[:, None], lo[:, None],
                     hi[:, None])
-        v_c = _pn_val(Q, g, cand)
-        best, v_best = x, v_cur
+        # the strict v_c < v_best rule picks one of x (0) and the
+        # candidates (s + 1); the pick is then copied once, as the kernel
+        # copies a taken candidate
+        vals = torch.cat([v_cur[None], _pn_val(Q, g, cand)])
+        pick = torch.zeros_like(v_cur, dtype=torch.long)
         for s in range(len(PN_STEPS)):
-            take = v_c[s] < v_best
-            best = torch.where(take, cand[:, s], best)
-            v_best = torch.where(take, v_c[s], v_best)
-        x, v_cur = best, v_best
+            v_best = vals.gather(0, pick[None])[0]
+            pick = torch.where(vals[s + 1] < v_best, s + 1, pick)
+        v_cur = vals.gather(0, pick[None])[0]
+        x = torch.cat([x[:, None], cand], 1).gather(
+            1, pick.expand(m, -1)[:, None])[:, 0]
     free = ~_kkt_clamped(x, _pn_grad(Q, g, x), lo, hi) & ~bad
     k = torch.where(bad, zero, x)
     return list(k.unbind(0)), list(free.unbind(0)), bad

@@ -191,7 +191,13 @@ def test_every_cuda_source_is_built_and_packaged():
     for name in kernel_rollout.FUSED_KERNEL_MODELS:
         unit = "kernels.cu" if name == "acrobot" else f"kernels_{name}.cu"
         assert unit in units, name
-        assert f"ILQR_FUSED_LAUNCHERS({name}," in (csrc / unit).read_text()
+        text = (csrc / unit).read_text()
+        apart = csrc / f"kernels_{name}_iteration.cu"
+        if apart.exists():   # the iteration kernels compile in parallel
+            assert f"ILQR_SPLIT_LAUNCHERS({name}," in text
+            assert f"ILQR_ITERATION_LAUNCHER({name}," in apart.read_text()
+        else:
+            assert f"ILQR_FUSED_LAUNCHERS({name}," in text
 
 
 def test_pack_params_layout():
@@ -271,8 +277,10 @@ def test_qp_helpers_are_not_recursive():
 
 def test_ptxas_table_files_rows_under_their_own_model():
     """chip_smoke's ptxas table over a synthetic log: a kernel's row goes to
-    the longest model name in its mangled name, so thruster_ring16's rows
-    are not filed under thruster_ring, whose name its name contains."""
+    the model of the source whose report holds it (kernels_<model>.cu or
+    kernels_<model>_iteration.cu, the rest acrobot's), so thruster_ring16's
+    rows are not filed under thruster_ring, although both instantiate
+    thruster_ring::Model; each row keeps its source file."""
     import chip_smoke
 
     def entry(mangled, regs, stack):
@@ -282,24 +290,43 @@ def test_ptxas_table_files_rows_under_their_own_model():
                 f"stores, 12 bytes spill loads\nptxas info    : Used {regs} "
                 f"registers, used 0 barriers\n")
 
-    log = "ptxas log of kernels_thruster_ring.cu\n" + "".join([
-        entry("_ZN5fused12sweep_kernelIN13thruster_ring5ModelILi12EEELb1EEEv"
-              "PKfS5_", 200, 4096),
-        entry("_ZN5fused12sweep_kernelIN15thruster_ring165ModelELb1EEEvPKf",
-              201, 5000),
-        entry("_ZN5fused14rollout_kernelIN15thruster_ring245ModelEEEvPKf",
-              202, 64),
+    ring = "_ZN5fused{}IN13thruster_ring5ModelILi{}EEE{}EvPKf"
+    log = "".join([
+        "ptxas log of backward.cu\n",
+        entry("_Z15backward_kernelPKf", 80, 0),
+        "ptxas log of derivs.cu\n",
+        entry("_Z13derivs_kernelILb1EEvPKf", 64, 0),
+        "ptxas log of kernels.cu\n",
+        entry("_ZN5fused12sweep_kernelIN7acrobot5ModelELb1EEEvPKf", 72, 32),
+        "ptxas log of kernels_omni_thruster.cu\n",
         entry("_ZN5fused16iteration_kernelIN13omni_thruster5ModelELb0EEEv"
               "PKf", 203, 2048),
+        "ptxas log of kernels_quadrotor.cu\n",
         entry("_ZN5fused17linesearch_kernelIN9quadrotor5ModelEEEvPKf", 204,
               0),
-        entry("_Z13derivs_kernelILb1EEvPKf", 64, 0)])
+        "ptxas log of kernels_quadrotor_iteration.cu\n",
+        entry("_ZN5fused16iteration_kernelIN9quadrotor5ModelELb1EEEvPKf", 205,
+              528),
+        "ptxas log of kernels_thruster_ring.cu\n",
+        entry(ring.format("12sweep_kernel", 12, "Lb1E"), 200, 4096),
+        entry(ring.format("12sweep_kernel", 12, "Lb0E"), 96, 3584),
+        "ptxas log of kernels_thruster_ring16.cu\n",
+        entry(ring.format("12sweep_kernel", 16, "Lb1E"), 201, 5000),
+        "ptxas log of kernels_thruster_ring24.cu\n",
+        entry(ring.format("14rollout_kernel", 24, ""), 202, 64)])
     t = chip_smoke.ptxas_table(log)
     assert t[("sweep_kernel", "thruster_ring", True)]["registers"] == 200
+    assert t[("sweep_kernel", "thruster_ring", False)]["registers"] == 96
     assert t[("sweep_kernel", "thruster_ring16", True)] == dict(
-        registers=201, stack_bytes=5000, spill_stores=8, spill_loads=12)
+        registers=201, stack_bytes=5000, spill_stores=8, spill_loads=12,
+        source="ilqr_tpu_torch/csrc/kernels_thruster_ring16.cu")
     assert t[("rollout_kernel", "thruster_ring24", None)]["registers"] == 202
     assert t[("iteration_kernel", "omni_thruster", False)]["registers"] == 203
     assert t[("linesearch_kernel", "quadrotor", None)]["registers"] == 204
+    assert t[("iteration_kernel", "quadrotor", True)] == dict(
+        registers=205, stack_bytes=528, spill_stores=8, spill_loads=12,
+        source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration.cu")
+    assert t[("sweep_kernel", "acrobot", True)]["registers"] == 72
     assert t[("derivs_kernel", "acrobot", None)]["registers"] == 64
-    assert len(t) == 6
+    assert t[("backward_kernel", "acrobot", None)]["registers"] == 80
+    assert len(t) == 10

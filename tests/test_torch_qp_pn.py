@@ -16,9 +16,13 @@ it by up to 2 ulp on about 29% of inputs. So the tests hold:
   99% of the lanes and to 1e-3 on every lane, with the objective at k
   within 1e-5·(1 + |v|) of the JAX k's on every lane. Its m + 6
   iterations leave a few lanes short of convergence, where an ulp of a
-  pivot can pick another step of the ladder: measured on these inputs,
-  0-2 of 256 lanes per case lie beyond 1e-4 (at most 3.4e-4), none beyond
-  1e-3, and the objectives differ by at most 1.7e-6;
+  pivot can pick another step of the ladder: on these inputs 8 lanes of
+  the 2 560 lie beyond 1e-4 (at most 3.4e-4, each logged in ROADMAP.md
+  §C), none beyond 1e-3, and the objectives differ by at most 1.7e-6
+  (absolute).
+  With ``jax.lax.rsqrt`` replaced by the IEEE 1/√d, the JAX tile code and
+  the port agree bit for bit on the same inputs (k, free set, flag): the
+  rsqrt ulps are the whole of the gap;
 - its final free set exactly on the well-separated lanes, where every
   control of the JAX solution is free at least 1e-3 inside its box or
   sits on a face with a gradient of at least 1e-3 pressing on it (an ulp
@@ -31,6 +35,7 @@ it by up to 2 ulp on about 29% of inputs. So the tests hold:
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -159,6 +164,53 @@ def test_qp_pn_matches_jax(m, scale):
         gap = _value(Q, g, kt) - vo
         assert gap.max() < 1e-5, gap.max()
 
+
+
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("scale", [1.0, 3.0])
+def test_qp_pn_matches_jax_bitwise_on_ieee_rsqrt(m, scale, monkeypatch):
+    """The inputs of test_qp_pn_matches_jax, with ``jax.lax.rsqrt`` in the
+    JAX tile code replaced by the IEEE 1/√d the port takes: k, the free set
+    and the PD flag agree bit for bit."""
+    monkeypatch.setattr(jax.lax, "rsqrt", lambda d: 1.0 / jnp.sqrt(d))
+    Q, g, lo, hi = _qps(10 * m + int(scale), m, scale)
+    kj, fj, bj = ps._qp_pn(_mat(Q, "jax"), _vec(g, "jax"), _vec(lo, "jax"),
+                           _vec(hi, "jax"), m)
+    kt, ft, bt = qp.box_qp(_mat(Q, "torch"), _vec(g, "torch"),
+                           _vec(lo, "torch"), _vec(hi, "torch"), m)
+    np.testing.assert_array_equal(_np(kt), _np(kj))
+    np.testing.assert_array_equal(_np(ft), _np(fj))
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
+
+
+def _ieee_rsqrt(d):
+    """The IEEE 1/√d of f32 d: the correctly rounded square root, then the
+    correctly rounded division (each exact in float64, then rounded)."""
+    s = np.sqrt(d.astype(np.float64)).astype(np.float32)
+    return (1.0 / s.astype(np.float64)).astype(np.float32)
+
+
+def _pivots():
+    return np.random.default_rng(7).uniform(1e-3, 1e3, 10**5).astype(
+        np.float32)
+
+
+def test_rsqrt_is_ieee_on_the_cpu():
+    """The plain Cholesky's 1/√d on the CPU is the IEEE one, bit for bit."""
+    d = _pivots()
+    np.testing.assert_array_equal(qp._rsqrt(torch.from_numpy(d)).numpy(),
+                                  _ieee_rsqrt(d))
+
+
+def test_cpu_sqrt_is_not_correctly_rounded():
+    """Why qp._rsqrt takes torch.rsqrt on the CPU: there 1.0 / torch.sqrt
+    misses the IEEE 1/√d, as the f32 torch.sqrt misses the correctly
+    rounded square root (on about 0.6% of these inputs)."""
+    d = _pivots()
+    t = torch.from_numpy(d)
+    s = np.sqrt(d.astype(np.float64)).astype(np.float32)
+    assert (torch.sqrt(t).numpy() != s).any()
+    assert ((1.0 / torch.sqrt(t)).numpy() != _ieee_rsqrt(d)).any()
 
 def test_qp_pn_flags_non_pd():
     """A broken last pivot on every lane: bad everywhere, k = 0 and no free
