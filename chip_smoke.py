@@ -52,7 +52,16 @@ Phases (any failure raises and the script exits non-zero):
      max_iter cut if it would take over a minute) and thruster_ring16/20
      at a cut depth; short omni_thruster and thruster_ring solves against
      the plain path on the CPU;
- 10. one JSON line listing every kernel × model instantiation launched, the
+ 10. the last four models (pendulum, cartpole, bicycle, power_mass — the
+     live cxu, cxx off-diagonals and full cuu of the sweep's general
+     terms): their four kernels, and the whole iteration without limits,
+     against their plain versions at their paths' shapes; each model's
+     path at full width (the CLI's canonical problem at --batch 1024,
+     uncut: solves/s, ms per iteration, cost against the initial
+     rollout's, iterations, reasons, launches, a profiled solve), its
+     split route against the merged one under the gauge, its path without
+     limits, and a short solve against the plain path on the CPU;
+ 11. one JSON line listing every kernel × model instantiation launched, the
      card's line, and the last line {"ok": true, "device": {...}}. Each
      phase prints its seconds.
 
@@ -183,13 +192,13 @@ def bound_ms(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-_ARITH = {"add", "sub", "mul", "div", "neg", "rsub", "sin", "cos",
+_ARITH = {"add", "sub", "mul", "div", "neg", "rsub", "sin", "cos", "tan",
           "reciprocal", "where", "maximum", "minimum", "clamp", "abs"}
 
 
 def count_ops(fn) -> int:
     """f32 operations ``fn()`` performs, counted result element by result
-    element at PyTorch's dispatcher (each sin/cos as one)."""
+    element at PyTorch's dispatcher (each sin/cos/tan as one)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -792,9 +801,12 @@ SLICE_MODELS = ("double_integrator", "point_mass_3d", "quadrotor")
 GOLDEN_CSV = "golden/integrator_golden.csv"
 GOLDEN_COST, GOLDEN_COST_TOL, GOLDEN_US_TOL = 356.1685, 1e-2, 1e-3
 # Short solves on the card against the plain path on the CPU: the models
-# without trig agree to the bit; 1e-3 covers the quadrotor's sin/cos ulps.
+# without trig agree to the bit; 1e-3 covers the sin/cos/tan ulps of the
+# others.
 CPU_RTOL = {"point_mass_3d": 1e-4, "quadrotor": 1e-3,
-            "omni_thruster": 1e-3, "thruster_ring": 1e-3}
+            "omni_thruster": 1e-3, "thruster_ring": 1e-3,
+            "pendulum": 1e-3, "cartpole": 1e-3, "bicycle": 1e-3,
+            "power_mass": 1e-4}
 
 # The m ≥ 5 slice: experiments/secondary_bench.py's m12_fused (:176-232,
 # thruster_ring: the full-width path, uncut), m6_fused (:146-175,
@@ -813,6 +825,17 @@ SHORT_ITERS = 2       # thruster_ring16/20's solves (and ring24's merged
 #                       route): a cut depth that launches every kernel
 LOWER_SHARE = 0.3     # controls on the lower bound where limits apply
 #                       (tests/test_fused_solver.py:423,991)
+
+# The last four models: the CLI's canonical problems (ilqr_tpu/__main__.py
+# :101-111; T, dt) at --batch 1024, uncut, with the flags of the JAX
+# package's fused tests (--deriv-mode analytic --clamp-forward): x0 = the
+# spec's x0 (zeros) + 0.05·normal from default_rng(0) (:198-202), u0 = 0,
+# max_iter = 100. power_mass is the headline: its running cost's live cxu,
+# cxx off-diagonals and full cuu run the sweep's general terms.
+CLI_MODELS = {"pendulum": (199, 0.02), "cartpole": (299, 0.02),
+              "bicycle": (100, 0.05), "power_mass": (120, 0.05)}
+CLI_ITERS = 100
+CLI_CPU_T, CLI_CPU_ITERS = 30, 5   # the short card-against-CPU solves
 
 
 def workload(name, B=B_M):
@@ -837,6 +860,10 @@ def workload(name, B=B_M):
         u0 = np.zeros((T, 2))
         draw = lambda rng: (np.asarray([-1.0, 0.0, 0.0, -0.2])
                             + 0.1 * rng.normal(size=(B, 4)))
+    elif name in CLI_MODELS:
+        (T, dt), iters = CLI_MODELS[name], CLI_ITERS
+        u0 = np.zeros((T, model.m))
+        draw = lambda rng: 0.05 * rng.normal(size=(B, model.n))
     else:
         T, iters = M23_T, M23_ITERS
         u0 = np.zeros((T, 3))
@@ -942,7 +969,7 @@ def compare_model_kernels(dev, name, t_backward=None):
             kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
             (model, "euler", pp, xsb, xTb, usb, lam, "jvp", False), "sweep",
             False, None)
-    if name in ("double_integrator", "omni_thruster"):
+    if name in ("double_integrator", "omni_thruster", *CLI_MODELS):
         cases["iteration_packed/unconstrained"] = (
             kernel_iter.iteration_packed, kernel_iter.iteration_plain,
             (model, "euler", False, pp, x0, xsb, xTb, usb, koldb, Koldb, lam,
@@ -1344,6 +1371,71 @@ def run_wide_slice(dev):
     return rows, res
 
 
+def run_cli_slice(dev):
+    """Phase 10: the last four models. Returns (kernel rows, results)."""
+    rows, res = {}, {}
+    t0 = time.perf_counter()
+    for name in CLI_MODELS:
+        rows.update(compare_model_kernels(dev, name))
+    print(f"[time] phase 10a (kernels against plain versions) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for name in CLI_MODELS:
+        out, (x0, cost, walls) = run_model_path(
+            dev, name, f"{name} (CLI problem, full width)")
+        c = out["launches"]
+        if (c["iteration_packed"] < out["host_iterations"]
+                or c["sweep_packed"] or c["linesearch_packed"]):
+            raise AssertionError(f"{name}: the auto route is the whole "
+                                 f"iteration kernel (m·n < 32): {c}")
+        # every lane of the warm-up solve ends at or below its own initial
+        # rollout's cost (iLQR accepts only steps that lower it)
+        model, params, cfg, T, dt, u0, draw = workload(name)
+        pp = kernel_rollout.pack_params(params, dt, dev)
+        z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+        init = kernel_rollout.rollout_packed(
+            model, "euler", True, pp,
+            torch.as_tensor(x0, device=dev).t().contiguous(),
+            torch.as_tensor(u0, device=dev)[:, :, None].expand(
+                T, model.m, len(x0)).contiguous(),
+            z(T, model.n, len(x0)), z(T, model.m, model.n, len(x0)))[3]
+        init = init.cpu().numpy()
+        out["lanes_below_initial"] = float(np.mean(cost < init))
+        out["first_draw_mean_cost"] = float(cost.mean())
+        print(f"[slice] {name}: on the first x0 draw (the warm-up solve) "
+              f"mean cost {cost.mean():.4f}; {out['lanes_below_initial']:.4f}"
+              f" of the lanes end below their initial rollout's cost, none "
+              f"above")
+        if not np.all(cost <= init):
+            raise AssertionError(f"{name}: a lane ended above its initial "
+                                 f"rollout's cost")
+        out["profile"] = profile_solve(
+            name, lambda x0_, u0_: solve_batch_fused(model, params, cfg, dt,
+                                                     x0_, u0_),
+            float(np.median(walls)), draw(np.random.default_rng(2)), u0)
+        out["split_route"] = route_gauge(
+            dev, name, f"{name} split route vs merged", x0, cost,
+            iter_kernel="split")
+        free, _f = run_model_path(
+            dev, name, f"{name} without limits", reps=1, warmup=False,
+            use_control_limits=False, clamp_forward=False)
+        out["unconstrained"] = free
+        for key in ("rollout_packed", "iteration_packed"):
+            rows[f"{key}/{name}"]["launches"] = c[key]
+        for key in ("sweep_packed", "linesearch_packed"):
+            rows[f"{key}/{name}"]["launches"] = (
+                out["split_route"]["launches"][key])
+        rows[f"iteration_packed/{name}/unconstrained"]["launches"] = (
+            free["launches"]["iteration_packed"])
+        res[name] = out
+    print(f"[time] phase 10b (the four paths) "
+          f"{time.perf_counter() - t0:.1f} s")
+    res["card_vs_cpu"] = {name: card_vs_cpu(name, CLI_CPU_T, CLI_CPU_ITERS)
+                          for name in CLI_MODELS}
+    return rows, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1415,7 +1507,10 @@ def main() -> int:
     wide_rows, wide_out = run_wide_slice(dev)
     rows.update(wide_rows)
     tick("phase 9 (the m ≥ 5 slice)")
-    print(f"[time] phases 2-9 {time.perf_counter() - t0:.1f} s", flush=True)
+    cli_rows, cli_out = run_cli_slice(dev)
+    rows.update(cli_rows)
+    tick("phase 10 (pendulum, cartpole, bicycle, power_mass)")
+    print(f"[time] phases 2-10 {time.perf_counter() - t0:.1f} s", flush=True)
     for name, r in rows.items():
         r["name"] = name
         if r["model"] != "acrobot":
@@ -1432,7 +1527,8 @@ def main() -> int:
 
     print(json.dumps({"main_path": main_out, "split_path": gauges,
                       "composable_path": comp_out, "equivalence": equiv,
-                      "slice": slice_out, "wide_slice": wide_out}))
+                      "slice": slice_out, "wide_slice": wide_out,
+                      "cli_slice": cli_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@
 // off the TPU.
 #pragma once
 
+#include "cost_pattern.cuh"
 #include "dual.cuh"
 
 namespace acrobot {
@@ -197,7 +198,7 @@ __device__ __forceinline__ void final_cost_derivs(const Params& p,
 
 // The model as the fused kernels take it (sweep_step.cuh, rollout_step.cuh,
 // kernels.cuh): the functions above with the control as an array.
-struct Model {
+struct Model : cost::DiagonalHessians {
   static constexpr int N = acrobot::N, M = acrobot::M;
   using Params = acrobot::Params;
 
@@ -205,8 +206,8 @@ struct Model {
   // jac_soa, '1' a Python-float one, 'x' a live entry
   // (tests/test_torch_models.py holds it against the JAX package's jac_soa).
   // The sweep skips the constant terms exactly as ops/kernel_sweep.py's
-  // _fmul/_fadd fold them. The running cost's cxx and the final cost's
-  // are diagonal, its cxu structurally zero.
+  // _fmul/_fadd fold them. The running cost's Hessian patterns are
+  // DiagonalHessians' (cost_pattern.cuh); the final cost's cxx is diagonal.
   __host__ __device__ static constexpr char a_kind(int r, int i) {
     return "..1."
            "...1"
@@ -255,8 +256,12 @@ struct Model {
   }
   __device__ __forceinline__ static void cost_derivs(
       const Params& p, const float x[N], const float u[M], float cx[N],
-      float cu[M], float cxx[N], float cuu[M]) {
-    acrobot::cost_derivs(p, x, u[0], cx, &cu[0], cxx, &cuu[0]);
+      float cu[M], float cxx[N][N], float /*cxu*/[N][M],
+      float cuu[M][M]) {
+    float cxx_diag[N];
+    acrobot::cost_derivs(p, x, u[0], cx, &cu[0], cxx_diag, &cuu[0][0]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) cxx[i][i] = cxx_diag[i];
   }
   __device__ __forceinline__ static void final_cost_derivs(
       const Params& p, const float x[N], float cx[N], float cxx[N]) {

@@ -5,9 +5,11 @@
 // the Python SoA code.
 #pragma once
 
+#include "cost_pattern.cuh"
+
 namespace free_flyer {
 
-struct Model {
+struct Model : cost::DiagonalHessians {
   static constexpr int N = 6;  // [px, py, pz, vx, vy, vz]
   static constexpr int M = 8;  // thrusts along the cube diagonals
 
@@ -121,16 +123,17 @@ struct Model {
   }
   __device__ __forceinline__ static void cost_derivs(
       const Params& p, const float x[N], const float u[M], float cx[N],
-      float cu[M], float cxx[N], float cuu[M]) {
+      float cu[M], float cxx[N][N], float /*cxu*/[N][M],
+      float cuu[M][M]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       cx[i] = -2.0f * p.w_state[i] * (p.goal[i] - x[i]);
-      cxx[i] = 2.0f * p.w_state[i];
+      cxx[i][i] = 2.0f * p.w_state[i];
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       cu[j] = 2.0f * p.w_control[j] * u[j] + p.w_fuel;
-      cuu[j] = 2.0f * p.w_control[j];
+      cuu[j][j] = 2.0f * p.w_control[j];
     }
   }
   __device__ __forceinline__ static void final_cost_derivs(

@@ -5,9 +5,11 @@
 // of the Python SoA code.
 #pragma once
 
+#include "cost_pattern.cuh"
+
 namespace point_mass_3d {
 
-struct Model {
+struct Model : cost::DiagonalHessians {
   static constexpr int N = 6;  // [x, y, z, vx, vy, vz]
   static constexpr int M = 3;  // [Fx, Fy, Fz]
 
@@ -101,16 +103,17 @@ struct Model {
   }
   __device__ __forceinline__ static void cost_derivs(
       const Params& p, const float x[N], const float u[M], float cx[N],
-      float cu[M], float cxx[N], float cuu[M]) {
+      float cu[M], float cxx[N][N], float /*cxu*/[N][M],
+      float cuu[M][M]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       cx[i] = -2.0f * p.hx[i] * (p.goal[i] - x[i]);
-      cxx[i] = 2.0f * p.hx[i];
+      cxx[i][i] = 2.0f * p.hx[i];
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       cu[j] = 2.0f * p.hu[j] * u[j];
-      cuu[j] = 2.0f * p.hu[j];
+      cuu[j][j] = 2.0f * p.hu[j];
     }
   }
   __device__ __forceinline__ static void final_cost_derivs(

@@ -5,9 +5,11 @@
 // full-accuracy sincosf, as the JAX package's jnp.sin/jnp.cos off the TPU.
 #pragma once
 
+#include "cost_pattern.cuh"
+
 namespace quadrotor {
 
-struct Model {
+struct Model : cost::DiagonalHessians {
   static constexpr int N = 12;  // [p (3), v (3), φ θ ψ, ω (3)]
   static constexpr int M = 4;   // per-rotor thrusts
 
@@ -205,17 +207,18 @@ struct Model {
   }
   __device__ __forceinline__ static void cost_derivs(
       const Params& p, const float x[N], const float u[M], float cx[N],
-      float cu[M], float cxx[N], float cuu[M]) {
+      float cu[M], float cxx[N][N], float /*cxu*/[N][M],
+      float cuu[M][M]) {
     const float hov = p.mass * p.gravity * 0.25f;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       cx[i] = -2.0f * p.hx[i] * (p.goal[i] - x[i]);
-      cxx[i] = 2.0f * p.hx[i];
+      cxx[i][i] = 2.0f * p.hx[i];
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       cu[j] = 2.0f * p.hu[j] * (u[j] - hov);
-      cuu[j] = 2.0f * p.hu[j];
+      cuu[j][j] = 2.0f * p.hu[j];
     }
   }
   __device__ __forceinline__ static void final_cost_derivs(

@@ -10,10 +10,15 @@
 // exactly as the JAX package's trace-time constant folding folds them (a
 // product with a structural one is its other factor, a term with a
 // structural zero is dropped, and a sum that starts at a structural zero
-// starts at its first live term). The models' running and final cost
-// Hessians are diagonal and their cxu zero.
+// starts at its first live term). The running cost's Hessians fold by
+// the model's cxx_kind/cxu_kind/cuu_kind patterns (cost_pattern.cuh) as
+// the JAX trace folds its Python-float zeros: Qxx starts at a live
+// cxx[i][j], Qux at a live cxu[jn][jm], Quu at a live cuu[im][jm], and
+// each otherwise at its first live term. The final cost's cxx is diagonal
+// for every model.
 #pragma once
 
+#include "cost_pattern.cuh"
 #include "jnp.cuh"
 #include "qp.cuh"
 
@@ -29,7 +34,9 @@ struct Carry {
 };
 
 // V_T from the final cost at the terminal state; zeroed accumulators
-// (pallas_sweep._terminal_init, analytic branch).
+// (pallas_sweep._terminal_init, analytic branch). Every model's final cxx
+// is diagonal (tests/test_torch_models.py checks it against the JAX
+// package), so final_cost_derivs writes its diagonal only.
 template <class Model>
 __device__ __forceinline__ void terminal_init(
     const typename Model::Params& p, const float xT[Model::N],
@@ -72,6 +79,14 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   // m ≥ 5, where unrolling them would emit O(n²m²) operations per step
   // (the unroll factor changes the code, not the order of its operations).
   constexpr int kUnrollM = M <= 4 ? 4 : 1;
+  // The cost patterns fold at compile time: over the state the loops
+  // unroll, so each cxx_kind is a constant; over the controls they unroll
+  // only for m ≤ 4, so a live cxu or a non-diagonal cuu needs m ≤ 4.
+  constexpr bool kDiagCuu = cost::diagonal_cuu<Model>();
+  constexpr bool kZeroCxu = cost::zero_cxu<Model>();
+  static_assert(kUnrollM > 1 || (kDiagCuu && kZeroCxu),
+                "a live cxu or a non-diagonal cuu folds at compile time "
+                "only where the control loops unroll (m <= 4)");
   // --- linearization: fx = I + dt·A, fu = dt·B (Euler), cost derivatives
   float A[N][N], Bu[N][M];
   Model::jac(p, x, u, A, Bu);
@@ -89,11 +104,20 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
         fx[r][i] = (r == i) ? 1.0f : 0.0f;
     }
 #pragma unroll
-    for (int j = 0; j < M; ++j)
-      fu[r][j] = Model::b_kind(r, j) == 'x' ? p.dt * Bu[r][j] : 0.0f;
+    for (int j = 0; j < M; ++j) {
+      const char bk = Model::b_kind(r, j);  // a structural one gives dt
+      fu[r][j] = bk == 'x' ? p.dt * Bu[r][j] : (bk == '1' ? p.dt : 0.0f);
+    }
   }
-  float cx[N], cu[M], cxx[N], cuu[M];
-  Model::cost_derivs(p, x, u, cx, cu, cxx, cuu);
+  float cx[N], cu[M], cxx[N][N], cxu[N][M], cuu[M][M];
+  Model::cost_derivs(p, x, u, cx, cu, cxx, cxu, cuu);
+  // a diagonal cuu's diagonal, read at compile-time indices here so that
+  // the runtime loops over the controls of m ≥ 5 index an M-vector only
+  [[maybe_unused]] float cuu_d[M];
+  if constexpr (kDiagCuu) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) cuu_d[j] = cuu[j][j];
+  }
 
   // --- Q-terms (ref ilqr_core.cpp:359-363)
   float fvv[M][N];  // fuᵀ Vxx
@@ -105,7 +129,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
       bool live = false;
 #pragma unroll
       for (int i = 0; i < N; ++i)
-        if (Model::b_kind(i, jm) == 'x')
+        if (Model::b_kind(i, jm) != '.')
           fold_add(acc, live, fu[i][jm] * c.vxx[i][jn]);
       fvv[jm][jn] = acc;
     }
@@ -115,7 +139,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
     float acc = cu[jm];
 #pragma unroll
     for (int i = 0; i < N; ++i)
-      if (Model::b_kind(i, jm) == 'x') acc = acc + fu[i][jm] * c.vx[i];
+      if (Model::b_kind(i, jm) != '.') acc = acc + fu[i][jm] * c.vx[i];
     qu[jm] = acc;
   }
   float quu[M][M], quuF[M][M];
@@ -123,11 +147,18 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   for (int im = 0; im < M; ++im)
 #pragma unroll(kUnrollM)
     for (int jm = im; jm < M; ++jm) {
-      float acc = (im == jm) ? cuu[im] : 0.0f;
-      bool live = im == jm;
+      float acc = 0.0f;
+      bool live = false;
+      if constexpr (kDiagCuu) {
+        live = im == jm;
+        acc = live ? cuu_d[im] : 0.0f;
+      } else if (Model::cuu_kind(im, jm) == 'x') {
+        acc = cuu[im][jm];
+        live = true;
+      }
 #pragma unroll
       for (int i = 0; i < N; ++i)
-        if (Model::b_kind(i, jm) == 'x')
+        if (Model::b_kind(i, jm) != '.')
           fold_add(acc, live, fvv[im][i] * fu[i][jm]);
       quu[im][jm] = acc;
       quu[jm][im] = acc;
@@ -148,8 +179,14 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
     qx[jn] = ax;
 #pragma unroll(kUnrollM)
     for (int jm = 0; jm < M; ++jm) {
-      float aq = 0.0f;  // cxu is structurally zero
+      float aq = 0.0f;
       bool live = false;
+      if constexpr (!kZeroCxu) {
+        if (Model::cxu_kind(jn, jm) == 'x') {
+          aq = cxu[jn][jm];
+          live = true;
+        }
+      }
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         const char fk = fx_kind<Model>(i, jn);
@@ -179,8 +216,12 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = i; j < N; ++j) {
-      float acc = (i == j) ? cxx[i] : 0.0f;  // cxx is diagonal
-      bool live = i == j;
+      float acc = 0.0f;
+      bool live = false;
+      if (Model::cxx_kind(i, j) == 'x') {
+        acc = cxx[i][j];
+        live = true;
+      }
 #pragma unroll
       for (int kk = 0; kk < N; ++kk) {
         const char fk = fx_kind<Model>(kk, i);

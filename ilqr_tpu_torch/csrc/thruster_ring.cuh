@@ -16,6 +16,8 @@
 // (ct·0 is live there).
 #pragma once
 
+#include "cost_pattern.cuh"
+
 namespace thruster_ring {
 
 template <int M>
@@ -165,7 +167,7 @@ struct Geometry<24> {
 };
 
 template <int kM>
-struct Model {
+struct Model : cost::DiagonalHessians {
   static constexpr int N = 6;   // [px, py, θ, vx, vy, ω]
   static constexpr int M = kM;  // one thrust per ring thruster
   using G = Geometry<kM>;
@@ -311,16 +313,17 @@ struct Model {
   }
   __device__ __forceinline__ static void cost_derivs(
       const Params& p, const float x[N], const float u[M], float cx[N],
-      float cu[M], float cxx[N], float cuu[M]) {
+      float cu[M], float cxx[N][N], float /*cxu*/[N][M],
+      float cuu[M][M]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       cx[i] = -2.0f * p.w_state[i] * (p.goal[i] - x[i]);
-      cxx[i] = 2.0f * p.w_state[i];
+      cxx[i][i] = 2.0f * p.w_state[i];
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       cu[j] = 2.0f * p.w_control[j] * u[j] + p.w_fuel;
-      cuu[j] = 2.0f * p.w_control[j];
+      cuu[j][j] = 2.0f * p.w_control[j];
     }
   }
   __device__ __forceinline__ static void final_cost_derivs(

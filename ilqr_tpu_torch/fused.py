@@ -34,7 +34,10 @@ from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model
 from ilqr_tpu_torch.ops import qp
 from ilqr_tpu_torch.ops.kernel_backward import backward_sweep_packed
-from ilqr_tpu_torch.ops.kernel_derivs import derivs_packed
+from ilqr_tpu_torch.ops.kernel_derivs import (
+    DERIVS_KERNEL_MODELS,
+    derivs_packed,
+)
 from ilqr_tpu_torch.ops.kernel_iter import iteration_packed
 from ilqr_tpu_torch.ops.kernel_rollout import (
     linesearch_packed,
@@ -363,6 +366,25 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
             f"deriv_mode={cfg.deriv_mode!r}, integrator={cfg.integrator!r}")
 
 
+def _check_kernels(model: Model, cfg: SolverConfig, dev: torch.device):
+    """On the card every op of the route must have its kernel. The split
+    sweep's derivative and backward kernels (csrc/derivs.cu,
+    csrc/backward.cu) are compiled for acrobot (n = 4) alone, so any other
+    model raises there before anything runs; its plain versions run on the
+    CPU only."""
+    if (dev.type == "cuda" and cfg.sweep_kernel == "split"
+            and model.name not in DERIVS_KERNEL_MODELS):
+        missing = [f"derivs_packed for {model.name!r} (ROADMAP.md §B, "
+                   f"item 5)"]
+        if model.n != 4:
+            missing.append(f"backward_sweep_packed at n = {model.n} "
+                           f"(item 6)")
+        raise NotImplementedError(
+            "sweep_kernel='split' on the card needs "
+            + " and ".join(missing)
+            + ", not ported yet; sweep_kernel='merged' runs this model")
+
+
 def solve_batch_fused(model: Model, params, cfg: SolverConfig, dt, x0, u0,
                       device=None, params_batched: bool = False) -> Solution:
     """Batched solve entirely in kernel layout (see module docstring).
@@ -375,6 +397,7 @@ def solve_batch_fused(model: Model, params, cfg: SolverConfig, dt, x0, u0,
     """
     _check_config(model, cfg, params_batched)
     dev = resolve_device(device)
+    _check_kernels(model, cfg, dev)
     x0 = as_f32(x0, dev)
     u0 = as_f32(u0, dev)
     B, n = x0.shape

@@ -1,8 +1,7 @@
 """Model registry (counterpart of ``ilqr_tpu/models/__init__.py``).
 
-Ported so far: acrobot, double_integrator, point_mass_3d, quadrotor,
-omni_thruster, free_flyer and the four thruster rings; the other
-registered names of the JAX package raise ``NotImplementedError``.
+Every model of the JAX package is ported; another name raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -11,10 +10,14 @@ from typing import Dict
 
 from ilqr_tpu_torch.models import (
     acrobot,
+    bicycle,
+    cartpole,
     double_integrator,
     free_flyer,
     omni_thruster,
+    pendulum,
     point_mass_3d,
+    power_mass,
     quadrotor,
     thruster_ring,
 )
@@ -24,10 +27,11 @@ _REGISTRY: Dict[str, Model] = {
     model.name: model
     for model in (acrobot.MODEL, double_integrator.MODEL, point_mass_3d.MODEL,
                   quadrotor.MODEL, omni_thruster.MODEL, free_flyer.MODEL,
-                  *thruster_ring.MODELS)}
+                  *thruster_ring.MODELS, pendulum.MODEL, cartpole.MODEL,
+                  bicycle.MODEL, power_mass.MODEL)}
 
 # Models of the JAX package that this package does not carry yet.
-_NOT_YET_PORTED = ("bicycle", "cartpole", "pendulum", "power_mass")
+_NOT_YET_PORTED = ()
 
 
 def get_model(name: str) -> Model:

@@ -286,6 +286,10 @@ def derivs_plain(model, integrator, pp: PackedParams, xs, us, mode="jvp",
             cxu.contiguous(), cuu.contiguous())
 
 
+# The models csrc/derivs.cu is compiled for, with their params types.
+DERIVS_KERNEL_MODELS = {"acrobot": AcrobotParams}
+
+
 def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
                   mode: str = "jvp", eps: float = 1e-3):
     """Linearization of the Euler step and quadratization of the cost at
@@ -299,9 +303,8 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
     if not on_cuda(us):
         return derivs_plain(model, integrator, pp, xs, us, mode, eps)
     dev = us.device
-    # csrc/derivs.cu is compiled for acrobot alone
     require_kernel_model(model, integrator, pp, dev,
-                         have={"acrobot": AcrobotParams})
+                         have=DERIVS_KERNEL_MODELS)
     T, m, B = us.shape
     n = model.n
     _build.require(xs, (T + 1, n, B), "xs", dev)

@@ -21,10 +21,14 @@ from typing import NamedTuple
 import torch
 
 from ilqr_tpu_torch.models.acrobot import AcrobotParams
+from ilqr_tpu_torch.models.bicycle import BicycleParams
+from ilqr_tpu_torch.models.cartpole import CartPoleParams
 from ilqr_tpu_torch.models.double_integrator import DoubleIntegratorParams
 from ilqr_tpu_torch.models.free_flyer import FreeFlyerParams
 from ilqr_tpu_torch.models.omni_thruster import OmniThrusterParams
+from ilqr_tpu_torch.models.pendulum import PendulumParams
 from ilqr_tpu_torch.models.point_mass_3d import PointMass3DParams
+from ilqr_tpu_torch.models.power_mass import PowerMassParams
 from ilqr_tpu_torch.models.quadrotor import QuadrotorParams
 from ilqr_tpu_torch.models.thruster_ring import ThrusterRingParams
 from ilqr_tpu_torch.ops import _build
@@ -93,6 +97,10 @@ FUSED_KERNEL_MODELS = {
     "thruster_ring16": ThrusterRingParams,
     "thruster_ring20": ThrusterRingParams,
     "thruster_ring24": ThrusterRingParams,
+    "pendulum": PendulumParams,
+    "cartpole": CartPoleParams,
+    "bicycle": BicycleParams,
+    "power_mass": PowerMassParams,
 }
 
 

@@ -185,8 +185,17 @@ def test_params_from_numpy_round_trips_default_params():
 
 
 def test_registry_has_acrobot_only():
+    """The registry holds acrobot as the JAX package's (n, m); every model
+    of the JAX package's 14 is registered now, and an unknown name
+    raises."""
+    from ilqr_tpu.models import list_models as jax_list_models
+    from ilqr_tpu_torch.models import list_models
+
     assert get_model("acrobot") is tac.MODEL
     assert (get_model("acrobot").n, get_model("acrobot").m) == (4, 1)
-    for name in ("pendulum", "bicycle", "no_such_model"):
-        with pytest.raises(NotImplementedError):
-            get_model(name)
+    assert len(list_models()) == 14
+    assert set(list_models()) <= set(jax_list_models())
+    for name in ("pendulum", "bicycle"):
+        assert get_model(name).name == name
+    with pytest.raises(NotImplementedError):
+        get_model("no_such_model")

@@ -18,10 +18,14 @@ from ilqr_tpu_torch import (
     solve_batch_fused,
 )
 from ilqr_tpu_torch.models import acrobot as tac
+from ilqr_tpu_torch.models import bicycle as tbc
+from ilqr_tpu_torch.models import cartpole as tcp
 from ilqr_tpu_torch.models import double_integrator as tdi
 from ilqr_tpu_torch.models import free_flyer as tff
 from ilqr_tpu_torch.models import omni_thruster as tot
+from ilqr_tpu_torch.models import pendulum as tpd
 from ilqr_tpu_torch.models import point_mass_3d as tpm
+from ilqr_tpu_torch.models import power_mass as tpw
 from ilqr_tpu_torch.models import quadrotor as tqd
 from ilqr_tpu_torch.models import thruster_ring as ttr
 from ilqr_tpu_torch.ops import (
@@ -258,7 +262,8 @@ def test_single_problem_solve_on_card(dev):
 
 MODS = {"acrobot": tac, "double_integrator": tdi, "point_mass_3d": tpm,
         "quadrotor": tqd, "omni_thruster": tot, "free_flyer": tff,
-        "thruster_ring": ttr, "thruster_ring24": ttr}
+        "thruster_ring": ttr, "thruster_ring24": ttr, "pendulum": tpd,
+        "cartpole": tcp, "bicycle": tbc, "power_mass": tpw}
 # controls around which the inputs are drawn (the thrusters' boxes are
 # [0, u_max]: about a third of the draws lands on the lower bound)
 U_MID = {"quadrotor": 1.2, "omni_thruster": 1.0, "free_flyer": 1.0,
@@ -317,7 +322,8 @@ def test_model_kernels_match_plain(dev, name, use_limits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["double_integrator", "point_mass_3d",
                                   "quadrotor", "omni_thruster", "free_flyer",
-                                  "thruster_ring"])
+                                  "thruster_ring", "pendulum", "cartpole",
+                                  "bicycle", "power_mass"])
 def test_model_solve_on_card_matches_plain_solve(dev, name):
     """A short solve of each model through the kernels against the same
     solve through the plain versions on the CPU: costs to rtol 1e-4, equal

@@ -1,9 +1,10 @@
 """Whole fused solves at 5 ≤ m ≤ 24 on the CPU (the port's plain versions,
 projected Newton in the sweep) against the JAX package.
 
-omni_thruster (m = 6) with control limits and without, free_flyer
-(m = 8) and thruster_ring (m = 12), at T = 8, B = 2, max_iter = 4, dt =
-0.05, held against the JAX package's XLA path ``ilqr_tpu.batch.solve_batch``
+omni_thruster (m = 6), free_flyer (m = 8) and thruster_ring (m = 12),
+each with control limits and without, and thruster_ring16 and
+thruster_ring24 (m = 16, 24) with limits, at T = 8, B = 2, max_iter = 4,
+dt = 0.05, held against the JAX package's XLA path ``ilqr_tpu.batch.solve_batch``
 with ``boxqp_mode="pn_fixed"`` (ops/boxqp.py:257-334: the same m + 6
 iteration ladder in matrix form) and the XLA derivative, backward and
 rollout routes: costs to rtol 1e-3, controls within 2e-2 (the bounds of
@@ -30,7 +31,8 @@ from ilqr_tpu_torch.models import thruster_ring as ttr
 
 FAST_ALPHAS = (1.0, 0.3, 0.03)
 T, DT = 8, 0.05
-PORT = {"omni_thruster": tot, "free_flyer": tff, "thruster_ring": ttr}
+PORT = {"omni_thruster": tot, "free_flyer": tff, "thruster_ring": ttr,
+        "thruster_ring16": ttr, "thruster_ring24": ttr}
 
 
 def _problem(name):
@@ -58,7 +60,11 @@ def _problem(name):
     ("omni_thruster", False, "auto"),
     ("omni_thruster", True, "merged"),
     ("free_flyer", True, "auto"),
+    ("free_flyer", False, "auto"),
     ("thruster_ring", True, "auto"),
+    ("thruster_ring", False, "auto"),
+    ("thruster_ring16", True, "auto"),
+    ("thruster_ring24", True, "auto"),
 ])
 def test_wide_solve_matches_jax_xla(name, use_limits, iter_kernel):
     jp, tp, x0, u0 = _problem(name)

@@ -241,3 +241,55 @@ def test_iteration_matches_jax():
     keep = (div < 0.5) & (live > 0.5)
     np.testing.assert_array_equal(got[3].numpy()[..., ~keep],
                                   kold[..., ~keep])
+
+
+# ---------------------------------------------------------------------------
+# power_mass: the sweep with a live, state-dependent cxu, a cxx with live
+# off-diagonal entries and a full cuu (the general Q-terms of _sweep_step)
+
+def test_power_mass_sweep_matches_jax():
+    """The plain sweep against the JAX kernel in interpret mode on
+    power_mass, where Qux starts at the live cxu, Qxx at cxx's live
+    velocity block and Quu at the full cuu. One 1024-lane block (the JAX
+    packed layout's), T = 7 in time blocks of 3, controls drawn so that
+    both boxes bind on some lanes, λ mixed as above. The two sides run the
+    same f32 operations in the same order (no trig), but XLA:CPU's fused
+    code rounds a few of them differently: measured max |a − b| / (1 + |b|)
+    5.7e-7 (k); held to the file's TOL."""
+    from ilqr_tpu.models import power_mass as jpm
+    from ilqr_tpu_torch.models import power_mass as tpm
+
+    rng = np.random.default_rng(14)
+    jp = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                jpm.default_params())
+    jpack = pallas_rollout.pack_params(
+        jax.tree_util.tree_map(jnp.asarray, jp), 0.05)
+    tpack = kernel_rollout.pack_params(tpm.params_from_numpy(jp), 0.05)
+    n, m = 4, 2
+    x0 = (rng.normal(size=(n, B)) * [[1.0], [1.0], [1.5], [1.5]]
+          ).astype(np.float32)
+    us_in = (1.5 * rng.normal(size=(T, m, B))).astype(np.float32)
+    xs, us, xT, _c = kernel_rollout.rollout_plain(
+        tpm.MODEL, "euler", True, tpack, _tp(x0), _tp(us_in),
+        torch.zeros(T, n, B), torch.zeros(T, m, n, B))
+    xs, us, xT = xs.numpy(), us.numpy(), xT.numpy()
+    lam = _lam(rng)
+    want = pallas_sweep.sweep_packed(
+        jpm.MODEL, "euler", jpack, _jp(xs), _jp(xT), _jp(us), _jp(lam),
+        mode="jvp", interpret=True, use_limits=True, time_block=TB)
+    got = kernel_sweep.sweep_packed(
+        tpm.MODEL, "euler", tpack, _tp(xs), _tp(xT), _tp(us), _tp(lam))
+    for g, w, what in zip(got, want, ("k", "K", "dv", "diverged", "gnorm")):
+        _assert_close(g, _unj(w), what)
+    div = got[3].numpy()
+    np.testing.assert_array_equal(div, _unj(want[3]))
+    assert div[lam < 0].min() == 1.0 and div[lam > 0].max() == 0.0
+    # the cross terms are live on these inputs: cxu's velocity rows are far
+    # from zero, and both bounds of the asymmetric box bind somewhere
+    _cx, _cu, _cxx, cxu, _cuu = tpm.cost_derivs_soa(
+        tpm.params_from_numpy(jp), _tp(xs[0]), _tp(us[0]))
+    assert float(torch.stack([cxu[2][0], cxu[3][1]]).abs().median()) > 1e-2
+    uk = us + got[0].numpy()
+    ok = lam > 0
+    assert np.any(np.isclose(uk, -1.5)[..., ok]) and np.any(
+        np.isclose(uk, 2.5)[..., ok])

@@ -1,14 +1,17 @@
-"""The port's models of m ≥ 2 (double_integrator, point_mass_3d,
-quadrotor, omni_thruster, free_flyer and the four thruster rings) against
-the JAX package's models, and the structural patterns that the CUDA kernels
-compile in (csrc/<model>.cuh ``a_kind``/``b_kind``) against the constants
-the JAX package's ``jac_soa`` returns.
+"""The port's models other than acrobot (double_integrator, point_mass_3d,
+quadrotor, omni_thruster, free_flyer, the four thruster rings, pendulum,
+cartpole, bicycle and power_mass) against the JAX package's models, and the
+structural patterns that the CUDA kernels compile in (csrc/<model>.cuh
+``a_kind``/``b_kind`` and the cost Hessians' ``cxx_kind``/``cxu_kind``/
+``cuu_kind``) against the constants the JAX package's ``jac_soa`` and
+``cost_derivs_soa`` return.
 
 Inputs are drawn with numpy in f32 and handed to both sides. Tolerance:
 |port − JAX| ≤ 1e-5·(1 + |JAX|). The two sides run the same f32
 operations in the same order, so the models without trig agree to the bit;
-the quadrotor's and the rings' sin/cos (torch vs XLA) may differ by an
-ulp, which the Jacobian's divisions by cos θ carry to a few ulps. The
+the quadrotor's, the rings', the pendulum's, the cart-pole's and the
+bicycle's sin/cos/tan (torch vs XLA) may differ by an ulp, which the
+Jacobians' divisions carry to a few ulps. The
 rings' geometry tables in csrc/thruster_ring.cuh are held to the JAX
 package's ``_ring_geometry`` cast to f32 bit for bit.
 """
@@ -24,18 +27,26 @@ import torch
 
 from ilqr_tpu import get_model as jax_get_model
 from ilqr_tpu.models import acrobot as jac_acrobot
+from ilqr_tpu.models import bicycle as jbc
+from ilqr_tpu.models import cartpole as jcp
 from ilqr_tpu.models import double_integrator as jdi
 from ilqr_tpu.models import free_flyer as jff
 from ilqr_tpu.models import omni_thruster as jot
+from ilqr_tpu.models import pendulum as jpd
 from ilqr_tpu.models import point_mass_3d as jpm
+from ilqr_tpu.models import power_mass as jpw
 from ilqr_tpu.models import quadrotor as jqd
 from ilqr_tpu.models import thruster_ring as jtr
 from ilqr_tpu_torch import get_model
 from ilqr_tpu_torch.models import acrobot as tac
+from ilqr_tpu_torch.models import bicycle as tbc
+from ilqr_tpu_torch.models import cartpole as tcp
 from ilqr_tpu_torch.models import double_integrator as tdi
 from ilqr_tpu_torch.models import free_flyer as tff
 from ilqr_tpu_torch.models import omni_thruster as tot
+from ilqr_tpu_torch.models import pendulum as tpd
 from ilqr_tpu_torch.models import point_mass_3d as tpm
+from ilqr_tpu_torch.models import power_mass as tpw
 from ilqr_tpu_torch.models import quadrotor as tqd
 from ilqr_tpu_torch.models import thruster_ring as ttr
 from ilqr_tpu_torch.ops import kernel_rollout
@@ -54,9 +65,13 @@ PAIRS = {
     "omni_thruster": (jot, tot),
     "free_flyer": (jff, tff),
     **{name: (jtr, ttr) for name in RINGS},
+    "pendulum": (jpd, tpd),
+    "cartpole": (jcp, tcp),
+    "bicycle": (jbc, tbc),
+    "power_mass": (jpw, tpw),
 }
 NEW = ("double_integrator", "point_mass_3d", "quadrotor", "omni_thruster",
-       "free_flyer", *RINGS)
+       "free_flyer", *RINGS, "pendulum", "cartpole", "bicycle", "power_mass")
 
 
 def _params(name):
@@ -179,21 +194,39 @@ def test_ring_tables_match_jax_geometry(name):
     np.testing.assert_array_equal(ptorque, torque)
 
 
+# The patterns of cost_pattern.cuh's DiagonalHessians, which a model's
+# traits struct inherits where it declares no cost patterns of its own.
+def _diag(d):
+    return ["".join("x" if i == j else "." for j in range(d))
+            for i in range(d)]
+
+
+_DIAGONAL = {"cxx_kind": lambda n, m: _diag(n),
+             "cxu_kind": lambda n, m: ["." * m] * n,
+             "cuu_kind": lambda n, m: _diag(m)}
+
+
 def _cuda_pattern(name, fn):
-    """The string rows of ``fn`` (a_kind or b_kind) in csrc/<name>.cuh; a
-    ring's b_kind is its Geometry<M>'s in csrc/thruster_ring.cuh."""
+    """The string rows of ``fn`` (a_kind, b_kind or a cost pattern) in
+    csrc/<name>.cuh; a ring's b_kind is its Geometry<M>'s in
+    csrc/thruster_ring.cuh."""
     if name in RINGS:
         src = (CSRC / "thruster_ring.cuh").read_text()
         if fn == "b_kind":
             src = re.search(rf"struct Geometry<{RINGS[name]}> \{{(.*?)\n\}};",
                             src, re.S).group(1)
         else:
-            src = src[src.index("struct Model {"):]
+            src = src[src.index("struct Model"):]
     else:
         src = (CSRC / f"{name}.cuh").read_text()
-    body = re.search(rf"constexpr char {fn}\(int r, int \w\) \{{(.*?)\}}",
-                     src, re.S).group(1)
-    return re.findall(r'"([.1x]+)"', body)
+    found = re.search(rf"constexpr char {fn}\(int r, int \w\) \{{(.*?)\}}",
+                      src, re.S)
+    if found is None and fn in _DIAGONAL:
+        assert re.search(r"struct Model : cost::DiagonalHessians \{", src), (
+            name, fn)
+        m = get_model(name)
+        return _DIAGONAL[fn](m.n, m.m)
+    return re.findall(r'"([.1x]+)"', found.group(1))
 
 
 def _kind(v):
@@ -205,25 +238,26 @@ def _kind(v):
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_cuda_structural_patterns_match_jax(name):
     """Every entry the kernel treats as a structural zero or one is the
-    Python float the JAX package's jac_soa returns there, and every live
-    entry is an array; the cost Hessians the kernels take as diagonal (and
-    cxu as zero) are so in the JAX package."""
+    Python float the JAX package's jac_soa and cost_derivs_soa return
+    there, and every live entry is an array: a_kind/b_kind against A and
+    B, cxx_kind/cxu_kind/cuu_kind against the running cost's Hessians. The
+    final cost's cxx, which every kernel takes as diagonal, is so in the
+    JAX package."""
     jmod, m = jax_get_model(name), get_model(name)
     jp, _tp = _params(name)
     x, u = _xu(name, B=8)
     A, Bm = jmod.jac_soa(jp, jnp.asarray(x), jnp.asarray(u))
-    assert _cuda_pattern(name, "a_kind") == [
-        "".join(_kind(v) for v in row) for row in A]
-    assert _cuda_pattern(name, "b_kind") == [
-        "".join(_kind(v) for v in row) for row in Bm]
+    rows = lambda H: ["".join(_kind(v) for v in row) for row in H]
+    assert _cuda_pattern(name, "a_kind") == rows(A)
+    assert _cuda_pattern(name, "b_kind") == rows(Bm)
     _cx, _cu, cxx, cxu, cuu = jmod.cost_derivs_soa(jp, jnp.asarray(x),
                                                    jnp.asarray(u))
+    for fn, H in (("cxx_kind", cxx), ("cxu_kind", cxu), ("cuu_kind", cuu)):
+        assert _cuda_pattern(name, fn) == rows(H), fn
     _fcx, fcxx = jmod.final_cost_derivs_soa(jp, jnp.asarray(x))
-    for H, d in ((cxx, m.n), (cuu, m.m), (fcxx, m.n)):
-        for i in range(d):
-            for j in range(d):
-                assert (_kind(H[i][j]) == "x") == (i == j), (name, i, j)
-    assert all(_kind(v) == "." for row in cxu for v in row)
+    for i in range(m.n):
+        for j in range(m.n):
+            assert (_kind(fcxx[i][j]) == "x") == (i == j), (name, i, j)
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
