@@ -17,7 +17,7 @@ Phases (any failure raises and the script exits non-zero):
      by kernel and the device's busy share;
   5. the fused split route (sweep + line-search kernels) against the merged
      one, and the kernel path against the plain path on the card, at
-     B = 1024, max_iter = 4; beside them, not asserted, the plain path on
+     B = 1024, max_iter = 2; beside them, not asserted, the plain path on
      the CPU and the kernel path from an x0 moved by 1e-6, which show how
      far rounding alone carries a lane on this chaotic workload;
   6. the composable path: solve_batch at the same size on the same x0
@@ -29,8 +29,9 @@ Phases (any failure raises and the script exits non-zero):
      (the gauge below), with the share of lanes a 1e-6 nudge of x0 forks;
   8. the m = 2…4 slice (experiments/secondary_bench.py's workloads): each
      model's four kernels against their plain versions at its path's
-     shapes (the quadrotor at B = 1024, T = 80, A = 11; the double
-     integrator and the 3-D point mass at B = 1024, T = 99); the quadrotor
+     shapes (the quadrotor at B = 1024, T = 80, A = 11, its sweep and
+     iteration at T = 20; the double integrator and the 3-D point mass at
+     B = 1024, T = 99); the quadrotor
      path at full width (B = 1024, T = 80, max_iter = 40: solves/s, cost,
      iterations, reasons, launches, a profiled solve, and unasserted at
      B = 8192) and its merged route against its split one under the gauge;
@@ -41,15 +42,16 @@ Phases (any failure raises and the script exits non-zero):
      path on the CPU;
   9. the m ≥ 5 slice (projected Newton in the sweep): the four kernels of
      omni_thruster, free_flyer and thruster_ring against their plain
-     versions at B = 1024, T = 80, A = 11 (and omni_thruster's sweep and
-     iteration without limits), those of thruster_ring16/20/24 with the
-     sweep and iteration at T = 4; the thruster_ring path at full width
+     versions at B = 1024, T = 80, A = 11, the sweep and iteration at
+     T = 8 (and omni_thruster's sweep and iteration without limits), those
+     of thruster_ring16/20/24 with the sweep and iteration at T = 2; the
+     thruster_ring path at full width
      (B = 1024, T = 80, max_iter = 40: solves/s, cost, iterations,
      reasons, the share of controls on the lower bound, launches, a
      profiled solve, and unasserted at B = 8192) and its merged route; the
      omni_thruster (with and without limits) and free_flyer paths and their
      merged routes under the gauge; thruster_ring24 at the cap (one solve,
-     max_iter cut if it would take over a minute) and thruster_ring16/20
+     max_iter cut if it would take over 30 s) and thruster_ring16/20
      at a cut depth; short omni_thruster and thruster_ring solves against
      the plain path on the CPU;
  10. the last four models (pendulum, cartpole, bicycle, power_mass — the
@@ -61,9 +63,25 @@ Phases (any failure raises and the script exits non-zero):
      rollout's, iterations, reasons, launches, a profiled solve), its
      split route against the merged one under the gauge, its path without
      limits, and a short solve against the plain path on the CPU;
- 11. one JSON line listing every kernel × model instantiation launched, the
-     card's line, and the last line {"ok": true, "device": {...}}. Each
-     phase prints its seconds.
+ 11. the reference's central stencils inside the fused sweep
+     (deriv_mode="fd", the CLI's default) and RK4: every model's stencil
+     sweep and iteration kernels and its rollout and line search with RK4
+     against their plain versions (at the paths' shapes; the sweep and
+     iteration of the m·n ≥ 32 models at a cut horizon); the CLI's batch
+     solves (ilqr_tpu/__main__.py:176-229) at full width: acrobot at
+     B = 8192, T = 499, max_iter = 100 with Euler and with RK4, the
+     quadrotor with RK4 (B = 1024, T = 120, the split iteration), the
+     other twelve models' canonical problems at B = 1024 (the rings 16-24 at
+     a cut depth, thruster_ring's max_iter capped) — solves/s, ms per
+     iteration, host iterations, cost against each lane's initial
+     rollout's, reasons, launches, profiled solves — each route against the
+     other under the gauge (the m·n ≥ 32 models' merged routes at a cut
+     depth), the paths without limits, and short solves against the plain
+     path on the CPU;
+ 12. one JSON line listing every kernel × model instantiation launched (the
+     RK4 readings as rk4_* fields of the kernel's row), the card's line,
+     and the last line {"ok": true, "device": {...}}. Each phase prints its
+     seconds.
 
 It needs one CUDA device and the ilqr_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -73,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -101,9 +120,9 @@ from ilqr_tpu_torch.ops import (
 )
 
 B_MAIN, T, DT, MAX_ITER = 8192, 499, 0.02, 100
-# Phase 5 at a cut depth: its plain path takes ~7 s per iteration at
-# T = 499 on an H100 80GB HBM3 (700 W).
-B_SPLIT, ITER_SPLIT = 1024, 4
+# Phase 5 at a cut depth (2 iterations): its plain path takes ~7 s per
+# iteration at T = 499 on an H100 80GB HBM3 (700 W).
+B_SPLIT, ITER_SPLIT = 1024, 2
 # Equivalence of whole solves across routes: a horizon short enough that
 # rounding alone (a 1e-6 nudge of x0) forks under 1% of lanes by iteration
 # 12; phase 7 prints that share.
@@ -815,11 +834,17 @@ CPU_RTOL = {"point_mass_3d": 1e-4, "quadrotor": 1e-3,
 WIDE_MODELS = ("omni_thruster", "free_flyer", "thruster_ring",
                "thruster_ring16", "thruster_ring20", "thruster_ring24")
 WIDE_T, WIDE_ITERS, WIDE_DT = 80, 40, 0.05
-# thruster_ring16/20/24: the sweep and iteration kernels against their
-# plain versions at T = 4 (the plain sweep at m = 24 runs ~10⁵ PyTorch ops
-# per step on the card)
-WIDE_T_BACKWARD = 4
-CAP_SOLVE_S = 60.0    # thruster_ring24: max_iter is cut if a solve would
+# The sweep and iteration kernels against their plain versions at a cut
+# horizon, so that the script keeps well inside its time limit on a slow
+# host (the plain versions are host-bound): the quadrotor's at 20 steps
+# (its plain sweep takes ~15 s at the path's 80), omni_thruster's,
+# free_flyer's and thruster_ring's at 8 (9-30 s per case at 80), the rings
+# 16/20/24's at 2 (the plain sweep at m = 24 runs ~10⁵ PyTorch ops per
+# step on the card)
+QUAD_T_CUT = 20
+WIDE_T_CUT = 8
+WIDE_T_BACKWARD = 2
+CAP_SOLVE_S = 30.0    # thruster_ring24: max_iter is cut if a solve would
 #                       take longer
 SHORT_ITERS = 2       # thruster_ring16/20's solves (and ring24's merged
 #                       route): a cut depth that launches every kernel
@@ -874,9 +899,11 @@ def workload(name, B=B_M):
             lambda rng: draw(rng).astype(np.float32))
 
 
-def lane_ops(model, params, kind, use_limits=True, A=11, dt=DT):
+def lane_ops(model, params, kind, use_limits=True, A=11, dt=DT, mode="jvp",
+             integrator="euler"):
     """f32 operations per (t, lane) and per lane of a kernel, counted from
-    its plain version (the same arithmetic) on one CPU lane."""
+    its plain version (the same arithmetic) on one CPU lane, with the
+    sweep's derivative ``mode`` and the ``integrator`` step."""
     rng = np.random.default_rng(6)
     pp = kernel_rollout.pack_params(params, dt)
     n, m = model.n, model.m
@@ -889,18 +916,18 @@ def lane_ops(model, params, kind, use_limits=True, A=11, dt=DT):
         x0, xs, xT, us = f(n, 1), f(t, n, 1), f(n, 1), 1.0 + f(t, m, 1)
         K, k = f(t, m, n, 1), f(t, m, 1)
         if kind == "rollout":
-            return kernel_rollout.rollout_plain(model, "euler", True, pp, x0,
-                                                us, xs, K)
+            return kernel_rollout.rollout_plain(model, integrator, True, pp,
+                                                x0, us, xs, K)
         if kind == "sweep":
-            return kernel_sweep.sweep_plain(model, "euler", pp, xs, xT, us,
-                                            one, "jvp", use_limits)
+            return kernel_sweep.sweep_plain(model, integrator, pp, xs, xT, us,
+                                            one, mode, use_limits)
         if kind == "linesearch":
             return kernel_rollout.linesearch_plain(
-                model, "euler", True, pp, x0, us, xs, xT, K, k, K, k, al,
+                model, integrator, True, pp, x0, us, xs, xT, K, k, K, k, al,
                 torch.stack([-one, one]), one, one, one, 0.0)
         return kernel_iter.iteration_plain(
-            model, "euler", True, pp, x0, xs, xT, us, k, K, one, one, one,
-            al, "jvp", use_limits)
+            model, integrator, True, pp, x0, xs, xT, us, k, K, one, one, one,
+            al, mode, use_limits)
     return ops_per_step(at)
 
 
@@ -1121,38 +1148,54 @@ def check_references(dev):
     return out
 
 
-def card_vs_cpu(name, T_c, iters, lanes=4):
+def card_vs_cpu(name, T_c, iters, lanes=4, fd=None, tol="CPU_RTOL"):
     """A short solve on the card against the plain path on the CPU (the
-    path's first ``T_c`` steps), held to CPU_RTOL[name] in relative cost."""
-    model, params, cfg, _T, dt, u0, draw = workload(name, B=lanes)
+    path's first ``T_c`` steps), held to ``tol`` in relative cost
+    (default CPU_RTOL[name]; None: printed only). ``fd`` names an
+    integrator: the CLI's fd problem (cli_workload) with it, in place of
+    the slice's workload."""
+    if fd is None:
+        model, params, cfg, _T, dt, u0, draw = workload(name, B=lanes)
+        x0 = draw(np.random.default_rng(9))
+    else:
+        model, params, cfg, _T, dt, u0, x0 = cli_workload(name, lanes)
+        cfg = cfg.replace(integrator=fd)
     cfg = cfg.replace(max_iter=iters)
-    x0 = draw(np.random.default_rng(9))
+    tol = CPU_RTOL[name] if tol == "CPU_RTOL" else tol
     card = solve_batch_fused(model, params, cfg, dt, x0, u0[:T_c])
     cpu = solve_batch_fused(model, params, cfg, dt, x0, u0[:T_c],
                             device="cpu")
     c_card, c_cpu = card.cost.cpu().numpy(), cpu.cost.numpy()
     rel = float(np.max(np.abs(c_card - c_cpu) / np.abs(c_cpu)))
-    print(f"[slice] {name}, {lanes} lanes, T={T_c}, max_iter={iters}: card "
-          f"vs the plain path on the CPU, max relative cost difference "
-          f"{rel:.2e} (≤ {CPU_RTOL[name]:g})")
-    if not (np.isfinite(c_card).all() and rel <= CPU_RTOL[name]):
+    print(f"[slice] {name}{'' if fd is None else f' fd {fd}'}, {lanes} "
+          f"lanes, T={T_c}, max_iter={iters}: card vs the plain path on the "
+          f"CPU, max relative cost difference {rel:.2e} ("
+          + (f"≤ {tol:g})" if tol is not None else
+             "information, not asserted: the CPU's sin/cos ulps, scaled by "
+             "the stencils' 1/(4·eps²))"))
+    if not np.isfinite(c_card).all() or (tol is not None and rel > tol):
         raise AssertionError(f"{name}: the card left the CPU's solve")
-    return dict(T=T_c, max_iter=iters, lanes=lanes, max_rel_cost_diff=rel)
+    return dict(T=T_c, max_iter=iters, lanes=lanes, integrator=cfg.integrator,
+                max_rel_cost_diff=rel)
 
 
 def ptxas_table(log: str):
     """(kernel, model, limits) → registers, spills and source file, from
     ptxas -v. The build log heads each source's report with "ptxas log of
     <file>": each csrc/kernels_<model>.cu (and kernels_<model>_iteration.cu,
-    where a model's iteration kernels compile apart) instantiates one
-    model, and the other sources (kernels.cu, derivs.cu, backward.cu) are
-    acrobot's."""
+    where a model's iteration kernels compile apart, and the stencil
+    instantiations' kernels_<model>_fd.cu and
+    kernels_<model>_iteration_fd.cu) instantiates one model, and the other
+    sources (kernels.cu, derivs.cu, backward.cu) are acrobot's. The stencil
+    sweep and iteration kernels are filed as sweep_kernel_fd and
+    iteration_kernel_fd."""
     table, entry, model, source = {}, None, "acrobot", None
     for line in log.splitlines():
         if line.startswith("ptxas log of "):
             source = line[len("ptxas log of "):].strip()
             stem = source.removesuffix(".cu")
-            model = (stem[len("kernels_"):].removesuffix("_iteration")
+            model = (stem[len("kernels_"):].removesuffix("_fd")
+                     .removesuffix("_iteration")
                      if stem.startswith("kernels_") else "acrobot")
         elif "Compiling entry function" in line:
             name = line.split("'")[1]
@@ -1160,6 +1203,8 @@ def ptxas_table(log: str):
             limits = None   # the sweep and iteration kernels' template flag
             if kernel in ("sweep_kernel", "iteration_kernel"):
                 limits = "Lb1E" in name
+                if "FiniteDiff" in name:   # the stencil instantiations
+                    kernel += "_fd"
             entry = table.setdefault((kernel, model, limits), {})
             entry["source"] = f"ilqr_tpu_torch/csrc/{source}"
         elif entry is not None and "bytes stack frame" in line:
@@ -1177,7 +1222,8 @@ def run_slice(dev):
     """Phase 8: the m = 2…4 slice. Returns (kernel rows, results)."""
     rows = {}
     for name in SLICE_MODELS:
-        rows.update(compare_model_kernels(dev, name))
+        rows.update(compare_model_kernels(
+            dev, name, t_backward=QUAD_T_CUT if name == "quadrotor" else None))
     res = {}
     quad, (qx0, qcost, qwalls) = run_model_path(dev, "quadrotor",
                                                 "quadrotor")
@@ -1257,7 +1303,7 @@ def run_wide_slice(dev):
     t0 = time.perf_counter()
     for name in WIDE_MODELS:
         rows.update(compare_model_kernels(
-            dev, name, t_backward=None if name in (
+            dev, name, t_backward=WIDE_T_CUT if name in (
                 "omni_thruster", "free_flyer", "thruster_ring")
             else WIDE_T_BACKWARD))
     print(f"[time] phase 9a (kernels against plain versions) "
@@ -1436,6 +1482,484 @@ def run_cli_slice(dev):
     return rows, res
 
 
+# ---------------------------------------------------------------------------
+# The sixth slice: the reference's central stencils inside the merged sweep
+# (deriv_mode="fd", the CLI's default linearization) and RK4 in the
+# rollout, line-search, sweep and whole-iteration kernels. The full-width
+# paths are the CLI's batch solves (ilqr_tpu/__main__.py:176-229) of each
+# model's canonical problem (:93-147): x0 = the spec's x0 + 0.05·normal from
+# default_rng(0) (:198-202), u0 = zeros (hover thrust for the quadrotor and
+# omni_thruster), SolverConfig(deriv_mode="fd") with the CLI's defaults
+# (the reference's unclamped rollout, limits ±box, boxqp "auto", fd_eps
+# 1e-3, Euler), max_iter 100.
+
+CLI_SPECS = {   # name: (T, dt, the spec's x0, hover u0)
+    "acrobot": (499, 0.02, (0.0,) * 4, False),
+    "double_integrator": (99, 0.02, (-1.0, 0.0, 0.0, -0.2), False),
+    "point_mass_3d": (99, 0.02, (0.0,) * 6, False),
+    "pendulum": (199, 0.02, (0.0,) * 2, False),
+    "cartpole": (299, 0.02, (0.0,) * 4, False),
+    "bicycle": (100, 0.05, (0.0,) * 4, False),
+    "power_mass": (120, 0.05, (0.0,) * 4, False),
+    "quadrotor": (120, 0.02, (0.0,) * 12, True),
+    "omni_thruster": (120, 0.05, (0.0,) * 6, True),
+    "free_flyer": (120, 0.05, (0.0,) * 6, False),
+    "thruster_ring": (100, 0.05, (0.0,) * 6, False),
+    "thruster_ring16": (100, 0.05, (0.0,) * 6, False),
+    "thruster_ring20": (100, 0.05, (0.0,) * 6, False),
+    "thruster_ring24": (100, 0.05, (0.0,) * 6, False),
+}
+# The models whose paths phases 8-10 also run without limits
+FD_FREE = ("double_integrator", "omni_thruster", "pendulum", "cartpole",
+           "bicycle", "power_mass")
+# The stencil sweep and iteration against their plain versions at a cut
+# horizon where the plain versions take many seconds at the path's T (the
+# dense step runs ~10⁴-10⁵ PyTorch ops per step on the card): the
+# quadrotor's, omni_thruster's, free_flyer's and thruster_ring's sweep at 8
+# steps, the rings 16-24's and the iteration kernels of every m·n ≥ 32
+# model (their paths take the split iteration) at 2.
+FD_T_SWEEP = {"quadrotor": 8, "omni_thruster": 8, "free_flyer": 8,
+              "thruster_ring": 8, "thruster_ring16": 2,
+              "thruster_ring20": 2, "thruster_ring24": 2}
+FD_T_ITER_WIDE = 2
+# The RK4 rollout and line search of the models whose paths run Euler,
+# against their plain versions on their paths' first 20 steps
+FD_T_RK4 = 20
+FD_CAP_S = 20.0   # thruster_ring's fd path: max_iter cut if a solve would
+#                   take longer
+FD_EQ_T, FD_EQ_ITERS = T_EQ, ITER_EQ   # acrobot's merged-vs-split routes
+FD_CPU_T, FD_CPU_ITERS = 30, 5         # the short card-against-CPU solves
+
+
+def cli_workload(name, B=B_M):
+    """(model, params, cfg, T, dt, u0 (T, m), x0 (B, n)) of the CLI's batch
+    solve of ``name``'s canonical problem at --batch B (see above)."""
+    T, dt, x0_spec, hover = CLI_SPECS[name]
+    model = get_model(name)
+    params = model.default_params()
+    if hover:
+        mod = quadrotor if name == "quadrotor" else omni_thruster
+        u0 = np.tile(mod.hover_control(params).numpy()[None], (T, 1))
+    else:
+        u0 = np.zeros((T, model.m))
+    rng = np.random.default_rng(0)
+    x0 = (np.asarray(x0_spec, np.float32)[None] + np.float32(0.05)
+          * rng.normal(size=(B, model.n)).astype(np.float32))
+    cfg = SolverConfig(deriv_mode="fd", clamp_forward=False,
+                       use_control_limits=True, max_iter=CLI_ITERS)
+    return model, params, cfg, T, dt, u0.astype(np.float32), x0
+
+
+def predict_on_cpu(name="acrobot", integrator="euler", lanes=64):
+    """The CLI batch solve of ``name`` (fd, ``integrator``) through the plain
+    path on the CPU, on the first ``lanes`` lanes of its B = 8192 x0 draw
+    (lanes are independent, so these are the same problems as the card's
+    first lanes): mean cost, the initial rollout's, iterations, reasons.
+    Needs no card; acrobot at 64 lanes takes ~12 min on one CPU core.
+
+        python3 -c "import chip_smoke; chip_smoke.predict_on_cpu()"
+    """
+    model, params, cfg, T, dt, u0, x0 = cli_workload(name, B_MAIN)
+    cfg = cfg.replace(integrator=integrator)
+    x0 = x0[:lanes]
+    pp = kernel_rollout.pack_params(params, dt)
+    init = kernel_rollout.rollout_plain(
+        model, integrator, cfg.clamp_forward, pp,
+        torch.as_tensor(x0).t().contiguous(),
+        torch.as_tensor(u0)[:, :, None].expand(T, model.m, lanes)
+        .contiguous(), torch.zeros(T, model.n, lanes),
+        torch.zeros(T, model.m, model.n, lanes))[3].numpy()
+    sol = solve_batch_fused(model, params, cfg, dt, x0, u0, device="cpu")
+    cost, iters = sol.cost.numpy(), sol.iterations.numpy()
+    out = dict(name=name, integrator=integrator, lanes=lanes,
+               mean_cost=float(cost.mean()), init_mean_cost=float(init.mean()),
+               mean_iters=float(iters.mean()), max_iters=int(iters.max()),
+               lanes_above_initial=int((cost > init).sum()),
+               reason_hist={int(k): int(v) for k, v in zip(*np.unique(
+                   sol.reason.numpy(), return_counts=True))})
+    print(json.dumps(out))
+    return out
+
+
+def compare_fd_kernels(dev, name):
+    """Phase 11a: ``name``'s stencil sweep and iteration kernels (Euler; for
+    acrobot and the quadrotor, whose paths run RK4, also RK4) and its
+    rollout and line search with the RK4 step, against their plain versions
+    on the card at its CLI path's shapes (B = 8192 for acrobot, else 1024;
+    the sweep and iteration cut as FD_T_SWEEP, FD_T_ITER_WIDE say), on that
+    path's x0, its unclamped open-loop rollout and first stencil gains;
+    masks mixed. Returns (the new rows, the RK4 readings of rows by key)."""
+    B = B_MAIN if name == "acrobot" else B_M
+    model, params, cfg, T, dt, u0, x0_np = cli_workload(name, B)
+    A, n, m = len(cfg.alphas), model.n, model.m
+    rng = np.random.default_rng(0)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(params, dt, dev)
+    x0 = f(x0_np).t().contiguous()
+    zeros = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+    xs0, us0, xT0, c0 = kernel_rollout.rollout_packed(
+        model, "euler", False, pp, x0,
+        f(u0)[:, :, None].expand(T, m, B).contiguous(), zeros(T, n, B),
+        zeros(T, m, n, B))
+    lam = torch.ones(B, device=dev)
+    k1, K1, dv1, _d, _g = kernel_sweep.sweep_packed(model, "euler", pp, xs0,
+                                                    xT0, us0, lam, "fd")
+    live, gate, keep = (f(rng.uniform(size=B) > 0.5) for _ in range(3))
+    alphas = f(cfg.alphas)
+    xsr = xs0 + f(0.01 * rng.normal(size=(T, n, B)))
+    Kr = f(0.05 * rng.normal(size=(T, m, n, B)))
+    uff = us0 + f(0.2 * rng.normal(size=(T, m, B)))
+    kold, Kold = f(rng.normal(size=(T, m, B))), f(rng.normal(size=(T, m, n,
+                                                                   B)))
+
+    def cut(Tb):
+        """The first Tb steps of the trajectory (x_Tb its terminal state)
+        and of the previous gains."""
+        if Tb == T:
+            return xs0, xT0, us0, kold, Kold
+        return (xs0[:Tb].contiguous(), xs0[Tb].contiguous(),
+                us0[:Tb].contiguous(), kold[:Tb].contiguous(),
+                Kold[:Tb].contiguous())
+
+    Ts = FD_T_SWEEP.get(name, T)
+    Ti = T if m * n < 32 else FD_T_ITER_WIDE
+
+    def sweep_case(integ, limits):
+        xsb, xTb, usb, _ko, _Ko = cut(Ts)
+        return (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+                (model, integ, pp, xsb, xTb, usb, lam, "fd", limits),
+                "sweep", limits, integ, Ts, None)
+
+    def iteration_case(integ, limits):
+        xsb, xTb, usb, kob, Kob = cut(Ti)
+        old = nbytes(kob, Kob)
+        return (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+                (model, integ, False, pp, x0, xsb, xTb, usb, kob, Kob, lam, c0,
+                 live, alphas, "fd", limits, cfg.z_min, cfg.tol_grad,
+                 cfg.lambda_grad_term),
+                "iteration", limits, integ, Ti,
+                lambda got: old * ((got[10] < 0.5) & (live > 0.5))
+                .float().mean().item())
+
+    cases = {f"sweep_packed/{name}/fd": sweep_case("euler", True),
+             f"iteration_packed/{name}/fd": iteration_case("euler", True)}
+    if name in FD_FREE:
+        free = "sweep" if m * n >= 32 else "iteration"
+        cases[f"{free}_packed/{name}/fd/unconstrained"] = (
+            sweep_case if free == "sweep" else iteration_case)("euler", False)
+    # the RK4 rollout and line search at the path's T where a path runs
+    # RK4, else on its first FD_T_RK4 steps
+    Tr = T if name in ("acrobot", "quadrotor") else min(T, FD_T_RK4)
+    xs_r, xT_r, us_r, kold_r, Kold_r = cut(Tr)
+    rk4 = {
+        f"rollout_packed/{name}": (
+            kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
+            (model, "rk4", False, pp, x0, uff[:Tr].contiguous(),
+             xsr[:Tr].contiguous(), Kr[:Tr].contiguous()), "rollout", True,
+            "rk4", Tr, None),
+        f"linesearch_packed/{name}": (
+            kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+            (model, "rk4", False, pp, x0, us_r, xs_r, xT_r,
+             K1[:Tr].contiguous(), k1[:Tr].contiguous(), Kold_r, kold_r,
+             alphas, dv1, c0, gate, keep, cfg.z_min), "linesearch", True,
+            "rk4", Tr,
+            lambda got: nbytes(kold_r, Kold_r) * (keep > 0.5).float().mean()
+            .item())}
+    if name in ("acrobot", "quadrotor"):   # their paths run RK4
+        rk4[f"sweep_packed/{name}/fd"] = sweep_case("rk4", True)
+    if name == "acrobot":
+        rk4[f"iteration_packed/{name}/fd"] = iteration_case("rk4", True)
+
+    def run(key, case):
+        op, plain, args, kind, limits, integ, Tc, unread = case
+        mode = "fd" if kind in ("sweep", "iteration") else "jvp"
+        step, rest = lane_ops(model, params, kind, limits, A, dt, mode,
+                              integ)
+        r = compare_stage(
+            f"{key} ({integ})", op, plain, args, step * Tc * B + rest * B,
+            f"({step} per (t, lane)) at B={B} T={Tc} A={A}", unread,
+            plain_reps=0)
+        return dict(r, kernel=f"{kind}_kernel" + ("_fd" if mode == "fd"
+                                                   else ""),
+                    model=name, limits=limits, T=Tc)
+
+    rows = {key: run(key, case) for key, case in cases.items()}
+    for key, r in rows.items():
+        stem = ("kernels_quadrotor_iteration_fd.cu"
+                if key.startswith("iteration") and name == "quadrotor"
+                else f"kernels_{name}_fd.cu")
+        r["source"] = f"ilqr_tpu_torch/csrc/{stem}"
+    return rows, {key: run(key, case) for key, case in rk4.items()}
+
+
+def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
+                **cfg_extra):
+    """One CLI batch solve through solve_batch_fused: an untimed warm-up
+    solve (unless ``warmup`` is False), then ``reps`` timed solves of the
+    same problem, each ending in a full device-to-host copy, with the launch
+    counts of the first (set to 0 just before it, read just after). Every
+    cost finite, every lane at or below its own initial rollout's cost."""
+    model, params, cfg, T, dt, u0, x0 = cli_workload(name, B)
+    cfg = cfg.replace(**cfg_extra)
+    pp = kernel_rollout.pack_params(params, dt, dev)
+    zeros = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+    init = kernel_rollout.rollout_packed(
+        model, cfg.integrator, cfg.clamp_forward, pp,
+        torch.as_tensor(x0, device=dev).t().contiguous(),
+        torch.as_tensor(u0, device=dev)[:, :, None].expand(
+            T, model.m, B).contiguous(),
+        zeros(T, model.n, B), zeros(T, model.m, model.n, B))[3].cpu().numpy()
+    if warmup:
+        solve_batch_fused(model, params, cfg, dt, x0, u0)
+        torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        reset_launch_counts()
+        fused._host_any.syncs = 0
+        fused._iteration.calls = 0
+        fused._iteration.retried = 0
+        t0 = time.perf_counter()
+        sol = solve_batch_fused(model, params, cfg, dt, x0, u0)
+        host = {k: v.cpu() for k, v in sol._asdict().items()}  # full D2H
+        runs.append(dict(wall=time.perf_counter() - t0, counts=launch_counts(),
+                         host_iters=fused._iteration.calls,
+                         syncs=fused._host_any.syncs,
+                         retried=fused._iteration.retried, sol=host))
+    walls = [r["wall"] for r in runs]
+    sol, c, its = runs[0]["sol"], runs[0]["counts"], runs[0]["host_iters"]
+    cost = sol["cost"].numpy()
+    iters = sol["iterations"].numpy()
+    hist = {int(k): int(v) for k, v in
+            zip(*np.unique(sol["reason"].numpy(), return_counts=True))}
+    wall = float(np.median(walls))
+    out = dict(
+        B=B, T=T, dt=dt, max_iter=cfg.max_iter, integrator=cfg.integrator,
+        use_control_limits=cfg.use_control_limits,
+        iter_kernel=cfg.iter_kernel, solves_per_s=B / wall, wall_s=walls,
+        mean_cost=float(cost.mean()), init_mean_cost=float(init.mean()),
+        mean_iters=float(iters.mean()), max_iters=int(iters.max()),
+        reason_hist=hist, launches=c, host_iterations=its,
+        ms_per_iteration=wall * 1e3 / max(1, its),
+        syncs_per_iteration=runs[0]["syncs"] / max(1, its),
+        retried_share=runs[0]["retried"] / max(1, its),
+        lanes_below_initial=float(np.mean(cost < init)),
+        cost_quantiles={q: float(np.percentile(cost, q))
+                        for q in (50, 90, 99, 100)},
+        first_64_lanes_mean_cost=float(cost[:64].mean()))
+    print(f"[fd] {label}: B={B} T={T} max_iter={cfg.max_iter} "
+          f"{cfg.integrator}: {out['solves_per_s']:.1f} solves/s (median of "
+          f"{reps}; {nvidia_smi()}), {out['ms_per_iteration']:.3f} "
+          f"ms/iteration over {its} host iterations, mean_cost "
+          f"{out['mean_cost']:.4f} (initial rollout {out['init_mean_cost']:.4f}"
+          f"), mean_iters {out['mean_iters']:.2f} (largest "
+          f"{out['max_iters']}), reasons {hist}, "
+          f"{out['lanes_below_initial']:.4f} of the lanes below their initial "
+          f"cost, cost quantiles (50, 90, 99, 100) "
+          f"{list(out['cost_quantiles'].values())}, the first 64 lanes' mean "
+          f"{out['first_64_lanes_mean_cost']:.4f}, launches {c}, host "
+          f"syncs/iteration "
+          f"{out['syncs_per_iteration']:.3f}, iterations that retried "
+          f"{out['retried_share']:.3f}")
+    if not np.all(np.isfinite(cost)):
+        raise AssertionError(f"{label}: non-finite costs")
+    if not np.all(cost <= init):
+        raise AssertionError(f"{label}: a lane ended above its initial "
+                             f"rollout's cost")
+    if c["rollout_packed"] != 1:
+        raise AssertionError(f"{label}: rollout_packed ran "
+                             f"{c['rollout_packed']} times in one solve")
+    route = ("iteration_packed" if fused._use_iter_kernel(model, cfg)
+             else "sweep_packed")
+    if c[route] < its:
+        raise AssertionError(f"{label}: {route} ran fewer launches than "
+                             f"iterations: {c}")
+    if profile:
+        out["profile"] = profile_solve(
+            label, lambda x0_, u0_: solve_batch_fused(model, params, cfg, dt,
+                                                      x0_, u0_),
+            wall, x0, u0)
+    return out, cost
+
+
+def fd_solve(dev, name, label, ref_cost=None, B=B_M, T=None, **cfg_extra):
+    """The CLI problem of ``name`` (its first T steps) through the route of
+    ``cfg_extra``, launch counts set to 0 just before and read just after;
+    held against ``ref_cost`` under the gauge where one is given. Returns
+    (readings, costs)."""
+    model, params, cfg, T_full, dt, u0, x0 = cli_workload(name, B)
+    T = T_full if T is None else T
+    reset_launch_counts()
+    sol = solve_batch_fused(model, params, cfg.replace(**cfg_extra), dt, x0,
+                            u0[:T])
+    cost = sol.cost.cpu().numpy()
+    out = dict(launches=launch_counts(), T=T, mean_cost=float(cost.mean()))
+    if not np.isfinite(cost).all():
+        raise AssertionError(f"{label}: non-finite costs")
+    if ref_cost is None:
+        print(f"[fd] {label} at B={B} T={T}: mean_cost {cost.mean():.4f}, "
+              f"launches {out['launches']}")
+        return out, cost
+    p99, mx = gauge(cost, ref_cost)
+    out.update(p99=p99, max=mx)
+    print(f"[fd] {label} at B={B} T={T}: per-lane |c1-c2|/(1+|c2|) p99 "
+          f"{p99:.3e} (≤ {GAUGE_P99:g}), max {mx:.3e} (≤ {GAUGE_MAX:g}); "
+          f"launches {out['launches']}")
+    if not (p99 <= GAUGE_P99 and mx <= GAUGE_MAX):
+        raise AssertionError(f"{label} outside the gauge")
+    return out, cost
+
+
+def run_fd_slice(dev):
+    """Phase 11: the stencils in the fused kernels and RK4. Returns (the new
+    kernel rows, the RK4 readings of rows by key, results)."""
+    rows, rk4, res = {}, {}, {}
+    t0 = time.perf_counter()
+    for name in CLI_SPECS:
+        r, k = compare_fd_kernels(dev, name)
+        rows.update(r)
+        rk4.update(k)
+    print(f"[time] phase 11a (fd and RK4 kernels against plain versions) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def record(key, counts, mode="fd"):
+        """The launches on a path of a row (mode "fd") or of an RK4 reading
+        (mode "rk4", the row's rk4_launches)."""
+        (rows if mode == "fd" else rk4)[key]["launches"] = counts[
+            key.split("/")[0]]
+
+    # (b) the headline: the CLI's default batch solve of acrobot, and its
+    # RK4 twin; their split routes against the merged ones at T = FD_EQ_T
+    t0 = time.perf_counter()
+    for integ in ("euler", "rk4"):   # phase 11a warmed the kernels up
+        out, _c = run_fd_path(
+            dev, "acrobot", f"acrobot {integ} (the CLI's batch solve)",
+            B=B_MAIN, reps=1, warmup=False, profile=integ == "euler",
+            integrator=integ)
+        short = dict(B=B_SPLIT, T=FD_EQ_T, max_iter=FD_EQ_ITERS,
+                     integrator=integ)
+        merged, ref = fd_solve(dev, "acrobot", f"acrobot {integ} merged",
+                               **short)
+        out["split_route"], _c = fd_solve(
+            dev, "acrobot", f"acrobot {integ} split route vs merged", ref,
+            iter_kernel="split", **short)
+        res[f"acrobot_{integ}"] = out
+        split = out["split_route"]["launches"]
+        if integ == "euler":
+            record("iteration_packed/acrobot/fd", out["launches"])
+            record("sweep_packed/acrobot/fd", split)
+        else:
+            for key in ("rollout_packed/acrobot",
+                        "iteration_packed/acrobot/fd"):
+                record(key, out["launches"], "rk4")
+            for key in ("sweep_packed/acrobot/fd",
+                        "linesearch_packed/acrobot"):
+                record(key, split, "rk4")
+    print(f"[time] phase 11b (acrobot) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (c) the quadrotor's CLI problem with fd and RK4 (the split iteration)
+    # and its merged route
+    t0 = time.perf_counter()
+    quad, qcost = run_fd_path(dev, "quadrotor", "quadrotor fd + rk4", reps=1,
+                              warmup=False, profile=True, integrator="rk4")
+    # the merged route at a cut depth (it runs the split route's
+    # arithmetic, one launch where the split takes two)
+    _s, qcost = fd_solve(dev, "quadrotor", f"quadrotor rk4 at max_iter "
+                         f"{SHORT_ITERS}", max_iter=SHORT_ITERS,
+                         integrator="rk4")
+    quad["merged_route"], _c = fd_solve(
+        dev, "quadrotor", "quadrotor rk4 merged route vs split", qcost,
+        iter_kernel="merged", integrator="rk4", max_iter=SHORT_ITERS)
+    for key in ("rollout_packed/quadrotor", "linesearch_packed/quadrotor",
+                "sweep_packed/quadrotor/fd"):
+        record(key, quad["launches"], "rk4")
+    # the path's stencil sweep kernel, RK4 its mode
+    record("sweep_packed/quadrotor/fd", quad["launches"])
+    record("iteration_packed/quadrotor/fd",
+           quad["merged_route"]["launches"])
+    res["quadrotor_rk4"] = quad
+    print(f"[time] phase 11c (quadrotor) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (d) the other twelve models' CLI problems, fd and Euler; each route
+    # against the other, and without limits where phases 8-10 run so
+    t0 = time.perf_counter()
+    for name in CLI_SPECS:
+        if name in ("acrobot", "quadrotor"):
+            continue
+        model = get_model(name)
+        merged_auto = model.m * model.n < 32
+        other = dict(iter_kernel="split" if merged_auto else "merged")
+        label = f"{name} fd (the CLI's batch solve)"
+        if name in ("thruster_ring16", "thruster_ring20", "thruster_ring24"):
+            out, cost = fd_solve(dev, name, f"{name} fd at max_iter "
+                                 f"{SHORT_ITERS} (cut from {CLI_ITERS})",
+                                 max_iter=SHORT_ITERS)
+            out["other_route"], _c = fd_solve(
+                dev, name, f"{name} merged route vs split", cost,
+                max_iter=SHORT_ITERS, **other)
+        elif name in ("omni_thruster", "free_flyer", "thruster_ring"):
+            m_, p_, cfg, T, dt, u0, x0 = cli_workload(name)
+            pp = kernel_rollout.pack_params(p_, dt, dev)
+            B = len(x0)
+            z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+            xs0, us0, xT0, _c = kernel_rollout.rollout_packed(
+                m_, "euler", False, pp,
+                torch.as_tensor(x0, device=dev).t().contiguous(),
+                torch.as_tensor(u0, device=dev)[:, :, None].expand(
+                    T, m_.m, B).contiguous(), z(T, m_.n, B),
+                z(T, m_.m, m_.n, B))
+            sweep_ms = time_ms(lambda: kernel_sweep.sweep_packed(
+                m_, "euler", pp, xs0, xT0, us0, torch.ones(B, device=dev),
+                "fd"), reps=1)
+            cap = min(CLI_ITERS, max(SHORT_ITERS, int(
+                FD_CAP_S * 1e3 / (1.5 * sweep_ms))))
+            print(f"[fd] {name}: one stencil sweep {sweep_ms:.1f} ms "
+                  f"at B={B} T={T}; max_iter {cap}"
+                  + ("" if cap == CLI_ITERS else
+                     f" (cut from {CLI_ITERS} to keep one solve under "
+                     f"{FD_CAP_S:g} s)"))
+            out, _cost = run_fd_path(dev, name, label, reps=1, warmup=False,
+                                     max_iter=cap)
+            out["sweep_ms_per_launch"] = sweep_ms
+            # the merged route at a cut depth: it runs the split route's
+            # arithmetic, one launch where the split takes two
+            split_short, cost = fd_solve(dev, name, f"{name} at max_iter "
+                                         f"{SHORT_ITERS}",
+                                         max_iter=SHORT_ITERS)
+            out["other_route"], _c = fd_solve(
+                dev, name, f"{name} merged route vs split", cost,
+                max_iter=SHORT_ITERS, **other)
+        else:
+            out, cost = run_fd_path(dev, name, label,
+                                    profile=name == "power_mass")
+            out["other_route"], _c = fd_solve(
+                dev, name, f"{name} {other['iter_kernel']} route vs auto",
+                cost, **other)
+        auto_key = ("iteration_packed" if merged_auto else "sweep_packed")
+        other_key = ("sweep_packed" if merged_auto else "iteration_packed")
+        record(f"{auto_key}/{name}/fd", out["launches"])
+        record(f"{other_key}/{name}/fd", out["other_route"]["launches"])
+        if name in FD_FREE:
+            free, _c = run_fd_path(dev, name, f"{name} fd without limits",
+                                   reps=1, warmup=False,
+                                   use_control_limits=False)
+            record(f"{auto_key}/{name}/fd/unconstrained", free["launches"])
+            out["unconstrained"] = free
+        res[name] = out
+    print(f"[time] phase 11d (the twelve CLI problems) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) short solves on the card against the plain path on the CPU
+    res["card_vs_cpu"] = {
+        f"{name}_{integ}": card_vs_cpu(name, FD_CPU_T, FD_CPU_ITERS, fd=integ,
+                                       tol=tol)
+        for name, integ, tol in (("power_mass", "euler", 1e-4),
+                                 ("double_integrator", "rk4", 1e-4),
+                                 ("acrobot", "rk4", None))}
+    return rows, rk4, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1445,7 +1969,8 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}")
-    print(f"[env] {smi}")
+    print(f"[env] {smi}; {os.cpu_count()} CPU cores on the host (the build "
+          f"runs one nvcc per source, all at once)")
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -1510,17 +2035,23 @@ def main() -> int:
     cli_rows, cli_out = run_cli_slice(dev)
     rows.update(cli_rows)
     tick("phase 10 (pendulum, cartpole, bicycle, power_mass)")
-    print(f"[time] phases 2-10 {time.perf_counter() - t0:.1f} s", flush=True)
+    fd_rows, rk4_readings, fd_out = run_fd_slice(dev)
+    rows.update(fd_rows)
+    tick("phase 11 (the stencils in the fused kernels, RK4)")
+    print(f"[time] phases 2-11 {time.perf_counter() - t0:.1f} s", flush=True)
+    for key, r in rk4_readings.items():   # RK4, a mode of a row's kernel
+        rows[key].update({f"rk4_{k}": v for k, v in r.items()
+                          if k not in ("kernel", "model", "limits")})
     for name, r in rows.items():
         r["name"] = name
-        if r["model"] != "acrobot":
-            r.update(route="cuda",
-                     source=f"ilqr_tpu_torch/csrc/kernels_{r['model']}.cu",
-                     replaces=REPLACES[name.split("/")[0]], tol=KERNEL_TOL,
-                     library_ms=None, library_note=(
+        if r["model"] != "acrobot" or name.endswith("/fd"):
+            r.setdefault("source",
+                         f"ilqr_tpu_torch/csrc/kernels_{r['model']}.cu")
+            r.update(route="cuda", replaces=REPLACES[name.split("/")[0]],
+                     tol=KERNEL_TOL, library_ms=None, library_note=(
                          "no single PyTorch call computes this function"))
-        limits = r["limits"] if r["kernel"] in (
-            "sweep_kernel", "iteration_kernel") else None
+        limits = r["limits"] if r["kernel"].startswith(
+            ("sweep_kernel", "iteration_kernel")) else None
         r.update(ptxas.get((r["kernel"], r["model"], limits), {}))
     if not all(r.get("launches") for r in rows.values()):
         raise AssertionError(f"a kernel was never launched: {rows}")
@@ -1528,7 +2059,7 @@ def main() -> int:
     print(json.dumps({"main_path": main_out, "split_path": gauges,
                       "composable_path": comp_out, "equivalence": equiv,
                       "slice": slice_out, "wide_slice": wide_out,
-                      "cli_slice": cli_out}))
+                      "cli_slice": cli_out, "fd_slice": fd_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,13 @@
 // n = 12, m = 4) needs more than the 255 registers a thread may hold. Lanes
 // are independent, so no block waits for another.
 //
+// The integrator (Euler or RK4, integrate.cuh) is a runtime argument of
+// every kernel. The sweep and whole-iteration kernels are templates on the
+// derivative source (sweep_step.cuh): Analytic (the model's closed-form
+// derivatives, Euler only) or FiniteDiff (the reference's stencils of the
+// Euler or RK4 step), each model's FiniteDiff instantiations in a source of
+// their own (csrc/kernels_<model>_fd.cu).
+//
 // Launchers take PyTorch's current stream and return cudaGetLastError().
 // They allocate nothing: the Python wrappers pass every output and scratch
 // buffer.
@@ -48,18 +55,14 @@ __device__ __forceinline__ int lane_index() {
 // timestep is independent of the carry, so loads are placed ahead of the
 // dependent model math.
 // ---------------------------------------------------------------------------
-template <class Model>
-__global__ void __launch_bounds__(kBlock)
-rollout_kernel(const float* __restrict__ params, const float* __restrict__ x0,
-               const float* __restrict__ uff, const float* __restrict__ xsr,
-               const float* __restrict__ K, float* __restrict__ xs,
-               float* __restrict__ us, float* __restrict__ xfin,
-               float* __restrict__ cost, int T, int B_, int clamp) {
+template <class Model, int kScheme>
+__device__ __forceinline__ void rollout_lane(
+    const typename Model::Params& p, const float* __restrict__ x0,
+    const float* __restrict__ uff, const float* __restrict__ xsr,
+    const float* __restrict__ K, float* __restrict__ xs,
+    float* __restrict__ us, float* __restrict__ xfin,
+    float* __restrict__ cost, int T, size_t B, int lane, bool clamp) {
   constexpr int N = Model::N, M = Model::M;
-  const int lane = lane_index();
-  if (lane >= B_) return;
-  const size_t B = B_;
-  const typename Model::Params p = Model::load(params);
   float x[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = x0[i * B + lane];
@@ -78,7 +81,7 @@ rollout_kernel(const float* __restrict__ params, const float* __restrict__ x0,
       for (int i = 0; i < N; ++i)
         Kr[j][i] = K[((t * M + j) * N + i) * B + lane];
     }
-    const float ci = rollout::step<Model>(p, x, ur, xr, Kr, clamp != 0, u);
+    const float ci = rollout::step<Model, kScheme>(p, x, ur, xr, Kr, clamp, u);
 #pragma unroll
     for (int j = 0; j < M; ++j) us[(t * M + j) * B + lane] = u[j];
     c = c + ci;
@@ -88,21 +91,40 @@ rollout_kernel(const float* __restrict__ params, const float* __restrict__ x0,
   cost[lane] = c + Model::final_cost(p, x);
 }
 
+template <class Model>
+__global__ void __launch_bounds__(kBlock)
+rollout_kernel(const float* __restrict__ params, const float* __restrict__ x0,
+               const float* __restrict__ uff, const float* __restrict__ xsr,
+               const float* __restrict__ K, float* __restrict__ xs,
+               float* __restrict__ us, float* __restrict__ xfin,
+               float* __restrict__ cost, int T, int B_, int clamp,
+               int scheme) {
+  const int lane = lane_index();
+  if (lane >= B_) return;
+  const typename Model::Params p = Model::load(params);
+  if (scheme == integrate::kRK4)
+    rollout_lane<Model, integrate::kRK4>(p, x0, uff, xsr, K, xs, us, xfin,
+                                         cost, T, B_, lane, clamp != 0);
+  else
+    rollout_lane<Model, integrate::kEuler>(p, x0, uff, xsr, K, xs, us, xfin,
+                                           cost, T, B_, lane, clamp != 0);
+}
+
 // Backward phase shared by the sweep and the whole-iteration kernels:
 // reverse time from V_T, gains stored through (k_ptr, K_ptr) with the given
 // per-timestep strides (rows B apart). Returns the carry's accumulators.
-template <class Model, bool kLimits>
+template <class Model, bool kLimits, class Deriv>
 __device__ __forceinline__ sweep::Carry<Model> backward_phase(
-    const typename Model::Params& p, const float* __restrict__ xs,
-    const float* __restrict__ xterm, const float* __restrict__ us, float lam,
-    int T, size_t B, int lane, float* k_ptr, float* K_ptr, size_t k_tstride,
-    size_t K_tstride) {
+    const typename Model::Params& p, const Deriv& d,
+    const float* __restrict__ xs, const float* __restrict__ xterm,
+    const float* __restrict__ us, float lam, int T, size_t B, int lane,
+    float* k_ptr, float* K_ptr, size_t k_tstride, size_t K_tstride) {
   constexpr int N = Model::N, M = Model::M;
   sweep::Carry<Model> c;
   float xT[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) xT[i] = xterm[i * B + lane];
-  sweep::terminal_init<Model>(p, xT, c);
+  sweep::terminal_init<Model>(p, xT, d, c);
   for (int t = T - 1; t >= 0; --t) {
     float x[N], u[M];
 #pragma unroll
@@ -110,7 +132,7 @@ __device__ __forceinline__ sweep::Carry<Model> backward_phase(
 #pragma unroll
     for (int j = 0; j < M; ++j) u[j] = us[(t * M + j) * B + lane];
     float k[M], Kr[M][N];
-    sweep::step<Model, kLimits>(p, x, u, lam, c, k, Kr);
+    sweep::step<Model, kLimits>(p, x, u, lam, d, c, k, Kr);
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       k_ptr[t * k_tstride + j * B + lane] = k[j];
@@ -123,8 +145,8 @@ __device__ __forceinline__ sweep::Carry<Model> backward_phase(
 }
 
 // ---------------------------------------------------------------------------
-// sweep_packed (merged linearize + backward, analytic derivatives; the box
-// QP with limits, the Newton step without)
+// sweep_packed (merged linearize + backward, analytic derivatives or the
+// stencils; the box QP with limits, the Newton step without)
 //
 // Replaces: ilqr_tpu/ops/pallas_sweep.py sweep_packed (_kernel +
 // _sweep_step, _qp_m1 … _qp_m4, _qp_newton, _free_solve_rows,
@@ -133,25 +155,27 @@ __device__ __forceinline__ sweep::Carry<Model> backward_phase(
 // writes k, K); by operations the Riccati algebra (O(n³) per step, plus
 // 3^m QP candidates) runs in one serial chain per lane, so it is
 // latency-bound: each step waits on the V-carry of the step before.
+// The stencils add (n + m)(n + m + 3)/2·4 cost and 2(n + m) step
+// evaluations per step, all on the same serial chain.
 // Design: the whole V-carry stays with the thread; the linearization never
 // leaves it; Vxx is updated as an exactly symmetric upper triangle; the QP's
 // candidates and free subsets are unrolled at compile time (qp.cuh).
 // ---------------------------------------------------------------------------
-template <class Model, bool kLimits>
+template <class Model, bool kLimits, class Deriv>
 __global__ void __launch_bounds__(kBlock)
 sweep_kernel(const float* __restrict__ params, const float* __restrict__ xs,
              const float* __restrict__ xterm, const float* __restrict__ us,
              const float* __restrict__ lam, float* __restrict__ k_out,
              float* __restrict__ K_out, float* __restrict__ dv,
              float* __restrict__ div, float* __restrict__ gnorm, int T,
-             int B_) {
+             int B_, Deriv d) {
   constexpr int N = Model::N, M = Model::M;
   const int lane = lane_index();
   if (lane >= B_) return;
   const size_t B = B_;
   const typename Model::Params p = Model::load(params);
   const sweep::Carry<Model> c = backward_phase<Model, kLimits>(
-      p, xs, xterm, us, lam[lane], T, B, lane, k_out, K_out, M * B,
+      p, d, xs, xterm, us, lam[lane], T, B, lane, k_out, K_out, M * B,
       M * N * B);
   dv[lane] = c.dv0;
   dv[B + lane] = c.dv1;
@@ -189,7 +213,7 @@ linesearch_kernel(const float* __restrict__ params,
                   float* __restrict__ lscost, float* __restrict__ alpha_sel,
                   float* __restrict__ acc, float* __restrict__ dcost,
                   float* __restrict__ expected, float z_min, int T, int B_,
-                  int clamp) {
+                  int clamp, int scheme) {
   constexpr int N = Model::N, M = Model::M;
   const int lane = lane_index();
   if (lane >= B_) return;
@@ -205,16 +229,16 @@ linesearch_kernel(const float* __restrict__ params,
 
   float cand[kMaxA];
   rollout::candidate_costs<Model, kMaxA>(p, x0v, us, xsr, g, al, A, T, B,
-                                         lane, clamp != 0, cand);
+                                         lane, clamp != 0, scheme, cand);
   const rollout::Selection s = rollout::select<kMaxA>(
       cand, al, A, cprev[lane], dv[lane], dv[B + lane], z_min);
   // the step is taken only through the outer gate (back_ok & ~grad_term &
   // live, computed by the solver from the sweep's outputs)
   const bool take = s.accepted * gate[lane] > 0.5f;
   const bool keepm = keep[lane] > 0.5f;
-  rollout::emit<Model>(p, x0v, us, xsr, xterm, g, kold, Kold, s.alpha, take,
-                       keepm, T, B, lane, clamp != 0, xs_out, us_out, k_out,
-                       K_out, xfin);
+  rollout::emit<Model>(scheme, p, x0v, us, xsr, xterm, g, kold, Kold,
+                       s.alpha, take, keepm, T, B, lane, clamp != 0, xs_out,
+                       us_out, k_out, K_out, xfin);
   lscost[lane] = s.cost;
   alpha_sel[lane] = s.alpha;
   acc[lane] = s.accepted;
@@ -236,7 +260,7 @@ linesearch_kernel(const float* __restrict__ params,
 // take/keep gates are computed in registers between the phases. Lanes with
 // live = 0 re-emit their state.
 // ---------------------------------------------------------------------------
-template <class Model, bool kLimits>
+template <class Model, bool kLimits, class Deriv>
 __global__ void __launch_bounds__(kBlock)
 iteration_kernel(const float* __restrict__ params,
                  const float* __restrict__ x0, const float* __restrict__ xs,
@@ -255,7 +279,7 @@ iteration_kernel(const float* __restrict__ params,
                  float* __restrict__ expected, float* __restrict__ div_out,
                  float* __restrict__ gnorm_out, float* gains, float z_min,
                  float tol_grad, float lam_grad_term, int T, int B_,
-                 int clamp) {
+                 int clamp, int scheme, Deriv d) {
   constexpr int N = Model::N, M = Model::M;
   const int lane = lane_index();
   if (lane >= B_) return;
@@ -266,7 +290,7 @@ iteration_kernel(const float* __restrict__ params,
   // phase 0: merged linearize + backward sweep into the gain buffer
   const float lm = lam[lane];
   const sweep::Carry<Model> c = backward_phase<Model, kLimits>(
-      p, xs, xterm, us, lm, T, B, lane, gains, gains + M * B, G, G);
+      p, d, xs, xterm, us, lm, T, B, lane, gains, gains + M * B, G, G);
   const float gn = c.gacc * static_cast<float>(1.0 / T);
   div_out[lane] = c.div;
   gnorm_out[lane] = gn;
@@ -286,15 +310,15 @@ iteration_kernel(const float* __restrict__ params,
   const rollout::Gains<Model> g{gains, gains + M * B, G, G, B};
   float cand[kMaxA];
   rollout::candidate_costs<Model, kMaxA>(p, x0v, us, xs, g, al, A, T, B,
-                                         lane, clamp != 0, cand);
+                                         lane, clamp != 0, scheme, cand);
 
   // phase 2: select the first accepted α and emit
   const rollout::Selection s = rollout::select<kMaxA>(
       cand, al, A, cprev[lane], c.dv0, c.dv1, z_min);
   const bool take = s.accepted * gate > 0.5f;
-  rollout::emit<Model>(p, x0v, us, xs, xterm, g, kold, Kold, s.alpha, take,
-                       keep > 0.5f, T, B, lane, clamp != 0, xs_out, us_out,
-                       k_out, K_out, xfin);
+  rollout::emit<Model>(scheme, p, x0v, us, xs, xterm, g, kold, Kold,
+                       s.alpha, take, keep > 0.5f, T, B, lane, clamp != 0,
+                       xs_out, us_out, k_out, K_out, xfin);
   lscost[lane] = s.cost;
   alpha_sel[lane] = s.alpha;
   acc[lane] = s.accepted;
@@ -311,41 +335,125 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
+// The derivative source a launcher's arguments select: the analytic one
+// takes the Euler step only (the JAX kernel's use_analytic), so any other
+// scheme is refused before a launch.
+template <class Deriv>
+inline bool make_deriv(int scheme, float eps, float den1, float den2,
+                       Deriv& d) {
+  if constexpr (Deriv::kDense) {
+    d.s = fd::Stencil{eps, den1, den2, scheme};
+    return scheme == integrate::kEuler || scheme == integrate::kRK4;
+  }
+  return scheme == integrate::kEuler;
+}
+
+template <class Model, class Deriv>
+inline int launch_sweep(const void* params, const void* xs,
+                        const void* xterm, const void* us, const void* lam,
+                        void* k, void* K, void* dv, void* div, void* gnorm,
+                        int T, int B, int use_limits, int scheme, float eps,
+                        float den1, float den2, void* stream) {
+  Deriv d;
+  if (!make_deriv(scheme, eps, den1, den2, d))
+    return (int)cudaErrorInvalidValue;
+  return launch(use_limits ? sweep_kernel<Model, true, Deriv>
+                           : sweep_kernel<Model, false, Deriv>,
+                B, stream, (const float*)params, (const float*)xs,
+                (const float*)xterm, (const float*)us, (const float*)lam,
+                (float*)k, (float*)K, (float*)dv, (float*)div, (float*)gnorm,
+                T, B, d);
+}
+
+template <class Model, class Deriv>
+inline int launch_iteration(
+    const void* params, const void* x0, const void* xs, const void* xterm,
+    const void* us, const void* Kold, const void* kold, const void* alphas,
+    int A, const void* lam, const void* cprev, const void* live,
+    void* xs_out, void* us_out, void* xfin, void* k_out, void* K_out,
+    void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,
+    void* div, void* gnorm, void* gains, float z_min, float tol_grad,
+    float lam_grad_term, int T, int B, int clamp, int use_limits, int scheme,
+    float eps, float den1, float den2, void* stream) {
+  Deriv d;
+  if (!make_deriv(scheme, eps, den1, den2, d))
+    return (int)cudaErrorInvalidValue;
+  return launch(
+      use_limits ? iteration_kernel<Model, true, Deriv>
+                 : iteration_kernel<Model, false, Deriv>,
+      B, stream, (const float*)params, (const float*)x0, (const float*)xs,
+      (const float*)xterm, (const float*)us, (const float*)Kold,
+      (const float*)kold, (const float*)alphas, A, (const float*)lam,
+      (const float*)cprev, (const float*)live, (float*)xs_out,
+      (float*)us_out, (float*)xfin, (float*)k_out, (float*)K_out,
+      (float*)lscost, (float*)alpha_sel, (float*)acc, (float*)dcost,
+      (float*)expected, (float*)div, (float*)gnorm, (float*)gains, z_min,
+      tol_grad, lam_grad_term, T, B, clamp, scheme, d);
+}
+
 }  // namespace fused
 
-// The four extern "C" launchers of one model, ilqr_<NAME>_<kernel>, with the
+// The extern "C" launchers of one model, ilqr_<NAME>_<kernel>, with the
 // signatures ops/_build.py binds. The sweep and iteration launchers pick the
-// kernel with control limits (the box QP) or without (the Newton step).
-// ILQR_FUSED_LAUNCHERS instantiates all four; a model whose kernels take
-// nvcc minutes (the quadrotor's 81-candidate QP) puts
+// kernel with control limits (the box QP) or without (the Newton step); all
+// take the integrator (0 Euler, 1 RK4) and the stencil's eps and
+// denominators, which the analytic ones do not read (they refuse RK4).
+// ILQR_FUSED_LAUNCHERS instantiates the four analytic kernels; a model
+// whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
 // ILQR_ITERATION_LAUNCHER in two sources, which compile in parallel.
+// ILQR_FD_LAUNCHERS instantiates the stencil sweep and iteration kernels,
+// ilqr_<NAME>_sweep_fd and ilqr_<NAME>_iteration_fd, in a source of their
+// own (ILQR_FD_SWEEP_LAUNCHER and ILQR_FD_ITERATION_LAUNCHER apart for the
+// quadrotor).
 #define ILQR_FUSED_LAUNCHERS(NAME, MODEL) \
   ILQR_SPLIT_LAUNCHERS(NAME, MODEL)       \
   ILQR_ITERATION_LAUNCHER(NAME, MODEL)
+
+#define ILQR_FD_LAUNCHERS(NAME, MODEL) \
+  ILQR_FD_SWEEP_LAUNCHER(NAME, MODEL)  \
+  ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)
+
+#define ILQR_SWEEP_LAUNCHER_AS(FN, MODEL, DERIV)                              \
+  extern "C" int FN(const void* params, const void* xs, const void* xterm,    \
+                    const void* us, const void* lam, void* k, void* K,        \
+                    void* dv, void* div, void* gnorm, int T, int B,           \
+                    int use_limits, int scheme, float eps, float den1,        \
+                    float den2, void* stream) {                               \
+    return fused::launch_sweep<MODEL, DERIV>(params, xs, xterm, us, lam, k,   \
+                                             K, dv, div, gnorm, T, B,         \
+                                             use_limits, scheme, eps, den1,   \
+                                             den2, stream);                   \
+  }
+
+#define ILQR_ITERATION_LAUNCHER_AS(FN, MODEL, DERIV)                          \
+  extern "C" int FN(                                                          \
+      const void* params, const void* x0, const void* xs, const void* xterm,  \
+      const void* us, const void* Kold, const void* kold, const void* alphas, \
+      int A, const void* lam, const void* cprev, const void* live,            \
+      void* xs_out, void* us_out, void* xfin, void* k_out, void* K_out,       \
+      void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,  \
+      void* div, void* gnorm, void* gains, float z_min, float tol_grad,       \
+      float lam_grad_term, int T, int B, int clamp, int use_limits,           \
+      int scheme, float eps, float den1, float den2, void* stream) {          \
+    return fused::launch_iteration<MODEL, DERIV>(                             \
+        params, x0, xs, xterm, us, Kold, kold, alphas, A, lam, cprev, live,   \
+        xs_out, us_out, xfin, k_out, K_out, lscost, alpha_sel, acc, dcost,    \
+        expected, div, gnorm, gains, z_min, tol_grad, lam_grad_term, T, B,    \
+        clamp, use_limits, scheme, eps, den1, den2, stream);                  \
+  }
 
 #define ILQR_SPLIT_LAUNCHERS(NAME, MODEL)                                      \
   extern "C" {                                                                 \
   int ilqr_##NAME##_rollout(const void* params, const void* x0,                \
                             const void* uff, const void* xsr, const void* K,   \
                             void* xs, void* us, void* xfin, void* cost, int T, \
-                            int B, int clamp, void* stream) {                  \
+                            int B, int clamp, int scheme, void* stream) {      \
     return fused::launch(                                                      \
         fused::rollout_kernel<MODEL>, B, stream, (const float*)params,         \
         (const float*)x0, (const float*)uff, (const float*)xsr,                \
         (const float*)K, (float*)xs, (float*)us, (float*)xfin, (float*)cost,   \
-        T, B, clamp);                                                          \
-  }                                                                            \
-  int ilqr_##NAME##_sweep(const void* params, const void* xs,                  \
-                          const void* xterm, const void* us, const void* lam,  \
-                          void* k, void* K, void* dv, void* div, void* gnorm,  \
-                          int T, int B, int use_limits, void* stream) {        \
-    return fused::launch(                                                      \
-        use_limits ? fused::sweep_kernel<MODEL, true>                          \
-                   : fused::sweep_kernel<MODEL, false>,                        \
-        B, stream, (const float*)params, (const float*)xs,                     \
-        (const float*)xterm, (const float*)us, (const float*)lam, (float*)k,   \
-        (float*)K, (float*)dv, (float*)div, (float*)gnorm, T, B);              \
+        T, B, clamp, scheme);                                                  \
   }                                                                            \
   int ilqr_##NAME##_linesearch(                                                \
       const void* params, const void* x0, const void* us, const void* xsr,     \
@@ -354,7 +462,7 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
       const void* cprev, const void* gate, const void* keep, void* xs_out,     \
       void* us_out, void* xfin, void* k_out, void* K_out, void* lscost,        \
       void* alpha_sel, void* acc, void* dcost, void* expected, float z_min,    \
-      int T, int B, int clamp, void* stream) {                                 \
+      int T, int B, int clamp, int scheme, void* stream) {                     \
     return fused::launch(                                                      \
         fused::linesearch_kernel<MODEL>, B, stream, (const float*)params,      \
         (const float*)x0, (const float*)us, (const float*)xsr,                 \
@@ -363,31 +471,18 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
         (const float*)dv, (const float*)cprev, (const float*)gate,             \
         (const float*)keep, (float*)xs_out, (float*)us_out, (float*)xfin,      \
         (float*)k_out, (float*)K_out, (float*)lscost, (float*)alpha_sel,       \
-        (float*)acc, (float*)dcost, (float*)expected, z_min, T, B, clamp);     \
+        (float*)acc, (float*)dcost, (float*)expected, z_min, T, B, clamp,      \
+        scheme);                                                               \
   }                                                                            \
-  }
+  }                                                                            \
+  ILQR_SWEEP_LAUNCHER_AS(ilqr_##NAME##_sweep, MODEL, sweep::Analytic)
 
-#define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                   \
-  extern "C" {                                                                 \
-  int ilqr_##NAME##_iteration(                                                 \
-      const void* params, const void* x0, const void* xs, const void* xterm,   \
-      const void* us, const void* Kold, const void* kold, const void* alphas,  \
-      int A, const void* lam, const void* cprev, const void* live,             \
-      void* xs_out, void* us_out, void* xfin, void* k_out, void* K_out,        \
-      void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,   \
-      void* div, void* gnorm, void* gains, float z_min, float tol_grad,        \
-      float lam_grad_term, int T, int B, int clamp, int use_limits,            \
-      void* stream) {                                                          \
-    return fused::launch(                                                      \
-        use_limits ? fused::iteration_kernel<MODEL, true>                      \
-                   : fused::iteration_kernel<MODEL, false>,                    \
-        B, stream, (const float*)params, (const float*)x0, (const float*)xs,   \
-        (const float*)xterm, (const float*)us, (const float*)Kold,             \
-        (const float*)kold, (const float*)alphas, A, (const float*)lam,        \
-        (const float*)cprev, (const float*)live, (float*)xs_out,               \
-        (float*)us_out, (float*)xfin, (float*)k_out, (float*)K_out,            \
-        (float*)lscost, (float*)alpha_sel, (float*)acc, (float*)dcost,         \
-        (float*)expected, (float*)div, (float*)gnorm, (float*)gains, z_min,    \
-        tol_grad, lam_grad_term, T, B, clamp);                                 \
-  }                                                                            \
-  }
+#define ILQR_ITERATION_LAUNCHER(NAME, MODEL) \
+  ILQR_ITERATION_LAUNCHER_AS(ilqr_##NAME##_iteration, MODEL, sweep::Analytic)
+
+#define ILQR_FD_SWEEP_LAUNCHER(NAME, MODEL) \
+  ILQR_SWEEP_LAUNCHER_AS(ilqr_##NAME##_sweep_fd, MODEL, sweep::FiniteDiff)
+
+#define ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)                  \
+  ILQR_ITERATION_LAUNCHER_AS(ilqr_##NAME##_iteration_fd, MODEL, \
+                             sweep::FiniteDiff)

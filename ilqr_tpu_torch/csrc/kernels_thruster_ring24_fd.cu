@@ -1,0 +1,7 @@
+// The fused solver's stencil sweep and whole-iteration kernels
+// (deriv_mode="fd", Euler or RK4) instantiated for thruster_ring24
+// (n = 6, m = 24). See kernels.cuh.
+#include "thruster_ring.cuh"
+#include "kernels.cuh"
+
+ILQR_FD_LAUNCHERS(thruster_ring24, thruster_ring::Model<24>)

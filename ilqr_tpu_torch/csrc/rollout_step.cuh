@@ -9,6 +9,7 @@
 // from (struct Gains).
 #pragma once
 
+#include "integrate.cuh"
 #include "jnp.cuh"
 
 namespace rollout {
@@ -36,9 +37,10 @@ struct Gains {
 };
 
 // One step: u = u_ff + K (x − x̄) (u_ff already holds u + α·k where the
-// caller has one), optional box clamp, running cost, Euler x += f·dt.
-// Advances x in place; returns the running cost.
-template <class Model>
+// caller has one), optional box clamp, running cost, then the Euler or RK4
+// step (integrate.cuh, kScheme). Advances x in place; returns the running
+// cost.
+template <class Model, int kScheme>
 __device__ __forceinline__ float step(const typename Model::Params& p,
                                       float x[Model::N],
                                       const float u_ff[Model::M],
@@ -55,10 +57,7 @@ __device__ __forceinline__ float step(const typename Model::Params& p,
     u[j] = acc;
   }
   const float c = Model::cost(p, x, u);
-  float dx[N];
-  Model::dynamics(p, x, u, dx);
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = x[i] + dx[i] * p.dt;
+  integrate::step_as<Model, kScheme>(p, x, u, x);
   return c;
 }
 
@@ -67,7 +66,7 @@ __device__ __forceinline__ float step(const typename Model::Params& p,
 // candidate states and running costs stay in registers (or spill to local
 // memory for large models): every index into them is a compile-time
 // constant after unrolling (a < MAX_A, guarded by a < A).
-template <class Model, int MAX_A>
+template <class Model, int MAX_A, int kScheme>
 __device__ __forceinline__ void candidate_costs(
     const typename Model::Params& p, const float x0[Model::N],
     const float* __restrict__ us, const float* __restrict__ xs,
@@ -94,13 +93,29 @@ __device__ __forceinline__ void candidate_costs(
         float uff[M], u[M];
 #pragma unroll
         for (int j = 0; j < M; ++j) uff[j] = u_row[j] + al[a] * kr[j];
-        cand[a] = cand[a] + step<Model>(p, xa[a], uff, xsr, Kr, clamp, u);
+        cand[a] =
+            cand[a] + step<Model, kScheme>(p, xa[a], uff, xsr, Kr, clamp, u);
       }
     }
   }
 #pragma unroll
   for (int a = 0; a < MAX_A; ++a)
     if (a < A) cand[a] = cand[a] + Model::final_cost(p, xa[a]);
+}
+
+// Phase 1 with the scheme chosen at run time, once for the whole loop.
+template <class Model, int MAX_A>
+__device__ __forceinline__ void candidate_costs(
+    const typename Model::Params& p, const float x0[Model::N],
+    const float* __restrict__ us, const float* __restrict__ xs,
+    const Gains<Model>& g, const float al[MAX_A], int A, int T, size_t B,
+    int lane, bool clamp, int scheme, float cand[MAX_A]) {
+  if (scheme == integrate::kRK4)
+    candidate_costs<Model, MAX_A, integrate::kRK4>(p, x0, us, xs, g, al, A,
+                                                   T, B, lane, clamp, cand);
+  else
+    candidate_costs<Model, MAX_A, integrate::kEuler>(p, x0, us, xs, g, al, A,
+                                                     T, B, lane, clamp, cand);
 }
 
 struct Selection {
@@ -153,7 +168,7 @@ __device__ __forceinline__ Selection select(const float cand[MAX_A],
 // Lanes that take the step get the new trajectory, the others re-emit the
 // current one; keep lanes get the new gains, the others the previous ones
 // (which are then the only ones read).
-template <class Model>
+template <class Model, int kScheme>
 __device__ __forceinline__ void emit(
     const typename Model::Params& p, const float x0[Model::N],
     const float* __restrict__ us, const float* __restrict__ xs,
@@ -180,7 +195,7 @@ __device__ __forceinline__ void emit(
     float uff[M], u[M];
 #pragma unroll
     for (int j = 0; j < M; ++j) uff[j] = u_row[j] + alpha * kr[j];
-    step<Model>(p, x, uff, xsr, Kr, clamp, u);
+    step<Model, kScheme>(p, x, uff, xsr, Kr, clamp, u);
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       const size_t o = (t * M + j) * B + lane;
@@ -196,6 +211,15 @@ __device__ __forceinline__ void emit(
 #pragma unroll
   for (int i = 0; i < N; ++i)
     xfin_out[i * B + lane] = take ? x[i] : xterm[i * B + lane];
+}
+
+// Phase 2 with the scheme chosen at run time, once for the whole loop.
+template <class Model, class... Args>
+__device__ __forceinline__ void emit(int scheme, Args&&... args) {
+  if (scheme == integrate::kRK4)
+    emit<Model, integrate::kRK4>(args...);
+  else
+    emit<Model, integrate::kEuler>(args...);
 }
 
 }  // namespace rollout

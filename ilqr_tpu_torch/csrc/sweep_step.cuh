@@ -1,24 +1,35 @@
 // One step of the merged linearize + backward sweep, per lane, for a model
 // given as a traits struct (acrobot.cuh Model): counterpart of
-// ilqr_tpu/ops/pallas_sweep.py _sweep_step with the analytic model
-// derivatives and _terminal_init; ref src/ilqr_core.cpp:350-401. The QP is
-// qp.cuh's: the box QP with control limits, the Newton step without.
+// ilqr_tpu/ops/pallas_sweep.py _sweep_step and _terminal_init; ref
+// src/ilqr_core.cpp:350-401. The QP is qp.cuh's: the box QP with control
+// limits, the Newton step without.
+//
+// Where the derivatives come from is a template policy:
+//  - Analytic: the model's jac/cost_derivs/final_cost_derivs with the Euler
+//    step's fx = I + dt·A, fu = dt·B (the JAX kernel's use_analytic
+//    branch). Terms with a structurally constant fx/fu/cxx/cxu/cuu factor
+//    are folded exactly as the JAX package's trace-time constant folding
+//    folds them (a product with a structural one is its other factor, a
+//    term with a structural zero is dropped, and a sum that starts at a
+//    structural zero starts at its first live term). The running cost's
+//    Hessians fold by the model's cxx_kind/cxu_kind/cuu_kind patterns
+//    (cost_pattern.cuh) as the JAX trace folds its Python-float zeros: Qxx
+//    starts at a live cxx[i][j], Qux at a live cxu[jn][jm], Quu at a live
+//    cuu[im][jm], and each otherwise at its first live term. The final
+//    cost's cxx is diagonal for every model.
+//  - FiniteDiff: the reference's central stencils of the discrete step
+//    (Euler or RK4) and of the costs (fd.cuh; the JAX kernel's "fd" mode).
+//    Every entry is a traced value there, so nothing folds: every sum
+//    starts at its first term, Qxx/Qux/Quu at the dense cost Hessians, and
+//    V_T's Hessian is dense.
 //
 // The V-carry (Vx, Vxx), dV, the divergence latch and the gnorm sum live in
-// registers of the calling thread. Sums run in the JAX accumulation order;
-// terms with a structurally constant fx/fu/cxx/cxu/cuu factor are folded
-// exactly as the JAX package's trace-time constant folding folds them (a
-// product with a structural one is its other factor, a term with a
-// structural zero is dropped, and a sum that starts at a structural zero
-// starts at its first live term). The running cost's Hessians fold by
-// the model's cxx_kind/cxu_kind/cuu_kind patterns (cost_pattern.cuh) as
-// the JAX trace folds its Python-float zeros: Qxx starts at a live
-// cxx[i][j], Qux at a live cxu[jn][jm], Quu at a live cuu[im][jm], and
-// each otherwise at its first live term. The final cost's cxx is diagonal
-// for every model.
+// registers of the calling thread (local memory for the large models).
+// Sums run in the JAX accumulation order.
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "fd.cuh"
 #include "jnp.cuh"
 #include "qp.cuh"
 
@@ -33,21 +44,64 @@ struct Carry {
   float gacc;       // Σ_t max_j |k_j| / (|u_j| + 1)
 };
 
+// The derivative sources of the step (see the top of this file)
+struct Analytic {
+  static constexpr bool kDense = false;
+};
+struct FiniteDiff {
+  static constexpr bool kDense = true;
+  fd::Stencil s;
+};
+
+// Structural kinds of the step's factors under a policy: '.' zero, '1'
+// one, 'x' live. Under FiniteDiff every entry is live.
+template <class Model, class Deriv>
+struct Kinds {
+  // fx = I + dt·A under Analytic
+  __host__ __device__ static constexpr char fx(int r, int i) {
+    if constexpr (Deriv::kDense) return 'x';
+    return Model::a_kind(r, i) == '.' ? (r == i ? '1' : '.') : 'x';
+  }
+  // fu = dt·B; a structural one of B gives the live dt
+  __host__ __device__ static constexpr char fu(int r, int j) {
+    if constexpr (Deriv::kDense) return 'x';
+    return Model::b_kind(r, j);
+  }
+  __host__ __device__ static constexpr char cxx(int i, int j) {
+    if constexpr (Deriv::kDense) return 'x';
+    return Model::cxx_kind(i, j);
+  }
+  __host__ __device__ static constexpr char cxu(int i, int j) {
+    if constexpr (Deriv::kDense) return 'x';
+    return Model::cxu_kind(i, j);
+  }
+  __host__ __device__ static constexpr char cuu(int i, int j) {
+    if constexpr (Deriv::kDense) return 'x';
+    return Model::cuu_kind(i, j);
+  }
+};
+
 // V_T from the final cost at the terminal state; zeroed accumulators
-// (pallas_sweep._terminal_init, analytic branch). Every model's final cxx
-// is diagonal (tests/test_torch_models.py checks it against the JAX
-// package), so final_cost_derivs writes its diagonal only.
-template <class Model>
+// (pallas_sweep._terminal_init). Under Analytic every model's final cxx is
+// diagonal (tests/test_torch_models.py checks it against the JAX package),
+// so final_cost_derivs writes its diagonal only; under FiniteDiff the
+// stencils give a dense Hessian.
+template <class Model, class Deriv>
 __device__ __forceinline__ void terminal_init(
     const typename Model::Params& p, const float xT[Model::N],
-    Carry<Model>& c) {
+    const Deriv& d, Carry<Model>& c) {
   constexpr int N = Model::N;
-  float cxx_diag[N];
-  Model::final_cost_derivs(p, xT, c.vx, cxx_diag);
+  if constexpr (Deriv::kDense) {
+    fd::terminal<Model>(p, xT, d.s, c.vx, c.vxx);
+  } else {
+    float cxx_diag[N];
+    Model::final_cost_derivs(p, xT, c.vx, cxx_diag);
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) c.vxx[i][j] = (i == j) ? cxx_diag[i] : 0.0f;
+      for (int j = 0; j < N; ++j)
+        c.vxx[i][j] = (i == j) ? cxx_diag[i] : 0.0f;
+  }
   c.dv0 = 0.0f;
   c.dv1 = 0.0f;
   c.div = 0.0f;
@@ -60,57 +114,60 @@ __device__ __forceinline__ void fold_add(float& s, bool& live, float t) {
   live = true;
 }
 
-// fx = I + dt·A: '.' structural zero, '1' structural one, 'x' live
-template <class Model>
-__host__ __device__ constexpr char fx_kind(int r, int i) {
-  return Model::a_kind(r, i) == '.' ? (r == i ? '1' : '.') : 'x';
-}
-
 // One backward step at (x_t, u_t) with regularization lam. Writes the
 // feedforward k and the feedback rows Krow, and advances the carry.
-template <class Model, bool kLimits>
+template <class Model, bool kLimits, class Deriv>
 __device__ __forceinline__ void step(const typename Model::Params& p,
                                      const float x[Model::N],
                                      const float u[Model::M], float lam,
-                                     Carry<Model>& c, float k[Model::M],
+                                     const Deriv& d, Carry<Model>& c,
+                                     float k[Model::M],
                                      float Krow[Model::M][Model::N]) {
   constexpr int N = Model::N, M = Model::M;
+  using Kd = Kinds<Model, Deriv>;
   // Loops over the controls unroll fully for m ≤ 4 and stay loops for
   // m ≥ 5, where unrolling them would emit O(n²m²) operations per step
   // (the unroll factor changes the code, not the order of its operations).
   constexpr int kUnrollM = M <= 4 ? 4 : 1;
-  // The cost patterns fold at compile time: over the state the loops
-  // unroll, so each cxx_kind is a constant; over the controls they unroll
-  // only for m ≤ 4, so a live cxu or a non-diagonal cuu needs m ≤ 4.
-  constexpr bool kDiagCuu = cost::diagonal_cuu<Model>();
-  constexpr bool kZeroCxu = cost::zero_cxu<Model>();
-  static_assert(kUnrollM > 1 || (kDiagCuu && kZeroCxu),
-                "a live cxu or a non-diagonal cuu folds at compile time "
-                "only where the control loops unroll (m <= 4)");
-  // --- linearization: fx = I + dt·A, fu = dt·B (Euler), cost derivatives
-  float A[N][N], Bu[N][M];
-  Model::jac(p, x, u, A, Bu);
+  // The analytic cost patterns fold at compile time: over the state the
+  // loops unroll, so each cxx_kind is a constant; over the controls they
+  // unroll only for m ≤ 4, so a pattern with a live cxu or a non-diagonal
+  // cuu needs m ≤ 4. The stencils' dense Hessians (every kind 'x') run at
+  // any m, with runtime indices into cxu and cuu.
+  constexpr bool kDiagCuu = !Deriv::kDense && cost::diagonal_cuu<Model>();
+  constexpr bool kZeroCxu = !Deriv::kDense && cost::zero_cxu<Model>();
+  static_assert(kUnrollM > 1 || Deriv::kDense || (kDiagCuu && kZeroCxu),
+                "a live cxu or a non-diagonal cuu pattern folds at compile "
+                "time only where the control loops unroll (m <= 4)");
+  // --- linearization
   float fx[N][N], fu[N][M];
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const char ak = Model::a_kind(r, i);
-      if (ak == 'x')
-        fx[r][i] = (r == i) ? p.dt * A[r][i] + 1.0f : p.dt * A[r][i];
-      else if (ak == '1')
-        fx[r][i] = (r == i) ? p.dt + 1.0f : p.dt;
-      else
-        fx[r][i] = (r == i) ? 1.0f : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const char bk = Model::b_kind(r, j);  // a structural one gives dt
-      fu[r][j] = bk == 'x' ? p.dt * Bu[r][j] : (bk == '1' ? p.dt : 0.0f);
-    }
-  }
   float cx[N], cu[M], cxx[N][N], cxu[N][M], cuu[M][M];
-  Model::cost_derivs(p, x, u, cx, cu, cxx, cxu, cuu);
+  if constexpr (Deriv::kDense) {
+    fd::linearize<Model>(p, x, u, d.s, fx, fu, cx, cu, cxx, cxu, cuu);
+  } else {
+    // fx = I + dt·A, fu = dt·B (Euler), the cost's analytic derivatives
+    float A[N][N], Bu[N][M];
+    Model::jac(p, x, u, A, Bu);
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const char ak = Model::a_kind(r, i);
+        if (ak == 'x')
+          fx[r][i] = (r == i) ? p.dt * A[r][i] + 1.0f : p.dt * A[r][i];
+        else if (ak == '1')
+          fx[r][i] = (r == i) ? p.dt + 1.0f : p.dt;
+        else
+          fx[r][i] = (r == i) ? 1.0f : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        const char bk = Model::b_kind(r, j);  // a structural one gives dt
+        fu[r][j] = bk == 'x' ? p.dt * Bu[r][j] : (bk == '1' ? p.dt : 0.0f);
+      }
+    }
+    Model::cost_derivs(p, x, u, cx, cu, cxx, cxu, cuu);
+  }
   // a diagonal cuu's diagonal, read at compile-time indices here so that
   // the runtime loops over the controls of m ≥ 5 index an M-vector only
   [[maybe_unused]] float cuu_d[M];
@@ -129,7 +186,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
       bool live = false;
 #pragma unroll
       for (int i = 0; i < N; ++i)
-        if (Model::b_kind(i, jm) != '.')
+        if (Kd::fu(i, jm) != '.')
           fold_add(acc, live, fu[i][jm] * c.vxx[i][jn]);
       fvv[jm][jn] = acc;
     }
@@ -139,7 +196,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
     float acc = cu[jm];
 #pragma unroll
     for (int i = 0; i < N; ++i)
-      if (Model::b_kind(i, jm) != '.') acc = acc + fu[i][jm] * c.vx[i];
+      if (Kd::fu(i, jm) != '.') acc = acc + fu[i][jm] * c.vx[i];
     qu[jm] = acc;
   }
   float quu[M][M], quuF[M][M];
@@ -152,13 +209,13 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
       if constexpr (kDiagCuu) {
         live = im == jm;
         acc = live ? cuu_d[im] : 0.0f;
-      } else if (Model::cuu_kind(im, jm) == 'x') {
+      } else if (Kd::cuu(im, jm) == 'x') {
         acc = cuu[im][jm];
         live = true;
       }
 #pragma unroll
       for (int i = 0; i < N; ++i)
-        if (Model::b_kind(i, jm) != '.')
+        if (Kd::fu(i, jm) != '.')
           fold_add(acc, live, fvv[im][i] * fu[i][jm]);
       quu[im][jm] = acc;
       quu[jm][im] = acc;
@@ -172,7 +229,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
     float ax = cx[jn];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const char fk = fx_kind<Model>(i, jn);
+      const char fk = Kd::fx(i, jn);
       if (fk == '1') ax = ax + c.vx[i];
       if (fk == 'x') ax = ax + fx[i][jn] * c.vx[i];
     }
@@ -182,14 +239,14 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
       float aq = 0.0f;
       bool live = false;
       if constexpr (!kZeroCxu) {
-        if (Model::cxu_kind(jn, jm) == 'x') {
+        if (Kd::cxu(jn, jm) == 'x') {
           aq = cxu[jn][jm];
           live = true;
         }
       }
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        const char fk = fx_kind<Model>(i, jn);
+        const char fk = Kd::fx(i, jn);
         if (fk == '1') fold_add(aq, live, fvv[jm][i]);
         if (fk == 'x') fold_add(aq, live, fvv[jm][i] * fx[i][jn]);
       }
@@ -205,7 +262,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
       bool live = false;
 #pragma unroll
       for (int l = 0; l < N; ++l) {
-        const char fk = fx_kind<Model>(l, j);
+        const char fk = Kd::fx(l, j);
         if (fk == '1') fold_add(acc, live, c.vxx[kk][l]);
         if (fk == 'x') fold_add(acc, live, c.vxx[kk][l] * fx[l][j]);
       }
@@ -218,13 +275,13 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
     for (int j = i; j < N; ++j) {
       float acc = 0.0f;
       bool live = false;
-      if (Model::cxx_kind(i, j) == 'x') {
+      if (Kd::cxx(i, j) == 'x') {
         acc = cxx[i][j];
         live = true;
       }
 #pragma unroll
       for (int kk = 0; kk < N; ++kk) {
-        const char fk = fx_kind<Model>(kk, i);
+        const char fk = Kd::fx(kk, i);
         if (fk == '1') fold_add(acc, live, w[kk][j]);
         if (fk == 'x') fold_add(acc, live, fx[kk][i] * w[kk][j]);
       }

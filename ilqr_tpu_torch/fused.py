@@ -8,7 +8,11 @@ one of the Solution. Per iteration the main path launches ONE kernel
 with m·n ≥ 32, such as the quadrotor) runs the same iteration as a sweep
 kernel plus a line-search kernel; ``sweep_kernel="split"`` (m = 1 with
 limits) replaces the sweep by the derivative kernel (once per iteration)
-and the backward kernel (once per λ attempt).
+and the backward kernel (once per λ attempt). Inside the merged sweep the
+derivatives are the models' closed forms (``deriv_mode="analytic"``, the
+Euler step) or the reference's central stencils of the discrete step
+(``deriv_mode="fd"``, Euler or RK4, eps ``cfg.fd_eps``); the rollout and
+line-search kernels take either integrator.
 
 The JAX package's two ``lax.while_loop``s are host loops here:
 
@@ -102,7 +106,7 @@ def _merged_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
             x_term, us, k_old, K_old, lam, state.cost, live_f, alphas,
             mode=_kmode(cfg), use_limits=cfg.use_control_limits,
             z_min=cfg.z_min, tol_grad=cfg.tol_grad,
-            lambda_grad_term=cfg.lambda_grad_term)
+            lambda_grad_term=cfg.lambda_grad_term, eps=cfg.fd_eps)
 
     (xs, us, xf, k, K, lsc, _asel, accf, dc, ex, div,
      g) = run_iter(state.lam, live.to(F32), state.xs_body, state.x_term,
@@ -134,7 +138,8 @@ def _merged_sweep(model, cfg, pp, state):
     def run_backward(lam):
         return sweep_packed(model, cfg.integrator, pp, state.xs_body,
                             state.x_term, state.us, lam, mode=_kmode(cfg),
-                            use_limits=cfg.use_control_limits)
+                            use_limits=cfg.use_control_limits,
+                            eps=cfg.fd_eps)
     return run_backward
 
 
@@ -305,22 +310,34 @@ def _finish_iteration(cfg, state, frozen, lam, dlam, gnorm, grad_term,
 MAX_FUSED_M = qp.MAX_FUSED_M
 
 
+def _derivs_carried(model: Model, cfg: SolverConfig) -> bool:
+    """Whether the sweep's derivatives are ported for (model, cfg): the
+    closed forms (``deriv_mode="analytic"``: the Euler step and a model with
+    ``jac_soa``, the JAX kernels' use_analytic) or the reference's stencils
+    (``deriv_mode="fd"``: the Euler or RK4 step on the merged sweep, Euler
+    on the split sweep, whose derivative kernel is Euler only)."""
+    if cfg.deriv_mode == "analytic":
+        return cfg.integrator == "euler" and model.has_analytic_soa
+    return (cfg.deriv_mode == "fd" and cfg.integrator in ("euler", "rk4")
+            and (cfg.sweep_kernel == "merged" or cfg.integrator == "euler"))
+
+
 def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
     """True iff :func:`solve_batch_fused` accepts (model, cfg). Mirrors the
     guards of ilqr_tpu/fused.py:390-442 for what is ported: m ≤ 24 (the
     closed-form, enumeration and projected-Newton QPs, or the Newton step
-    without limits), a model with analytic SoA derivatives, the Euler
-    step, shared params;
+    without limits), shared params, and the sweep's derivatives of
+    ``_derivs_carried``: analytic with the Euler step, or the reference's
+    stencils (``deriv_mode="fd"``, eps ``cfg.fd_eps``) with the Euler or
+    RK4 step, in the whole-iteration and the split-iteration kernels;
     ``sweep_kernel="split"`` needs m = 1 and control limits (the backward
-    kernel's closed-form QP) and also takes the reference's stencils
-    (``deriv_mode="fd"``). On the card the kernels exist for the models of
-    ``ops.kernel_rollout.FUSED_KERNEL_MODELS``; any other raises there."""
+    kernel's closed-form QP) and the Euler step. The rollout and line
+    search take the configured integrator. On the card the kernels exist
+    for the models of ``ops.kernel_rollout.FUSED_KERNEL_MODELS``; any other
+    raises there."""
     split = cfg.sweep_kernel == "split"
     return (model.m <= MAX_FUSED_M and model.has_soa
-            and model.has_analytic_soa and not cfg.full_ddp
-            and (cfg.deriv_mode == "analytic"
-                 or (split and cfg.deriv_mode == "fd"))
-            and cfg.integrator == "euler"
+            and not cfg.full_ddp and _derivs_carried(model, cfg)
             and not (split and (model.m >= 2
                                 or not cfg.use_control_limits))
             and (not cfg.use_control_limits
@@ -358,11 +375,20 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
     if params_batched:
         raise NotImplementedError(
             "params_batched=True is not ported to ilqr_tpu_torch yet")
+    if cfg.deriv_mode == "analytic" and not _derivs_carried(model, cfg):
+        raise NotImplementedError(
+            f"deriv_mode='analytic' with integrator={cfg.integrator!r} on "
+            f"model {model.name!r} (analytic SoA: {model.has_analytic_soa}) "
+            "is the sweep's in-kernel JVP route, not ported (ROADMAP.md §B2, "
+            "its jvp half); deriv_mode='fd' carries RK4")
+    if cfg.deriv_mode == "fd" and not _derivs_carried(model, cfg):
+        raise NotImplementedError(
+            f"deriv_mode='fd' with integrator={cfg.integrator!r} on "
+            f"sweep_kernel={cfg.sweep_kernel!r} needs RK4 in derivs_packed, "
+            "not ported (ROADMAP.md §B1); sweep_kernel='merged' carries it")
     if not fused_applicable(model, cfg):
         raise NotImplementedError(
-            f"solve_batch_fused is ported for the Euler step with analytic "
-            f"SoA derivatives (or fd on the split sweep) only; got model "
-            f"{model.name!r} (analytic SoA: {model.has_analytic_soa}) with "
+            f"solve_batch_fused does not carry model {model.name!r} with "
             f"deriv_mode={cfg.deriv_mode!r}, integrator={cfg.integrator!r}")
 
 

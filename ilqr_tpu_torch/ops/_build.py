@@ -44,13 +44,17 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the launchers in csrc/*.cu, in argument order. The fused
 # solver's four kernels have one launcher per model, ilqr_<model>_<kernel>
-# (each model's own csrc/kernels*.cu), all with the signature of <kernel>.
+# (each model's own csrc/kernels*.cu), all with the signature of <kernel>;
+# the stencil sweep and iteration kernels, ilqr_<model>_<kernel>_fd
+# (csrc/kernels_<model>_fd.cu), share their analytic twins' signatures.
+# Every launcher takes the integrator (0 Euler, 1 RK4); the sweep and
+# iteration launchers also the stencil's eps, 2·eps and 4·eps².
 _FUSED_SIGNATURES = {
-    "rollout": [_P] * 9 + [_I, _I, _I, _P],
-    "sweep": [_P] * 10 + [_I, _I, _I, _P],
-    "linesearch": [_P] * 10 + [_I] + [_P] * 14 + [_F, _I, _I, _I, _P],
+    "rollout": [_P] * 9 + [_I, _I, _I, _I, _P],
+    "sweep": [_P] * 10 + [_I, _I, _I, _I, _F, _F, _F, _P],
+    "linesearch": [_P] * 10 + [_I] + [_P] * 14 + [_F, _I, _I, _I, _I, _P],
     "iteration": [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I, _I,
-                                               _P],
+                                               _I, _F, _F, _F, _P],
 }
 _SIGNATURES = {
     "ilqr_derivs": [_P] * 10 + [_I, _F, _F, _F, _I, _I, _P],
@@ -62,7 +66,7 @@ def signature(name: str):
     """The ctypes argument types of launcher ``name``."""
     if name in _SIGNATURES:
         return _SIGNATURES[name]
-    kernel = name.rsplit("_", 1)[-1]
+    kernel = name.removesuffix("_fd").rsplit("_", 1)[-1]
     if name.startswith("ilqr_") and kernel in _FUSED_SIGNATURES:
         return _FUSED_SIGNATURES[kernel]
     raise KeyError(f"no launcher {name!r}")

@@ -14,6 +14,12 @@ model functions on :class:`Dual` numbers whose rules are the CUDA kernel's
 (csrc/dual.cuh), which are JAX's jvp rules in JAX's operation order; so the
 kernel and the plain version compute the same IEEE operations.
 
+The stencil helpers (:func:`fd_running`, :func:`fd_terminal`) are
+model-generic and also differentiate the RK4 step; the merged sweep's plain
+version (ops/kernel_sweep.py) takes its dense derivatives from them. This
+stage itself, like the JAX package's composable path on the card, takes the
+Euler step only.
+
 Layout (lane last) and dispatch as in ops/kernel_rollout.py.
 """
 
@@ -27,10 +33,10 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
     batch_first,
+    integrate,
     lane_last,
     on_cuda,
     require_kernel_model,
-    require_plain_integrator,
     unpack_params,
 )
 
@@ -120,9 +126,13 @@ def _pairs(nz):
     return [(a, b) for a in range(nz) for b in range(a, nz)]
 
 
-def _check(mode):
+def _check(mode, integrator):
     if mode not in ("jvp", "fd"):
         raise ValueError(f"unknown derivative mode {mode!r}")
+    if integrator != "euler":
+        raise NotImplementedError(
+            f"integrator {integrator!r} in derivs_packed is not ported "
+            "(Euler only; RK4 there is ROADMAP.md §B1)")
 
 
 def _store_second(n, m, h, pairs, T1, B, dev):
@@ -203,7 +213,10 @@ def _shift(z, coef, eps, sign):
     return out
 
 
-def _fd_running(model, p, dt, x, u, eps, dev):
+def fd_running(model, p, dt, integrator, x, u, eps, dev):
+    """The stencils at every running (t, lane): x (n, T, B), u (m, T, B)
+    → (jac (n, n+m, T, B) of the discrete step, c1 (n+m, T, B), h (P, T, B)
+    over ``pairs``, pairs)."""
     n, m = model.n, model.m
     nz = n + m
     z = [x[c] for c in range(n)] + [u[c] for c in range(m)]
@@ -213,9 +226,8 @@ def _fd_running(model, p, dt, x, u, eps, dev):
     den2 = torch.tensor(4.0 * eps * eps, dtype=F32, device=dev)
 
     def step(zz):
-        xx, uu = zz[:n], zz[n:]
-        f = model.dynamics_soa(p, xx, uu)
-        return torch.stack([xx[i] + f[i] * dt for i in range(n)])
+        return integrate(model, p, dt, integrator, torch.stack(zz[:n]),
+                         torch.stack(zz[n:]))
 
     def cost(zz):
         return model.cost_soa(p, zz[:n], zz[n:])
@@ -228,7 +240,9 @@ def _fd_running(model, p, dt, x, u, eps, dev):
     return jac, c1, h, pairs
 
 
-def _fd_terminal(model, p, xT, eps, dev):
+def fd_terminal(model, p, xT, eps, dev):
+    """The final cost's stencils at xT (n, T', B) → (c1 (n, T', B),
+    h (P, T', B) over ``pairs``, pairs)."""
     n = model.n
     z = [xT[c] for c in range(n)]
     dirs = torch.arange(n)
@@ -260,8 +274,7 @@ def _fd_hessian(cost, z, pairs, eps, den2, dev):
 def derivs_plain(model, integrator, pp: PackedParams, xs, us, mode="jvp",
                  eps=1e-3):
     """Plain version of :func:`derivs_packed`."""
-    require_plain_integrator(integrator)
-    _check(mode)
+    _check(mode, integrator)
     p, dt = unpack_params(pp)
     T, m, B = us.shape
     n = xs.shape[1]
@@ -273,8 +286,9 @@ def derivs_plain(model, integrator, pp: PackedParams, xs, us, mode="jvp",
         jac, c1, h, pairs = _jvp_running(model, p, dt, x, u, dev)
         c1T, hT, pairsT = _jvp_terminal(model, p, xT, dev)
     else:
-        jac, c1, h, pairs = _fd_running(model, p, dt, x, u, eps, dev)
-        c1T, hT, pairsT = _fd_terminal(model, p, xT, eps, dev)
+        jac, c1, h, pairs = fd_running(model, p, dt, integrator, x, u, eps,
+                                       dev)
+        c1T, hT, pairsT = fd_terminal(model, p, xT, eps, dev)
     jac = jac.permute(2, 0, 1, 3)                        # (T, n, nz, B)
     fx = jac[:, :, :n].contiguous()
     fu = jac[:, :, n:].contiguous()
@@ -299,7 +313,7 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
     fu (T, n, m, B), cx (T+1, n, B), cu (T, m, B), cxx (T+1, n, n, B),
     cxu (T, n, m, B), cuu (T, m, m, B)).
     """
-    _check(mode)
+    _check(mode, integrator)
     if not on_cuda(us):
         return derivs_plain(model, integrator, pp, xs, us, mode, eps)
     dev = us.device

@@ -20,18 +20,23 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     linesearch_plain,
     on_cuda,
     require_kernel_model,
+    scheme,
 )
-from ilqr_tpu_torch.ops.kernel_sweep import check_supported, sweep_plain
+from ilqr_tpu_torch.ops.kernel_sweep import (
+    check_supported,
+    fd_args,
+    sweep_plain,
+)
 
 
 def iteration_plain(model, integrator, clamp, pp, x0, xs_body, xterm, us,
                     kold, Kold, lam, cost_prev, live, alphas, mode="jvp",
                     use_limits=True, z_min=0.0, tol_grad=1e-6,
-                    lambda_grad_term=1e-5):
+                    lambda_grad_term=1e-5, eps=1e-3):
     """Plain version of :func:`iteration_packed`: the sweep, the gates, then
     the line search."""
     k, K, dv, div, gnorm = sweep_plain(model, integrator, pp, xs_body, xterm,
-                                       us, lam, mode, use_limits)
+                                       us, lam, mode, use_limits, eps)
     okf = 1.0 - div
     gtf = (okf * (gnorm < tol_grad).to(F32)
            * (lam < lambda_grad_term).to(F32))
@@ -47,13 +52,15 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
                      x0, xs_body, xterm, us, kold, Kold, lam, cost_prev, live,
                      alphas, mode: str = "jvp", use_limits: bool = True,
                      z_min: float = 0.0, tol_grad: float = 1e-6,
-                     lambda_grad_term: float = 1e-5):
+                     lambda_grad_term: float = 1e-5, eps: float = 1e-3):
     """One full solver iteration (backward sweep + line search + epilogue).
 
     Shapes: x0 (n, B), xs_body (T, n, B), xterm (n, B), us (T, m, B),
     kold (T, m, B), Kold (T, m, n, B), alphas (A,); lam, cost_prev, live
     (B,) with the live mask as f32 0/1 (lanes with live == 0 re-emit their
-    state unchanged).
+    state unchanged). ``mode`` and ``eps`` as in
+    :func:`~ilqr_tpu_torch.ops.kernel_sweep.sweep_packed`; the line search
+    takes the ``integrator`` step too.
 
     Returns (xs_body, us, x_final, k_keep, K_keep, ls_cost, alpha_sel,
     accepted (f32 0/1, raw z-test), dcost, expected, diverged (f32 0/1),
@@ -64,7 +71,7 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
         return iteration_plain(model, integrator, clamp, pp, x0, xs_body,
                                xterm, us, kold, Kold, lam, cost_prev, live,
                                alphas, mode, use_limits, z_min, tol_grad,
-                               lambda_grad_term)
+                               lambda_grad_term, eps)
     dev = us.device
     prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, B = us.shape
@@ -87,11 +94,12 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             torch.empty((T, m, n, B), dtype=F32, device=dev),
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(7)))
     gains = torch.empty((T, m * (n + 1), B), dtype=F32, device=dev)
-    _build.launch(f"{prefix}_iteration", dev, pp.vec, x0, xs_body, xterm,
-                  us, Kold, kold, alphas, A, lam, cost_prev, live, *outs,
-                  gains, float(z_min), float(tol_grad),
+    suffix, stencil = fd_args(mode, eps)
+    _build.launch(f"{prefix}_iteration{suffix}", dev, pp.vec, x0, xs_body,
+                  xterm, us, Kold, kold, alphas, A, lam, cost_prev, live,
+                  *outs, gains, float(z_min), float(tol_grad),
                   float(lambda_grad_term), T, B, int(bool(clamp)),
-                  int(bool(use_limits)))
+                  int(bool(use_limits)), scheme(integrator), *stencil)
     iteration_packed.launches += 1
     return outs
 

@@ -7,9 +7,10 @@ JAX package's packed (…, NB, 8, 128) layout flattened.
 
 Each op has a plain PyTorch version (vectorized over lanes, a Python loop
 over T, line-search candidates as a batch dimension) and a CUDA kernel
-(csrc/kernels.cu). The op runs the plain version for CPU tensors and
-launches the kernel for CUDA tensors; it never falls back from one to the
-other. ``<op>.launches`` counts the kernel launches.
+(csrc/kernels.cuh, one source per model). The op runs the plain version for
+CPU tensors and launches the kernel for CUDA tensors; it never falls back
+from one to the other. ``<op>.launches`` counts the kernel launches. Both
+ops take the Euler or the RK4 step (``integrator``), as the JAX kernels do.
 """
 
 from __future__ import annotations
@@ -110,12 +111,25 @@ def _param_shapes(model) -> tuple:
     return pack_params(model.default_params(), 0.0).shapes
 
 
+# The integrators of the kernels (csrc/integrate.cuh Scheme), as the
+# launchers take them.
+SCHEMES = {"euler": 0, "rk4": 1}
+
+
+def scheme(integrator: str) -> int:
+    """The kernels' code of ``integrator``; ValueError for an unknown one,
+    as the JAX package's ``_integrate`` raises."""
+    if integrator not in SCHEMES:
+        raise ValueError(f"unknown integrator {integrator!r}")
+    return SCHEMES[integrator]
+
+
 def require_kernel_model(model, integrator: str, pp: PackedParams, device,
                          have=None) -> str:
     """Checks that CUDA kernels are compiled for ``model`` (with params of
-    its type) and the Euler step, among ``have`` (name → params type;
-    default the fused kernels' models). Returns the prefix of the model's
-    launchers, ``ilqr_<model>``."""
+    its type) among ``have`` (name → params type; default the fused
+    kernels' models), and that ``integrator`` is one they take (Euler or
+    RK4). Returns the prefix of the model's launchers, ``ilqr_<model>``."""
     have = FUSED_KERNEL_MODELS if have is None else have
     if have.get(model.name) is not pp.cls:
         raise NotImplementedError(
@@ -126,18 +140,9 @@ def require_kernel_model(model, integrator: str, pp: PackedParams, device,
         raise ValueError(
             f"{model.name}: params leaf shapes {pp.shapes}, the CUDA loader "
             f"reads {_param_shapes(model)}")
-    if integrator != "euler":
-        raise NotImplementedError(
-            f"integrator {integrator!r} is not ported to the CUDA kernels "
-            "(Euler only)")
+    scheme(integrator)
     _build.require(pp.vec, (pp.vec.numel(),), "packed params", device)
     return f"ilqr_{model.name}"
-
-
-def require_plain_integrator(integrator: str):
-    if integrator != "euler":
-        raise NotImplementedError(
-            f"integrator {integrator!r} is not ported (Euler only)")
 
 
 def lane_last(a):
@@ -156,9 +161,27 @@ def clip(v, lo, hi):
     return torch.minimum(torch.maximum(v, lo), hi)
 
 
-def closed_loop_step(model, p, dt, clamp, x, u_ff, xsr, K):
+def integrate(model, p, dt, integrator, x, u):
+    """The discrete step F(x, u) (csrc/integrate.cuh; the JAX kernels'
+    ``_integrate``) in its operation order: Euler x + f·dt, or RK4 with
+    k2 = f(x + (0.5·dt)·k1), …, x + (dt/6)·(((k1 + 2k2) + 2k3) + k4).
+    x (n, *batch), u (m, *batch); dt a 0-d f32 tensor."""
+    k1 = model.dynamics_soa(p, x, u)
+    if integrator == "euler":
+        return x + k1 * dt
+    k2 = model.dynamics_soa(p, x + 0.5 * dt * k1, u)
+    k3 = model.dynamics_soa(p, x + 0.5 * dt * k2, u)
+    k4 = model.dynamics_soa(p, x + dt * k3, u)
+    # dt / 6 with a tensor divisor: by a Python scalar, PyTorch's CUDA
+    # division multiplies by the scalar's f32 reciprocal instead of
+    # dividing, as the kernel and the JAX package do
+    sixth = dt / torch.full_like(dt, 6.0)
+    return x + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def closed_loop_step(model, p, dt, integrator, clamp, x, u_ff, xsr, K):
     """One step: u = u_ff + K (x − x̄), optional box clamp, running cost,
-    Euler x + f·dt. x (n, *batch), u_ff (m, *batch), xsr (n, B),
+    the Euler or RK4 step. x (n, *batch), u_ff (m, *batch), xsr (n, B),
     K (m, n, B); returns (u, cost, x_next)."""
     n, m = model.n, model.m
     us = []
@@ -171,8 +194,7 @@ def closed_loop_step(model, p, dt, clamp, x, u_ff, xsr, K):
         us.append(acc)
     u = torch.stack(us)
     c = model.cost_soa(p, x, u)
-    xn = x + model.dynamics_soa(p, x, u) * dt
-    return u, c, xn
+    return u, c, integrate(model, p, dt, integrator, x, u)
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +203,7 @@ def closed_loop_step(model, p, dt, clamp, x, u_ff, xsr, K):
 
 def rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K):
     """Plain version of :func:`rollout_packed`."""
-    require_plain_integrator(integrator)
+    scheme(integrator)
     p, dt = unpack_params(pp)
     T, m, n, B = K.shape
     xs = torch.empty((T, n, B), dtype=F32, device=x0.device)
@@ -190,8 +212,8 @@ def rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K):
     cost = torch.zeros((B,), dtype=F32, device=x0.device)
     for t in range(T):
         xs[t] = x
-        u, c, x = closed_loop_step(model, p, dt, clamp, x, uff[t], xsr[t],
-                                   K[t])
+        u, c, x = closed_loop_step(model, p, dt, integrator, clamp, x,
+                                   uff[t], xsr[t], K[t])
         us[t] = u
         cost = cost + c
     return xs, us, x, cost + model.final_cost_soa(p, x)
@@ -200,7 +222,7 @@ def rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K):
 def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
                    x0, uff, xsr, K):
     """Closed-loop rollout u_t = u_ff,t + K_t (x_t − x̄_t) (clamped to the
-    box when ``clamp``), Euler steps, Σ running cost + final cost
+    box when ``clamp``), Euler or RK4 steps, Σ running cost + final cost
     (ref src/ilqr_core.cpp:305-337).
 
     Shapes: x0 (n, B), uff (T, m, B), xsr (T, n, B), K (T, m, n, B).
@@ -220,7 +242,7 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     xfin = torch.empty((n, B), dtype=F32, device=dev)
     cost = torch.empty((B,), dtype=F32, device=dev)
     _build.launch(f"{prefix}_rollout", dev, pp.vec, x0, uff, xsr, K, xs, us,
-                  xfin, cost, T, B, int(bool(clamp)))
+                  xfin, cost, T, B, int(bool(clamp)), scheme(integrator))
     rollout_packed.launches += 1
     return xs, us, xfin, cost
 
@@ -280,7 +302,7 @@ def select_alpha(cand, alphas, cprev, dv0, dv1, z_min):
 def linesearch_plain(model, integrator, clamp, pp, x0, us, xsr, xterm, K, k,
                      Kold, kold, alphas, dv, cost_prev, gate, keep, z_min):
     """Plain version of :func:`linesearch_packed`."""
-    require_plain_integrator(integrator)
+    scheme(integrator)
     p, dt = unpack_params(pp)
     T, m, n, B = K.shape
     dev = x0.device
@@ -291,8 +313,8 @@ def linesearch_plain(model, integrator, clamp, pp, x0, us, xsr, xterm, K, k,
     ca = torch.zeros((alphas.shape[0], B), dtype=F32, device=dev)
     for t in range(T):
         u_ff = us[t][:, None, :] + al * k[t][:, None, :]
-        _u, c, xa = closed_loop_step(model, p, dt, clamp, xa, u_ff, xsr[t],
-                                     K[t])
+        _u, c, xa = closed_loop_step(model, p, dt, integrator, clamp, xa,
+                                     u_ff, xsr[t], K[t])
         ca = ca + c
     cand = ca + model.final_cost_soa(p, xa)
 
@@ -307,7 +329,7 @@ def linesearch_plain(model, integrator, clamp, pp, x0, us, xsr, xterm, K, k,
     x = x0
     for t in range(T):
         xs_out[t] = torch.where(take, x, xsr[t])
-        u, _c, x = closed_loop_step(model, p, dt, clamp, x,
+        u, _c, x = closed_loop_step(model, p, dt, integrator, clamp, x,
                                     us[t] + asel * k[t], xsr[t], K[t])
         us_out[t] = torch.where(take, u, us[t])
     k_out = torch.where(keepm, k, kold)
@@ -360,7 +382,8 @@ def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(5)))
     _build.launch(f"{prefix}_linesearch", dev, pp.vec, x0, us, xsr, xterm,
                   K, k, Kold, kold, alphas, A, dv, cost_prev, gate, keep,
-                  *outs, float(z_min), T, B, int(bool(clamp)))
+                  *outs, float(z_min), T, B, int(bool(clamp)),
+                  scheme(integrator))
     linesearch_packed.launches += 1
     return outs
 

@@ -1,19 +1,25 @@
 """Merged linearize + backward sweep (counterpart of
 ``ilqr_tpu/ops/pallas_sweep.py``).
 
-Per timestep, in reverse time: the analytic model derivatives at (x_t, u_t)
-(fx = I + dt·A, fu = dt·B, cost derivatives), the Q-terms, the
-λ-regularized QuuF, the in-kernel QP (ops/qp.py: the closed-form m = 1 box
-QP, the exact enumeration for m = 2…4, projected Newton for 5 ≤ m ≤ 24,
-or with ``use_limits=False`` the unconstrained Newton step), the feedback
-rows zeroed on clamped controls, dV, the exactly symmetric Vxx update, a
-latched divergence flag and the gradient norm (ref
+Per timestep, in reverse time: the model derivatives at (x_t, u_t), the
+Q-terms, the λ-regularized QuuF, the in-kernel QP (ops/qp.py: the
+closed-form m = 1 box QP, the exact enumeration for m = 2…4, projected
+Newton for 5 ≤ m ≤ 24, or with ``use_limits=False`` the unconstrained
+Newton step), the feedback rows zeroed on clamped controls, dV, the exactly
+symmetric Vxx update, a latched divergence flag and the gradient norm (ref
 src/ilqr_core.cpp:350-401).
 
-Ported: analytic derivatives (``mode="jvp"`` with a model that has
-``jac_soa``), the Euler step, m ≤ 24 (past it ``ValueError``, as in the
-JAX package). The in-kernel JVP / finite-difference re-derivation and RK4
-in the sweep raise ``NotImplementedError``.
+The derivatives come, as in the JAX kernel, either from the model's closed
+forms (``mode="jvp"`` with a model that has ``jac_soa`` and the Euler step:
+fx = I + dt·A, fu = dt·B, the cost's analytic derivatives; structural
+constants fold) or from the reference's central stencils (``mode="fd"``,
+eps = ``eps``) of the discrete Euler or RK4 step and of the costs: dense
+fx, fu, cx, cu, cxx, cxu, cuu and a dense V_T Hessian, every sum starting at
+its first term. The plain version evaluates the stencils of all T steps at
+once (ops/kernel_derivs.py) and runs the recursion over them. m ≤ 24 (past
+it ``ValueError``, as in the JAX package). The in-kernel JVP route (RK4, or
+a model without ``jac_soa``, under ``mode="jvp"``) raises
+``NotImplementedError``.
 
 Layout and dispatch as in ops/kernel_rollout.py.
 """
@@ -25,11 +31,13 @@ import dataclasses
 import torch
 
 from ilqr_tpu_torch.ops import _build, qp
+from ilqr_tpu_torch.ops.kernel_derivs import fd_running, fd_terminal
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
     on_cuda,
     require_kernel_model,
+    scheme,
     unpack_params,
 )
 
@@ -81,18 +89,21 @@ def _lane(v, like):
 
 
 def check_supported(model, integrator: str, mode: str):
-    """Raises for what this slice of the port does not carry."""
+    """Raises for what this slice of the port does not carry: ``mode="fd"``
+    runs with the Euler or the RK4 step, ``mode="jvp"`` with the Euler step
+    and a model that has ``jac_soa`` (the JAX kernel's analytic route)."""
     if model.m > qp.MAX_FUSED_M:
         raise ValueError(
             f"merged sweep kernel supports m <= {qp.MAX_FUSED_M}")
-    if mode != "jvp" or not model.has_analytic_soa:
+    scheme(integrator)
+    if mode not in ("jvp", "fd"):
+        raise ValueError(f"unknown derivative mode {mode!r}")
+    if mode == "jvp" and (integrator != "euler"
+                          or not model.has_analytic_soa):
         raise NotImplementedError(
-            "only the analytic model derivatives (jac_soa) are ported; the "
-            "in-kernel JVP and finite-difference modes are not")
-    if integrator != "euler":
-        raise NotImplementedError(
-            f"integrator {integrator!r} inside the sweep is not ported "
-            "(Euler only)")
+            f"the sweep's in-kernel JVP route (mode='jvp' with integrator "
+            f"{integrator!r}, analytic SoA: {model.has_analytic_soa}) is not "
+            "ported (ROADMAP.md §B2, its jvp half); mode='fd' takes RK4")
 
 
 @dataclasses.dataclass
@@ -110,23 +121,75 @@ def _terminal_init(model, p, xT) -> _Carry:
     n = model.n
     like = xT[0]
     fcx, fcxx = model.final_cost_derivs_soa(p, xT)
-    zero = torch.zeros_like(like)
-    return _Carry(vx=[_lane(fcx[i], like) for i in range(n)],
-                  vxx=[[_lane(fcxx[i][j], like) for j in range(n)]
-                       for i in range(n)],
-                  dv0=zero, dv1=zero, div=zero, gacc=zero)
+    return _carry([_lane(fcx[i], like) for i in range(n)],
+                  [[_lane(fcxx[i][j], like) for j in range(n)]
+                   for i in range(n)])
 
 
-def _sweep_step(model, p, dt, lam, use_limits, c: _Carry, x, u):
-    """One backward step at (x, u); advances ``c`` and returns (k, Krow):
-    k a list of m lanes, Krow an m × n nested list of lanes."""
+def _terminal_fd(model, p, xT, eps) -> _Carry:
+    """V_T from the final cost's stencils at xT (u_T = 0, which the final
+    cost ignores): a dense Hessian; zeroed accumulators."""
+    n = model.n
+    c1, h, pairs = fd_terminal(model, p, xT[:, None], eps, xT.device)
+    vxx = [[None] * n for _ in range(n)]
+    for q, (a, b) in enumerate(pairs):
+        vxx[a][b] = vxx[b][a] = h[q, 0]
+    return _carry([c1[i, 0] for i in range(n)], vxx)
+
+
+def _carry(vx, vxx) -> _Carry:
+    zero = torch.zeros_like(vx[0])
+    return _Carry(vx=vx, vxx=vxx, dv0=zero, dv1=zero, div=zero, gacc=zero)
+
+
+def _analytic_derivs(model, p, dt, x, u):
+    """(fx, fu, cx, cu, cxx, cxu, cuu) at (x, u) from the closed forms:
+    fx = I + dt·A, fu = dt·B; structural constants stay Python floats."""
     n, m = model.n, model.m
-    tile = x[0]
     A, Bm = model.jac_soa(p, x, u)
     fxc = [[_fadd(_fmul(dt, A[r][i]), 1.0 if r == i else 0.0)
             for i in range(n)] for r in range(n)]
     fuc = [[_fmul(dt, Bm[r][j]) for j in range(m)] for r in range(n)]
-    cx1, cu1, cxx1, cxu1, cuu1 = model.cost_derivs_soa(p, x, u)
+    return (fxc, fuc, *model.cost_derivs_soa(p, x, u))
+
+
+class _FdDerivs:
+    """The stencils' dense derivatives at every running step, evaluated at
+    once; ``at(t)`` gives step t's as nested lists of lanes."""
+
+    def __init__(self, model, integrator, p, dt, xs_body, us, eps):
+        self.n, self.m = model.n, model.m
+        self.jac, self.c1, h, pairs = fd_running(
+            model, p, dt, integrator, xs_body.permute(1, 0, 2),
+            us.permute(1, 0, 2), eps, us.device)
+        self.h, self.pairs = h, pairs
+
+    def at(self, t):
+        n, m = self.n, self.m
+        jac, c1, h = self.jac[:, :, t], self.c1[:, t], self.h[:, t]
+        fxc = [[jac[r, i] for i in range(n)] for r in range(n)]
+        fuc = [[jac[r, n + j] for j in range(m)] for r in range(n)]
+        cxx = [[None] * n for _ in range(n)]
+        cxu = [[None] * m for _ in range(n)]
+        cuu = [[None] * m for _ in range(m)]
+        for q, (a, b) in enumerate(self.pairs):
+            if b < n:
+                cxx[a][b] = cxx[b][a] = h[q]
+            elif a < n:
+                cxu[a][b - n] = h[q]
+            else:
+                cuu[a - n][b - n] = cuu[b - n][a - n] = h[q]
+        return (fxc, fuc, [c1[i] for i in range(n)],
+                [c1[n + j] for j in range(m)], cxx, cxu, cuu)
+
+
+def _sweep_step(model, p, lam, use_limits, c: _Carry, x, u, derivs):
+    """One backward step at (x, u) with ``derivs`` = (fx, fu, cx, cu, cxx,
+    cxu, cuu) there; advances ``c`` and returns (k, Krow): k a list of m
+    lanes, Krow an m × n nested list of lanes."""
+    n, m = model.n, model.m
+    tile = x[0]
+    fxc, fuc, cx1, cu1, cxx1, cxu1, cuu1 = derivs
 
     vxl, vxxl = c.vx, c.vxx
     fuT_vxx = [[None] * n for _ in range(m)]
@@ -242,7 +305,7 @@ def _sweep_step(model, p, dt, lam, use_limits, c: _Carry, x, u):
 
 
 def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
-                use_limits=True):
+                use_limits=True, eps=1e-3):
     """Plain version of :func:`sweep_packed`."""
     check_supported(model, integrator, mode)
     p, dt = unpack_params(pp)
@@ -250,30 +313,48 @@ def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
     n = xs_body.shape[1]
     k = torch.empty((T, m, B), dtype=F32, device=us.device)
     K = torch.empty((T, m, n, B), dtype=F32, device=us.device)
-    c = _terminal_init(model, p, xterm)
+    if mode == "fd":
+        c = _terminal_fd(model, p, xterm, eps)
+        fd = _FdDerivs(model, integrator, p, dt, xs_body, us, eps)
+        derivs_at = fd.at
+    else:
+        c = _terminal_init(model, p, xterm)
+        derivs_at = lambda t: _analytic_derivs(model, p, dt, xs_body[t],
+                                               us[t])
     for t in reversed(range(T)):
-        k_i, Krow = _sweep_step(model, p, dt, lam, use_limits, c,
-                                xs_body[t], us[t])
+        k_i, Krow = _sweep_step(model, p, lam, use_limits, c, xs_body[t],
+                                us[t], derivs_at(t))
         k[t] = torch.stack(k_i)
         K[t] = torch.stack([torch.stack(row) for row in Krow])
     dv = torch.stack([c.dv0, c.dv1])
     return k, K, dv, c.div, c.gacc * (1.0 / T)
 
 
+def fd_args(mode: str, eps: float):
+    """The stencil arguments of the sweep and iteration launchers: eps and
+    the denominators 2·eps and 4·eps², each taken in double and rounded once
+    to f32 by ctypes, as the JAX kernel rounds its Python floats. The
+    launcher suffix of the stencil kernels."""
+    suffix = "_fd" if mode == "fd" else ""
+    return suffix, (float(eps), float(2.0 * eps), float(4.0 * eps * eps))
+
+
 def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
-                 us, lam, mode: str = "jvp", use_limits: bool = True):
+                 us, lam, mode: str = "jvp", use_limits: bool = True,
+                 eps: float = 1e-3):
     """Merged linearize + backward sweep.
 
     Shapes: xs_body (T, n, B) and xterm (n, B) — the trajectory body and
     terminal state; us (T, m, B); lam (B,). Control limits come from the
     packed params; ``use_limits=False`` takes the unconstrained Newton
-    step instead. Returns (k (T, m, B), K (T, m, n, B), dv (2, B),
-    diverged (B,) f32 0/1, gnorm (B,)).
+    step instead. ``mode="fd"`` differentiates the ``integrator`` step and
+    the costs by the central stencils with ``eps``. Returns (k (T, m, B),
+    K (T, m, n, B), dv (2, B), diverged (B,) f32 0/1, gnorm (B,)).
     """
     check_supported(model, integrator, mode)
     if not on_cuda(us):
         return sweep_plain(model, integrator, pp, xs_body, xterm, us, lam,
-                           mode, use_limits)
+                           mode, use_limits, eps)
     dev = us.device
     prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, B = us.shape
@@ -287,8 +368,10 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     dv = torch.empty((2, B), dtype=F32, device=dev)
     div = torch.empty((B,), dtype=F32, device=dev)
     gnorm = torch.empty((B,), dtype=F32, device=dev)
-    _build.launch(f"{prefix}_sweep", dev, pp.vec, xs_body, xterm, us, lam,
-                  k, K, dv, div, gnorm, T, B, int(bool(use_limits)))
+    suffix, stencil = fd_args(mode, eps)
+    _build.launch(f"{prefix}_sweep{suffix}", dev, pp.vec, xs_body, xterm, us,
+                  lam, k, K, dv, div, gnorm, T, B, int(bool(use_limits)),
+                  scheme(integrator), *stencil)
     sweep_packed.launches += 1
     return k, K, dv, div, gnorm
 

@@ -264,6 +264,7 @@ MODS = {"acrobot": tac, "double_integrator": tdi, "point_mass_3d": tpm,
         "quadrotor": tqd, "omni_thruster": tot, "free_flyer": tff,
         "thruster_ring": ttr, "thruster_ring24": ttr, "pendulum": tpd,
         "cartpole": tcp, "bicycle": tbc, "power_mass": tpw}
+ALL_MODELS = sorted(MODS) + ["thruster_ring16", "thruster_ring20"]
 # controls around which the inputs are drawn (the thrusters' boxes are
 # [0, u_max]: about a third of the draws lands on the lower bound)
 U_MID = {"quadrotor": 1.2, "omni_thruster": 1.0, "free_flyer": 1.0,
@@ -349,3 +350,89 @@ def test_model_solve_on_card_matches_plain_solve(dev, name):
                                   plain.reason.numpy())
     route = ("sweep_packed" if m.m * m.n >= 32 else "iteration_packed")
     assert counts["rollout_packed"] == 1 and counts[route] >= 5, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ALL_MODELS)
+@pytest.mark.parametrize("integrator", ["euler", "rk4"])
+def test_model_fd_and_rk4_kernels_match_plain(dev, name, integrator):
+    """Each model's stencil sweep and iteration kernels (mode="fd", with
+    and without limits) and its rollout and line search with the
+    ``integrator`` step, against the plain versions on the same card, at a
+    lane count that is not a multiple of the block. Both sides evaluate the
+    same stencils op by op (one ulp of a cost would move cxx by ~1e-1 at
+    eps = 1e-3, so any drift shows); held to 1e-4 relative, expected 0."""
+    m = get_model(name)
+    n, mm, b, t = m.n, m.m, 200, 5
+    rng = np.random.default_rng(18)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(m.default_params(), 0.02, dev)
+    u_mid = U_MID.get(name, 1.0 if "ring" in name else 0.0)
+    x0 = f(0.3 * rng.normal(size=(n, b)))
+    us = f(u_mid + 0.6 * rng.normal(size=(t, mm, b)))
+    xs = f(0.3 * rng.normal(size=(t, n, b)))
+    xT = f(0.3 * rng.normal(size=(n, b)))
+    K = f(0.1 * rng.normal(size=(t, mm, n, b)))
+    k = f(0.2 * rng.normal(size=(t, mm, b)))
+    lam = f(np.where(rng.uniform(size=b) < 0.1, -100.0, 1.0))
+    live = f(rng.uniform(size=b) > 0.5)
+    dv = f(np.stack([-np.abs(rng.normal(size=b)) * 5.0, rng.normal(size=b)]))
+    cprev = f(100.0 + rng.normal(size=b))
+    al = f(ALPHAS)
+    reset_launch_counts()
+    cases = [
+        (kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
+         (m, integrator, True, pp, x0, us, xs, K)),
+        (kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+         (m, integrator, True, pp, x0, us, xs, xT, K, k, K * 2, k * 2, al,
+          dv, cprev, live, live, 0.0)),
+    ]
+    for limits in (True, False):
+        cases += [
+            (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+             (m, integrator, pp, xs, xT, us, lam, "fd", limits)),
+            (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+             (m, integrator, limits, pp, x0, xs, xT, us, k, K, lam, cprev,
+              live, al, "fd", limits)),
+        ]
+    for op, plain, args in cases:
+        got = op(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{name} {integrator} {op.__name__}[{i}]", tol=1e-4)
+    counts = launch_counts()
+    assert counts["rollout_packed"] == counts["linesearch_packed"] == 1
+    assert counts["sweep_packed"] == counts["iteration_packed"] == 2, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,integrator", [("power_mass", "euler"),
+                                             ("double_integrator", "rk4"),
+                                             ("acrobot", "rk4")])
+def test_fd_solve_on_card_matches_plain_solve(dev, name, integrator):
+    """A short fd solve through the stencil kernels against the same solve
+    through the plain versions on the CPU. power_mass and the double
+    integrator have no trig, so the two agree to the bit; acrobot's sin/cos
+    may differ by an ulp between the CPU and the card, which the stencils
+    scale by 1/(4·eps²): its costs are held to rtol 1e-3."""
+    m = get_model(name)
+    p = m.default_params()
+    rng = np.random.default_rng(0)
+    x0 = (0.05 * rng.normal(size=(64, m.n))).astype(np.float32)
+    u0 = np.zeros((8, m.m), np.float32)
+    cfg = SolverConfig(deriv_mode="fd", integrator=integrator, max_iter=5,
+                       alphas=(1.0, 0.3, 0.03))
+    reset_launch_counts()
+    card = solve_batch_fused(m, p, cfg, 0.02, x0, u0)
+    counts = launch_counts()
+    plain = solve_batch_fused(m, p, cfg, 0.02, x0, u0, device="cpu")
+    if name == "acrobot":
+        np.testing.assert_allclose(card.cost.cpu().numpy(),
+                                   plain.cost.numpy(), rtol=1e-3)
+    else:
+        np.testing.assert_array_equal(card.cost.cpu().numpy(),
+                                      plain.cost.numpy())
+        np.testing.assert_array_equal(card.iterations.cpu().numpy(),
+                                      plain.iterations.numpy())
+    assert counts["rollout_packed"] == 1 and counts["iteration_packed"] >= 5

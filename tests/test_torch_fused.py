@@ -180,7 +180,8 @@ def test_unsupported_configurations_raise():
                      (dict(sweep_kernel="fused"), ValueError),
                      (dict(sweep_kernel="split", use_control_limits=False),
                       ValueError),
-                     (dict(deriv_mode="fd"), NotImplementedError),
+                     (dict(deriv_mode="fd", integrator="rk4",
+                           sweep_kernel="split"), NotImplementedError),
                      (dict(integrator="rk4"), NotImplementedError),
                      (dict(full_ddp=True), ValueError),
                      (dict(boxqp_mode="iterative"), ValueError)):
@@ -214,7 +215,12 @@ def test_unsupported_configurations_raise():
                                device="cpu")
     assert fused_applicable(m, SolverConfig())
     assert fused_applicable(m, SolverConfig(use_control_limits=False))
-    assert not fused_applicable(m, SolverConfig(deriv_mode="fd"))
+    assert fused_applicable(m, SolverConfig(deriv_mode="fd"))
+    assert fused_applicable(m, SolverConfig(deriv_mode="fd",
+                                            integrator="rk4"))
+    assert not fused_applicable(m, SolverConfig(integrator="rk4"))
+    assert not fused_applicable(m, SolverConfig(
+        deriv_mode="fd", integrator="rk4", sweep_kernel="split"))
     assert fused_applicable(m, SolverConfig(sweep_kernel="split",
                                             deriv_mode="fd"))
     assert not fused_applicable(m, SolverConfig(sweep_kernel="split",

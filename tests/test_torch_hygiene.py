@@ -157,24 +157,73 @@ def test_cpu_tensors_run_plain_versions_and_launch_nothing(monkeypatch):
     assert len(KERNEL_OPS) == 6
 
 
-def test_kernel_path_rejects_other_models_and_integrators():
-    """The CUDA kernels are compiled for acrobot with the Euler step; any
-    other request on a CUDA tensor raises before a launch (checked here
-    without a card through the guard the wrappers call first)."""
+@pytest.mark.parametrize("case", [
+    "other_model", "guards_take_rk4", "derivs_refuses_rk4", "analytic_rk4",
+    "split_rk4", "jvp_without_jac_soa"])
+def test_kernel_path_rejects_other_models_and_integrators(case, monkeypatch):
+    """The CUDA kernels are compiled for the registered models and take the
+    Euler or the RK4 step: the rollout, line-search, sweep and iteration
+    guards accept rk4 (the sweep's with mode="fd"); derivs_packed refuses
+    it, and solve_batch_fused raises NotImplementedError naming the ROADMAP
+    item before any stage runs for analytic + RK4 and a jvp request without
+    jac_soa (the in-kernel JVP route, §B2) and for RK4 on the split sweep
+    (RK4 in derivs_packed, §B1). Checked without a card through the guards
+    the wrappers call first, and with every stage a tripwire."""
     pp = kernel_rollout.pack_params(tac.default_params(), 0.02)
-    other = tac.MODEL.__class__(**{**tac.MODEL.__dict__, "name": "other"})
-    with pytest.raises(NotImplementedError, match="acrobot"):
-        kernel_rollout.require_kernel_model(other, "euler", pp, pp.vec.device)
-    with pytest.raises(NotImplementedError, match="rk4"):
-        kernel_rollout.require_kernel_model(tac.MODEL, "rk4", pp,
-                                            pp.vec.device)
-    kernel_rollout.require_kernel_model(tac.MODEL, "euler", pp, pp.vec.device)
+    dev = pp.vec.device
+    if case == "other_model":
+        other = tac.MODEL.__class__(**{**tac.MODEL.__dict__, "name": "other"})
+        with pytest.raises(NotImplementedError, match="acrobot"):
+            kernel_rollout.require_kernel_model(other, "euler", pp, dev)
+        kernel_rollout.require_kernel_model(tac.MODEL, "euler", pp, dev)
+    elif case == "guards_take_rk4":
+        assert kernel_rollout.require_kernel_model(
+            tac.MODEL, "rk4", pp, dev) == "ilqr_acrobot"
+        assert kernel_rollout.scheme("rk4") == 1
+        kernel_sweep.check_supported(tac.MODEL, "rk4", "fd")
+        with pytest.raises(NotImplementedError, match="B2"):
+            kernel_sweep.check_supported(tac.MODEL, "rk4", "jvp")
+        with pytest.raises(ValueError, match="integrator"):
+            kernel_rollout.require_kernel_model(tac.MODEL, "midpoint", pp,
+                                                dev)
+    elif case == "derivs_refuses_rk4":
+        xs, us = torch.zeros(6, 4, 2), torch.zeros(5, 1, 2)
+        for op in (kernel_derivs.derivs_packed, kernel_derivs.derivs_plain):
+            with pytest.raises(NotImplementedError, match="derivs_packed"):
+                op(tac.MODEL, "rk4", pp, xs, us, mode="fd")
+    else:
+        from ilqr_tpu_torch import fused
+
+        def tripwire(*a, **k):
+            raise AssertionError("a stage ran for an uncarried configuration")
+
+        for name in ("rollout_packed", "iteration_packed", "sweep_packed",
+                     "linesearch_packed", "derivs_packed",
+                     "backward_sweep_packed"):
+            monkeypatch.setattr(fused, name, tripwire)
+        model = tac.MODEL
+        cfg, item = {
+            "analytic_rk4": (SolverConfig(integrator="rk4"), "B2"),
+            "split_rk4": (SolverConfig(deriv_mode="fd", integrator="rk4",
+                                       sweep_kernel="split"), "B1"),
+            "jvp_without_jac_soa": (SolverConfig(), "B2"),
+        }[case]
+        if case == "jvp_without_jac_soa":
+            model = tac.MODEL.__class__(**{**tac.MODEL.__dict__,
+                                           "jac_soa": None})
+        with pytest.raises(NotImplementedError, match=item):
+            solve_batch_fused(model, tac.default_params(), cfg, 0.02,
+                              np.zeros((2, 4), np.float32),
+                              np.zeros((5, 1), np.float32), device="cpu")
 
 
 def test_every_cuda_source_is_built_and_packaged():
     """Each csrc/*.cu and *.cuh is one of the build's sources (a header
     change rebuilds) and lies under the package data of pyproject.toml (a
-    wheel carries it); each model with fused kernels has its own .cu."""
+    wheel carries it); each model with fused kernels has its own .cu, and
+    its stencil (fd) instantiations a kernels_<model>_fd.cu of their own
+    (the quadrotor's iteration kernels apart, in
+    kernels_<model>_iteration_fd.cu), so that they compile in parallel."""
     import fnmatch
     import tomllib
 
@@ -198,6 +247,14 @@ def test_every_cuda_source_is_built_and_packaged():
             assert f"ILQR_ITERATION_LAUNCHER({name}," in apart.read_text()
         else:
             assert f"ILQR_FUSED_LAUNCHERS({name}," in text
+        fd = (csrc / f"kernels_{name}_fd.cu").read_text()
+        fd_apart = csrc / f"kernels_{name}_iteration_fd.cu"
+        if fd_apart.exists():
+            assert f"ILQR_FD_SWEEP_LAUNCHER({name}," in fd
+            assert (f"ILQR_FD_ITERATION_LAUNCHER({name},"
+                    in fd_apart.read_text())
+        else:
+            assert f"ILQR_FD_LAUNCHERS({name}," in fd
 
 
 def test_pack_params_layout():
@@ -280,7 +337,10 @@ def test_ptxas_table_files_rows_under_their_own_model():
     the model of the source whose report holds it (kernels_<model>.cu or
     kernels_<model>_iteration.cu, the rest acrobot's), so thruster_ring16's
     rows are not filed under thruster_ring, although both instantiate
-    thruster_ring::Model; each row keeps its source file."""
+    thruster_ring::Model; each row keeps its source file. The stencil
+    instantiations (kernels_<model>_fd.cu, kernels_<model>_iteration_fd.cu;
+    FiniteDiff in the mangled name) are filed as sweep_kernel_fd and
+    iteration_kernel_fd under their model."""
     import chip_smoke
 
     def entry(mangled, regs, stack):
@@ -313,7 +373,13 @@ def test_ptxas_table_files_rows_under_their_own_model():
         "ptxas log of kernels_thruster_ring16.cu\n",
         entry(ring.format("12sweep_kernel", 16, "Lb1E"), 201, 5000),
         "ptxas log of kernels_thruster_ring24.cu\n",
-        entry(ring.format("14rollout_kernel", 24, ""), 202, 64)])
+        entry(ring.format("14rollout_kernel", 24, ""), 202, 64),
+        "ptxas log of kernels_quadrotor_iteration_fd.cu\n",
+        entry("_ZN5fused16iteration_kernelIN9quadrotor5ModelELb1EN5sweep10"
+              "FiniteDiffEEEvPKf", 206, 4720),
+        "ptxas log of kernels_acrobot_fd.cu\n",
+        entry("_ZN5fused12sweep_kernelIN7acrobot5ModelELb0EN5sweep10"
+              "FiniteDiffEEEvPKf", 92, 288)])
     t = chip_smoke.ptxas_table(log)
     assert t[("sweep_kernel", "thruster_ring", True)]["registers"] == 200
     assert t[("sweep_kernel", "thruster_ring", False)]["registers"] == 96
@@ -329,4 +395,8 @@ def test_ptxas_table_files_rows_under_their_own_model():
     assert t[("sweep_kernel", "acrobot", True)]["registers"] == 72
     assert t[("derivs_kernel", "acrobot", None)]["registers"] == 64
     assert t[("backward_kernel", "acrobot", None)]["registers"] == 80
-    assert len(t) == 10
+    assert t[("iteration_kernel_fd", "quadrotor", True)] == dict(
+        registers=206, stack_bytes=4720, spill_stores=8, spill_loads=12,
+        source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration_fd.cu")
+    assert t[("sweep_kernel_fd", "acrobot", False)]["registers"] == 92
+    assert len(t) == 12
