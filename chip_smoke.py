@@ -8,16 +8,24 @@ Phases (any failure raises and the script exits non-zero):
   2. build: the CUDA kernels from ilqr_tpu_torch/csrc with nvcc, one
      process per source, all started together (each source's seconds and
      each kernel's registers, stack and spills printed);
-  3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (B = 8192, T = 499, A = 11; the derivative kernel in both
-     its modes), with times (CUDA events) and bounds;
+  3. every kernel × model instantiation (and each RK4 reading, a runtime
+     mode of a kernel) against its plain PyTorch version on the card, on
+     the inputs of its path at that path's shapes: the flagship's at
+     B = 8192, T = 499, A = 11 (the derivative kernel in both its modes);
+     each m ≥ 2 model's four kernels (the analytic ones at phases 8-10's
+     shapes, the stencil sweep and iteration and the RK4 rollout and line
+     search at the CLI problem's; thruster_ring16/20/24's sweep and
+     iteration on their first 4 steps). This process times each kernel
+     alone on the card (CUDA events); then worker processes run the plain
+     versions, which are host-bound, longest first; each case prints its
+     errors, times and bound;
   4. the fused path: acrobot swing-up through solve_batch_fused at
      B = 8192, T = 499, max_iter = 100 — solves/s, cost, iterations, launch
      counts; then one more solve under torch.profiler for the device time
      by kernel and the device's busy share;
   5. the fused split route (sweep + line-search kernels) against the merged
      one, and the kernel path against the plain path on the card, at
-     B = 1024, max_iter = 2; beside them, not asserted, the plain path on
+     B = 1024, max_iter = 4; beside them, not asserted, the plain path on
      the CPU and the kernel path from an x0 moved by 1e-6, which show how
      far rounding alone carries a lane on this chaotic workload;
   6. the composable path: solve_batch at the same size on the same x0
@@ -27,57 +35,44 @@ Phases (any failure raises and the script exits non-zero):
   7. equivalence at B = 1024, T = T_EQ, 12 iterations: the composable
      path and the fused split sweep each against the fused merged route
      (the gauge below), with the share of lanes a 1e-6 nudge of x0 forks;
-  8. the m = 2…4 slice (experiments/secondary_bench.py's workloads): each
-     model's four kernels against their plain versions at its path's
-     shapes (the quadrotor at B = 1024, T = 80, A = 11, its sweep and
-     iteration at T = 20; the double integrator and the 3-D point mass at
-     B = 1024, T = 99); the quadrotor
+  8. the m = 2…4 slice (experiments/secondary_bench.py's workloads): the
+     quadrotor path at full width (B = 1024, T = 80, max_iter = 40:
+     solves/s, cost, iterations, reasons, launches, a profiled solve, and
+     unasserted at B = 8192) and its merged route against its split one
+     under the gauge; the double integrator (with and without limits) and
+     3-D point mass paths (B = 1024, T = 99), and their split routes
+     against the merged ones; the double integrator's reference solve
+     against golden/integrator_golden.csv, and short solves of the point
+     mass and the quadrotor against the plain path on the CPU;
+  9. the m ≥ 5 slice (projected Newton in the sweep): the thruster_ring
      path at full width (B = 1024, T = 80, max_iter = 40: solves/s, cost,
-     iterations, reasons, launches, a profiled solve, and unasserted at
-     B = 8192) and its merged route against its split one under the gauge;
-     the double integrator (with and without limits) and 3-D point mass
-     paths, and their split routes against the merged ones; the double
-     integrator's reference solve against golden/integrator_golden.csv, and
-     short solves of the point mass and the quadrotor against the plain
-     path on the CPU;
-  9. the m ≥ 5 slice (projected Newton in the sweep): the four kernels of
-     omni_thruster, free_flyer and thruster_ring against their plain
-     versions at B = 1024, T = 80, A = 11, the sweep and iteration at
-     T = 8 (and omni_thruster's sweep and iteration without limits), those
-     of thruster_ring16/20/24 with the sweep and iteration at T = 2; the
-     thruster_ring path at full width
-     (B = 1024, T = 80, max_iter = 40: solves/s, cost, iterations,
-     reasons, the share of controls on the lower bound, launches, a
-     profiled solve, and unasserted at B = 8192) and its merged route; the
-     omni_thruster (with and without limits) and free_flyer paths and their
-     merged routes under the gauge; thruster_ring24 at the cap (one solve,
-     max_iter cut if it would take over 30 s) and thruster_ring16/20
-     at a cut depth; short omni_thruster and thruster_ring solves against
-     the plain path on the CPU;
+     iterations, reasons, the share of controls on the lower bound,
+     launches, a profiled solve, and unasserted at B = 8192) and its
+     merged route; the omni_thruster (with and without limits) and
+     free_flyer paths and their merged routes under the gauge;
+     thruster_ring24 at the cap (one solve, max_iter cut if it would take
+     over 30 s) and thruster_ring16/20 at a cut depth; short omni_thruster
+     and thruster_ring solves against the plain path on the CPU;
  10. the last four models (pendulum, cartpole, bicycle, power_mass — the
      live cxu, cxx off-diagonals and full cuu of the sweep's general
-     terms): their four kernels, and the whole iteration without limits,
-     against their plain versions at their paths' shapes; each model's
-     path at full width (the CLI's canonical problem at --batch 1024,
-     uncut: solves/s, ms per iteration, cost against the initial
-     rollout's, iterations, reasons, launches, a profiled solve), its
-     split route against the merged one under the gauge, its path without
-     limits, and a short solve against the plain path on the CPU;
+     terms): each model's path at full width (the CLI's canonical problem
+     at --batch 1024, uncut: solves/s, ms per iteration, cost against the
+     initial rollout's, iterations, reasons, launches, a profiled solve),
+     its split route against the merged one under the gauge, its path
+     without limits, and a short solve against the plain path on the CPU;
  11. the reference's central stencils inside the fused sweep
-     (deriv_mode="fd", the CLI's default) and RK4: every model's stencil
-     sweep and iteration kernels and its rollout and line search with RK4
-     against their plain versions (at the paths' shapes; the sweep and
-     iteration of the m·n ≥ 32 models at a cut horizon); the CLI's batch
-     solves (ilqr_tpu/__main__.py:176-229) at full width: acrobot at
-     B = 8192, T = 499, max_iter = 100 with Euler and with RK4, the
-     quadrotor with RK4 (B = 1024, T = 120, the split iteration), the
-     other twelve models' canonical problems at B = 1024 (the rings 16-24 at
-     a cut depth, thruster_ring's max_iter capped) — solves/s, ms per
-     iteration, host iterations, cost against each lane's initial
-     rollout's, reasons, launches, profiled solves — each route against the
-     other under the gauge (the m·n ≥ 32 models' merged routes at a cut
-     depth), the paths without limits, and short solves against the plain
-     path on the CPU;
+     (deriv_mode="fd", the CLI's default) and RK4: the CLI's batch solves
+     (ilqr_tpu/__main__.py:176-229) at full width: acrobot at B = 8192,
+     T = 499, max_iter = 100 with Euler and with RK4 (and the costs of
+     its first 64 lanes, which tests/test_torch_cli_predict.py solves on
+     the CPU), the quadrotor with RK4 (B = 1024, T = 120, the split
+     iteration), the other twelve models' canonical problems at B = 1024
+     (the rings 16-24 at a cut depth, thruster_ring's max_iter capped) —
+     solves/s, ms per iteration, host iterations, cost against each lane's
+     initial rollout's, reasons, launches, profiled solves — each route
+     against the other under the gauge (the m·n ≥ 32 models' merged routes
+     at a cut depth), the paths without limits, and short solves against
+     the plain path on the CPU;
  12. one JSON line listing every kernel × model instantiation launched (the
      RK4 readings as rk4_* fields of the kernel's row), the card's line,
      and the last line {"ok": true, "device": {...}}. Each phase prints its
@@ -91,10 +86,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -120,9 +117,9 @@ from ilqr_tpu_torch.ops import (
 )
 
 B_MAIN, T, DT, MAX_ITER = 8192, 499, 0.02, 100
-# Phase 5 at a cut depth (2 iterations): its plain path takes ~7 s per
+# Phase 5 at a cut depth (4 iterations): its plain path takes ~7 s per
 # iteration at T = 499 on an H100 80GB HBM3 (700 W).
-B_SPLIT, ITER_SPLIT = 1024, 2
+B_SPLIT, ITER_SPLIT = 1024, 4
 # Equivalence of whole solves across routes: a horizon short enough that
 # rounding alone (a 1e-6 nudge of x0) forks under 1% of lanes by iteration
 # 12; phase 7 prints that share.
@@ -251,10 +248,42 @@ def gauge(c1, c2):
 
 # ---------------------------------------------------------------------------
 
-def compare_kernels(dev, model, pp, cfg):
-    """Phase 3: every kernel against its plain version at the main path's
-    shapes, on realistic inputs: the flagship x0, its open-loop rollout and
-    the first iteration's gains; masks mixed over the lanes."""
+def flagship():
+    """(model, params, cfg) of the acrobot flagship (bench.py:109-148)."""
+    return (get_model("acrobot"), acrobot.default_params(),
+            SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                         use_control_limits=True, max_iter=MAX_ITER))
+
+
+class Case(NamedTuple):
+    """One kernel on one set of inputs, beside its plain version."""
+    op: Callable            # the op: its kernel, on CUDA tensors
+    plain: Callable         # the op's plain version
+    args: tuple
+    ops: Callable           # () → f32 operations of one call
+    where: str              # the shapes, as printed
+    unread: Callable | None  # outputs → bytes the function need not read
+    meta: dict              # row, group, kernel, model, limits, T, effort
+
+
+def effort(kind, Tc, n, m):
+    """A rough measure of a plain version's host time (one PyTorch op per
+    operation of the kernel), by which the longest comparisons start
+    first."""
+    z = n + m
+    per_step = {"rollout": z, "linesearch": 11 * z, "derivs": z,
+                "backward": z}.get(kind, z * z * max(1, m // 4))
+    return Tc * per_step
+
+
+def acrobot_cases(dev):
+    """The flagship's kernels at the main path's shapes, on realistic
+    inputs: the flagship x0, its open-loop rollout and the first
+    iteration's gains; masks mixed over the lanes. Then the composable
+    path's: derivs_packed in both modes and backward_sweep_packed, on the
+    open-loop trajectory and its derivatives."""
+    model, params, cfg = flagship()
+    pp = kernel_rollout.pack_params(params, DT, dev)
     B, A = B_MAIN, len(cfg.alphas)
     rng = np.random.default_rng(0)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -265,147 +294,84 @@ def compare_kernels(dev, model, pp, cfg):
     live = f(rng.uniform(size=B) > 0.5)
     gate = f(rng.uniform(size=B) > 0.5)
     keep = f(rng.uniform(size=B) > 0.5)
-    xs0, us0, xT0, c0 = kernel_rollout.rollout_plain(
+    xs0, us0, xT0, c0 = kernel_rollout.rollout_packed(
         model, "euler", True, pp, x0, zeros(T, M, B), zeros(T, N, B),
         zeros(T, M, N, B))
-    k1, K1, dv1, _d, _g = kernel_sweep.sweep_plain(model, "euler", pp, xs0,
-                                                   xT0, us0, lam)
+    k1, K1, dv1, _d, _g = kernel_sweep.sweep_packed(model, "euler", pp, xs0,
+                                                    xT0, us0, lam)
     xsr = xs0 + f(0.01 * rng.normal(size=(T, N, B)))
     Kr = f(0.05 * rng.normal(size=(T, M, N, B)))
     uff = us0 + f(0.5 * rng.normal(size=(T, M, B)))
     kold = f(rng.normal(size=(T, M, B)))
     Kold = f(rng.normal(size=(T, M, N, B)))
+    at = f"at B={B} T={T} A={A}"
+    # A candidates and the emitted rollout (+ the sweep); the previous
+    # gains are read only on lanes that drop the new ones
+    ls_ops = (A + 1) * (OPS_ROLLOUT_STEP + 2) * T * B
+    old = nbytes(kold, Kold)
+
+    def meta(label, kind, row=None, group="row"):
+        return dict(row=row or f"{label}/acrobot", group=group,
+                    kernel=f"{kind}_kernel", model="acrobot", limits=True,
+                    T=T, effort=effort(kind, T, N, M))
 
     cases = {
-        "rollout_packed": (
+        "rollout_packed": Case(
             kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
-            (model, "euler", True, pp, x0, uff, xsr, Kr)),
-        "sweep_packed": (
+            (model, "euler", True, pp, x0, uff, xsr, Kr),
+            lambda: OPS_ROLLOUT_STEP * T * B, at, None,
+            meta("rollout_packed", "rollout")),
+        "sweep_packed": Case(
             kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
-            (model, "euler", pp, xs0, xT0, us0, lam)),
-        "linesearch_packed": (
+            (model, "euler", pp, xs0, xT0, us0, lam),
+            lambda: OPS_SWEEP_STEP * T * B, at, None,
+            meta("sweep_packed", "sweep")),
+        "linesearch_packed": Case(
             kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
             (model, "euler", True, pp, x0, us0, xs0, xT0, K1, k1, Kold, kold,
-             alphas, dv1, c0, gate, keep, cfg.z_min)),
-        "iteration_packed": (
+             alphas, dv1, c0, gate, keep, cfg.z_min),
+            lambda: ls_ops, at,
+            lambda got: old * (keep > 0.5).float().mean().item(),
+            meta("linesearch_packed", "linesearch")),
+        "iteration_packed": Case(
             kernel_iter.iteration_packed, kernel_iter.iteration_plain,
             (model, "euler", True, pp, x0, xs0, xT0, us0, kold, Kold, lam,
              c0, live, alphas, "jvp", True, cfg.z_min, cfg.tol_grad,
-             cfg.lambda_grad_term)),
+             cfg.lambda_grad_term),
+            lambda: ls_ops + OPS_SWEEP_STEP * T * B, at,
+            lambda got: old * ((got[10] < 0.5) & (live > 0.5)).float()
+            .mean().item(),
+            meta("iteration_packed", "iteration")),
     }
-    rows = {}
-    for name, (op, plain, args) in cases.items():
-        unread = None
-        if name == "rollout_packed":
-            ops = OPS_ROLLOUT_STEP * T * B
-        elif name == "sweep_packed":
-            ops = OPS_SWEEP_STEP * T * B
-        else:
-            # A candidates and the emitted rollout (+ the sweep); the
-            # previous gains are read only on lanes that drop the new ones
-            ops = (A + 1) * (OPS_ROLLOUT_STEP + 2) * T * B
-            if name == "iteration_packed":
-                ops += OPS_SWEEP_STEP * T * B
-                kept = lambda got: (got[10] < 0.5) & (live > 0.5)
-            else:
-                kept = lambda got: keep > 0.5
-            unread = lambda got, kept=kept: (
-                nbytes(kold, Kold) * kept(got).float().mean().item())
-        rows[name] = compare_stage(name, op, plain, args, ops,
-                                   f"at B={B} T={T} A={A}", unread)
-    # this design's traffic per iteration_packed launch: xs and us read by
-    # each of the three phases, the (T, 5, B) gain buffer written once and
-    # read twice, the previous gains read, the new state written
-    gain_buf = (M * (N + 1)) * T * B * 4
-    design = (3 * nbytes(xs0, us0) + 3 * gain_buf + nbytes(kold, Kold)
-              + nbytes(xs0, us0, kold, Kold))
-    print(f"[kernel] iteration_packed in this design moves ~{design / 1e9:.3f}"
-          f" GB per launch (~{design / PEAK_BYTES * 1e3:.3f} ms at the peak "
-          f"rate); the least any design must move is ~"
-          f"{2 * nbytes(xs0, us0, kold, Kold) / 1e9:.3f} GB")
-    rows.update(compare_stage_kernels(dev, model, pp, xs0, xT0, us0))
-    return {name: dict(
-        name=name, route="cuda",
-        source=SOURCES.get(name, "ilqr_tpu_torch/csrc/kernels.cu"),
-        replaces=REPLACES[name], launches=None, tol=KERNEL_TOL,
-        library_ms=None,
-        library_note="no single PyTorch call computes this function", **r)
-        for name, r in rows.items()}
 
-
-def compare_stage(label, op, plain, args, ops, where, unread=None,
-                  plain_reps=2):
-    """One kernel against its plain version on the same inputs: errors,
-    times, and the bound — every input read once and every output written
-    once, less ``unread(outputs)`` bytes the function need not read. With
-    ``plain_reps=0`` the plain version's time is that of the comparison
-    call itself (CUDA events), for plain versions that take seconds."""
-    got = op(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = plain(*args)
-    end.record()
-    end.synchronize()
-    abs_e, rel_e = max_errs(got, want)
-    # bit for bit, NaNs in the same places counting as equal
-    bitwise = all(bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
-                  for g, w in zip(got, want))
-    ms = time_ms(lambda: op(*args), reps=5)
-    plain_ms = (time_ms(lambda: plain(*args), reps=plain_reps) if plain_reps
-                else start.elapsed_time(end))
-    total = nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got)
-    if unread is not None:
-        total -= unread(got)
-    b_ms, b_by = bound_ms(total, ops)
-    print(f"[kernel] {label}: max_abs_err {abs_e:.3e} max_err {rel_e:.3e} "
-          f"(tol {KERNEL_TOL:g}) bitwise {bitwise} | kernel {ms:.3f} ms "
-          f"plain {plain_ms:.1f} ms bound {b_ms:.4f} ms ({b_by}; {total:.0f} "
-          f"B, {ops} ops) {where}")
-    if not rel_e <= KERNEL_TOL:
-        raise AssertionError(f"{label} disagrees with its plain version: "
-                             f"{rel_e} > {KERNEL_TOL}")
-    return dict(max_abs_err=abs_e, max_err=rel_e, bitwise_equal=bitwise,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bound_bytes=total, bound_ops=ops)
-
-
-def compare_stage_kernels(dev, model, pp, xs0, xT0, us0):
-    """Phase 3, the composable path's kernels: derivs_packed in both modes
-    and backward_sweep_packed, at the main path's shapes, on the flagship's
-    open-loop trajectory and its derivatives; operations counted from the
-    plain versions (the same arithmetic as the kernels)."""
-    B = us0.shape[-1]
     xs_full = torch.cat([xs0, xT0[None]]).contiguous()
-    pp_cpu = kernel_rollout.pack_params(acrobot.default_params(), DT)
-    rng = np.random.default_rng(3)
+    pp_cpu = kernel_rollout.pack_params(params, DT)
+    lane_rng = np.random.default_rng(3)
 
     def lane_inputs(t):
-        xs = torch.as_tensor(0.3 * rng.normal(size=(t + 1, N, 1)),
+        xs = torch.as_tensor(0.3 * lane_rng.normal(size=(t + 1, N, 1)),
                              dtype=torch.float32)
-        us = torch.as_tensor(2.0 * rng.normal(size=(t, M, 1)),
+        us = torch.as_tensor(2.0 * lane_rng.normal(size=(t, M, 1)),
                              dtype=torch.float32)
         return xs, us
 
-    rows = {}
-    for mode in ("jvp", "fd"):
+    def derivs_ops(mode):
         step, rest = ops_per_step(lambda t: kernel_derivs.derivs_plain(
             model, "euler", pp_cpu, *lane_inputs(t), mode=mode))
-        r = compare_stage(
-            f"derivs_packed ({mode})", kernel_derivs.derivs_packed,
-            kernel_derivs.derivs_plain,
-            (model, "euler", pp, xs_full, us0, mode), step * T * B + rest * B,
-            f"({step} per (t, lane)) at B={B} T={T}")
-        if mode == "jvp":   # the main path's mode (deriv_mode="analytic")
-            rows["derivs_packed"] = r
-            derivs = kernel_derivs.derivs_packed(model, "euler", pp,
-                                                 xs_full, us0)
-        else:
-            rows["derivs_packed"].update(
-                {f"fd_{k}": v for k, v in r.items()})
+        return step * T * B + rest * B
 
-    fx, fu, cx, cu, cxx, cxu, cuu = derivs
+    for mode in ("jvp", "fd"):
+        # the jvp row is the main path's mode (deriv_mode="analytic"); the
+        # fd mode rides on it as fd_* fields
+        cases[f"derivs_packed ({mode})"] = Case(
+            kernel_derivs.derivs_packed, kernel_derivs.derivs_plain,
+            (model, "euler", pp, xs_full, us0, mode),
+            lambda mode=mode: derivs_ops(mode), f"at B={B} T={T}", None,
+            meta("derivs_packed", "derivs", "derivs_packed/acrobot",
+                 "row" if mode == "jvp" else "fd_of"))
+
+    fx, fu, cx, cu, cxx, cxu, cuu = kernel_derivs.derivs_packed(
+        model, "euler", pp, xs_full, us0)
     p, _dt = kernel_rollout.unpack_params(pp)
     args = (fx, fu[:, :, 0], cx[:-1], cu[:, 0], cxx[:-1], cxu[:, :, 0],
             cuu[:, 0, 0], p.u_min[0] - us0[:, 0], p.u_max[0] - us0[:, 0],
@@ -419,17 +385,155 @@ def compare_stage_kernels(dev, model, pp, xs0, xT0, us0):
             d[5][:, :, 0], d[6][:, 0, 0], -5.0 - us[:, 0], 5.0 - us[:, 0],
             torch.ones(1), d[2][-1], d[4][-1])
 
-    # the backward recursion's own operations: its count minus the
-    # derivative op that builds its inputs above
-    step_all, rest_all = ops_per_step(backward_at)
-    step_d, rest_d = ops_per_step(lambda t: kernel_derivs.derivs_plain(
-        model, "euler", pp_cpu, *lane_inputs(t)))
-    step, rest = step_all - step_d, rest_all - rest_d
-    rows["backward_sweep_packed"] = compare_stage(
-        "backward_sweep_packed", kernel_backward.backward_sweep_packed,
-        kernel_backward.backward_plain, args, step * T * B + rest * B,
-        f"({step} per (t, lane)) at B={B} T={T}")
-    return rows
+    def backward_ops():
+        # the backward recursion's own operations: its count minus the
+        # derivative op that builds its inputs above
+        step_all, rest_all = ops_per_step(backward_at)
+        step_d, rest_d = ops_per_step(lambda t: kernel_derivs.derivs_plain(
+            model, "euler", pp_cpu, *lane_inputs(t)))
+        return (step_all - step_d) * T * B + (rest_all - rest_d) * B
+
+    cases["backward_sweep_packed"] = Case(
+        kernel_backward.backward_sweep_packed, kernel_backward.backward_plain,
+        args, backward_ops, f"at B={B} T={T}", None,
+        meta("backward_sweep_packed", "backward"))
+    return cases
+
+
+def design_traffic_line():
+    """This design's traffic per flagship iteration_packed launch: xs and us
+    read by each of the three phases, the (T, 5, B) gain buffer written
+    once and read twice, the previous gains read, the new state written."""
+    f32 = 4
+    xs_us = (T * N + T * M) * B_MAIN * f32
+    gains = (T * M + T * M * N) * B_MAIN * f32
+    gain_buf = (M * (N + 1)) * T * B_MAIN * f32
+    design = 3 * xs_us + 3 * gain_buf + gains + (xs_us + gains)
+    return (f"[kernel] iteration_packed in this design moves ~"
+            f"{design / 1e9:.3f} GB per launch (~"
+            f"{design / PEAK_BYTES * 1e3:.3f} ms at the peak rate); the least "
+            f"any design must move is ~{2 * (xs_us + gains) / 1e9:.3f} GB")
+
+
+def check_case(case):
+    """``case``'s kernel and its plain version, once each on the same
+    inputs: errors, the plain version's time (CUDA events around its one
+    call) and the bound — every input read once and every output written
+    once, less ``case.unread(outputs)`` bytes."""
+    got = case.op(*case.args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = case.plain(*case.args)
+    end.record()
+    end.synchronize()
+    abs_e, rel_e = max_errs(got, want)
+    # bit for bit, NaNs in the same places counting as equal
+    bitwise = all(bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+                  for g, w in zip(got, want))
+    total = nbytes(*[a for a in case.args if isinstance(a, torch.Tensor)],
+                   *got)
+    if case.unread is not None:
+        total -= case.unread(got)
+    ops = case.ops()
+    b_ms, b_by = bound_ms(total, ops)
+    return dict(max_abs_err=abs_e, max_err=rel_e, bitwise_equal=bitwise,
+                plain_ms=start.elapsed_time(end), bound_ms=b_ms,
+                bound_by=b_by, bound_bytes=total, bound_ops=ops)
+
+
+def comparison_sets():
+    """The case builders of phase 3, in the order their rows print."""
+    return ([("acrobot",)]
+            + [("model", name) for name in (*SLICE_MODELS, *WIDE_MODELS,
+                                            *CLI_MODELS)]
+            + [("fd", name) for name in CLI_SPECS])
+
+
+def build_cases(dev, which):
+    if which[0] == "acrobot":
+        return acrobot_cases(dev)
+    if which[0] == "model":
+        return model_cases(dev, which[1])
+    return fd_cases(dev, which[1])
+
+
+_WORKER_CASES = {}
+
+
+def _worker_init():
+    torch.set_num_threads(1)
+
+
+def _worker_job(key):
+    """In a worker process: the comparison of case ``key`` = (builder,
+    label), its builder's inputs made once per process."""
+    which, label = key
+    if which not in _WORKER_CASES:
+        _WORKER_CASES[which] = build_cases(torch.device(DEVICE), which)
+    t0 = time.perf_counter()
+    r = check_case(_WORKER_CASES[which][label])
+    return key, dict(r, job_s=time.perf_counter() - t0)
+
+
+def run_comparisons(dev, tick):
+    """Phase 3: every kernel × model instantiation against its plain version
+    on the card (and each RK4 reading, a runtime mode of a kernel). This
+    process times the kernels while it is alone on the card (3a); then
+    COMPARE_WORKERS processes run the plain versions, which are host-bound
+    and take minutes in sum, longest first (3b). Returns (rows by key, RK4
+    readings by the key of their row)."""
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(COMPARE_WORKERS, initializer=_worker_init) as pool:
+        order, times, wheres, metas, jobs = [], {}, {}, {}, []
+        for which in comparison_sets():
+            cases = build_cases(dev, which)
+            for label, case in cases.items():
+                key = (which, label)
+                order.append(key)
+                times[key] = time_ms(lambda: case.op(*case.args), reps=5)
+                wheres[key], metas[key] = case.where, case.meta
+                jobs.append((case.meta["effort"], key))
+            del cases
+        torch.cuda.empty_cache()
+        tick(f"phase 3a (kernel times, {len(order)} cases)")
+        jobs.sort(key=lambda j: -j[0])
+        t0 = time.perf_counter()
+        results = dict(pool.imap_unordered(_worker_job,
+                                           [key for _e, key in jobs]))
+        pool.close()
+        pool.join()
+    wall = time.perf_counter() - t0
+    rows, rk4, failed = {}, {}, []
+    for key in order:
+        r = dict(results[key], ms=times[key])
+        job_s = r.pop("job_s")
+        print(f"[kernel] {key[1]}: max_abs_err {r['max_abs_err']:.3e} "
+              f"max_err {r['max_err']:.3e} (tol {KERNEL_TOL:g}) bitwise "
+              f"{r['bitwise_equal']} | kernel {r['ms']:.3f} ms plain "
+              f"{r['plain_ms']:.1f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {r['bound_bytes']:.0f} B, "
+              f"{r['bound_ops']} ops) {wheres[key]}; {job_s:.1f} s")
+        if not r["max_err"] <= KERNEL_TOL:
+            failed.append(key[1])
+        meta = metas[key]
+        if meta["group"] == "fd_of":
+            rows[meta["row"]].update({f"fd_{k}": v for k, v in r.items()})
+            continue
+        row = dict(r, **{k: v for k, v in meta.items()
+                         if k not in ("row", "group", "effort")})
+        (rk4 if meta["group"] == "rk4" else rows)[meta["row"]] = row
+    print(design_traffic_line())
+    busy = sum(results[key]["job_s"] for key in order)
+    print(f"[compare] {len(order)} plain comparisons in {COMPARE_WORKERS} "
+          f"processes: {wall:.1f} s wall for {busy:.1f} s of comparisons "
+          f"(plain ms: one call, with the other processes sharing the card "
+          f"and the host's {os.cpu_count()} cores)")
+    if failed:
+        raise AssertionError(f"disagree with their plain versions beyond "
+                             f"{KERNEL_TOL}: {failed}")
+    return rows, rk4
 
 
 def run_main_path(dev, model, params, cfg):
@@ -834,16 +938,16 @@ CPU_RTOL = {"point_mass_3d": 1e-4, "quadrotor": 1e-3,
 WIDE_MODELS = ("omni_thruster", "free_flyer", "thruster_ring",
                "thruster_ring16", "thruster_ring20", "thruster_ring24")
 WIDE_T, WIDE_ITERS, WIDE_DT = 80, 40, 0.05
-# The sweep and iteration kernels against their plain versions at a cut
-# horizon, so that the script keeps well inside its time limit on a slow
-# host (the plain versions are host-bound): the quadrotor's at 20 steps
-# (its plain sweep takes ~15 s at the path's 80), omni_thruster's,
-# free_flyer's and thruster_ring's at 8 (9-30 s per case at 80), the rings
-# 16/20/24's at 2 (the plain sweep at m = 24 runs ~10⁵ PyTorch ops per
-# step on the card)
-QUAD_T_CUT = 20
-WIDE_T_CUT = 8
-WIDE_T_BACKWARD = 2
+# The sweep and iteration kernels of thruster_ring16/20/24 (analytic and
+# fd) against their plain versions on their paths' first 4 steps: the plain
+# sweep at m = 24 runs ~10⁵ PyTorch ops per step on the card. Every other
+# comparison runs at its path's shapes.
+T_BACKWARD = {"thruster_ring16": 4, "thruster_ring20": 4,
+              "thruster_ring24": 4}
+# Phase 3's plain versions run in this many worker processes (one per host
+# core but one): they are host-bound, one PyTorch op per operation.
+COMPARE_WORKERS = max(1, min(7, (os.cpu_count() or 2) - 1))
+DEVICE = "cuda"
 CAP_SOLVE_S = 30.0    # thruster_ring24: max_iter is cut if a solve would
 #                       take longer
 SHORT_ITERS = 2       # thruster_ring16/20's solves (and ring24's merged
@@ -931,14 +1035,13 @@ def lane_ops(model, params, kind, use_limits=True, A=11, dt=DT, mode="jvp",
     return ops_per_step(at)
 
 
-def compare_model_kernels(dev, name, t_backward=None):
-    """Phases 8a and 9a: the model's four kernels (and, for the double
-    integrator and omni_thruster, the whole iteration without limits, which
-    their unconstrained paths run) against their plain versions on the card
-    at its path's shapes, on its path's x0, open-loop rollout and first
-    gains; masks mixed. ``t_backward`` cuts the horizon of the sweep and
-    iteration cases (their plain versions at m = 16…24 take minutes at the
-    path's T)."""
+def model_cases(dev, name):
+    """The model's four kernels (and, for the double integrator,
+    omni_thruster and the last four models, the kernels without limits that
+    their unconstrained paths run) at its path's shapes, on its path's x0,
+    open-loop rollout and first gains; masks mixed. The sweep and
+    iteration of thruster_ring16/20/24 on their first T_BACKWARD steps
+    (their plain versions take seconds per step)."""
     model, params, cfg, T, dt, u0, draw = workload(name)
     B, A, n, m = B_M, len(cfg.alphas), model.n, model.m
     rng = np.random.default_rng(0)
@@ -947,12 +1050,11 @@ def compare_model_kernels(dev, name, t_backward=None):
     x0 = f(draw(rng)).t().contiguous()
     us_in = f(u0)[:, :, None].expand(T, m, B).contiguous()
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
-    xs0, us0, xT0, c0 = kernel_rollout.rollout_plain(
+    xs0, us0, xT0, c0 = kernel_rollout.rollout_packed(
         model, "euler", True, pp, x0, us_in, zeros(T, n, B),
         zeros(T, m, n, B))
     lam = torch.ones(B, device=dev)
-    # the first iteration's gains, as the line search receives them (from
-    # the kernel: its plain version takes seconds here)
+    # the first iteration's gains, as the line search receives them
     k1, K1, dv1, _d, _g = kernel_sweep.sweep_packed(model, "euler", pp, xs0,
                                                     xT0, us0, lam)
     live, gate, keep = (f(rng.uniform(size=B) > 0.5) for _ in range(3))
@@ -963,7 +1065,7 @@ def compare_model_kernels(dev, name, t_backward=None):
     kold, Kold = f(rng.normal(size=(T, m, B))), f(rng.normal(size=(T, m, n,
                                                                    B)))
     old_bytes = nbytes(kold, Kold)
-    Tb = T if t_backward is None else t_backward
+    Tb = T_BACKWARD.get(name, T)
     # the sweep and iteration cases on the first Tb steps of the same
     # trajectory (x_Tb its terminal state)
     xsb, usb = xs0[:Tb].contiguous(), us0[:Tb].contiguous()
@@ -1004,19 +1106,22 @@ def compare_model_kernels(dev, name, t_backward=None):
              cfg.lambda_grad_term), "iteration", False,
             lambda got: old_b * ((got[10] < 0.5) & (live > 0.5))
             .float().mean().item())
-    rows = {}
+    out = {}
     for label, (op, plain, args, kind, limits, unread) in cases.items():
         key = f"{label.split('/')[0]}/{name}" + (
             "" if limits else "/unconstrained")
         Tc = Tb if kind in ("sweep", "iteration") else T
-        step, rest = lane_ops(model, params, kind, limits, A, dt)
-        row = compare_stage(
-            key, op, plain, args, step * Tc * B + rest * B,
-            f"({step} per (t, lane)) at B={B} T={Tc} A={A}", unread,
-            plain_reps=0)
-        rows[key] = dict(row, kernel=f"{kind}_kernel", model=name,
-                         limits=limits, T=Tc)
-    return rows
+
+        def ops(kind=kind, limits=limits, Tc=Tc):
+            step, rest = lane_ops(model, params, kind, limits, A, dt)
+            return step * Tc * B + rest * B
+
+        out[key] = Case(op, plain, args, ops, f"at B={B} T={Tc} A={A}",
+                        unread, dict(row=key, group="row",
+                                     kernel=f"{kind}_kernel", model=name,
+                                     limits=limits, T=Tc,
+                                     effort=effort(kind, Tc, n, m)))
+    return out
 
 
 def run_model_path(dev, name, label, B=B_M, reps=3, warmup=True,
@@ -1144,30 +1249,30 @@ def check_references(dev):
                              "solution")
     for name, T_c, iters in (("point_mass_3d", M23_T, 10),
                              ("quadrotor", 20, 5)):
-        out[f"{name}_card_vs_cpu"] = card_vs_cpu(name, T_c, iters)
+        out[f"{name}_card_vs_cpu"] = card_vs_cpu(name, T_c, iters,
+                                                 CPU_RTOL[name])
     return out
 
 
-def card_vs_cpu(name, T_c, iters, lanes=4, fd=None, tol="CPU_RTOL"):
+def card_vs_cpu(name, T_c, iters, tol, lanes=4, integrator=None):
     """A short solve on the card against the plain path on the CPU (the
-    path's first ``T_c`` steps), held to ``tol`` in relative cost
-    (default CPU_RTOL[name]; None: printed only). ``fd`` names an
-    integrator: the CLI's fd problem (cli_workload) with it, in place of
-    the slice's workload."""
-    if fd is None:
+    path's first ``T_c`` steps), held to ``tol`` in relative cost (None:
+    printed only). With ``integrator`` the problem is the CLI's fd one
+    (cli_workload) with that integrator; without, the slice's workload."""
+    if integrator is None:
         model, params, cfg, _T, dt, u0, draw = workload(name, B=lanes)
         x0 = draw(np.random.default_rng(9))
     else:
         model, params, cfg, _T, dt, u0, x0 = cli_workload(name, lanes)
-        cfg = cfg.replace(integrator=fd)
+        cfg = cfg.replace(integrator=integrator)
     cfg = cfg.replace(max_iter=iters)
-    tol = CPU_RTOL[name] if tol == "CPU_RTOL" else tol
     card = solve_batch_fused(model, params, cfg, dt, x0, u0[:T_c])
     cpu = solve_batch_fused(model, params, cfg, dt, x0, u0[:T_c],
                             device="cpu")
     c_card, c_cpu = card.cost.cpu().numpy(), cpu.cost.numpy()
     rel = float(np.max(np.abs(c_card - c_cpu) / np.abs(c_cpu)))
-    print(f"[slice] {name}{'' if fd is None else f' fd {fd}'}, {lanes} "
+    print(f"[slice] {name}{'' if integrator is None else f' fd {integrator}'}"
+          f", {lanes} "
           f"lanes, T={T_c}, max_iter={iters}: card vs the plain path on the "
           f"CPU, max relative cost difference {rel:.2e} ("
           + (f"≤ {tol:g})" if tol is not None else
@@ -1218,12 +1323,9 @@ def ptxas_table(log: str):
     return table
 
 
-def run_slice(dev):
-    """Phase 8: the m = 2…4 slice. Returns (kernel rows, results)."""
-    rows = {}
-    for name in SLICE_MODELS:
-        rows.update(compare_model_kernels(
-            dev, name, t_backward=QUAD_T_CUT if name == "quadrotor" else None))
+def run_slice(dev, rows):
+    """Phase 8: the m = 2…4 slice; the launches of its paths go into
+    ``rows``. Returns the results."""
     res = {}
     quad, (qx0, qcost, qwalls) = run_model_path(dev, "quadrotor",
                                                 "quadrotor")
@@ -1272,7 +1374,7 @@ def run_slice(dev):
         free["launches"]["iteration_packed"])
     res["double_integrator_unconstrained"] = free
     res["references"] = check_references(dev)
-    return rows, res
+    return res
 
 
 def short_solve(name, label, max_iter, **cfg_extra):
@@ -1297,17 +1399,10 @@ def short_solve(name, label, max_iter, **cfg_extra):
                 launches=counts)
 
 
-def run_wide_slice(dev):
-    """Phase 9: the m ≥ 5 slice. Returns (kernel rows, results)."""
-    rows, res = {}, {}
-    t0 = time.perf_counter()
-    for name in WIDE_MODELS:
-        rows.update(compare_model_kernels(
-            dev, name, t_backward=WIDE_T_CUT if name in (
-                "omni_thruster", "free_flyer", "thruster_ring")
-            else WIDE_T_BACKWARD))
-    print(f"[time] phase 9a (kernels against plain versions) "
-          f"{time.perf_counter() - t0:.1f} s")
+def run_wide_slice(dev, rows):
+    """Phase 9: the m ≥ 5 slice; the launches of its paths go into
+    ``rows``. Returns the results."""
+    res = {}
 
     def split_route(out, label):
         c = out["launches"]
@@ -1412,21 +1507,15 @@ def run_wide_slice(dev):
           f"{time.perf_counter() - t0:.1f} s")
 
     # (f) card against CPU on short solves
-    res["card_vs_cpu"] = {name: card_vs_cpu(name, 10, 3) for name in
-                          ("omni_thruster", "thruster_ring")}
-    return rows, res
+    res["card_vs_cpu"] = {name: card_vs_cpu(name, 10, 3, CPU_RTOL[name])
+                          for name in ("omni_thruster", "thruster_ring")}
+    return res
 
 
-def run_cli_slice(dev):
-    """Phase 10: the last four models. Returns (kernel rows, results)."""
-    rows, res = {}, {}
-    t0 = time.perf_counter()
-    for name in CLI_MODELS:
-        rows.update(compare_model_kernels(dev, name))
-    print(f"[time] phase 10a (kernels against plain versions) "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
+def run_cli_slice(dev, rows):
+    """Phase 10: the last four models; the launches of their paths go into
+    ``rows``. Returns the results."""
+    res = {}
     for name in CLI_MODELS:
         out, (x0, cost, walls) = run_model_path(
             dev, name, f"{name} (CLI problem, full width)")
@@ -1475,11 +1564,10 @@ def run_cli_slice(dev):
         rows[f"iteration_packed/{name}/unconstrained"]["launches"] = (
             free["launches"]["iteration_packed"])
         res[name] = out
-    print(f"[time] phase 10b (the four paths) "
-          f"{time.perf_counter() - t0:.1f} s")
-    res["card_vs_cpu"] = {name: card_vs_cpu(name, CLI_CPU_T, CLI_CPU_ITERS)
+    res["card_vs_cpu"] = {name: card_vs_cpu(name, CLI_CPU_T, CLI_CPU_ITERS,
+                                            CPU_RTOL[name])
                           for name in CLI_MODELS}
-    return rows, res
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1512,19 +1600,6 @@ CLI_SPECS = {   # name: (T, dt, the spec's x0, hover u0)
 # The models whose paths phases 8-10 also run without limits
 FD_FREE = ("double_integrator", "omni_thruster", "pendulum", "cartpole",
            "bicycle", "power_mass")
-# The stencil sweep and iteration against their plain versions at a cut
-# horizon where the plain versions take many seconds at the path's T (the
-# dense step runs ~10⁴-10⁵ PyTorch ops per step on the card): the
-# quadrotor's, omni_thruster's, free_flyer's and thruster_ring's sweep at 8
-# steps, the rings 16-24's and the iteration kernels of every m·n ≥ 32
-# model (their paths take the split iteration) at 2.
-FD_T_SWEEP = {"quadrotor": 8, "omni_thruster": 8, "free_flyer": 8,
-              "thruster_ring": 8, "thruster_ring16": 2,
-              "thruster_ring20": 2, "thruster_ring24": 2}
-FD_T_ITER_WIDE = 2
-# The RK4 rollout and line search of the models whose paths run Euler,
-# against their plain versions on their paths' first 20 steps
-FD_T_RK4 = 20
 FD_CAP_S = 20.0   # thruster_ring's fd path: max_iter cut if a solve would
 #                   take longer
 FD_EQ_T, FD_EQ_ITERS = T_EQ, ITER_EQ   # acrobot's merged-vs-split routes
@@ -1550,45 +1625,14 @@ def cli_workload(name, B=B_M):
     return model, params, cfg, T, dt, u0.astype(np.float32), x0
 
 
-def predict_on_cpu(name="acrobot", integrator="euler", lanes=64):
-    """The CLI batch solve of ``name`` (fd, ``integrator``) through the plain
-    path on the CPU, on the first ``lanes`` lanes of its B = 8192 x0 draw
-    (lanes are independent, so these are the same problems as the card's
-    first lanes): mean cost, the initial rollout's, iterations, reasons.
-    Needs no card; acrobot at 64 lanes takes ~12 min on one CPU core.
-
-        python3 -c "import chip_smoke; chip_smoke.predict_on_cpu()"
-    """
-    model, params, cfg, T, dt, u0, x0 = cli_workload(name, B_MAIN)
-    cfg = cfg.replace(integrator=integrator)
-    x0 = x0[:lanes]
-    pp = kernel_rollout.pack_params(params, dt)
-    init = kernel_rollout.rollout_plain(
-        model, integrator, cfg.clamp_forward, pp,
-        torch.as_tensor(x0).t().contiguous(),
-        torch.as_tensor(u0)[:, :, None].expand(T, model.m, lanes)
-        .contiguous(), torch.zeros(T, model.n, lanes),
-        torch.zeros(T, model.m, model.n, lanes))[3].numpy()
-    sol = solve_batch_fused(model, params, cfg, dt, x0, u0, device="cpu")
-    cost, iters = sol.cost.numpy(), sol.iterations.numpy()
-    out = dict(name=name, integrator=integrator, lanes=lanes,
-               mean_cost=float(cost.mean()), init_mean_cost=float(init.mean()),
-               mean_iters=float(iters.mean()), max_iters=int(iters.max()),
-               lanes_above_initial=int((cost > init).sum()),
-               reason_hist={int(k): int(v) for k, v in zip(*np.unique(
-                   sol.reason.numpy(), return_counts=True))})
-    print(json.dumps(out))
-    return out
-
-
-def compare_fd_kernels(dev, name):
-    """Phase 11a: ``name``'s stencil sweep and iteration kernels (Euler; for
-    acrobot and the quadrotor, whose paths run RK4, also RK4) and its
-    rollout and line search with the RK4 step, against their plain versions
-    on the card at its CLI path's shapes (B = 8192 for acrobot, else 1024;
-    the sweep and iteration cut as FD_T_SWEEP, FD_T_ITER_WIDE say), on that
-    path's x0, its unclamped open-loop rollout and first stencil gains;
-    masks mixed. Returns (the new rows, the RK4 readings of rows by key)."""
+def fd_cases(dev, name):
+    """``name``'s stencil sweep and iteration kernels (Euler; for acrobot
+    and the quadrotor, whose paths run RK4, also RK4) and its rollout and
+    line search with the RK4 step, at its CLI path's shapes (B = 8192 for
+    acrobot, else 1024; the sweep and iteration of thruster_ring16/20/24 on
+    their first T_BACKWARD steps), on that path's x0, its unclamped
+    open-loop rollout and first stencil gains; masks mixed. The RK4 cases
+    are readings of a row's kernel (group "rk4")."""
     B = B_MAIN if name == "acrobot" else B_M
     model, params, cfg, T, dt, u0, x0_np = cli_workload(name, B)
     A, n, m = len(cfg.alphas), model.n, model.m
@@ -1611,85 +1655,73 @@ def compare_fd_kernels(dev, name):
     uff = us0 + f(0.2 * rng.normal(size=(T, m, B)))
     kold, Kold = f(rng.normal(size=(T, m, B))), f(rng.normal(size=(T, m, n,
                                                                    B)))
-
-    def cut(Tb):
-        """The first Tb steps of the trajectory (x_Tb its terminal state)
-        and of the previous gains."""
-        if Tb == T:
-            return xs0, xT0, us0, kold, Kold
-        return (xs0[:Tb].contiguous(), xs0[Tb].contiguous(),
-                us0[:Tb].contiguous(), kold[:Tb].contiguous(),
-                Kold[:Tb].contiguous())
-
-    Ts = FD_T_SWEEP.get(name, T)
-    Ti = T if m * n < 32 else FD_T_ITER_WIDE
+    # the sweep and iteration on the first Tb steps (x_Tb the terminal)
+    Tb = T_BACKWARD.get(name, T)
+    xsb, usb = xs0[:Tb].contiguous(), us0[:Tb].contiguous()
+    xTb = xT0 if Tb == T else xs0[Tb].contiguous()
+    kob, Kob = kold[:Tb].contiguous(), Kold[:Tb].contiguous()
+    old_b, old = nbytes(kob, Kob), nbytes(kold, Kold)
 
     def sweep_case(integ, limits):
-        xsb, xTb, usb, _ko, _Ko = cut(Ts)
         return (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
                 (model, integ, pp, xsb, xTb, usb, lam, "fd", limits),
-                "sweep", limits, integ, Ts, None)
+                "sweep", limits, integ, Tb, None)
 
     def iteration_case(integ, limits):
-        xsb, xTb, usb, kob, Kob = cut(Ti)
-        old = nbytes(kob, Kob)
         return (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
-                (model, integ, False, pp, x0, xsb, xTb, usb, kob, Kob, lam, c0,
-                 live, alphas, "fd", limits, cfg.z_min, cfg.tol_grad,
+                (model, integ, False, pp, x0, xsb, xTb, usb, kob, Kob, lam,
+                 c0, live, alphas, "fd", limits, cfg.z_min, cfg.tol_grad,
                  cfg.lambda_grad_term),
-                "iteration", limits, integ, Ti,
-                lambda got: old * ((got[10] < 0.5) & (live > 0.5))
+                "iteration", limits, integ, Tb,
+                lambda got: old_b * ((got[10] < 0.5) & (live > 0.5))
                 .float().mean().item())
 
-    cases = {f"sweep_packed/{name}/fd": sweep_case("euler", True),
-             f"iteration_packed/{name}/fd": iteration_case("euler", True)}
+    rows = {f"sweep_packed/{name}/fd": sweep_case("euler", True),
+            f"iteration_packed/{name}/fd": iteration_case("euler", True)}
     if name in FD_FREE:
         free = "sweep" if m * n >= 32 else "iteration"
-        cases[f"{free}_packed/{name}/fd/unconstrained"] = (
+        rows[f"{free}_packed/{name}/fd/unconstrained"] = (
             sweep_case if free == "sweep" else iteration_case)("euler", False)
-    # the RK4 rollout and line search at the path's T where a path runs
-    # RK4, else on its first FD_T_RK4 steps
-    Tr = T if name in ("acrobot", "quadrotor") else min(T, FD_T_RK4)
-    xs_r, xT_r, us_r, kold_r, Kold_r = cut(Tr)
     rk4 = {
         f"rollout_packed/{name}": (
             kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
-            (model, "rk4", False, pp, x0, uff[:Tr].contiguous(),
-             xsr[:Tr].contiguous(), Kr[:Tr].contiguous()), "rollout", True,
-            "rk4", Tr, None),
+            (model, "rk4", False, pp, x0, uff, xsr, Kr), "rollout", True,
+            "rk4", T, None),
         f"linesearch_packed/{name}": (
             kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
-            (model, "rk4", False, pp, x0, us_r, xs_r, xT_r,
-             K1[:Tr].contiguous(), k1[:Tr].contiguous(), Kold_r, kold_r,
+            (model, "rk4", False, pp, x0, us0, xs0, xT0, K1, k1, Kold, kold,
              alphas, dv1, c0, gate, keep, cfg.z_min), "linesearch", True,
-            "rk4", Tr,
-            lambda got: nbytes(kold_r, Kold_r) * (keep > 0.5).float().mean()
-            .item())}
+            "rk4", T, lambda got: old * (keep > 0.5).float().mean().item())}
     if name in ("acrobot", "quadrotor"):   # their paths run RK4
         rk4[f"sweep_packed/{name}/fd"] = sweep_case("rk4", True)
     if name == "acrobot":
         rk4[f"iteration_packed/{name}/fd"] = iteration_case("rk4", True)
 
-    def run(key, case):
-        op, plain, args, kind, limits, integ, Tc, unread = case
-        mode = "fd" if kind in ("sweep", "iteration") else "jvp"
-        step, rest = lane_ops(model, params, kind, limits, A, dt, mode,
-                              integ)
-        r = compare_stage(
-            f"{key} ({integ})", op, plain, args, step * Tc * B + rest * B,
-            f"({step} per (t, lane)) at B={B} T={Tc} A={A}", unread,
-            plain_reps=0)
-        return dict(r, kernel=f"{kind}_kernel" + ("_fd" if mode == "fd"
-                                                   else ""),
-                    model=name, limits=limits, T=Tc)
+    out = {}
+    for group, cases in (("row", rows), ("rk4", rk4)):
+        for key, (op, plain, args, kind, limits, integ, Tc,
+                  unread) in cases.items():
+            mode = "fd" if kind in ("sweep", "iteration") else "jvp"
 
-    rows = {key: run(key, case) for key, case in cases.items()}
-    for key, r in rows.items():
-        stem = ("kernels_quadrotor_iteration_fd.cu"
-                if key.startswith("iteration") and name == "quadrotor"
-                else f"kernels_{name}_fd.cu")
-        r["source"] = f"ilqr_tpu_torch/csrc/{stem}"
-    return rows, {key: run(key, case) for key, case in rk4.items()}
+            def ops(kind=kind, limits=limits, integ=integ, Tc=Tc, mode=mode):
+                step, rest = lane_ops(model, params, kind, limits, A, dt,
+                                      mode, integ)
+                return step * Tc * B + rest * B
+
+            meta = dict(row=key, group=group,
+                        kernel=f"{kind}_kernel" + ("_fd" if mode == "fd"
+                                                   else ""),
+                        model=name, limits=limits, T=Tc,
+                        effort=effort(kind, Tc, n, m) * (
+                            4 if integ == "rk4" else 1))
+            if group == "row":
+                stem = ("kernels_quadrotor_iteration_fd.cu"
+                        if kind == "iteration" and name == "quadrotor"
+                        else f"kernels_{name}_fd.cu")
+                meta["source"] = f"ilqr_tpu_torch/csrc/{stem}"
+            out[f"{key} ({integ})"] = Case(
+                op, plain, args, ops, f"at B={B} T={Tc} A={A}", unread, meta)
+    return out
 
 
 def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
@@ -1746,6 +1778,12 @@ def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
         cost_quantiles={q: float(np.percentile(cost, q))
                         for q in (50, 90, 99, 100)},
         first_64_lanes_mean_cost=float(cost[:64].mean()))
+    if name == "acrobot":
+        # each of the first 64 lanes, beside the plain path's on the CPU
+        # (tests/test_torch_cli_predict.py solves the same lanes there)
+        out["first_64_lanes_costs"] = [float(v) for v in cost[:64]]
+        print(f"[fd] {label}: the first 64 lanes' costs "
+              f"{[round(float(v), 4) for v in cost[:64]]}")
     print(f"[fd] {label}: B={B} T={T} max_iter={cfg.max_iter} "
           f"{cfg.integrator}: {out['solves_per_s']:.1f} solves/s (median of "
           f"{reps}; {nvidia_smi()}), {out['ms_per_iteration']:.3f} "
@@ -1809,17 +1847,11 @@ def fd_solve(dev, name, label, ref_cost=None, B=B_M, T=None, **cfg_extra):
     return out, cost
 
 
-def run_fd_slice(dev):
-    """Phase 11: the stencils in the fused kernels and RK4. Returns (the new
-    kernel rows, the RK4 readings of rows by key, results)."""
-    rows, rk4, res = {}, {}, {}
-    t0 = time.perf_counter()
-    for name in CLI_SPECS:
-        r, k = compare_fd_kernels(dev, name)
-        rows.update(r)
-        rk4.update(k)
-    print(f"[time] phase 11a (fd and RK4 kernels against plain versions) "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+def run_fd_slice(dev, rows, rk4):
+    """Phase 11: the stencils in the fused kernels and RK4; the launches of
+    its paths go into ``rows`` and the RK4 readings ``rk4``. Returns the
+    results."""
+    res = {}
 
     def record(key, counts, mode="fd"):
         """The launches on a path of a row (mode "fd") or of an RK4 reading
@@ -1830,7 +1862,7 @@ def run_fd_slice(dev):
     # (b) the headline: the CLI's default batch solve of acrobot, and its
     # RK4 twin; their split routes against the merged ones at T = FD_EQ_T
     t0 = time.perf_counter()
-    for integ in ("euler", "rk4"):   # phase 11a warmed the kernels up
+    for integ in ("euler", "rk4"):   # phase 3 warmed the kernels up
         out, _c = run_fd_path(
             dev, "acrobot", f"acrobot {integ} (the CLI's batch solve)",
             B=B_MAIN, reps=1, warmup=False, profile=integ == "euler",
@@ -1952,19 +1984,19 @@ def run_fd_slice(dev):
 
     # (e) short solves on the card against the plain path on the CPU
     res["card_vs_cpu"] = {
-        f"{name}_{integ}": card_vs_cpu(name, FD_CPU_T, FD_CPU_ITERS, fd=integ,
-                                       tol=tol)
+        f"{name}_{integ}": card_vs_cpu(name, FD_CPU_T, FD_CPU_ITERS, tol,
+                                       integrator=integ)
         for name, integ, tol in (("power_mass", "euler", 1e-4),
                                  ("double_integrator", "rk4", 1e-4),
                                  ("acrobot", "rk4", None))}
-    return rows, rk4, res
+    return res
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     smi = nvidia_smi()
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
@@ -1997,17 +2029,12 @@ def main() -> int:
         t_phase = now
 
     tick("phases 1-2 (environment, build)")
-    model = get_model("acrobot")
-    params = acrobot.default_params()
-    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
-                       use_control_limits=True, max_iter=MAX_ITER)
-    pp = kernel_rollout.pack_params(params, DT, dev)
-    rows = compare_kernels(dev, model, pp, cfg)
-    tick("phase 3 (acrobot kernels against plain versions)")
-
+    rows, rk4_readings = run_comparisons(dev, tick)
+    tick(f"phase 3b (plain versions, {COMPARE_WORKERS} processes)")
+    model, params, cfg = flagship()
     main_out = run_main_path(dev, model, params, cfg)
     for name in ("rollout_packed", "iteration_packed"):
-        rows[name]["launches"] = main_out["launches"][name]
+        rows[f"{name}/acrobot"]["launches"] = main_out["launches"][name]
     main_out["profile"] = profile_solve(
         "fused", lambda x0, u0: solve_batch_fused(model, params, cfg, DT, x0,
                                                   u0),
@@ -2015,41 +2042,35 @@ def main() -> int:
     tick("phase 4 (the flagship path)")
     split_counts, gauges = run_split_path(dev, model, params, cfg)
     for name in ("sweep_packed", "linesearch_packed"):
-        rows[name]["launches"] = split_counts[name]
+        rows[f"{name}/acrobot"]["launches"] = split_counts[name]
     tick("phase 5 (split route, plain path)")
     comp_out = run_composable_path(dev, model, params, cfg, main_out)
     for name in ("derivs_packed", "backward_sweep_packed"):
-        rows[name]["launches"] = comp_out["launches"][name]
+        rows[f"{name}/acrobot"]["launches"] = comp_out["launches"][name]
     tick("phase 6 (composable path)")
     equiv = run_equivalence(dev, model, params, cfg)
     tick("phase 7 (equivalence)")
-    rows = {f"{name}/acrobot": dict(r, kernel=name.replace(
-        "_packed", "_kernel").replace("backward_sweep", "backward"),
-        model="acrobot", limits=True) for name, r in rows.items()}
-    slice_rows, slice_out = run_slice(dev)
-    rows.update(slice_rows)
+    slice_out = run_slice(dev, rows)
     tick("phase 8 (the m = 2…4 slice)")
-    wide_rows, wide_out = run_wide_slice(dev)
-    rows.update(wide_rows)
+    wide_out = run_wide_slice(dev, rows)
     tick("phase 9 (the m ≥ 5 slice)")
-    cli_rows, cli_out = run_cli_slice(dev)
-    rows.update(cli_rows)
+    cli_out = run_cli_slice(dev, rows)
     tick("phase 10 (pendulum, cartpole, bicycle, power_mass)")
-    fd_rows, rk4_readings, fd_out = run_fd_slice(dev)
-    rows.update(fd_rows)
+    fd_out = run_fd_slice(dev, rows, rk4_readings)
     tick("phase 11 (the stencils in the fused kernels, RK4)")
     print(f"[time] phases 2-11 {time.perf_counter() - t0:.1f} s", flush=True)
     for key, r in rk4_readings.items():   # RK4, a mode of a row's kernel
         rows[key].update({f"rk4_{k}": v for k, v in r.items()
                           if k not in ("kernel", "model", "limits")})
     for name, r in rows.items():
+        kind = name.split("/")[0]
         r["name"] = name
-        if r["model"] != "acrobot" or name.endswith("/fd"):
-            r.setdefault("source",
-                         f"ilqr_tpu_torch/csrc/kernels_{r['model']}.cu")
-            r.update(route="cuda", replaces=REPLACES[name.split("/")[0]],
-                     tol=KERNEL_TOL, library_ms=None, library_note=(
-                         "no single PyTorch call computes this function"))
+        r.setdefault("source", SOURCES.get(
+            kind, "ilqr_tpu_torch/csrc/kernels.cu") if r["model"] == "acrobot"
+            else f"ilqr_tpu_torch/csrc/kernels_{r['model']}.cu")
+        r.update(route="cuda", replaces=REPLACES[kind], tol=KERNEL_TOL,
+                 library_ms=None, library_note=(
+                     "no single PyTorch call computes this function"))
         limits = r["limits"] if r["kernel"].startswith(
             ("sweep_kernel", "iteration_kernel")) else None
         r.update(ptxas.get((r["kernel"], r["model"], limits), {}))

@@ -335,28 +335,12 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
-// The derivative source a launcher's arguments select: the analytic one
-// takes the Euler step only (the JAX kernel's use_analytic), so any other
-// scheme is refused before a launch.
-template <class Deriv>
-inline bool make_deriv(int scheme, float eps, float den1, float den2,
-                       Deriv& d) {
-  if constexpr (Deriv::kDense) {
-    d.s = fd::Stencil{eps, den1, den2, scheme};
-    return scheme == integrate::kEuler || scheme == integrate::kRK4;
-  }
-  return scheme == integrate::kEuler;
-}
-
 template <class Model, class Deriv>
 inline int launch_sweep(const void* params, const void* xs,
                         const void* xterm, const void* us, const void* lam,
                         void* k, void* K, void* dv, void* div, void* gnorm,
-                        int T, int B, int use_limits, int scheme, float eps,
-                        float den1, float den2, void* stream) {
-  Deriv d;
-  if (!make_deriv(scheme, eps, den1, den2, d))
-    return (int)cudaErrorInvalidValue;
+                        int T, int B, int use_limits, Deriv d,
+                        void* stream) {
   return launch(use_limits ? sweep_kernel<Model, true, Deriv>
                            : sweep_kernel<Model, false, Deriv>,
                 B, stream, (const float*)params, (const float*)xs,
@@ -374,10 +358,7 @@ inline int launch_iteration(
     void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,
     void* div, void* gnorm, void* gains, float z_min, float tol_grad,
     float lam_grad_term, int T, int B, int clamp, int use_limits, int scheme,
-    float eps, float den1, float den2, void* stream) {
-  Deriv d;
-  if (!make_deriv(scheme, eps, den1, den2, d))
-    return (int)cudaErrorInvalidValue;
+    Deriv d, void* stream) {
   return launch(
       use_limits ? iteration_kernel<Model, true, Deriv>
                  : iteration_kernel<Model, false, Deriv>,
@@ -395,9 +376,11 @@ inline int launch_iteration(
 
 // The extern "C" launchers of one model, ilqr_<NAME>_<kernel>, with the
 // signatures ops/_build.py binds. The sweep and iteration launchers pick the
-// kernel with control limits (the box QP) or without (the Newton step); all
-// take the integrator (0 Euler, 1 RK4) and the stencil's eps and
-// denominators, which the analytic ones do not read (they refuse RK4).
+// kernel with control limits (the box QP) or without (the Newton step). The
+// rollout and line-search launchers take the integrator (0 Euler, 1 RK4);
+// the analytic sweep and iteration run the Euler step (the JAX kernel's
+// use_analytic), the stencil ones (_fd) take the integrator and the
+// stencil's eps and denominators.
 // ILQR_FUSED_LAUNCHERS instantiates the four analytic kernels; a model
 // whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
@@ -414,34 +397,25 @@ inline int launch_iteration(
   ILQR_FD_SWEEP_LAUNCHER(NAME, MODEL)  \
   ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)
 
-#define ILQR_SWEEP_LAUNCHER_AS(FN, MODEL, DERIV)                              \
-  extern "C" int FN(const void* params, const void* xs, const void* xterm,    \
-                    const void* us, const void* lam, void* k, void* K,        \
-                    void* dv, void* div, void* gnorm, int T, int B,           \
-                    int use_limits, int scheme, float eps, float den1,        \
-                    float den2, void* stream) {                               \
-    return fused::launch_sweep<MODEL, DERIV>(params, xs, xterm, us, lam, k,   \
-                                             K, dv, div, gnorm, T, B,         \
-                                             use_limits, scheme, eps, den1,   \
-                                             den2, stream);                   \
-  }
-
-#define ILQR_ITERATION_LAUNCHER_AS(FN, MODEL, DERIV)                          \
-  extern "C" int FN(                                                          \
-      const void* params, const void* x0, const void* xs, const void* xterm,  \
+#define ILQR_SWEEP_PARAMS                                                   \
+  const void* params, const void* xs, const void* xterm, const void* us,    \
+      const void* lam, void* k, void* K, void* dv, void* div, void* gnorm, \
+      int T, int B, int use_limits
+#define ILQR_SWEEP_ARGS \
+  params, xs, xterm, us, lam, k, K, dv, div, gnorm, T, B, use_limits
+#define ILQR_ITERATION_PARAMS                                                  \
+  const void* params, const void* x0, const void* xs, const void* xterm,      \
       const void* us, const void* Kold, const void* kold, const void* alphas, \
       int A, const void* lam, const void* cprev, const void* live,            \
       void* xs_out, void* us_out, void* xfin, void* k_out, void* K_out,       \
       void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,  \
       void* div, void* gnorm, void* gains, float z_min, float tol_grad,       \
-      float lam_grad_term, int T, int B, int clamp, int use_limits,           \
-      int scheme, float eps, float den1, float den2, void* stream) {          \
-    return fused::launch_iteration<MODEL, DERIV>(                             \
-        params, x0, xs, xterm, us, Kold, kold, alphas, A, lam, cprev, live,   \
-        xs_out, us_out, xfin, k_out, K_out, lscost, alpha_sel, acc, dcost,    \
-        expected, div, gnorm, gains, z_min, tol_grad, lam_grad_term, T, B,    \
-        clamp, use_limits, scheme, eps, den1, den2, stream);                  \
-  }
+      float lam_grad_term, int T, int B, int clamp, int use_limits
+#define ILQR_ITERATION_ARGS                                                  \
+  params, x0, xs, xterm, us, Kold, kold, alphas, A, lam, cprev, live,        \
+      xs_out, us_out, xfin, k_out, K_out, lscost, alpha_sel, acc, dcost,     \
+      expected, div, gnorm, gains, z_min, tol_grad, lam_grad_term, T, B,     \
+      clamp, use_limits
 
 #define ILQR_SPLIT_LAUNCHERS(NAME, MODEL)                                      \
   extern "C" {                                                                 \
@@ -474,15 +448,34 @@ inline int launch_iteration(
         (float*)acc, (float*)dcost, (float*)expected, z_min, T, B, clamp,      \
         scheme);                                                               \
   }                                                                            \
+  int ilqr_##NAME##_sweep(ILQR_SWEEP_PARAMS, void* stream) {                   \
+    return fused::launch_sweep<MODEL>(ILQR_SWEEP_ARGS, sweep::Analytic{},      \
+                                      stream);                                 \
   }                                                                            \
-  ILQR_SWEEP_LAUNCHER_AS(ilqr_##NAME##_sweep, MODEL, sweep::Analytic)
+  }
 
-#define ILQR_ITERATION_LAUNCHER(NAME, MODEL) \
-  ILQR_ITERATION_LAUNCHER_AS(ilqr_##NAME##_iteration, MODEL, sweep::Analytic)
+#define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                \
+  extern "C" int ilqr_##NAME##_iteration(ILQR_ITERATION_PARAMS,             \
+                                         void* stream) {                    \
+    return fused::launch_iteration<MODEL>(                                  \
+        ILQR_ITERATION_ARGS, integrate::kEuler, sweep::Analytic{}, stream); \
+  }
 
-#define ILQR_FD_SWEEP_LAUNCHER(NAME, MODEL) \
-  ILQR_SWEEP_LAUNCHER_AS(ilqr_##NAME##_sweep_fd, MODEL, sweep::FiniteDiff)
+#define ILQR_FD_SWEEP_LAUNCHER(NAME, MODEL)                              \
+  extern "C" int ilqr_##NAME##_sweep_fd(ILQR_SWEEP_PARAMS, int scheme,   \
+                                        float eps, float den1,           \
+                                        float den2, void* stream) {      \
+    return fused::launch_sweep<MODEL>(                                   \
+        ILQR_SWEEP_ARGS,                                                 \
+        sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}}, stream); \
+  }
 
-#define ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)                  \
-  ILQR_ITERATION_LAUNCHER_AS(ilqr_##NAME##_iteration_fd, MODEL, \
-                             sweep::FiniteDiff)
+#define ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)                             \
+  extern "C" int ilqr_##NAME##_iteration_fd(ILQR_ITERATION_PARAMS,          \
+                                            int scheme, float eps,          \
+                                            float den1, float den2,         \
+                                            void* stream) {                 \
+    return fused::launch_iteration<MODEL>(                                  \
+        ILQR_ITERATION_ARGS, scheme,                                        \
+        sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}}, stream);   \
+  }

@@ -45,16 +45,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the launchers in csrc/*.cu, in argument order. The fused
 # solver's four kernels have one launcher per model, ilqr_<model>_<kernel>
 # (each model's own csrc/kernels*.cu), all with the signature of <kernel>;
-# the stencil sweep and iteration kernels, ilqr_<model>_<kernel>_fd
-# (csrc/kernels_<model>_fd.cu), share their analytic twins' signatures.
-# Every launcher takes the integrator (0 Euler, 1 RK4); the sweep and
-# iteration launchers also the stencil's eps, 2·eps and 4·eps².
+# the rollout and line-search launchers take the integrator (0 Euler, 1
+# RK4). The stencil sweep and iteration kernels, ilqr_<model>_<kernel>_fd
+# (csrc/kernels_<model>_fd.cu), take their analytic twins' arguments and
+# then the integrator and the stencil's eps, 2·eps and 4·eps².
+_SWEEP = [_P] * 10 + [_I, _I, _I]
+_ITERATION = [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I, _I]
+_STENCIL = [_I, _F, _F, _F]
 _FUSED_SIGNATURES = {
     "rollout": [_P] * 9 + [_I, _I, _I, _I, _P],
-    "sweep": [_P] * 10 + [_I, _I, _I, _I, _F, _F, _F, _P],
+    "sweep": _SWEEP + [_P],
     "linesearch": [_P] * 10 + [_I] + [_P] * 14 + [_F, _I, _I, _I, _I, _P],
-    "iteration": [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I, _I,
-                                               _I, _F, _F, _F, _P],
+    "iteration": _ITERATION + [_P],
+    "sweep_fd": _SWEEP + _STENCIL + [_P],
+    "iteration_fd": _ITERATION + _STENCIL + [_P],
 }
 _SIGNATURES = {
     "ilqr_derivs": [_P] * 10 + [_I, _F, _F, _F, _I, _I, _P],
@@ -66,7 +70,8 @@ def signature(name: str):
     """The ctypes argument types of launcher ``name``."""
     if name in _SIGNATURES:
         return _SIGNATURES[name]
-    kernel = name.removesuffix("_fd").rsplit("_", 1)[-1]
+    kernel = name.removesuffix("_fd").rsplit("_", 1)[-1] + (
+        "_fd" if name.endswith("_fd") else "")
     if name.startswith("ilqr_") and kernel in _FUSED_SIGNATURES:
         return _FUSED_SIGNATURES[kernel]
     raise KeyError(f"no launcher {name!r}")

@@ -20,7 +20,6 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     linesearch_plain,
     on_cuda,
     require_kernel_model,
-    scheme,
 )
 from ilqr_tpu_torch.ops.kernel_sweep import (
     check_supported,
@@ -94,12 +93,12 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             torch.empty((T, m, n, B), dtype=F32, device=dev),
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(7)))
     gains = torch.empty((T, m * (n + 1), B), dtype=F32, device=dev)
-    suffix, stencil = fd_args(mode, eps)
+    suffix, stencil = fd_args(mode, integrator, eps)
     _build.launch(f"{prefix}_iteration{suffix}", dev, pp.vec, x0, xs_body,
                   xterm, us, Kold, kold, alphas, A, lam, cost_prev, live,
                   *outs, gains, float(z_min), float(tol_grad),
                   float(lambda_grad_term), T, B, int(bool(clamp)),
-                  int(bool(use_limits)), scheme(integrator), *stencil)
+                  int(bool(use_limits)), *stencil)
     iteration_packed.launches += 1
     return outs
 

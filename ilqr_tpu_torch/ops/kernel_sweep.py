@@ -330,13 +330,16 @@ def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
     return k, K, dv, c.div, c.gacc * (1.0 / T)
 
 
-def fd_args(mode: str, eps: float):
-    """The stencil arguments of the sweep and iteration launchers: eps and
-    the denominators 2·eps and 4·eps², each taken in double and rounded once
-    to f32 by ctypes, as the JAX kernel rounds its Python floats. The
-    launcher suffix of the stencil kernels."""
-    suffix = "_fd" if mode == "fd" else ""
-    return suffix, (float(eps), float(2.0 * eps), float(4.0 * eps * eps))
+def fd_args(mode: str, integrator: str, eps: float):
+    """The launcher suffix and the trailing arguments of the sweep and
+    iteration launchers: none for the analytic kernels (Euler only); for
+    the stencil ones (_fd) the integrator, eps and the denominators 2·eps
+    and 4·eps², each taken in double and rounded once to f32 by ctypes, as
+    the JAX kernel rounds its Python floats."""
+    if mode != "fd":
+        return "", ()
+    return "_fd", (scheme(integrator), float(eps), float(2.0 * eps),
+                   float(4.0 * eps * eps))
 
 
 def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
@@ -368,10 +371,10 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     dv = torch.empty((2, B), dtype=F32, device=dev)
     div = torch.empty((B,), dtype=F32, device=dev)
     gnorm = torch.empty((B,), dtype=F32, device=dev)
-    suffix, stencil = fd_args(mode, eps)
+    suffix, stencil = fd_args(mode, integrator, eps)
     _build.launch(f"{prefix}_sweep{suffix}", dev, pp.vec, xs_body, xterm, us,
                   lam, k, K, dv, div, gnorm, T, B, int(bool(use_limits)),
-                  scheme(integrator), *stencil)
+                  *stencil)
     sweep_packed.launches += 1
     return k, K, dv, div, gnorm
 
