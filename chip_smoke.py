@@ -14,8 +14,11 @@ Phases (any failure raises and the script exits non-zero):
      B = 8192, T = 499, A = 11 (the derivative kernel in both its modes);
      each m ≥ 2 model's four kernels (the analytic ones at phases 8-10's
      shapes, the stencil sweep and iteration and the RK4 rollout and line
-     search at the CLI problem's; thruster_ring16/20/24's sweep and
-     iteration on their first 4 steps). This process times each kernel
+     search at the CLI problem's); the dual-number sweep and iteration of
+     all 14 models and the split sweep's derivative and backward kernels
+     of acrobot, pendulum and cartpole at phase 12's shapes
+     (thruster_ring16/20/24's sweep and iteration on their first 4
+     steps). This process times each kernel
      alone on the card (CUDA events); then worker processes run the plain
      versions, which are host-bound, longest first; each case prints its
      errors, times and bound;
@@ -73,8 +76,21 @@ Phases (any failure raises and the script exits non-zero):
      against the other under the gauge (the m·n ≥ 32 models' merged routes
      at a cut depth), the paths without limits, and short solves against
      the plain path on the CPU;
- 12. one JSON line listing every kernel × model instantiation launched (the
-     RK4 readings as rk4_* fields of the kernel's row), the card's line,
+ 12. the dual-number slice: the CLI's batch solves with analytic
+     derivatives and RK4 (--deriv-mode analytic --integrator-scheme rk4:
+     the sweep's in-kernel JVP route, exact dual-number derivatives of the
+     RK4 step): acrobot at B = 8192, T = 499 (the first 64 lanes' costs
+     printed), the quadrotor (the split iteration), the other twelve
+     canonical problems (rings 16-24 at a cut depth, thruster_ring's
+     max_iter capped), each route against the other, without limits where
+     phase 11 runs so; the split sweep (--sweep-kernel split: the
+     derivative and backward kernels) of pendulum and cartpole (analytic
+     Euler, analytic RK4, fd Euler) and acrobot (analytic and fd RK4, B =
+     8192, T = 499), each against the merged route under the gauge; short
+     solves against the plain path on the CPU;
+ 13. one JSON line listing every kernel × model instantiation launched (the
+     RK4 readings as rk4_* fields of the kernel's row, the stencil mode's
+     RK4 reading of the derivative kernel as rk4_fd_*), the card's line,
      and the last line {"ok": true, "device": {...}}. Each phase prints its
      seconds.
 
@@ -448,7 +464,9 @@ def comparison_sets():
     return ([("acrobot",)]
             + [("model", name) for name in (*SLICE_MODELS, *WIDE_MODELS,
                                             *CLI_MODELS)]
-            + [("fd", name) for name in CLI_SPECS])
+            + [("fd", name) for name in CLI_SPECS]
+            + [("jvp", name) for name in CLI_SPECS]
+            + [("split", name) for name in SPLIT_MODELS])
 
 
 def build_cases(dev, which):
@@ -456,6 +474,10 @@ def build_cases(dev, which):
         return acrobot_cases(dev)
     if which[0] == "model":
         return model_cases(dev, which[1])
+    if which[0] == "jvp":
+        return jvp_cases(dev, which[1])
+    if which[0] == "split":
+        return split_cases(dev, which[1])
     return fd_cases(dev, which[1])
 
 
@@ -474,6 +496,9 @@ def _worker_job(key):
         _WORKER_CASES[which] = build_cases(torch.device(DEVICE), which)
     t0 = time.perf_counter()
     r = check_case(_WORKER_CASES[which][label])
+    # the plain version's temporaries back to the card: the processes
+    # share its memory with the kernels' local memory
+    torch.cuda.empty_cache()
     return key, dict(r, job_s=time.perf_counter() - t0)
 
 
@@ -523,7 +548,11 @@ def run_comparisons(dev, tick):
             continue
         row = dict(r, **{k: v for k, v in meta.items()
                          if k not in ("row", "group", "effort")})
-        (rk4 if meta["group"] == "rk4" else rows)[meta["row"]] = row
+        if meta["group"] == "row":
+            rows[meta["row"]] = row
+        else:   # "rk4", or "rk4_fd": the RK4 reading of the row's fd mode
+            rk4[meta["row"] + ("#fd" if meta["group"] == "rk4_fd"
+                               else "")] = row
     print(design_traffic_line())
     busy = sum(results[key]["job_s"] for key in order)
     print(f"[compare] {len(order)} plain comparisons in {COMPARE_WORKERS} "
@@ -1254,25 +1283,29 @@ def check_references(dev):
     return out
 
 
-def card_vs_cpu(name, T_c, iters, tol, lanes=4, integrator=None):
+def card_vs_cpu(name, T_c, iters, tol, lanes=4, integrator=None,
+                **cfg_extra):
     """A short solve on the card against the plain path on the CPU (the
     path's first ``T_c`` steps), held to ``tol`` in relative cost (None:
-    printed only). With ``integrator`` the problem is the CLI's fd one
-    (cli_workload) with that integrator; without, the slice's workload."""
+    printed only). With ``integrator`` the problem is the CLI's one
+    (cli_workload) with that integrator and ``cfg_extra``; without, the
+    slice's workload."""
     if integrator is None:
         model, params, cfg, _T, dt, u0, draw = workload(name, B=lanes)
         x0 = draw(np.random.default_rng(9))
     else:
         model, params, cfg, _T, dt, u0, x0 = cli_workload(name, lanes)
-        cfg = cfg.replace(integrator=integrator)
+        cfg = cfg.replace(integrator=integrator, **cfg_extra)
     cfg = cfg.replace(max_iter=iters)
     card = solve_batch_fused(model, params, cfg, dt, x0, u0[:T_c])
     cpu = solve_batch_fused(model, params, cfg, dt, x0, u0[:T_c],
                             device="cpu")
     c_card, c_cpu = card.cost.cpu().numpy(), cpu.cost.numpy()
     rel = float(np.max(np.abs(c_card - c_cpu) / np.abs(c_cpu)))
-    print(f"[slice] {name}{'' if integrator is None else f' fd {integrator}'}"
-          f", {lanes} "
+    route = "" if integrator is None else (
+        f" {cfg.deriv_mode} {integrator}"
+        + ("" if cfg.sweep_kernel == "merged" else f" {cfg.sweep_kernel}"))
+    print(f"[slice] {name}{route}, {lanes} "
           f"lanes, T={T_c}, max_iter={iters}: card vs the plain path on the "
           f"CPU, max relative cost difference {rel:.2e} ("
           + (f"≤ {tol:g})" if tol is not None else
@@ -1281,6 +1314,7 @@ def card_vs_cpu(name, T_c, iters, tol, lanes=4, integrator=None):
     if not np.isfinite(c_card).all() or (tol is not None and rel > tol):
         raise AssertionError(f"{name}: the card left the CPU's solve")
     return dict(T=T_c, max_iter=iters, lanes=lanes, integrator=cfg.integrator,
+                deriv_mode=cfg.deriv_mode, sweep_kernel=cfg.sweep_kernel,
                 max_rel_cost_diff=rel)
 
 
@@ -1288,30 +1322,44 @@ def ptxas_table(log: str):
     """(kernel, model, limits) → registers, spills and source file, from
     ptxas -v. The build log heads each source's report with "ptxas log of
     <file>": each csrc/kernels_<model>.cu (and kernels_<model>_iteration.cu,
-    where a model's iteration kernels compile apart, and the stencil
-    instantiations' kernels_<model>_fd.cu and
-    kernels_<model>_iteration_fd.cu) instantiates one model, and the other
-    sources (kernels.cu, derivs.cu, backward.cu) are acrobot's. The stencil
-    sweep and iteration kernels are filed as sweep_kernel_fd and
-    iteration_kernel_fd."""
+    where a model's iteration kernels compile apart, and the stencil and
+    dual-number instantiations' kernels_<model>[_iteration]_fd.cu and
+    kernels_<model>[_iteration]_jvp.cu) instantiates one model, and
+    kernels.cu is acrobot's. derivs.cu instantiates the split sweep's models
+    (the model read from the mangled name) and backward.cu one kernel per n
+    (n = 2 filed under pendulum, n = 4 under acrobot and cartpole). The
+    stencil and dual-number sweep, iteration and derivative kernels are
+    filed as <kernel>_fd and <kernel>_jvp (the derivative kernel's jvp mode
+    as derivs_kernel)."""
     table, entry, model, source = {}, None, "acrobot", None
     for line in log.splitlines():
         if line.startswith("ptxas log of "):
             source = line[len("ptxas log of "):].strip()
             stem = source.removesuffix(".cu")
             model = (stem[len("kernels_"):].removesuffix("_fd")
-                     .removesuffix("_iteration")
+                     .removesuffix("_jvp").removesuffix("_iteration")
                      if stem.startswith("kernels_") else "acrobot")
         elif "Compiling entry function" in line:
             name = line.split("'")[1]
             kernel = next((k for k in KERNEL_NAMES if k in name), name)
             limits = None   # the sweep and iteration kernels' template flag
+            models = [model]
             if kernel in ("sweep_kernel", "iteration_kernel"):
                 limits = "Lb1E" in name
+            if kernel != "backward_kernel":
                 if "FiniteDiff" in name:   # the stencil instantiations
                     kernel += "_fd"
-            entry = table.setdefault((kernel, model, limits), {})
-            entry["source"] = f"ilqr_tpu_torch/csrc/{source}"
+                elif "Jvp" in name and kernel != "derivs_kernel":
+                    kernel += "_jvp"
+            if kernel.startswith("derivs_kernel"):
+                models = [next((mm for mm in ("pendulum", "cartpole")
+                                if mm in name), "acrobot")]
+            elif kernel == "backward_kernel":
+                models = (["pendulum"] if "ILi2E" in name
+                          else ["acrobot", "cartpole"])
+            entry = {"source": f"ilqr_tpu_torch/csrc/{source}"}
+            for mm in models:
+                table[(kernel, mm, limits)] = entry
         elif entry is not None and "bytes stack frame" in line:
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]
@@ -1733,6 +1781,7 @@ def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
     cost finite, every lane at or below its own initial rollout's cost."""
     model, params, cfg, T, dt, u0, x0 = cli_workload(name, B)
     cfg = cfg.replace(**cfg_extra)
+    tag = "fd" if cfg.deriv_mode == "fd" else "jvp"
     pp = kernel_rollout.pack_params(params, dt, dev)
     zeros = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
     init = kernel_rollout.rollout_packed(
@@ -1766,6 +1815,7 @@ def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
     wall = float(np.median(walls))
     out = dict(
         B=B, T=T, dt=dt, max_iter=cfg.max_iter, integrator=cfg.integrator,
+        deriv_mode=cfg.deriv_mode, sweep_kernel=cfg.sweep_kernel,
         use_control_limits=cfg.use_control_limits,
         iter_kernel=cfg.iter_kernel, solves_per_s=B / wall, wall_s=walls,
         mean_cost=float(cost.mean()), init_mean_cost=float(init.mean()),
@@ -1782,9 +1832,9 @@ def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
         # each of the first 64 lanes, beside the plain path's on the CPU
         # (tests/test_torch_cli_predict.py solves the same lanes there)
         out["first_64_lanes_costs"] = [float(v) for v in cost[:64]]
-        print(f"[fd] {label}: the first 64 lanes' costs "
+        print(f"[{tag}] {label}: the first 64 lanes' costs "
               f"{[round(float(v), 4) for v in cost[:64]]}")
-    print(f"[fd] {label}: B={B} T={T} max_iter={cfg.max_iter} "
+    print(f"[{tag}] {label}: B={B} T={T} max_iter={cfg.max_iter} "
           f"{cfg.integrator}: {out['solves_per_s']:.1f} solves/s (median of "
           f"{reps}; {nvidia_smi()}), {out['ms_per_iteration']:.3f} "
           f"ms/iteration over {its} host iterations, mean_cost "
@@ -1807,6 +1857,7 @@ def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
         raise AssertionError(f"{label}: rollout_packed ran "
                              f"{c['rollout_packed']} times in one solve")
     route = ("iteration_packed" if fused._use_iter_kernel(model, cfg)
+             else "backward_sweep_packed" if cfg.sweep_kernel == "split"
              else "sweep_packed")
     if c[route] < its:
         raise AssertionError(f"{label}: {route} ran fewer launches than "
@@ -1819,27 +1870,35 @@ def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
     return out, cost
 
 
-def fd_solve(dev, name, label, ref_cost=None, B=B_M, T=None, **cfg_extra):
+def fd_solve(dev, name, label, ref_cost=None, B=B_M, T=None,
+             assert_gauge=True, **cfg_extra):
     """The CLI problem of ``name`` (its first T steps) through the route of
     ``cfg_extra``, launch counts set to 0 just before and read just after;
-    held against ``ref_cost`` under the gauge where one is given. Returns
-    (readings, costs)."""
+    held against ``ref_cost`` under the gauge where one is given (printed
+    only with ``assert_gauge`` False). Returns (readings, costs)."""
     model, params, cfg, T_full, dt, u0, x0 = cli_workload(name, B)
     T = T_full if T is None else T
+    cfg = cfg.replace(**cfg_extra)
+    tag = "fd" if cfg.deriv_mode == "fd" else "jvp"
     reset_launch_counts()
-    sol = solve_batch_fused(model, params, cfg.replace(**cfg_extra), dt, x0,
-                            u0[:T])
+    sol = solve_batch_fused(model, params, cfg, dt, x0, u0[:T])
     cost = sol.cost.cpu().numpy()
-    out = dict(launches=launch_counts(), T=T, mean_cost=float(cost.mean()))
+    out = dict(launches=launch_counts(), T=T, max_iter=cfg.max_iter,
+               mean_cost=float(cost.mean()))
     if not np.isfinite(cost).all():
         raise AssertionError(f"{label}: non-finite costs")
     if ref_cost is None:
-        print(f"[fd] {label} at B={B} T={T}: mean_cost {cost.mean():.4f}, "
+        print(f"[{tag}] {label} at B={B} T={T}: mean_cost {cost.mean():.4f}, "
               f"launches {out['launches']}")
         return out, cost
     p99, mx = gauge(cost, ref_cost)
     out.update(p99=p99, max=mx)
-    print(f"[fd] {label} at B={B} T={T}: per-lane |c1-c2|/(1+|c2|) p99 "
+    if not assert_gauge:
+        print(f"[{tag}] {label} at B={B} T={T} max_iter={cfg.max_iter}: "
+              f"per-lane |c1-c2|/(1+|c2|) p99 {p99:.3e}, max {mx:.3e} "
+              f"(information, not asserted)")
+        return out, cost
+    print(f"[{tag}] {label} at B={B} T={T}: per-lane |c1-c2|/(1+|c2|) p99 "
           f"{p99:.3e} (≤ {GAUGE_P99:g}), max {mx:.3e} (≤ {GAUGE_MAX:g}); "
           f"launches {out['launches']}")
     if not (p99 <= GAUGE_P99 and mx <= GAUGE_MAX):
@@ -1992,6 +2051,362 @@ def run_fd_slice(dev, rows, rk4):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The seventh slice: the dual-number slice. The sweep's in-kernel JVP route
+# (deriv_mode="analytic" with RK4: exact derivatives of the RK4 step by the
+# dual numbers of csrc/dual.cuh, csrc/jvp.cuh, the sweep::Jvp policy) for
+# all 14 models, and the split sweep (sweep_kernel="split":
+# derivs_packed, then backward_sweep_packed) for acrobot, pendulum and
+# cartpole, in both derivative modes and with either step. The full-width
+# paths are the CLI's batch solves (cli_workload) with
+# --deriv-mode analytic --integrator-scheme rk4 and --sweep-kernel split.
+
+SPLIT_MODELS = ("acrobot", "pendulum", "cartpole")
+# The split sweep against the merged one: its backward kernel is the JAX
+# package's own arithmetic (an asymmetric Vxx, pallas_backward.py), not the
+# merged step's, so the two routes round differently. With exact
+# derivatives they hold the gauge at ITER_EQ iterations; with the f32
+# stencils every ulp of the trajectory moves the next iteration's Hessians
+# by ulp(cost)/(4·eps²), so the fd routes agree only on their first
+# iteration, where they share the trajectory (ROADMAP.md §C).
+SPLIT_FD_EQ_ITERS = 1
+
+
+def jvp_cases(dev, name):
+    """``name``'s dual-number sweep and iteration kernels with the RK4 step
+    (and without limits, where phase 12 runs the path so) at its CLI path's
+    shapes (B = 8192 for acrobot, else 1024; the sweep and iteration of
+    thruster_ring16/20/24 on their first T_BACKWARD steps), on that path's
+    x0, its unclamped open-loop RK4 rollout and λ = 1; masks mixed."""
+    B = B_MAIN if name == "acrobot" else B_M
+    model, params, cfg, T, dt, u0, x0_np = cli_workload(name, B)
+    A, n, m = len(cfg.alphas), model.n, model.m
+    rng = np.random.default_rng(4)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(params, dt, dev)
+    x0 = f(x0_np).t().contiguous()
+    zeros = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+    xs0, us0, xT0, c0 = kernel_rollout.rollout_packed(
+        model, "rk4", False, pp, x0,
+        f(u0)[:, :, None].expand(T, m, B).contiguous(), zeros(T, n, B),
+        zeros(T, m, n, B))
+    lam = torch.ones(B, device=dev)
+    live = f(rng.uniform(size=B) > 0.5)
+    alphas = f(cfg.alphas)
+    Tb = T_BACKWARD.get(name, T)
+    xsb, usb = xs0[:Tb].contiguous(), us0[:Tb].contiguous()
+    xTb = xT0 if Tb == T else xs0[Tb].contiguous()
+    kob = f(rng.normal(size=(Tb, m, B)))
+    Kob = f(rng.normal(size=(Tb, m, n, B)))
+    old_b = nbytes(kob, Kob)
+
+    def sweep_case(limits):
+        return (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+                (model, "rk4", pp, xsb, xTb, usb, lam, "jvp", limits),
+                "sweep", limits, None)
+
+    def iteration_case(limits):
+        return (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+                (model, "rk4", False, pp, x0, xsb, xTb, usb, kob, Kob, lam,
+                 c0, live, alphas, "jvp", limits, cfg.z_min, cfg.tol_grad,
+                 cfg.lambda_grad_term),
+                "iteration", limits,
+                lambda got: old_b * ((got[10] < 0.5) & (live > 0.5))
+                .float().mean().item())
+
+    cases = {f"sweep_packed/{name}/jvp": sweep_case(True),
+             f"iteration_packed/{name}/jvp": iteration_case(True)}
+    if name in FD_FREE:
+        free = "sweep" if m * n >= 32 else "iteration"
+        cases[f"{free}_packed/{name}/jvp/unconstrained"] = (
+            sweep_case if free == "sweep" else iteration_case)(False)
+    out = {}
+    for key, (op, plain, args, kind, limits, unread) in cases.items():
+        def ops(kind=kind, limits=limits):
+            step, rest = lane_ops(model, params, kind, limits, A, dt, "jvp",
+                                  "rk4")
+            return step * Tb * B + rest * B
+
+        stem = ("kernels_quadrotor_iteration_jvp.cu"
+                if kind == "iteration" and name == "quadrotor"
+                else f"kernels_{name}_jvp.cu")
+        meta = dict(row=key, group="row", kernel=f"{kind}_kernel_jvp",
+                    model=name, limits=limits, T=Tb,
+                    effort=8 * effort(kind, Tb, n, m),
+                    source=f"ilqr_tpu_torch/csrc/{stem}")
+        out[f"{key} (rk4)"] = Case(op, plain, args, ops,
+                                   f"at B={B} T={Tb} A={A}", unread, meta)
+    return out
+
+
+def split_cases(dev, name):
+    """The split sweep's kernels of ``name`` at its CLI path's shapes
+    (acrobot B = 8192, T = 499; else B = 1024 and the CLI's T), on that
+    path's x0 and unclamped open-loop rollout: derivs_packed with the Euler
+    step in jvp mode (the row) and fd mode (its fd_* fields), each with an
+    RK4 reading (rk4_*, rk4_fd_*), and backward_sweep_packed on the jvp
+    derivatives (n = 2 for pendulum, n = 4 for cartpole). Acrobot's rows
+    are phase 3's flagship ones; here only its RK4 readings."""
+    B = B_MAIN if name == "acrobot" else B_M
+    model, params, cfg, T, dt, u0, x0_np = cli_workload(name, B)
+    n, m = model.n, model.m
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(params, dt, dev)
+    zeros = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+    xs0, us0, xT0, _c = kernel_rollout.rollout_packed(
+        model, "euler", False, pp, f(x0_np).t().contiguous(),
+        f(u0)[:, :, None].expand(T, m, B).contiguous(), zeros(T, n, B),
+        zeros(T, m, n, B))
+    xs_full = torch.cat([xs0, xT0[None]]).contiguous()
+    pp_cpu = kernel_rollout.pack_params(params, dt)
+    lane_rng = np.random.default_rng(3)
+
+    def lane_inputs(t):
+        xs = torch.as_tensor(0.3 * lane_rng.normal(size=(t + 1, n, 1)),
+                             dtype=torch.float32)
+        us = torch.as_tensor(lane_rng.normal(size=(t, m, 1)),
+                             dtype=torch.float32)
+        return xs, us
+
+    def derivs_ops(mode, integ):
+        step, rest = ops_per_step(lambda t: kernel_derivs.derivs_plain(
+            model, integ, pp_cpu, *lane_inputs(t), mode=mode))
+        return step * T * B + rest * B
+
+    out = {}
+    src = "ilqr_tpu_torch/csrc/derivs.cu"
+    readings = [("jvp", "rk4", "rk4"), ("fd", "rk4", "rk4_fd")]
+    if name != "acrobot":
+        readings = [("jvp", "euler", "row"), ("fd", "euler", "fd_of")] + (
+            readings)
+    for mode, integ, group in readings:
+        meta = dict(row=f"derivs_packed/{name}", group=group,
+                    kernel="derivs_kernel", model=name, limits=True, T=T,
+                    effort=effort("derivs", T, n, m)
+                    * (4 if integ == "rk4" else 1), source=src)
+        out[f"derivs_packed/{name} ({mode}, {integ})"] = Case(
+            kernel_derivs.derivs_packed, kernel_derivs.derivs_plain,
+            (model, integ, pp, xs_full, us0, mode),
+            lambda mode=mode, integ=integ: derivs_ops(mode, integ),
+            f"at B={B} T={T}", None, meta)
+    if name == "acrobot":
+        return out
+
+    fx, fu, cx, cu, cxx, cxu, cuu = kernel_derivs.derivs_packed(
+        model, "euler", pp, xs_full, us0)
+    p, _dt = kernel_rollout.unpack_params(pp)
+    args = (fx, fu[:, :, 0], cx[:-1], cu[:, 0], cxx[:-1], cxu[:, :, 0],
+            cuu[:, 0, 0], p.u_min[0] - us0[:, 0], p.u_max[0] - us0[:, 0],
+            torch.ones(B, device=dev), cx[-1], cxx[-1])
+    args = tuple(a.contiguous() for a in args)
+    lo, hi = float(p.u_min[0]), float(p.u_max[0])
+
+    def backward_at(t):
+        xs, us = lane_inputs(t)
+        d = kernel_derivs.derivs_plain(model, "euler", pp_cpu, xs, us)
+        return kernel_backward.backward_plain(
+            d[0], d[1][:, :, 0], d[2][:-1], d[3][:, 0], d[4][:-1],
+            d[5][:, :, 0], d[6][:, 0, 0], lo - us[:, 0], hi - us[:, 0],
+            torch.ones(1), d[2][-1], d[4][-1])
+
+    def backward_ops():
+        step_all, rest_all = ops_per_step(backward_at)
+        step_d, rest_d = ops_per_step(lambda t: kernel_derivs.derivs_plain(
+            model, "euler", pp_cpu, *lane_inputs(t)))
+        return (step_all - step_d) * T * B + (rest_all - rest_d) * B
+
+    out[f"backward_sweep_packed/{name}"] = Case(
+        kernel_backward.backward_sweep_packed, kernel_backward.backward_plain,
+        args, backward_ops, f"at B={B} T={T} n={n}", None,
+        dict(row=f"backward_sweep_packed/{name}", group="row",
+             kernel="backward_kernel", model=name, limits=True, T=T,
+             effort=effort("backward", T, n, m),
+             source="ilqr_tpu_torch/csrc/backward.cu"))
+    return out
+
+
+def run_jvp_slice(dev, rows, rk4):
+    """Phase 12: the in-kernel JVP route (analytic + RK4) and the split
+    sweep on the CLI's problems; the launches of its paths go into ``rows``
+    and the RK4 readings ``rk4``. Returns the results."""
+    res = {}
+    jvp = dict(deriv_mode="analytic", integrator="rk4")
+
+    def record(key, counts, reading=False):
+        (rk4 if reading else rows)[key]["launches"] = counts[
+            key.split("/")[0]]
+
+    # (a) the headline: the CLI's analytic + RK4 batch solve of acrobot;
+    # its split iteration against the whole-iteration kernel at T = T_EQ
+    t0 = time.perf_counter()
+    out, _c = run_fd_path(dev, "acrobot",
+                          "acrobot analytic + rk4 (the CLI's batch solve)",
+                          B=B_MAIN, reps=1, warmup=False, profile=True, **jvp)
+    short = dict(B=B_SPLIT, T=T_EQ, max_iter=ITER_EQ, **jvp)
+    _m, ref = fd_solve(dev, "acrobot", "acrobot analytic rk4 merged", **short)
+    out["split_iteration"], _c = fd_solve(
+        dev, "acrobot", "acrobot analytic rk4 split iteration vs merged", ref,
+        iter_kernel="split", **short)
+    record("iteration_packed/acrobot/jvp", out["launches"])
+    record("sweep_packed/acrobot/jvp", out["split_iteration"]["launches"])
+    res["acrobot"] = out
+    print(f"[time] phase 12a (acrobot) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (b) the quadrotor's CLI problem (the split iteration: the JVP sweep at
+    # full width) and its merged route at a cut depth
+    t0 = time.perf_counter()
+    quad, _c = run_fd_path(dev, "quadrotor", "quadrotor analytic + rk4",
+                           reps=1, warmup=False, profile=True, **jvp)
+    _s, qcost = fd_solve(dev, "quadrotor", f"quadrotor analytic rk4 at "
+                         f"max_iter {SHORT_ITERS}", max_iter=SHORT_ITERS,
+                         **jvp)
+    quad["merged_route"], _c = fd_solve(
+        dev, "quadrotor", "quadrotor analytic rk4 merged route vs split",
+        qcost, iter_kernel="merged", max_iter=SHORT_ITERS, **jvp)
+    record("sweep_packed/quadrotor/jvp", quad["launches"])
+    record("iteration_packed/quadrotor/jvp", quad["merged_route"]["launches"])
+    res["quadrotor"] = quad
+    print(f"[time] phase 12b (quadrotor) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (c) the other twelve models' CLI problems; each route against the
+    # other, and without limits where phase 11 runs so
+    t0 = time.perf_counter()
+    for name in CLI_SPECS:
+        if name in ("acrobot", "quadrotor"):
+            continue
+        model = get_model(name)
+        merged_auto = model.m * model.n < 32
+        other = dict(iter_kernel="split" if merged_auto else "merged")
+        label = f"{name} analytic + rk4 (the CLI's batch solve)"
+        if name in ("thruster_ring16", "thruster_ring20", "thruster_ring24"):
+            out, cost = fd_solve(dev, name, f"{name} analytic rk4 at max_iter "
+                                 f"{SHORT_ITERS} (cut from {CLI_ITERS})",
+                                 max_iter=SHORT_ITERS, **jvp)
+            out["other_route"], _c = fd_solve(
+                dev, name, f"{name} merged route vs split", cost,
+                max_iter=SHORT_ITERS, **other, **jvp)
+        else:
+            cap = CLI_ITERS
+            if name == "thruster_ring":
+                m_, p_, cfg, T, dt, u0, x0 = cli_workload(name)
+                pp = kernel_rollout.pack_params(p_, dt, dev)
+                B = len(x0)
+                z = lambda *sh: torch.zeros(sh, dtype=torch.float32,
+                                            device=dev)
+                xs0, us0, xT0, _c = kernel_rollout.rollout_packed(
+                    m_, "rk4", False, pp,
+                    torch.as_tensor(x0, device=dev).t().contiguous(),
+                    torch.as_tensor(u0, device=dev)[:, :, None].expand(
+                        T, m_.m, B).contiguous(), z(T, m_.n, B),
+                    z(T, m_.m, m_.n, B))
+                sweep_ms = time_ms(lambda: kernel_sweep.sweep_packed(
+                    m_, "rk4", pp, xs0, xT0, us0, torch.ones(B, device=dev),
+                    "jvp"), reps=1)
+                cap = min(CLI_ITERS, max(SHORT_ITERS, int(
+                    FD_CAP_S * 1e3 / (1.5 * sweep_ms))))
+                print(f"[jvp] {name}: one JVP sweep {sweep_ms:.1f} ms at "
+                      f"B={B} T={T}; max_iter {cap}"
+                      + ("" if cap == CLI_ITERS else
+                         f" (cut from {CLI_ITERS} to keep one solve under "
+                         f"{FD_CAP_S:g} s)"))
+            out, cost = run_fd_path(dev, name, label, reps=1, warmup=False,
+                                    profile=name == "omni_thruster",
+                                    max_iter=cap, **jvp)
+            # the m·n ≥ 32 models' merged route at a cut depth: it runs the
+            # split route's arithmetic, one launch where the split takes two
+            depth = CLI_ITERS if merged_auto else SHORT_ITERS
+            if depth != cap:
+                _s, cost = fd_solve(dev, name, f"{name} at max_iter {depth}",
+                                    max_iter=depth, **jvp)
+            out["other_route"], _c = fd_solve(
+                dev, name, f"{name} {other['iter_kernel']} route vs auto",
+                cost, max_iter=depth, **other, **jvp)
+        auto_key = ("iteration_packed" if merged_auto else "sweep_packed")
+        other_key = ("sweep_packed" if merged_auto else "iteration_packed")
+        record(f"{auto_key}/{name}/jvp", out["launches"])
+        record(f"{other_key}/{name}/jvp", out["other_route"]["launches"])
+        if name in FD_FREE:
+            free, _c = run_fd_path(dev, name, f"{name} analytic + rk4 "
+                                   "without limits", reps=1, warmup=False,
+                                   use_control_limits=False, **jvp)
+            record(f"{auto_key}/{name}/jvp/unconstrained", free["launches"])
+            out["unconstrained"] = free
+        res[name] = out
+    print(f"[time] phase 12c (the twelve CLI problems) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) the split sweep: pendulum and cartpole (analytic + Euler, analytic
+    # + RK4, fd + Euler) and acrobot (analytic + RK4, fd + RK4) at full
+    # width, each against the merged route under the gauge
+    t0 = time.perf_counter()
+    split = dict(sweep_kernel="split")
+    for name, routes in (("pendulum", (("analytic", "euler"),
+                                       ("analytic", "rk4"),
+                                       ("fd", "euler"))),
+                         ("cartpole", (("analytic", "euler"),
+                                       ("analytic", "rk4"),
+                                       ("fd", "euler"))),
+                         ("acrobot", (("analytic", "rk4"), ("fd", "rk4")))):
+        B = B_MAIN if name == "acrobot" else B_M
+        for dm, integ in routes:
+            cfg_r = dict(deriv_mode=dm, integrator=integ)
+            out, cost = run_fd_path(
+                dev, name, f"{name} {dm} + {integ}, split sweep", B=B, reps=1,
+                warmup=False, profile=(name, dm, integ) == ("pendulum",
+                                                            "analytic",
+                                                            "euler"),
+                **split, **cfg_r)
+            # the gauge: acrobot at T = T_EQ (rounding alone forks its
+            # lanes at T = 499); fd on its first iteration (see
+            # SPLIT_FD_EQ_ITERS), the 12-iteration figures printed beside
+            eq = dict(B=B_M, T=T_EQ if name == "acrobot" else None,
+                      max_iter=(SPLIT_FD_EQ_ITERS if dm == "fd"
+                                and name != "acrobot" else ITER_EQ))
+            _m, ref = fd_solve(dev, name, f"{name} {dm} {integ} merged",
+                               **eq, **cfg_r)
+            out["vs_merged"], _c = fd_solve(
+                dev, name, f"{name} {dm} {integ} split sweep vs merged", ref,
+                **eq, **split, **cfg_r)
+            if eq["max_iter"] != ITER_EQ:
+                eq12 = dict(eq, max_iter=ITER_EQ)
+                _m, ref = fd_solve(dev, name, f"{name} {dm} {integ} merged",
+                                   **eq12, **cfg_r)
+                out["vs_merged_12"], _c = fd_solve(
+                    dev, name, f"{name} {dm} {integ} split sweep vs merged",
+                    ref, assert_gauge=False, **eq12, **split, **cfg_r)
+            res[f"{name}_split_{dm}_{integ}"] = out
+            c = out["launches"]
+            if name == "acrobot":
+                rk4["derivs_packed/acrobot" + ("#fd" if dm == "fd" else "")][
+                    "launches"] = c["derivs_packed"]
+                continue
+            if (dm, integ) == ("analytic", "euler"):
+                rows[f"derivs_packed/{name}"]["launches"] = c["derivs_packed"]
+                rows[f"backward_sweep_packed/{name}"]["launches"] = c[
+                    "backward_sweep_packed"]
+            elif dm == "fd":
+                rows[f"derivs_packed/{name}"]["fd_launches"] = c[
+                    "derivs_packed"]
+            else:
+                rk4[f"derivs_packed/{name}"]["launches"] = c["derivs_packed"]
+    print(f"[time] phase 12d (the split sweep) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) short solves on the card against the plain path on the CPU
+    res["card_vs_cpu"] = {}
+    for name, tol, extra in (("power_mass", 1e-4, {}),
+                             ("pendulum", 1e-4, dict(sweep_kernel="split")),
+                             ("omni_thruster", 1e-4, {}),
+                             ("acrobot", 1e-3, dict(clamp_forward=True))):
+        key = "_".join([name, *(f"{k}={v}" for k, v in extra.items())])
+        res["card_vs_cpu"][key] = card_vs_cpu(
+            name, FD_CPU_T, FD_CPU_ITERS, tol, integrator="rk4",
+            deriv_mode="analytic", **extra)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2058,10 +2473,15 @@ def main() -> int:
     tick("phase 10 (pendulum, cartpole, bicycle, power_mass)")
     fd_out = run_fd_slice(dev, rows, rk4_readings)
     tick("phase 11 (the stencils in the fused kernels, RK4)")
-    print(f"[time] phases 2-11 {time.perf_counter() - t0:.1f} s", flush=True)
+    jvp_out = run_jvp_slice(dev, rows, rk4_readings)
+    tick("phase 12 (the dual-number slice: analytic + RK4, the split sweep)")
+    print(f"[time] phases 2-12 {time.perf_counter() - t0:.1f} s", flush=True)
     for key, r in rk4_readings.items():   # RK4, a mode of a row's kernel
-        rows[key].update({f"rk4_{k}": v for k, v in r.items()
-                          if k not in ("kernel", "model", "limits")})
+        row, _sep, fd_mode = key.partition("#")
+        prefix = "rk4_fd_" if fd_mode else "rk4_"
+        rows[row].update({f"{prefix}{k}": v for k, v in r.items()
+                          if k not in ("kernel", "model", "limits",
+                                       "source")})
     for name, r in rows.items():
         kind = name.split("/")[0]
         r["name"] = name
@@ -2080,7 +2500,8 @@ def main() -> int:
     print(json.dumps({"main_path": main_out, "split_path": gauges,
                       "composable_path": comp_out, "equivalence": equiv,
                       "slice": slice_out, "wide_slice": wide_out,
-                      "cli_slice": cli_out, "fd_slice": fd_out}))
+                      "cli_slice": cli_out, "fd_slice": fd_out,
+                      "jvp_slice": jvp_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

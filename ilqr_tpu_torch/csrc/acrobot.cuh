@@ -197,7 +197,8 @@ __device__ __forceinline__ void final_cost_derivs(const Params& p,
 }
 
 // The model as the fused kernels take it (sweep_step.cuh, rollout_step.cuh,
-// kernels.cuh): the functions above with the control as an array.
+// kernels.cuh): the functions above with the control as an array;
+// dynamics, cost and final_cost stay templates on the scalar.
 struct Model : cost::DiagonalHessians {
   static constexpr int N = acrobot::N, M = acrobot::M;
   using Params = acrobot::Params;
@@ -230,19 +231,20 @@ struct Model : cost::DiagonalHessians {
   __device__ __forceinline__ static float u_hi(const Params& p, int) {
     return p.u_max;
   }
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
     acrobot::dynamics(p, x, u[0], dx);
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
     return acrobot::cost(p, x, u[0]);
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return acrobot::final_cost(p, x);
   }
   __device__ __forceinline__ static void jac(const Params& p,

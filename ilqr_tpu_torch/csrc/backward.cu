@@ -1,5 +1,6 @@
 // The m = 1 backward recursion from precomputed derivatives, for Hopper
-// (sm_90a).
+// (sm_90a), a template on the state dimension N, instantiated for N = 2
+// (pendulum) and N = 4 (acrobot, cartpole).
 //
 // Replaces: ilqr_tpu/ops/pallas_backward.py backward_sweep_packed (_kernel).
 // Per lane, in reverse time: the Q-terms from fx, fu, cx, cu, cxx, cxu, cuu
@@ -13,13 +14,14 @@
 // −Qu/q and −Qux_j/q, dV[1] as 0.5·k·Quu·k, and the accumulation order of
 // pallas_backward.py:72-153.
 //
-// Bound on this card: per lane-step it reads 48 floats of derivatives and
-// limits and writes 5 (~0.87 GB at B = 8192, T = 499) against ~330 flops
-// in one serial chain per lane, so a launch is latency-bound: each step
-// waits on the V-carry of the step before.
-// Design: one thread per lane walks t = T−1 … 0 with Vx and Vxx (20 floats)
-// in registers; every load of a step is independent of the carry, so the
-// loads are issued ahead of the dependent algebra.
+// Bound on this card: per lane-step it reads 2n² + 3n + 4 floats of
+// derivatives and limits and writes n + 1 (48 and 5 at n = 4, ~0.87 GB at
+// B = 8192, T = 499) against ~330 flops at n = 4 in one serial chain per
+// lane, so a launch is latency-bound: each step waits on the V-carry of the
+// step before.
+// Design: one thread per lane walks t = T−1 … 0 with Vx and Vxx (n + n²
+// floats) in registers; every load of a step is independent of the carry,
+// so the loads are issued ahead of the dependent algebra.
 //
 // Layout (lane last): fx (T, n, n, B), fu/cx/cxu (T, n, B),
 // cu/cuu/lo/hi (T, B), lam (B,), cxT (n, B), cxxT (n, n, B) → k (T, B),
@@ -30,7 +32,6 @@
 namespace {
 
 constexpr int kBlock = 64;  // 128 blocks cover B = 8192 in one wave
-constexpr int N = 4;        // state dims (acrobot)
 
 // jnp.maximum / jnp.minimum / jnp.clip: NaN-propagating
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -40,6 +41,7 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
+template <int N>
 __global__ void __launch_bounds__(kBlock)
 backward_kernel(const float* __restrict__ fx, const float* __restrict__ fu,
                 const float* __restrict__ cx, const float* __restrict__ cu,
@@ -176,21 +178,22 @@ backward_kernel(const float* __restrict__ fx, const float* __restrict__ fu,
 
 }  // namespace
 
-extern "C" {
+// ilqr_backward_n<N>: the instantiation for n = N
+#define ILQR_BACKWARD_LAUNCHER(N)                                           \
+  extern "C" int ilqr_backward_n##N(                                        \
+      const void* fx, const void* fu, const void* cx, const void* cu,       \
+      const void* cxx, const void* cxu, const void* cuu, const void* lo,    \
+      const void* hi, const void* lam, const void* cxT, const void* cxxT,   \
+      void* k, void* K, void* dv, void* div, int T, int B, void* stream) {  \
+    backward_kernel<N><<<(B + kBlock - 1) / kBlock, kBlock, 0,              \
+                         (cudaStream_t)stream>>>(                           \
+        (const float*)fx, (const float*)fu, (const float*)cx,               \
+        (const float*)cu, (const float*)cxx, (const float*)cxu,             \
+        (const float*)cuu, (const float*)lo, (const float*)hi,              \
+        (const float*)lam, (const float*)cxT, (const float*)cxxT,           \
+        (float*)k, (float*)K, (float*)dv, (float*)div, T, B);               \
+    return (int)cudaGetLastError();                                         \
+  }
 
-int ilqr_backward(const void* fx, const void* fu, const void* cx,
-                  const void* cu, const void* cxx, const void* cxu,
-                  const void* cuu, const void* lo, const void* hi,
-                  const void* lam, const void* cxT, const void* cxxT, void* k,
-                  void* K, void* dv, void* div, int T, int B, void* stream) {
-  backward_kernel<<<(B + kBlock - 1) / kBlock, kBlock, 0,
-                    (cudaStream_t)stream>>>(
-      (const float*)fx, (const float*)fu, (const float*)cx, (const float*)cu,
-      (const float*)cxx, (const float*)cxu, (const float*)cuu,
-      (const float*)lo, (const float*)hi, (const float*)lam,
-      (const float*)cxT, (const float*)cxxT, (float*)k, (float*)K,
-      (float*)dv, (float*)div, T, B);
-  return (int)cudaGetLastError();
-}
-
-}  // extern "C"
+ILQR_BACKWARD_LAUNCHER(2)
+ILQR_BACKWARD_LAUNCHER(4)

@@ -7,6 +7,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace bicycle {
 
@@ -55,41 +56,44 @@ struct Model : cost::DiagonalHessians {
     return p.u_max[j];
   }
 
+  // dynamics, cost and final_cost: templates on the scalar (acrobot.cuh)
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
-    const float v = x[3];
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
+    const S v = x[3];
     const float inv_L = 1.0f / p.wheelbase;
-    float sp, cp;
-    sincosf(x[2], &sp, &cp);
+    S sp, cp;
+    dual::sincos_of(x[2], &sp, &cp);
     dx[0] = v * cp;
     dx[1] = v * sp;
-    dx[2] = v * tanf(u[1]) * inv_L;
+    dx[2] = v * dual::tan_of(u[1]) * inv_L;
     dx[3] = u[0] + 0.0f * v;
   }
-  __device__ __forceinline__ static float weighted_err(const Params& p,
-                                                       const float w[N],
-                                                       const float x[N]) {
-    float acc = 0.0f;
+  template <class S>
+  __device__ __forceinline__ static S weighted_err(const Params& p,
+                                                   const float w[N],
+                                                   const S x[N]) {
+    S acc{};
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const float e = p.goal[i] - x[i];
-      const float term = e * w[i] * e;
+      const S e = p.goal[i] - x[i];
+      const S term = e * w[i] * e;
       acc = i == 0 ? term : acc + term;
     }
     return acc;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
-    float acc = weighted_err(p, p.w_state, x);
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
+    S acc = weighted_err(p, p.w_state, x);
 #pragma unroll
     for (int j = 0; j < M; ++j) acc = acc + u[j] * p.w_control[j] * u[j];
     return acc;
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return weighted_err(p, p.w_final, x);
   }
 

@@ -7,6 +7,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace cartpole {
 
@@ -58,17 +59,18 @@ struct Model : cost::DiagonalHessians {
     return p.u_max;
   }
 
+  // dynamics, cost and final_cost: templates on the scalar (acrobot.cuh)
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
-    const float thetadot = x[3];
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
+    const S thetadot = x[3];
     const float mt = p.mass_cart + p.mass_pole;
-    float st, ct;
-    sincosf(x[1], &st, &ct);
-    const float temp =
+    S st, ct;
+    dual::sincos_of(x[1], &st, &ct);
+    const S temp =
         (u[0] + p.mass_pole * p.length * thetadot * thetadot * st) / mt;
-    const float thetaddot =
+    const S thetaddot =
         (-p.gravity * st - ct * temp)
         / (p.length * (4.0f / 3.0f - p.mass_pole * ct * ct / mt));
     dx[0] = x[2];
@@ -76,25 +78,27 @@ struct Model : cost::DiagonalHessians {
     dx[2] = temp + p.mass_pole * p.length * thetaddot * ct / mt;
     dx[3] = thetaddot;
   }
-  __device__ __forceinline__ static float weighted_err(const Params& p,
-                                                       const float w[N],
-                                                       const float x[N]) {
-    float acc = 0.0f;
+  template <class S>
+  __device__ __forceinline__ static S weighted_err(const Params& p,
+                                                   const float w[N],
+                                                   const S x[N]) {
+    S acc{};
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const float e = p.goal[i] - x[i];
-      const float term = w[i] * e * e;
+      const S e = p.goal[i] - x[i];
+      const S term = w[i] * e * e;
       acc = i == 0 ? term : acc + term;
     }
     return acc;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
     return weighted_err(p, p.w_state, x) + p.w_control * u[0] * u[0];
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return weighted_err(p, p.w_final, x);
   }
 

@@ -6,6 +6,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace double_integrator {
 
@@ -53,34 +54,36 @@ struct Model : cost::DiagonalHessians {
     return p.u_max[j];
   }
 
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
     dx[0] = x[2];
     dx[1] = x[3];
     dx[2] = u[0] / p.mass;
     dx[3] = u[1] / p.mass;
   }
-  __device__ __forceinline__ static float state_err_sq(const Params& p,
-                                                       const float x[N]) {
-    float acc = 0.0f;
+  template <class S>
+  __device__ __forceinline__ static S state_err_sq(const Params& p,
+                                                   const S x[N]) {
+    S acc{};
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const float e = p.goal[i] - x[i];
-      const float term = p.hx[i] * e * e;
+      const S e = p.goal[i] - x[i];
+      const S term = p.hx[i] * e * e;
       acc = i == 0 ? term : acc + term;
     }
     return acc;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
     return state_err_sq(p, x) + p.hu[0] * u[0] * u[0]
            + p.hu[1] * u[1] * u[1];
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return p.fs * state_err_sq(p, x);
   }
 

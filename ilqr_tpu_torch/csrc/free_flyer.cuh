@@ -6,6 +6,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace free_flyer {
 
@@ -66,26 +67,28 @@ struct Model : cost::DiagonalHessians {
     return p.u_max[j];
   }
 
+  // dynamics, cost and final_cost: templates on the scalar (acrobot.cuh)
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
     const float scale = kInvSqrt3 / p.mass;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      float s = sign(0, a) * u[0];
+      S s = sign(0, a) * u[0];
 #pragma unroll
       for (int j = 1; j < M; ++j) s = s + sign(j, a) * u[j];
-      const float v = x[3 + a];
+      const S v = x[3 + a];
       dx[a] = v;
-      dx[3 + a] = scale * s - p.drag * fabsf(v) * v;
+      dx[3 + a] = scale * s - p.drag * dual::abs_of(v) * v;
     }
   }
-  __device__ __forceinline__ static float weighted_sq(const Params& p,
-                                                      const float w[N],
-                                                      const float x[N]) {
-    float e = p.goal[0] - x[0];
-    float acc = e * w[0] * e;
+  template <class S>
+  __device__ __forceinline__ static S weighted_sq(const Params& p,
+                                                  const float w[N],
+                                                  const S x[N]) {
+    S e = p.goal[0] - x[0];
+    S acc = e * w[0] * e;
 #pragma unroll
     for (int i = 1; i < N; ++i) {
       e = p.goal[i] - x[i];
@@ -93,17 +96,18 @@ struct Model : cost::DiagonalHessians {
     }
     return acc;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
-    float acc = weighted_sq(p, p.w_state, x);
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
+    S acc = weighted_sq(p, p.w_state, x);
 #pragma unroll
     for (int j = 0; j < M; ++j)
       acc = acc + u[j] * (p.w_control[j] * u[j] + p.w_fuel);
     return acc;
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return weighted_sq(p, p.w_final, x);
   }
 

@@ -20,21 +20,23 @@ enum Scheme : int { kEuler = 0, kRK4 = 1 };
 //   RK4:   k1 = f(x), k2 = f(x + (0.5·dt)·k1), k3 = f(x + (0.5·dt)·k2),
 //          k4 = f(x + dt·k3), x + (dt/6)·(((k1 + 2·k2) + 2·k3) + k4)
 // (Python evaluates 0.5 * dt * k1 and the sum of the four stages left to
-// right.)
-template <class Model, int kScheme>
+// right.) S is the scalar: float, or the dual numbers of dual.cuh, with
+// which the step is differentiated through all its stages (the JAX
+// kernels' jax.jvp of step_fn); dt and the stage weights are constants.
+template <class Model, int kScheme, class S = float>
 __device__ __forceinline__ void step_as(const typename Model::Params& p,
-                                        const float x[Model::N],
-                                        const float u[Model::M],
-                                        float out[Model::N]) {
+                                        const S x[Model::N],
+                                        const S u[Model::M],
+                                        S out[Model::N]) {
   constexpr int N = Model::N;
-  float k1[N];
+  S k1[N];
   Model::dynamics(p, x, u, k1);
   if constexpr (kScheme == kEuler) {
 #pragma unroll
     for (int i = 0; i < N; ++i) out[i] = x[i] + k1[i] * p.dt;
   } else {
     const float h = 0.5f * p.dt;
-    float xt[N], k2[N], k3[N], k4[N];
+    S xt[N], k2[N], k3[N], k4[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) xt[i] = x[i] + h * k1[i];
     Model::dynamics(p, xt, u, k2);
@@ -51,17 +53,17 @@ __device__ __forceinline__ void step_as(const typename Model::Params& p,
   }
 }
 
-// The same with the scheme chosen at run time (the stencils' loops, which
-// are runtime loops already).
-template <class Model>
+// The same with the scheme chosen at run time (the stencils' and the
+// directions' loops, which are runtime loops already).
+template <class Model, class S = float>
 __device__ __forceinline__ void step(const typename Model::Params& p,
-                                     const float x[Model::N],
-                                     const float u[Model::M], int scheme,
-                                     float out[Model::N]) {
+                                     const S x[Model::N],
+                                     const S u[Model::M], int scheme,
+                                     S out[Model::N]) {
   if (scheme == kRK4)
-    step_as<Model, kRK4>(p, x, u, out);
+    step_as<Model, kRK4, S>(p, x, u, out);
   else
-    step_as<Model, kEuler>(p, x, u, out);
+    step_as<Model, kEuler, S>(p, x, u, out);
 }
 
 }  // namespace integrate

@@ -15,9 +15,10 @@
 // The integrator (Euler or RK4, integrate.cuh) is a runtime argument of
 // every kernel. The sweep and whole-iteration kernels are templates on the
 // derivative source (sweep_step.cuh): Analytic (the model's closed-form
-// derivatives, Euler only) or FiniteDiff (the reference's stencils of the
-// Euler or RK4 step), each model's FiniteDiff instantiations in a source of
-// their own (csrc/kernels_<model>_fd.cu).
+// derivatives, Euler only), FiniteDiff (the reference's stencils of the
+// Euler or RK4 step) or Jvp (exact dual-number derivatives of the Euler or
+// RK4 step), each model's FiniteDiff and Jvp instantiations in sources of
+// their own (csrc/kernels_<model>_fd.cu, csrc/kernels_<model>_jvp.cu).
 //
 // Launchers take PyTorch's current stream and return cudaGetLastError().
 // They allocate nothing: the Python wrappers pass every output and scratch
@@ -388,7 +389,10 @@ inline int launch_iteration(
 // ILQR_FD_LAUNCHERS instantiates the stencil sweep and iteration kernels,
 // ilqr_<NAME>_sweep_fd and ilqr_<NAME>_iteration_fd, in a source of their
 // own (ILQR_FD_SWEEP_LAUNCHER and ILQR_FD_ITERATION_LAUNCHER apart for the
-// quadrotor).
+// quadrotor). ILQR_JVP_LAUNCHERS likewise instantiates the dual-number
+// sweep and iteration kernels, ilqr_<NAME>_sweep_jvp and
+// ilqr_<NAME>_iteration_jvp, which take their analytic twins' arguments
+// and then the integrator (the quadrotor's apart as for fd).
 #define ILQR_FUSED_LAUNCHERS(NAME, MODEL) \
   ILQR_SPLIT_LAUNCHERS(NAME, MODEL)       \
   ILQR_ITERATION_LAUNCHER(NAME, MODEL)
@@ -396,6 +400,10 @@ inline int launch_iteration(
 #define ILQR_FD_LAUNCHERS(NAME, MODEL) \
   ILQR_FD_SWEEP_LAUNCHER(NAME, MODEL)  \
   ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)
+
+#define ILQR_JVP_LAUNCHERS(NAME, MODEL) \
+  ILQR_JVP_SWEEP_LAUNCHER(NAME, MODEL)  \
+  ILQR_JVP_ITERATION_LAUNCHER(NAME, MODEL)
 
 #define ILQR_SWEEP_PARAMS                                                   \
   const void* params, const void* xs, const void* xterm, const void* us,    \
@@ -478,4 +486,18 @@ inline int launch_iteration(
     return fused::launch_iteration<MODEL>(                                  \
         ILQR_ITERATION_ARGS, scheme,                                        \
         sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}}, stream);   \
+  }
+
+#define ILQR_JVP_SWEEP_LAUNCHER(NAME, MODEL)                                \
+  extern "C" int ilqr_##NAME##_sweep_jvp(ILQR_SWEEP_PARAMS, int scheme,     \
+                                         void* stream) {                    \
+    return fused::launch_sweep<MODEL>(ILQR_SWEEP_ARGS, sweep::Jvp{scheme},  \
+                                      stream);                              \
+  }
+
+#define ILQR_JVP_ITERATION_LAUNCHER(NAME, MODEL)                            \
+  extern "C" int ilqr_##NAME##_iteration_jvp(ILQR_ITERATION_PARAMS,         \
+                                             int scheme, void* stream) {    \
+    return fused::launch_iteration<MODEL>(ILQR_ITERATION_ARGS, scheme,      \
+                                          sweep::Jvp{scheme}, stream);      \
   }

@@ -1,0 +1,7 @@
+// The fused solver's dual-number sweep and whole-iteration kernels
+// (deriv_mode="analytic" with RK4: exact derivatives of the step)
+// instantiated for acrobot (n = 4, m = 1). See kernels.cuh.
+#include "acrobot.cuh"
+#include "kernels.cuh"
+
+ILQR_JVP_LAUNCHERS(acrobot, acrobot::Model)

@@ -6,6 +6,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace pendulum {
 
@@ -56,27 +57,29 @@ struct Model : cost::DiagonalHessians {
     return p.u_max;
   }
 
+  // dynamics, cost and final_cost: templates on the scalar (acrobot.cuh)
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
     const float inertia = p.mass * p.length * p.length;
     dx[0] = x[1];
     dx[1] = (u[0] - p.damping * x[1]
-             - p.mass * p.gravity * p.length * sinf(x[0])) / inertia;
+             - p.mass * p.gravity * p.length * dual::sin_of(x[0])) / inertia;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
-    const float e0 = p.goal[0] - x[0];
-    const float e1 = p.goal[1] - x[1];
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
+    const S e0 = p.goal[0] - x[0];
+    const S e1 = p.goal[1] - x[1];
     return p.w_state[0] * e0 * e0 + p.w_state[1] * e1 * e1
            + p.w_control * u[0] * u[0];
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
-    const float e0 = p.goal[0] - x[0];
-    const float e1 = p.goal[1] - x[1];
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
+    const S e0 = p.goal[0] - x[0];
+    const S e1 = p.goal[1] - x[1];
     return p.w_final[0] * e0 * e0 + p.w_final[1] * e1 * e1;
   }
 

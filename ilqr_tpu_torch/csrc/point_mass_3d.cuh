@@ -6,6 +6,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace point_mass_3d {
 
@@ -55,10 +56,10 @@ struct Model : cost::DiagonalHessians {
     return p.u_max[j];
   }
 
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
     const float inv_m = 1.0f / p.mass;
     dx[0] = x[3];
     dx[1] = x[4];
@@ -67,26 +68,28 @@ struct Model : cost::DiagonalHessians {
     dx[4] = u[1] * inv_m;
     dx[5] = u[2] * inv_m;
   }
-  __device__ __forceinline__ static float state_err_sq(const Params& p,
-                                                       const float x[N]) {
-    float acc = (p.goal[0] - x[0]) * p.hx[0] * (p.goal[0] - x[0]);
+  template <class S>
+  __device__ __forceinline__ static S state_err_sq(const Params& p,
+                                                   const S x[N]) {
+    S acc = (p.goal[0] - x[0]) * p.hx[0] * (p.goal[0] - x[0]);
 #pragma unroll
     for (int i = 1; i < N; ++i) {
-      const float e = p.goal[i] - x[i];
+      const S e = p.goal[i] - x[i];
       acc = acc + e * p.hx[i] * e;
     }
     return acc;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
-    float acc = state_err_sq(p, x);
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
+    S acc = state_err_sq(p, x);
 #pragma unroll
     for (int j = 0; j < M; ++j) acc = acc + u[j] * p.hu[j] * u[j];
     return acc;
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return p.fs * state_err_sq(p, x);
   }
 

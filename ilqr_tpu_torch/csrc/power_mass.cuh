@@ -13,6 +13,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace power_mass {
 
@@ -81,43 +82,46 @@ struct Model {
     return p.u_max[j];
   }
 
+  // dynamics, cost and final_cost: templates on the scalar (acrobot.cuh)
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
     const float inv_m = 1.0f / p.mass;
     dx[0] = x[2];
     dx[1] = x[3];
     dx[2] = u[0] * inv_m - p.drag * x[2];
     dx[3] = u[1] * inv_m - p.drag * x[3];
   }
-  __device__ __forceinline__ static float power(const float x[N],
-                                                const float u[M]) {
+  template <class S>
+  __device__ __forceinline__ static S power(const S x[N], const S u[M]) {
     return x[2] * u[0] + x[3] * u[1];
   }
-  __device__ __forceinline__ static float weighted_err(const Params& p,
-                                                       const float w[N],
-                                                       const float x[N]) {
-    float acc = 0.0f;
+  template <class S>
+  __device__ __forceinline__ static S weighted_err(const Params& p,
+                                                   const float w[N],
+                                                   const S x[N]) {
+    S acc{};
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const float e = p.goal[i] - x[i];
-      const float term = e * w[i] * e;
+      const S e = p.goal[i] - x[i];
+      const S term = e * w[i] * e;
       acc = i == 0 ? term : acc + term;
     }
     return acc;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
-    float acc = weighted_err(p, p.w_state, x);
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
+    S acc = weighted_err(p, p.w_state, x);
 #pragma unroll
     for (int j = 0; j < M; ++j) acc = acc + u[j] * p.w_control[j] * u[j];
-    const float s = power(x, u);
+    const S s = power(x, u);
     return acc + p.w_power * s * s;
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return weighted_err(p, p.w_final, x);
   }
 

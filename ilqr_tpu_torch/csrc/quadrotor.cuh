@@ -6,6 +6,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace quadrotor {
 
@@ -72,22 +73,24 @@ struct Model : cost::DiagonalHessians {
     return p.u_max[j];
   }
 
+  // dynamics, cost and final_cost: templates on the scalar (acrobot.cuh);
+  // p.gravity·ones_like(F) of the Python code is the constant p.gravity
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
     const float inv_m = 1.0f / p.mass;
-    const float F = u[0] + u[1] + u[2] + u[3];
-    const float taux = p.arm * (u[1] - u[3]);
-    const float tauy = p.arm * (u[2] - u[0]);
-    const float tauz = p.c_tau * (u[0] - u[1] + u[2] - u[3]);
-    float sph, cph, sth, cth, sps, cps;
-    sincosf(x[6], &sph, &cph);
-    sincosf(x[7], &sth, &cth);
-    sincosf(x[8], &sps, &cps);
-    const float Fm = F * inv_m;
-    const float inv_cth = 1.0f / cth;
-    const float tth = sth * inv_cth;
+    const S F = u[0] + u[1] + u[2] + u[3];
+    const S taux = p.arm * (u[1] - u[3]);
+    const S tauy = p.arm * (u[2] - u[0]);
+    const S tauz = p.c_tau * (u[0] - u[1] + u[2] - u[3]);
+    S sph, cph, sth, cth, sps, cps;
+    dual::sincos_of(x[6], &sph, &cph);
+    dual::sincos_of(x[7], &sth, &cth);
+    dual::sincos_of(x[8], &sps, &cps);
+    const S Fm = F * inv_m;
+    const S inv_cth = 1.0f / cth;
+    const S tth = sth * inv_cth;
     const float Jx = p.inertia[0], Jy = p.inertia[1], Jz = p.inertia[2];
     dx[0] = x[3];
     dx[1] = x[4];
@@ -102,10 +105,11 @@ struct Model : cost::DiagonalHessians {
     dx[10] = (tauy - (Jx - Jz) * x[11] * x[9]) / Jy;
     dx[11] = (tauz - (Jy - Jx) * x[9] * x[10]) / Jz;
   }
-  __device__ __forceinline__ static float state_err_sq(const Params& p,
-                                                       const float x[N]) {
-    float e = p.goal[0] - x[0];
-    float acc = e * p.hx[0] * e;
+  template <class S>
+  __device__ __forceinline__ static S state_err_sq(const Params& p,
+                                                   const S x[N]) {
+    S e = p.goal[0] - x[0];
+    S acc = e * p.hx[0] * e;
 #pragma unroll
     for (int i = 1; i < N; ++i) {
       e = p.goal[i] - x[i];
@@ -113,20 +117,21 @@ struct Model : cost::DiagonalHessians {
     }
     return acc;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
     const float hov = p.mass * p.gravity * 0.25f;
-    float acc = state_err_sq(p, x);
+    S acc = state_err_sq(p, x);
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      const float du = u[j] - hov;
+      const S du = u[j] - hov;
       acc = acc + du * p.hu[j] * du;
     }
     return acc;
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return p.fs * state_err_sq(p, x);
   }
 

@@ -22,6 +22,11 @@
 //    Every entry is a traced value there, so nothing folds: every sum
 //    starts at its first term, Qxx/Qux/Quu at the dense cost Hessians, and
 //    V_T's Hessian is dense.
+//  - Jvp: exact forward-mode derivatives of the discrete step (Euler or
+//    RK4) and of the costs with dual numbers (jvp.cuh; the JAX kernel's
+//    "jvp" mode where use_analytic is false). Dense as FiniteDiff: the two
+//    share every line of the step and of terminal_init and differ only in
+//    where the numbers come from.
 //
 // The V-carry (Vx, Vxx), dV, the divergence latch and the gnorm sum live in
 // registers of the calling thread (local memory for the large models).
@@ -31,6 +36,7 @@
 #include "cost_pattern.cuh"
 #include "fd.cuh"
 #include "jnp.cuh"
+#include "jvp.cuh"
 #include "qp.cuh"
 
 namespace sweep {
@@ -51,10 +57,44 @@ struct Analytic {
 struct FiniteDiff {
   static constexpr bool kDense = true;
   fd::Stencil s;
+  template <class Model>
+  __device__ __forceinline__ void linearize(
+      const typename Model::Params& p, const float x[Model::N],
+      const float u[Model::M], float fx[Model::N][Model::N],
+      float fu[Model::N][Model::M], float cx[Model::N], float cu[Model::M],
+      float cxx[Model::N][Model::N], float cxu[Model::N][Model::M],
+      float cuu[Model::M][Model::M]) const {
+    fd::linearize<Model>(p, x, u, s, fx, fu, cx, cu, cxx, cxu, cuu);
+  }
+  template <class Model>
+  __device__ __forceinline__ void terminal(
+      const typename Model::Params& p, const float xT[Model::N],
+      float vx[Model::N], float vxx[Model::N][Model::N]) const {
+    fd::terminal<Model>(p, xT, s, vx, vxx);
+  }
+};
+struct Jvp {
+  static constexpr bool kDense = true;
+  int scheme;  // the step differentiated: integrate::kEuler or kRK4
+  template <class Model>
+  __device__ __forceinline__ void linearize(
+      const typename Model::Params& p, const float x[Model::N],
+      const float u[Model::M], float fx[Model::N][Model::N],
+      float fu[Model::N][Model::M], float cx[Model::N], float cu[Model::M],
+      float cxx[Model::N][Model::N], float cxu[Model::N][Model::M],
+      float cuu[Model::M][Model::M]) const {
+    jvp::linearize<Model>(p, x, u, scheme, fx, fu, cx, cu, cxx, cxu, cuu);
+  }
+  template <class Model>
+  __device__ __forceinline__ void terminal(
+      const typename Model::Params& p, const float xT[Model::N],
+      float vx[Model::N], float vxx[Model::N][Model::N]) const {
+    jvp::terminal<Model>(p, xT, vx, vxx);
+  }
 };
 
 // Structural kinds of the step's factors under a policy: '.' zero, '1'
-// one, 'x' live. Under FiniteDiff every entry is live.
+// one, 'x' live. Under the dense policies every entry is live.
 template <class Model, class Deriv>
 struct Kinds {
   // fx = I + dt·A under Analytic
@@ -84,15 +124,15 @@ struct Kinds {
 // V_T from the final cost at the terminal state; zeroed accumulators
 // (pallas_sweep._terminal_init). Under Analytic every model's final cxx is
 // diagonal (tests/test_torch_models.py checks it against the JAX package),
-// so final_cost_derivs writes its diagonal only; under FiniteDiff the
-// stencils give a dense Hessian.
+// so final_cost_derivs writes its diagonal only; under the dense policies
+// the stencils or the dual numbers give a dense Hessian.
 template <class Model, class Deriv>
 __device__ __forceinline__ void terminal_init(
     const typename Model::Params& p, const float xT[Model::N],
     const Deriv& d, Carry<Model>& c) {
   constexpr int N = Model::N;
   if constexpr (Deriv::kDense) {
-    fd::terminal<Model>(p, xT, d.s, c.vx, c.vxx);
+    d.template terminal<Model>(p, xT, c.vx, c.vxx);
   } else {
     float cxx_diag[N];
     Model::final_cost_derivs(p, xT, c.vx, cxx_diag);
@@ -132,8 +172,8 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   // The analytic cost patterns fold at compile time: over the state the
   // loops unroll, so each cxx_kind is a constant; over the controls they
   // unroll only for m ≤ 4, so a pattern with a live cxu or a non-diagonal
-  // cuu needs m ≤ 4. The stencils' dense Hessians (every kind 'x') run at
-  // any m, with runtime indices into cxu and cuu.
+  // cuu needs m ≤ 4. The dense Hessians of FiniteDiff and Jvp (every kind
+  // 'x') run at any m, with runtime indices into cxu and cuu.
   constexpr bool kDiagCuu = !Deriv::kDense && cost::diagonal_cuu<Model>();
   constexpr bool kZeroCxu = !Deriv::kDense && cost::zero_cxu<Model>();
   static_assert(kUnrollM > 1 || Deriv::kDense || (kDiagCuu && kZeroCxu),
@@ -143,7 +183,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   float fx[N][N], fu[N][M];
   float cx[N], cu[M], cxx[N][N], cxu[N][M], cuu[M][M];
   if constexpr (Deriv::kDense) {
-    fd::linearize<Model>(p, x, u, d.s, fx, fu, cx, cu, cxx, cxu, cuu);
+    d.template linearize<Model>(p, x, u, fx, fu, cx, cu, cxx, cxu, cuu);
   } else {
     // fx = I + dt·A, fu = dt·B (Euler), the cost's analytic derivatives
     float A[N][N], Bu[N][M];

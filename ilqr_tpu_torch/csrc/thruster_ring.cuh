@@ -17,6 +17,7 @@
 #pragma once
 
 #include "cost_pattern.cuh"
+#include "dual.cuh"
 
 namespace thruster_ring {
 
@@ -215,41 +216,44 @@ struct Model : cost::DiagonalHessians {
   }
 
   // body-frame force Σᵢ dᵢ·uᵢ over the nonzero coefficients, in i order
-  __device__ __forceinline__ static void body_force(const float u[M],
-                                                    float& fb0, float& fb1) {
+  // (dynamics, cost and final_cost and their helpers: templates on the
+  // scalar, acrobot.cuh)
+  template <class S>
+  __device__ __forceinline__ static void body_force(const S u[M], S& fb0,
+                                                    S& fb1) {
     bool live0 = false, live1 = false;
-    fb0 = 0.0f;
-    fb1 = 0.0f;
+    fb0 = S{};
+    fb1 = S{};
 #pragma unroll
     for (int i = 0; i < M; ++i) {
       if (G::d0(i) != 0.0f) {
-        const float t = G::d0(i) * u[i];
+        const S t = G::d0(i) * u[i];
         fb0 = live0 ? fb0 + t : t;
         live0 = true;
       }
       if (G::d1(i) != 0.0f) {
-        const float t = G::d1(i) * u[i];
+        const S t = G::d1(i) * u[i];
         fb1 = live1 ? fb1 + t : t;
         live1 = true;
       }
     }
   }
 
+  template <class S>
   __device__ __forceinline__ static void dynamics(const Params& p,
-                                                  const float x[N],
-                                                  const float u[M],
-                                                  float dx[N]) {
-    float st, ct;
-    sincosf(x[2], &st, &ct);
-    float fb0, fb1;
+                                                  const S x[N], const S u[M],
+                                                  S dx[N]) {
+    S st, ct;
+    dual::sincos_of(x[2], &st, &ct);
+    S fb0, fb1;
     body_force(u, fb0, fb1);
     const float inv_m = 1.0f / p.mass;
-    float aw = 0.0f;
+    S aw{};
     bool live = false;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
       if (G::arm(i) != 0.0f) {
-        const float t = G::arm(i) * u[i];
+        const S t = G::arm(i) * u[i];
         aw = live ? aw + t : t;
         live = true;
       }
@@ -261,11 +265,12 @@ struct Model : cost::DiagonalHessians {
     dx[4] = (st * fb0 + ct * fb1) * inv_m - p.drag * x[4];
     dx[5] = aw / p.inertia - p.drag_w * x[5];
   }
-  __device__ __forceinline__ static float weighted_sq(const Params& p,
-                                                      const float w[N],
-                                                      const float x[N]) {
-    float e = p.goal[0] - x[0];
-    float acc = e * w[0] * e;
+  template <class S>
+  __device__ __forceinline__ static S weighted_sq(const Params& p,
+                                                  const float w[N],
+                                                  const S x[N]) {
+    S e = p.goal[0] - x[0];
+    S acc = e * w[0] * e;
 #pragma unroll
     for (int i = 1; i < N; ++i) {
       e = p.goal[i] - x[i];
@@ -273,17 +278,18 @@ struct Model : cost::DiagonalHessians {
     }
     return acc;
   }
-  __device__ __forceinline__ static float cost(const Params& p,
-                                               const float x[N],
-                                               const float u[M]) {
-    float acc = weighted_sq(p, p.w_state, x);
+  template <class S>
+  __device__ __forceinline__ static S cost(const Params& p, const S x[N],
+                                           const S u[M]) {
+    S acc = weighted_sq(p, p.w_state, x);
 #pragma unroll
     for (int j = 0; j < M; ++j)
       acc = acc + u[j] * (p.w_control[j] * u[j] + p.w_fuel);
     return acc;
   }
-  __device__ __forceinline__ static float final_cost(const Params& p,
-                                                     const float x[N]) {
+  template <class S>
+  __device__ __forceinline__ static S final_cost(const Params& p,
+                                                 const S x[N]) {
     return weighted_sq(p, p.w_final, x);
   }
 

@@ -9,10 +9,13 @@ with m·n ≥ 32, such as the quadrotor) runs the same iteration as a sweep
 kernel plus a line-search kernel; ``sweep_kernel="split"`` (m = 1 with
 limits) replaces the sweep by the derivative kernel (once per iteration)
 and the backward kernel (once per λ attempt). Inside the merged sweep the
-derivatives are the models' closed forms (``deriv_mode="analytic"``, the
-Euler step) or the reference's central stencils of the discrete step
-(``deriv_mode="fd"``, Euler or RK4, eps ``cfg.fd_eps``); the rollout and
-line-search kernels take either integrator.
+derivatives are the models' closed forms (``deriv_mode="analytic"`` with
+the Euler step), exact dual-number derivatives of the discrete step
+(``deriv_mode="analytic"`` with RK4) or the reference's central stencils of
+the discrete step (``deriv_mode="fd"``, Euler or RK4, eps ``cfg.fd_eps``);
+the derivative kernel of the split sweep takes the dual numbers or the
+stencils with either step, and the rollout and line-search kernels take
+either integrator.
 
 The JAX package's two ``lax.while_loop``s are host loops here:
 
@@ -37,7 +40,10 @@ import torch
 from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model
 from ilqr_tpu_torch.ops import qp
-from ilqr_tpu_torch.ops.kernel_backward import backward_sweep_packed
+from ilqr_tpu_torch.ops.kernel_backward import (
+    BACKWARD_KERNEL_NS,
+    backward_sweep_packed,
+)
 from ilqr_tpu_torch.ops.kernel_derivs import (
     DERIVS_KERNEL_MODELS,
     derivs_packed,
@@ -311,15 +317,18 @@ MAX_FUSED_M = qp.MAX_FUSED_M
 
 
 def _derivs_carried(model: Model, cfg: SolverConfig) -> bool:
-    """Whether the sweep's derivatives are ported for (model, cfg): the
-    closed forms (``deriv_mode="analytic"``: the Euler step and a model with
-    ``jac_soa``, the JAX kernels' use_analytic) or the reference's stencils
-    (``deriv_mode="fd"``: the Euler or RK4 step on the merged sweep, Euler
-    on the split sweep, whose derivative kernel is Euler only)."""
+    """Whether the sweep's derivatives are ported for (model, cfg), on the
+    merged and the split sweep alike: ``deriv_mode="analytic"`` for a model
+    with ``jac_soa`` (the closed forms with the Euler step, the JAX kernels'
+    use_analytic; dual numbers through the RK4 step, their in-kernel JVPs)
+    or ``deriv_mode="fd"`` (the reference's stencils), each with the Euler
+    or the RK4 step. The JVP route of a model without ``jac_soa`` (a
+    custom model) is not ported."""
+    if cfg.integrator not in ("euler", "rk4"):
+        return False
     if cfg.deriv_mode == "analytic":
-        return cfg.integrator == "euler" and model.has_analytic_soa
-    return (cfg.deriv_mode == "fd" and cfg.integrator in ("euler", "rk4")
-            and (cfg.sweep_kernel == "merged" or cfg.integrator == "euler"))
+        return model.has_analytic_soa
+    return cfg.deriv_mode == "fd"
 
 
 def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
@@ -327,13 +336,14 @@ def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
     guards of ilqr_tpu/fused.py:390-442 for what is ported: m ≤ 24 (the
     closed-form, enumeration and projected-Newton QPs, or the Newton step
     without limits), shared params, and the sweep's derivatives of
-    ``_derivs_carried``: analytic with the Euler step, or the reference's
-    stencils (``deriv_mode="fd"``, eps ``cfg.fd_eps``) with the Euler or
-    RK4 step, in the whole-iteration and the split-iteration kernels;
-    ``sweep_kernel="split"`` needs m = 1 and control limits (the backward
-    kernel's closed-form QP) and the Euler step. The rollout and line
-    search take the configured integrator. On the card the kernels exist
-    for the models of ``ops.kernel_rollout.FUSED_KERNEL_MODELS``; any other
+    ``_derivs_carried``: analytic (closed forms with the Euler step, dual
+    numbers with RK4) or the reference's stencils (``deriv_mode="fd"``, eps
+    ``cfg.fd_eps``) with the Euler or RK4 step, in the whole-iteration and
+    the split-iteration kernels; ``sweep_kernel="split"`` needs m = 1 and
+    control limits (the backward kernel's closed-form QP). The rollout and
+    line search take the configured integrator. On the card the kernels
+    exist for the models of ``ops.kernel_rollout.FUSED_KERNEL_MODELS``
+    (the split sweep's for those of ``DERIVS_KERNEL_MODELS``); any other
     raises there."""
     split = cfg.sweep_kernel == "split"
     return (model.m <= MAX_FUSED_M and model.has_soa
@@ -375,17 +385,13 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
     if params_batched:
         raise NotImplementedError(
             "params_batched=True is not ported to ilqr_tpu_torch yet")
-    if cfg.deriv_mode == "analytic" and not _derivs_carried(model, cfg):
+    if (cfg.deriv_mode == "analytic" and cfg.integrator in ("euler", "rk4")
+            and not model.has_analytic_soa):
         raise NotImplementedError(
-            f"deriv_mode='analytic' with integrator={cfg.integrator!r} on "
-            f"model {model.name!r} (analytic SoA: {model.has_analytic_soa}) "
-            "is the sweep's in-kernel JVP route, not ported (ROADMAP.md §B2, "
-            "its jvp half); deriv_mode='fd' carries RK4")
-    if cfg.deriv_mode == "fd" and not _derivs_carried(model, cfg):
-        raise NotImplementedError(
-            f"deriv_mode='fd' with integrator={cfg.integrator!r} on "
-            f"sweep_kernel={cfg.sweep_kernel!r} needs RK4 in derivs_packed, "
-            "not ported (ROADMAP.md §B1); sweep_kernel='merged' carries it")
+            f"deriv_mode='analytic' on model {model.name!r} without jac_soa "
+            "(a custom model) is the sweep's in-kernel JVP route of a model "
+            "whose device functions the port cannot take yet (ROADMAP.md "
+            "§B2, custom models); deriv_mode='fd' carries it")
     if not fused_applicable(model, cfg):
         raise NotImplementedError(
             f"solve_batch_fused does not carry model {model.name!r} with "
@@ -394,21 +400,19 @@ def _check_config(model: Model, cfg: SolverConfig, params_batched: bool):
 
 def _check_kernels(model: Model, cfg: SolverConfig, dev: torch.device):
     """On the card every op of the route must have its kernel. The split
-    sweep's derivative and backward kernels (csrc/derivs.cu,
-    csrc/backward.cu) are compiled for acrobot (n = 4) alone, so any other
-    model raises there before anything runs; its plain versions run on the
-    CPU only."""
+    sweep's derivative kernel (csrc/derivs.cu) is instantiated for
+    acrobot, pendulum and cartpole and the backward kernel
+    (csrc/backward.cu) for n = 2 and 4, so any other model raises there
+    before anything runs."""
     if (dev.type == "cuda" and cfg.sweep_kernel == "split"
-            and model.name not in DERIVS_KERNEL_MODELS):
-        missing = [f"derivs_packed for {model.name!r} (ROADMAP.md §B, "
-                   f"item 5)"]
-        if model.n != 4:
-            missing.append(f"backward_sweep_packed at n = {model.n} "
-                           f"(item 6)")
+            and (model.name not in DERIVS_KERNEL_MODELS
+                 or model.n not in BACKWARD_KERNEL_NS)):
         raise NotImplementedError(
-            "sweep_kernel='split' on the card needs "
-            + " and ".join(missing)
-            + ", not ported yet; sweep_kernel='merged' runs this model")
+            f"sweep_kernel='split' on the card runs "
+            f"{', '.join(DERIVS_KERNEL_MODELS)}; derivs_packed and "
+            f"backward_sweep_packed for {model.name!r} (n = {model.n}) are "
+            "not instantiated (ROADMAP.md §B5); sweep_kernel='merged' runs "
+            "this model")
 
 
 def solve_batch_fused(model: Model, params, cfg: SolverConfig, dt, x0, u0,

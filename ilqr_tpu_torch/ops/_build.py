@@ -48,7 +48,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the rollout and line-search launchers take the integrator (0 Euler, 1
 # RK4). The stencil sweep and iteration kernels, ilqr_<model>_<kernel>_fd
 # (csrc/kernels_<model>_fd.cu), take their analytic twins' arguments and
-# then the integrator and the stencil's eps, 2·eps and 4·eps².
+# then the integrator and the stencil's eps, 2·eps and 4·eps²; the
+# dual-number ones, ilqr_<model>_<kernel>_jvp (csrc/kernels_<model>_jvp.cu),
+# their analytic twins' arguments and then the integrator. The derivative
+# kernel has one launcher per model, ilqr_<model>_derivs (csrc/derivs.cu),
+# and the backward kernel one per state dimension, ilqr_backward_n<n>
+# (csrc/backward.cu).
 _SWEEP = [_P] * 10 + [_I, _I, _I]
 _ITERATION = [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I, _I]
 _STENCIL = [_I, _F, _F, _F]
@@ -59,21 +64,23 @@ _FUSED_SIGNATURES = {
     "iteration": _ITERATION + [_P],
     "sweep_fd": _SWEEP + _STENCIL + [_P],
     "iteration_fd": _ITERATION + _STENCIL + [_P],
+    "sweep_jvp": _SWEEP + [_I, _P],
+    "iteration_jvp": _ITERATION + [_I, _P],
+    "derivs": [_P] * 10 + [_I, _I, _F, _F, _F, _I, _I, _P],
 }
-_SIGNATURES = {
-    "ilqr_derivs": [_P] * 10 + [_I, _F, _F, _F, _I, _I, _P],
-    "ilqr_backward": [_P] * 16 + [_I, _I, _P],
-}
+_BACKWARD = [_P] * 16 + [_I, _I, _P]
+_SIGNATURES = {"ilqr_backward_n2": _BACKWARD, "ilqr_backward_n4": _BACKWARD}
 
 
 def signature(name: str):
     """The ctypes argument types of launcher ``name``."""
     if name in _SIGNATURES:
         return _SIGNATURES[name]
-    kernel = name.removesuffix("_fd").rsplit("_", 1)[-1] + (
-        "_fd" if name.endswith("_fd") else "")
-    if name.startswith("ilqr_") and kernel in _FUSED_SIGNATURES:
-        return _FUSED_SIGNATURES[kernel]
+    for suffix in ("_fd", "_jvp", ""):
+        if name.endswith(suffix):
+            kernel = name.removesuffix(suffix).rsplit("_", 1)[-1] + suffix
+            if name.startswith("ilqr_") and kernel in _FUSED_SIGNATURES:
+                return _FUSED_SIGNATURES[kernel]
     raise KeyError(f"no launcher {name!r}")
 
 

@@ -104,6 +104,11 @@ def backward_plain(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT, cxxT):
     return k_out, K_out, torch.stack([dv0, dv1]), div
 
 
+# The state dimensions csrc/backward.cu is instantiated for: pendulum's 2,
+# and acrobot's and cartpole's 4.
+BACKWARD_KERNEL_NS = (2, 4)
+
+
 def backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT,
                           cxxT):
     """The m = 1 backward recursion (see module docstring).
@@ -115,9 +120,10 @@ def backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT,
                               cxT, cxxT)
     dev = fu.device
     T, n, B = fu.shape
-    if n != 4:
+    if n not in BACKWARD_KERNEL_NS:
         raise NotImplementedError(
-            f"the backward kernel is compiled for n = 4 (acrobot), got {n}")
+            f"the backward kernel is compiled for n in {BACKWARD_KERNEL_NS} "
+            f"(csrc/backward.cu), got n = {n}")
     for t, shape, name in (
             (fx, (T, n, n, B), "fx"), (fu, (T, n, B), "fu"),
             (cx, (T, n, B), "cx"), (cu, (T, B), "cu"),
@@ -130,8 +136,8 @@ def backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT,
     K = torch.empty((T, n, B), dtype=F32, device=dev)
     dv = torch.empty((2, B), dtype=F32, device=dev)
     div = torch.empty((B,), dtype=F32, device=dev)
-    _build.launch("ilqr_backward", dev, fx, fu, cx, cu, cxx, cxu, cuu, lo, hi,
-                  lam, cxT, cxxT, k, K, dv, div, T, B)
+    _build.launch(f"ilqr_backward_n{n}", dev, fx, fu, cx, cu, cxx, cxu, cuu,
+                  lo, hi, lam, cxT, cxxT, k, K, dv, div, T, B)
     backward_sweep_packed.launches += 1
     return k, K, dv, div
 

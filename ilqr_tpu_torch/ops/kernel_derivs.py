@@ -3,10 +3,11 @@
 
 Two modes, as in the JAX kernel: ``"jvp"`` differentiates the model's SoA
 functions exactly in forward mode (n+m first-order directions of the Euler
-step and the cost, JVP-of-JVP for the cost's second derivatives on the
-upper triangle, mirrored); ``"fd"`` takes the reference's central stencils
-with ``eps`` (2-point gradient and Jacobian, 4-point Hessian). The terminal
-row cx[T], cxx[T] comes from the final cost (ref derivatives.cpp:48-49, 92).
+or RK4 step, through every stage, and of the cost; JVP-of-JVP for the
+cost's second derivatives on the upper triangle, mirrored); ``"fd"`` takes
+the reference's central stencils with ``eps`` (2-point gradient and
+Jacobian, 4-point Hessian). The terminal row cx[T], cxx[T] comes from the
+final cost (ref derivatives.cpp:48-49, 92).
 
 The plain version, :func:`derivs_plain`, is vectorized over (t, lane) and
 the directions, with no loop over T. Its forward mode runs the port's SoA
@@ -14,11 +15,12 @@ model functions on :class:`Dual` numbers whose rules are the CUDA kernel's
 (csrc/dual.cuh), which are JAX's jvp rules in JAX's operation order; so the
 kernel and the plain version compute the same IEEE operations.
 
-The stencil helpers (:func:`fd_running`, :func:`fd_terminal`) are
-model-generic and also differentiate the RK4 step; the merged sweep's plain
-version (ops/kernel_sweep.py) takes its dense derivatives from them. This
-stage itself, like the JAX package's composable path on the card, takes the
-Euler step only.
+The helpers of both modes (:func:`jvp_running`, :func:`jvp_terminal`,
+:func:`fd_running`, :func:`fd_terminal`) are model-generic and take the
+integrator; the merged sweep's plain version (ops/kernel_sweep.py) takes
+its dense derivatives from them. The CUDA kernel (csrc/derivs.cu) is
+instantiated for the m = 1 models whose split sweep the fused solver runs
+(:data:`DERIVS_KERNEL_MODELS`); the plain version takes any model.
 
 Layout (lane last) and dispatch as in ops/kernel_rollout.py.
 """
@@ -28,6 +30,8 @@ from __future__ import annotations
 import torch
 
 from ilqr_tpu_torch.models.acrobot import AcrobotParams
+from ilqr_tpu_torch.models.cartpole import CartPoleParams
+from ilqr_tpu_torch.models.pendulum import PendulumParams
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
@@ -37,6 +41,7 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     lane_last,
     on_cuda,
     require_kernel_model,
+    scheme,
     unpack_params,
 )
 
@@ -89,6 +94,11 @@ class Dual:
     def __neg__(self):
         return Dual(-self.v, -self.d)
 
+    @property
+    def primal(self):
+        """The value a chain of duals is taken at."""
+        return self.v.primal if isinstance(self.v, Dual) else self.v
+
     def __getitem__(self, i):
         return Dual(self.v[i], self.d[i])
 
@@ -100,9 +110,26 @@ class Dual:
         if func is torch.cos:
             x = args[0]
             return Dual(torch.cos(x.v), -(x.d * torch.sin(x.v)))
+        if func is torch.tan:   # jax/_src/lax/lax.py tan_p: g·(1 + ans²)
+            x = args[0]
+            t = torch.tan(x.v)
+            return Dual(t, x.d * (1.0 + t * t))
+        if func is torch.abs:   # lax.py _abs_jvp_rule: select(x ≥ 0, g, −g)
+            x = args[0]
+            return Dual(torch.abs(x.v), _select(x.primal >= 0.0, x.d, -x.d))
+        if func in (torch.ones_like, torch.zeros_like, torch.full_like):
+            # a constant: its tangent is JAX's symbolic zero
+            return func(args[0].primal, *args[1:], **(kwargs or {}))
         if func is torch.stack and not kwargs and len(args) == 1:
             return _stack(args[0])
         return NotImplemented
+
+
+def _select(cond, a, b):
+    """torch.where over the parts of two Duals (or of two tensors)."""
+    if isinstance(a, Dual):
+        return Dual(_select(cond, a.v, b.v), _select(cond, a.d, b.d))
+    return torch.where(cond, a, b)
 
 
 def _stack(items):
@@ -129,10 +156,7 @@ def _pairs(nz):
 def _check(mode, integrator):
     if mode not in ("jvp", "fd"):
         raise ValueError(f"unknown derivative mode {mode!r}")
-    if integrator != "euler":
-        raise NotImplementedError(
-            f"integrator {integrator!r} in derivs_packed is not ported "
-            "(Euler only; RK4 there is ROADMAP.md §B1)")
+    scheme(integrator)
 
 
 def _store_second(n, m, h, pairs, T1, B, dev):
@@ -155,52 +179,68 @@ def _tangent(c, a, dev, shape):
     return _basis(c, a, dev)[:, None, None].expand((len(a),) + shape)
 
 
-def _jvp_running(model, p, dt, x, u, dev):
-    """Forward mode at every running (t, lane): x (n, T, B), u (m, T, B)."""
+# Elements of one pass of the forward mode: the directions and pairs are
+# taken in chunks of at most this many (direction, t, lane) values, so that
+# a pass over a long, wide batch stays within memory (the chip's checks run
+# several plain versions at once) while a short one takes all at once.
+JVP_CHUNK = 1 << 24
+
+
+def _chunks(items, per_item):
+    """``items`` in consecutive chunks of at most JVP_CHUNK // per_item."""
+    k = max(1, JVP_CHUNK // max(1, per_item))
+    return [items[i:i + k] for i in range(0, len(items), k)]
+
+
+def jvp_running(model, p, dt, integrator, x, u, dev):
+    """Forward mode at every running (t, lane): x (n, T, B), u (m, T, B)
+    → (jac (n, n+m, T, B) of the discrete step, c1 (n+m, T, B), h (P, T, B)
+    over ``pairs``, pairs), as :func:`fd_running` returns them."""
     n, m = model.n, model.m
-    nz = n + m
-    dirs = torch.arange(nz)
     sh = tuple(x.shape[1:])
-    bx = [_tangent(c, dirs, dev, sh) for c in range(n)]
-    bu = [_tangent(n + c, dirs, dev, sh) for c in range(m)]
-    xd = [Dual(x[c][None], bx[c]) for c in range(n)]
-    ud = [Dual(u[c][None], bu[c]) for c in range(m)]
-    f = model.dynamics_soa(p, xd, ud)
-    step = [xd[i] + f[i] * dt for i in range(n)]
-    jac = torch.stack([s.d for s in step])              # (n, nz, T, B)
-    c1 = model.cost_soa(p, xd, ud).d                     # (nz, T, B)
-
-    pairs = _pairs(nz)
-    pa = torch.tensor([a for a, _ in pairs])
-    pb = torch.tensor([b for _, b in pairs])
-    zero = torch.zeros((), dtype=F32, device=dev).expand((len(pairs),) + sh)
-
-    def nested(v, c):
-        return Dual(Dual(v[None], _tangent(c, pb, dev, sh)),
-                    Dual(_tangent(c, pa, dev, sh), zero))
-
-    xdd = [nested(x[c], c) for c in range(n)]
-    udd = [nested(u[c], n + c) for c in range(m)]
-    h = model.cost_soa(p, xdd, udd).d.d                  # (P, T, B)
-    return jac, c1, h, pairs
+    jac, c1 = [], []
+    for dirs in _chunks(list(range(n + m)), x[0].numel()):
+        dirs = torch.tensor(dirs)
+        xd = [Dual(x[c][None], _tangent(c, dirs, dev, sh)) for c in range(n)]
+        ud = [Dual(u[c][None], _tangent(n + c, dirs, dev, sh))
+              for c in range(m)]
+        jac.append(integrate(model, p, dt, integrator, _stack(xd),
+                             _stack(ud)).d)              # (n, k, T, B)
+        c1.append(model.cost_soa(p, xd, ud).d)            # (k, T, B)
+    pairs = _pairs(n + m)
+    return (torch.cat(jac, 1), torch.cat(c1),
+            _second(model.cost_soa, p, [*x, *u], n, pairs, dev), pairs)
 
 
-def _jvp_terminal(model, p, xT, dev):
-    """Forward mode of the final cost at x_T (n, 1, B)."""
+def _second(cost, p, z, n, pairs, dev):
+    """The cost's second derivatives along ``pairs`` (a, b) at every point
+    of z (the n states, then the controls): inner direction a, outer b →
+    (P, *z[0].shape)."""
+    sh = tuple(z[0].shape)
+    out = []
+    for chunk in _chunks(pairs, z[0].numel()):
+        pa = torch.tensor([a for a, _ in chunk])
+        pb = torch.tensor([b for _, b in chunk])
+        zero = torch.zeros((), dtype=F32, device=dev).expand(
+            (len(chunk),) + sh)
+        zd = [Dual(Dual(zc[None], _tangent(c, pb, dev, sh)),
+                   Dual(_tangent(c, pa, dev, sh), zero))
+              for c, zc in enumerate(z)]
+        out.append(cost(p, zd[:n], zd[n:]).d.d)
+    return torch.cat(out)
+
+
+def jvp_terminal(model, p, xT, dev):
+    """Forward mode of the final cost at xT (n, T', B) → (c1 (n, T', B),
+    h (P, T', B) over ``pairs``, pairs)."""
     n = model.n
     dirs = torch.arange(n)
     sh = tuple(xT.shape[1:])
     xd = [Dual(xT[c][None], _tangent(c, dirs, dev, sh)) for c in range(n)]
-    c1 = model.final_cost_soa(p, xd).d                   # (n, 1, B)
+    c1 = model.final_cost_soa(p, xd).d                   # (n, T', B)
     pairs = _pairs(n)
-    pa = torch.tensor([a for a, _ in pairs])
-    pb = torch.tensor([b for _, b in pairs])
-    zero = torch.zeros((), dtype=F32, device=dev).expand((len(pairs),) + sh)
-    xdd = [Dual(Dual(xT[c][None], _tangent(c, pb, dev, sh)),
-                Dual(_tangent(c, pa, dev, sh), zero))
-           for c in range(n)]
-    h = model.final_cost_soa(p, xdd).d.d                 # (P, 1, B)
-    return c1, h, pairs
+    final = lambda pp, xs, _us: model.final_cost_soa(pp, xs)
+    return c1, _second(final, p, list(xT), n, pairs, dev), pairs
 
 
 def _shift(z, coef, eps, sign):
@@ -283,8 +323,8 @@ def derivs_plain(model, integrator, pp: PackedParams, xs, us, mode="jvp",
     u = us.permute(1, 0, 2)                              # (m, T, B)
     xT = xs[T:].permute(1, 0, 2)                         # (n, 1, B)
     if mode == "jvp":
-        jac, c1, h, pairs = _jvp_running(model, p, dt, x, u, dev)
-        c1T, hT, pairsT = _jvp_terminal(model, p, xT, dev)
+        jac, c1, h, pairs = jvp_running(model, p, dt, integrator, x, u, dev)
+        c1T, hT, pairsT = jvp_terminal(model, p, xT, dev)
     else:
         jac, c1, h, pairs = fd_running(model, p, dt, integrator, x, u, eps,
                                        dev)
@@ -300,14 +340,18 @@ def derivs_plain(model, integrator, pp: PackedParams, xs, us, mode="jvp",
             cxu.contiguous(), cuu.contiguous())
 
 
-# The models csrc/derivs.cu is compiled for, with their params types.
-DERIVS_KERNEL_MODELS = {"acrobot": AcrobotParams}
+# The models csrc/derivs.cu is compiled for, with their params types: the
+# m = 1 models whose split sweep the fused solver runs. The m >= 2 models
+# reach the derivative stage only on the composable path, which is
+# acrobot-only (ROADMAP.md §A4).
+DERIVS_KERNEL_MODELS = {"acrobot": AcrobotParams, "pendulum": PendulumParams,
+                        "cartpole": CartPoleParams}
 
 
 def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
                   mode: str = "jvp", eps: float = 1e-3):
-    """Linearization of the Euler step and quadratization of the cost at
-    every (t, lane), plus the final cost's terminal row.
+    """Linearization of the Euler or RK4 step and quadratization of the
+    cost at every (t, lane), plus the final cost's terminal row.
 
     Shapes: xs (T+1, n, B), us (T, m, B). Returns (fx (T, n, n, B),
     fu (T, n, m, B), cx (T+1, n, B), cu (T, m, B), cxx (T+1, n, n, B),
@@ -317,8 +361,14 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
     if not on_cuda(us):
         return derivs_plain(model, integrator, pp, xs, us, mode, eps)
     dev = us.device
-    require_kernel_model(model, integrator, pp, dev,
-                         have=DERIVS_KERNEL_MODELS)
+    if model.name not in DERIVS_KERNEL_MODELS:
+        have = ", ".join(DERIVS_KERNEL_MODELS)
+        raise NotImplementedError(
+            f"csrc/derivs.cu is instantiated for {have}, not {model.name!r} "
+            "(the m >= 2 models wait for the composable path's models, "
+            "ROADMAP.md §A4)")
+    prefix = require_kernel_model(model, integrator, pp, dev,
+                                  have=DERIVS_KERNEL_MODELS)
     T, m, B = us.shape
     n = model.n
     _build.require(xs, (T + 1, n, B), "xs", dev)
@@ -328,9 +378,9 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
             e(T + 1, n, n, B), e(T, n, m, B), e(T, m, m, B))
     # the stencil's constants as the JAX kernel rounds them: eps, 2·eps and
     # 4·eps² taken in double, then to f32
-    _build.launch("ilqr_derivs", dev, pp.vec, xs, us, *outs,
-                  int(mode == "fd"), float(eps), float(2.0 * eps),
-                  float(4.0 * eps * eps), T, B)
+    _build.launch(f"{prefix}_derivs", dev, pp.vec, xs, us, *outs,
+                  int(mode == "fd"), scheme(integrator), float(eps),
+                  float(2.0 * eps), float(4.0 * eps * eps), T, B)
     derivs_packed.launches += 1
     return outs
 

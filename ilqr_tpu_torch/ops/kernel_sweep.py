@@ -9,17 +9,24 @@ Newton step), the feedback rows zeroed on clamped controls, dV, the exactly
 symmetric Vxx update, a latched divergence flag and the gradient norm (ref
 src/ilqr_core.cpp:350-401).
 
-The derivatives come, as in the JAX kernel, either from the model's closed
-forms (``mode="jvp"`` with a model that has ``jac_soa`` and the Euler step:
-fx = I + dt·A, fu = dt·B, the cost's analytic derivatives; structural
-constants fold) or from the reference's central stencils (``mode="fd"``,
-eps = ``eps``) of the discrete Euler or RK4 step and of the costs: dense
-fx, fu, cx, cu, cxx, cxu, cuu and a dense V_T Hessian, every sum starting at
-its first term. The plain version evaluates the stencils of all T steps at
-once (ops/kernel_derivs.py) and runs the recursion over them. m ≤ 24 (past
-it ``ValueError``, as in the JAX package). The in-kernel JVP route (RK4, or
-a model without ``jac_soa``, under ``mode="jvp"``) raises
-``NotImplementedError``.
+The derivatives come, as in the JAX kernel, from one of three sources:
+
+- the model's closed forms (``mode="jvp"`` with a model that has
+  ``jac_soa`` and the Euler step, the JAX kernel's use_analytic: fx = I +
+  dt·A, fu = dt·B, the cost's analytic derivatives; structural constants
+  fold);
+- exact forward-mode derivatives of the discrete RK4 step and of the costs
+  (``mode="jvp"`` with the RK4 step: dual numbers through every stage, the
+  JAX kernel's in-kernel JVPs);
+- the reference's central stencils (``mode="fd"``, eps = ``eps``) of the
+  discrete Euler or RK4 step and of the costs.
+
+The last two give dense fx, fu, cx, cu, cxx, cxu, cuu and a dense V_T
+Hessian, every sum starting at its first term; the plain version evaluates
+them at all T steps at once (ops/kernel_derivs.py) and runs the recursion
+over them. m ≤ 24 (past it ``ValueError``, as in the JAX package). A model
+without ``jac_soa`` under ``mode="jvp"`` (a custom model, whose device
+functions the port cannot take yet) raises ``NotImplementedError``.
 
 Layout and dispatch as in ops/kernel_rollout.py.
 """
@@ -31,7 +38,12 @@ import dataclasses
 import torch
 
 from ilqr_tpu_torch.ops import _build, qp
-from ilqr_tpu_torch.ops.kernel_derivs import fd_running, fd_terminal
+from ilqr_tpu_torch.ops.kernel_derivs import (
+    fd_running,
+    fd_terminal,
+    jvp_running,
+    jvp_terminal,
+)
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
@@ -90,20 +102,26 @@ def _lane(v, like):
 
 def check_supported(model, integrator: str, mode: str):
     """Raises for what this slice of the port does not carry: ``mode="fd"``
-    runs with the Euler or the RK4 step, ``mode="jvp"`` with the Euler step
-    and a model that has ``jac_soa`` (the JAX kernel's analytic route)."""
+    and ``mode="jvp"`` run with the Euler or the RK4 step; ``mode="jvp"``
+    needs a model with ``jac_soa`` (the package's models), whose device
+    functions the kernels have."""
     if model.m > qp.MAX_FUSED_M:
         raise ValueError(
             f"merged sweep kernel supports m <= {qp.MAX_FUSED_M}")
     scheme(integrator)
     if mode not in ("jvp", "fd"):
         raise ValueError(f"unknown derivative mode {mode!r}")
-    if mode == "jvp" and (integrator != "euler"
-                          or not model.has_analytic_soa):
+    if mode == "jvp" and not model.has_analytic_soa:
         raise NotImplementedError(
-            f"the sweep's in-kernel JVP route (mode='jvp' with integrator "
-            f"{integrator!r}, analytic SoA: {model.has_analytic_soa}) is not "
-            "ported (ROADMAP.md §B2, its jvp half); mode='fd' takes RK4")
+            f"the sweep's in-kernel JVP route for model {model.name!r} "
+            "without jac_soa (a custom model: its device functions cannot "
+            "be supplied to the kernels yet) is not ported (ROADMAP.md §B2, "
+            "custom models); mode='fd' takes it")
+
+
+def _analytic(mode: str, integrator: str) -> bool:
+    """Whether the closed forms apply (the JAX kernel's use_analytic)."""
+    return mode == "jvp" and integrator == "euler"
 
 
 @dataclasses.dataclass
@@ -126,11 +144,15 @@ def _terminal_init(model, p, xT) -> _Carry:
                    for i in range(n)])
 
 
-def _terminal_fd(model, p, xT, eps) -> _Carry:
-    """V_T from the final cost's stencils at xT (u_T = 0, which the final
-    cost ignores): a dense Hessian; zeroed accumulators."""
+def _terminal_dense(model, p, xT, mode, eps) -> _Carry:
+    """V_T from the final cost's dual numbers (``mode="jvp"``) or stencils
+    (``"fd"``) at xT (u_T = 0, which the final cost ignores): a dense
+    Hessian; zeroed accumulators."""
     n = model.n
-    c1, h, pairs = fd_terminal(model, p, xT[:, None], eps, xT.device)
+    if mode == "jvp":
+        c1, h, pairs = jvp_terminal(model, p, xT[:, None], xT.device)
+    else:
+        c1, h, pairs = fd_terminal(model, p, xT[:, None], eps, xT.device)
     vxx = [[None] * n for _ in range(n)]
     for q, (a, b) in enumerate(pairs):
         vxx[a][b] = vxx[b][a] = h[q, 0]
@@ -153,16 +175,19 @@ def _analytic_derivs(model, p, dt, x, u):
     return (fxc, fuc, *model.cost_derivs_soa(p, x, u))
 
 
-class _FdDerivs:
-    """The stencils' dense derivatives at every running step, evaluated at
-    once; ``at(t)`` gives step t's as nested lists of lanes."""
+class _DenseDerivs:
+    """The dual numbers' (``mode="jvp"``) or the stencils' (``"fd"``)
+    dense derivatives at every running step, evaluated at once; ``at(t)``
+    gives step t's as nested lists of lanes."""
 
-    def __init__(self, model, integrator, p, dt, xs_body, us, eps):
+    def __init__(self, model, integrator, p, dt, xs_body, us, mode, eps):
         self.n, self.m = model.n, model.m
-        self.jac, self.c1, h, pairs = fd_running(
-            model, p, dt, integrator, xs_body.permute(1, 0, 2),
-            us.permute(1, 0, 2), eps, us.device)
-        self.h, self.pairs = h, pairs
+        x, u = xs_body.permute(1, 0, 2), us.permute(1, 0, 2)
+        if mode == "jvp":
+            out = jvp_running(model, p, dt, integrator, x, u, us.device)
+        else:
+            out = fd_running(model, p, dt, integrator, x, u, eps, us.device)
+        self.jac, self.c1, self.h, self.pairs = out
 
     def at(self, t):
         n, m = self.n, self.m
@@ -313,14 +338,14 @@ def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
     n = xs_body.shape[1]
     k = torch.empty((T, m, B), dtype=F32, device=us.device)
     K = torch.empty((T, m, n, B), dtype=F32, device=us.device)
-    if mode == "fd":
-        c = _terminal_fd(model, p, xterm, eps)
-        fd = _FdDerivs(model, integrator, p, dt, xs_body, us, eps)
-        derivs_at = fd.at
-    else:
+    if _analytic(mode, integrator):
         c = _terminal_init(model, p, xterm)
         derivs_at = lambda t: _analytic_derivs(model, p, dt, xs_body[t],
                                                us[t])
+    else:
+        c = _terminal_dense(model, p, xterm, mode, eps)
+        derivs_at = _DenseDerivs(model, integrator, p, dt, xs_body, us,
+                                 mode, eps).at
     for t in reversed(range(T)):
         k_i, Krow = _sweep_step(model, p, lam, use_limits, c, xs_body[t],
                                 us[t], derivs_at(t))
@@ -330,14 +355,17 @@ def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
     return k, K, dv, c.div, c.gacc * (1.0 / T)
 
 
-def fd_args(mode: str, integrator: str, eps: float):
+def kernel_args(mode: str, integrator: str, eps: float):
     """The launcher suffix and the trailing arguments of the sweep and
-    iteration launchers: none for the analytic kernels (Euler only); for
-    the stencil ones (_fd) the integrator, eps and the denominators 2·eps
-    and 4·eps², each taken in double and rounded once to f32 by ctypes, as
-    the JAX kernel rounds its Python floats."""
-    if mode != "fd":
+    iteration launchers: none for the analytic kernels (Euler only); the
+    integrator for the dual-number ones (_jvp); for the stencil ones (_fd)
+    the integrator, eps and the denominators 2·eps and 4·eps², each taken
+    in double and rounded once to f32 by ctypes, as the JAX kernel rounds
+    its Python floats."""
+    if _analytic(mode, integrator):
         return "", ()
+    if mode == "jvp":
+        return "_jvp", (scheme(integrator),)
     return "_fd", (scheme(integrator), float(eps), float(2.0 * eps),
                    float(4.0 * eps * eps))
 
@@ -350,8 +378,10 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     Shapes: xs_body (T, n, B) and xterm (n, B) — the trajectory body and
     terminal state; us (T, m, B); lam (B,). Control limits come from the
     packed params; ``use_limits=False`` takes the unconstrained Newton
-    step instead. ``mode="fd"`` differentiates the ``integrator`` step and
-    the costs by the central stencils with ``eps``. Returns (k (T, m, B),
+    step instead. ``mode="jvp"`` takes the closed forms with the Euler step
+    and dual numbers through the RK4 step; ``mode="fd"`` differentiates the
+    ``integrator`` step and the costs by the central stencils with
+    ``eps``. Returns (k (T, m, B),
     K (T, m, n, B), dv (2, B), diverged (B,) f32 0/1, gnorm (B,)).
     """
     check_supported(model, integrator, mode)
@@ -371,10 +401,10 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     dv = torch.empty((2, B), dtype=F32, device=dev)
     div = torch.empty((B,), dtype=F32, device=dev)
     gnorm = torch.empty((B,), dtype=F32, device=dev)
-    suffix, stencil = fd_args(mode, integrator, eps)
+    suffix, extra = kernel_args(mode, integrator, eps)
     _build.launch(f"{prefix}_sweep{suffix}", dev, pp.vec, xs_body, xterm, us,
                   lam, k, K, dv, div, gnorm, T, B, int(bool(use_limits)),
-                  *stencil)
+                  *extra)
     sweep_packed.launches += 1
     return k, K, dv, div, gnorm
 

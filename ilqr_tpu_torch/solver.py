@@ -84,7 +84,9 @@ def check_supported(model: Model, cfg: SolverConfig,
             f"{model.name!r}")
     if cfg.integrator != "euler":
         raise NotImplementedError(
-            f"integrator {cfg.integrator!r} is not ported (Euler only)")
+            f"integrator {cfg.integrator!r} on the composable path is not "
+            "ported (Euler only; ROADMAP.md §A4); solve_batch_fused takes "
+            "RK4")
     if params_batched:
         raise NotImplementedError(
             "params_batched=True is not ported to ilqr_tpu_torch yet")

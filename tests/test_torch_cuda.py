@@ -436,3 +436,119 @@ def test_fd_solve_on_card_matches_plain_solve(dev, name, integrator):
         np.testing.assert_array_equal(card.iterations.cpu().numpy(),
                                       plain.iterations.numpy())
     assert counts["rollout_packed"] == 1 and counts["iteration_packed"] >= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ALL_MODELS)
+def test_model_jvp_kernels_match_plain(dev, name):
+    """Each model's dual-number sweep and iteration kernels (mode="jvp"
+    with the RK4 step: exact derivatives through every stage, with and
+    without limits) against the plain versions on the same card, at a lane
+    count that is not a multiple of the block. Both sides run the same
+    dual-number rules op by op; held to 1e-4 relative, expected 0."""
+    m = get_model(name)
+    n, mm, b, t = m.n, m.m, 200, 5
+    rng = np.random.default_rng(19)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(m.default_params(), 0.02, dev)
+    u_mid = U_MID.get(name, 1.0 if "ring" in name else 0.0)
+    x0 = f(0.3 * rng.normal(size=(n, b)))
+    us = f(u_mid + 0.6 * rng.normal(size=(t, mm, b)))
+    xs = f(0.3 * rng.normal(size=(t, n, b)))
+    xT = f(0.3 * rng.normal(size=(n, b)))
+    K = f(0.1 * rng.normal(size=(t, mm, n, b)))
+    k = f(0.2 * rng.normal(size=(t, mm, b)))
+    lam = f(np.where(rng.uniform(size=b) < 0.1, -100.0, 1.0))
+    live = f(rng.uniform(size=b) > 0.5)
+    cprev = f(100.0 + rng.normal(size=b))
+    al = f(ALPHAS)
+    reset_launch_counts()
+    for limits in (True, False):
+        for op, plain, args in (
+                (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+                 (m, "rk4", pp, xs, xT, us, lam, "jvp", limits)),
+                (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+                 (m, "rk4", limits, pp, x0, xs, xT, us, k, K, lam, cprev,
+                  live, al, "jvp", limits))):
+            got = op(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            for i, (g, w) in enumerate(zip(got, want)):
+                _close(g, w, f"{name} jvp {op.__name__}[{i}]", tol=1e-4)
+    counts = launch_counts()
+    assert counts["sweep_packed"] == counts["iteration_packed"] == 2, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["acrobot", "pendulum", "cartpole"])
+@pytest.mark.parametrize("integrator", ["euler", "rk4"])
+def test_split_kernels_match_plain(dev, name, integrator):
+    """The derivative kernel of each split-sweep model (jvp and fd modes,
+    the ``integrator`` step) and the backward kernel at the model's n (2
+    for pendulum, 4 otherwise) on its derivatives, against the plain
+    versions on the same card; held to 1e-4 relative, expected 0."""
+    m = get_model(name)
+    n, b, t = m.n, 200, 6
+    rng = np.random.default_rng(20)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(m.default_params(), 0.02, dev)
+    xs = f(0.4 * rng.normal(size=(t + 1, n, b)))
+    us = f(2.0 * rng.normal(size=(t, 1, b)))
+    reset_launch_counts()
+    for mode in ("jvp", "fd"):
+        args = (m, integrator, pp, xs, us, mode)
+        got = kernel_derivs.derivs_packed(*args)
+        torch.cuda.synchronize()
+        want = kernel_derivs.derivs_plain(*args)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{name} {integrator} {mode} derivs[{i}]", tol=1e-4)
+        fx, fu, cx, cu, cxx, cxu, cuu = got
+        p, _dt = kernel_rollout.unpack_params(pp)
+        lam = f(np.where(rng.uniform(size=b) < 0.1, -100.0, 1.0))
+        bargs = tuple(a.contiguous() for a in (
+            fx, fu[:, :, 0], cx[:-1], cu[:, 0], cxx[:-1], cxu[:, :, 0],
+            cuu[:, 0, 0], p.u_min[0] - us[:, 0], p.u_max[0] - us[:, 0], lam,
+            cx[-1], cxx[-1]))
+        got = kernel_backward.backward_sweep_packed(*bargs)
+        torch.cuda.synchronize()
+        want = kernel_backward.backward_plain(*bargs)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{name} {integrator} {mode} backward[{i}]",
+                   tol=1e-4)
+    counts = launch_counts()
+    assert counts["derivs_packed"] == counts["backward_sweep_packed"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,extra", [
+    ("acrobot", {}), ("omni_thruster", {}),
+    ("pendulum", dict(sweep_kernel="split")),
+    ("cartpole", dict(sweep_kernel="split", integrator="euler"))])
+def test_jvp_and_split_solves_on_card_match_plain_solve(dev, name, extra):
+    """Short solves with deriv_mode="analytic" and RK4 (the JVP route;
+    pendulum on the split sweep) and cartpole's split sweep with the Euler
+    step, through the kernels, against the same solves through the plain
+    versions on the CPU: costs to rtol 1e-3 (the CPU's sin/cos may differ
+    by an ulp; exact derivatives keep that at ulps, where the stencils of
+    the fd mode would scale it by 1/(4·eps²))."""
+    m = get_model(name)
+    p = m.default_params()
+    rng = np.random.default_rng(0)
+    x0 = (0.05 * rng.normal(size=(64, m.n))).astype(np.float32)
+    u0 = np.tile(np.asarray(U_MID.get(name, 0.0), np.float32),
+                 (8, m.m)) if name == "omni_thruster" else np.zeros(
+                     (8, m.m), np.float32)
+    cfg = SolverConfig(**{**dict(deriv_mode="analytic", integrator="rk4",
+                                 max_iter=5, alphas=(1.0, 0.3, 0.03)),
+                          **extra})
+    reset_launch_counts()
+    card = solve_batch_fused(m, p, cfg, 0.02, x0, u0)
+    counts = launch_counts()
+    plain = solve_batch_fused(m, p, cfg, 0.02, x0, u0, device="cpu")
+    np.testing.assert_allclose(card.cost.cpu().numpy(), plain.cost.numpy(),
+                               rtol=1e-3)
+    assert counts["rollout_packed"] == 1
+    if extra.get("sweep_kernel") == "split":
+        assert counts["derivs_packed"] >= 5
+    else:
+        assert counts["iteration_packed"] + counts["sweep_packed"] >= 5

@@ -163,12 +163,15 @@ def test_cpu_tensors_run_plain_versions_and_launch_nothing(monkeypatch):
 def test_kernel_path_rejects_other_models_and_integrators(case, monkeypatch):
     """The CUDA kernels are compiled for the registered models and take the
     Euler or the RK4 step: the rollout, line-search, sweep and iteration
-    guards accept rk4 (the sweep's with mode="fd"); derivs_packed refuses
-    it, and solve_batch_fused raises NotImplementedError naming the ROADMAP
-    item before any stage runs for analytic + RK4 and a jvp request without
-    jac_soa (the in-kernel JVP route, §B2) and for RK4 on the split sweep
-    (RK4 in derivs_packed, §B1). Checked without a card through the guards
-    the wrappers call first, and with every stage a tripwire."""
+    guards accept rk4 in both derivative modes, and derivs_packed takes it
+    (its kernel instantiated for the m = 1 models of the split sweep, any
+    other model raising NotImplementedError naming §A4 before a launch).
+    solve_batch_fused carries analytic + RK4 (the in-kernel JVP route) and
+    RK4 on the split sweep: each reaches its first stage with the RK4 step
+    (every stage a tripwire that records its integrator). A jvp request
+    without jac_soa (a custom model) raises NotImplementedError naming §B2
+    before any stage runs. Checked without a card through the guards the
+    wrappers call first."""
     pp = kernel_rollout.pack_params(tac.default_params(), 0.02)
     dev = pp.vec.device
     if case == "other_model":
@@ -181,49 +184,86 @@ def test_kernel_path_rejects_other_models_and_integrators(case, monkeypatch):
             tac.MODEL, "rk4", pp, dev) == "ilqr_acrobot"
         assert kernel_rollout.scheme("rk4") == 1
         kernel_sweep.check_supported(tac.MODEL, "rk4", "fd")
-        with pytest.raises(NotImplementedError, match="B2"):
-            kernel_sweep.check_supported(tac.MODEL, "rk4", "jvp")
+        kernel_sweep.check_supported(tac.MODEL, "rk4", "jvp")
+        assert kernel_sweep.kernel_args("jvp", "rk4", 1e-3) == ("_jvp", (1,))
+        assert kernel_sweep.kernel_args("jvp", "euler", 1e-3) == ("", ())
         with pytest.raises(ValueError, match="integrator"):
             kernel_rollout.require_kernel_model(tac.MODEL, "midpoint", pp,
                                                 dev)
     elif case == "derivs_refuses_rk4":
-        xs, us = torch.zeros(6, 4, 2), torch.zeros(5, 1, 2)
-        for op in (kernel_derivs.derivs_packed, kernel_derivs.derivs_plain):
-            with pytest.raises(NotImplementedError, match="derivs_packed"):
-                op(tac.MODEL, "rk4", pp, xs, us, mode="fd")
+        # carried now: the plain version runs RK4, and the kernel's guard
+        # takes it for the split sweep's models
+        xs, us = 0.1 * torch.ones(6, 4, 2), torch.zeros(5, 1, 2)
+        for mode in ("jvp", "fd"):
+            out = kernel_derivs.derivs_packed(tac.MODEL, "rk4", pp, xs, us,
+                                              mode=mode)
+            euler = kernel_derivs.derivs_plain(tac.MODEL, "euler", pp, xs,
+                                               us, mode=mode)
+            assert [tuple(a.shape) for a in out] == [
+                tuple(a.shape) for a in euler]
+            assert not torch.equal(out[0], euler[0])   # fx is the RK4 step's
+        assert set(kernel_derivs.DERIVS_KERNEL_MODELS) == {
+            "acrobot", "pendulum", "cartpole"}
+        for name in kernel_derivs.DERIVS_KERNEL_MODELS:
+            mm = get_model(name)
+            ppm = kernel_rollout.pack_params(mm.default_params(), 0.02)
+            kernel_rollout.require_kernel_model(
+                mm, "rk4", ppm, dev, have=kernel_derivs.DERIVS_KERNEL_MODELS)
+        bi = get_model("bicycle")
+        ppb = kernel_rollout.pack_params(bi.default_params(), 0.02)
+        monkeypatch.setattr(kernel_derivs, "on_cuda", lambda t: True)
+        monkeypatch.setattr(kernel_derivs._build, "launch",
+                            lambda *a: pytest.fail("launched"))
+        with pytest.raises(NotImplementedError, match="A4"):
+            kernel_derivs.derivs_packed(bi, "rk4", ppb, torch.zeros(6, 4, 2),
+                                        torch.zeros(5, 2, 2))
     else:
         from ilqr_tpu_torch import fused
 
+        class Reached(Exception):
+            pass
+
         def tripwire(*a, **k):
-            raise AssertionError("a stage ran for an uncarried configuration")
+            raise Reached(a[1])   # the integrator every stage takes second
 
         for name in ("rollout_packed", "iteration_packed", "sweep_packed",
                      "linesearch_packed", "derivs_packed",
                      "backward_sweep_packed"):
             monkeypatch.setattr(fused, name, tripwire)
         model = tac.MODEL
-        cfg, item = {
-            "analytic_rk4": (SolverConfig(integrator="rk4"), "B2"),
-            "split_rk4": (SolverConfig(deriv_mode="fd", integrator="rk4",
-                                       sweep_kernel="split"), "B1"),
-            "jvp_without_jac_soa": (SolverConfig(), "B2"),
+        cfg = {
+            "analytic_rk4": SolverConfig(integrator="rk4"),
+            "split_rk4": SolverConfig(deriv_mode="fd", integrator="rk4",
+                                      sweep_kernel="split"),
+            "jvp_without_jac_soa": SolverConfig(),
         }[case]
+        args = (tac.default_params(), cfg, 0.02,
+                np.zeros((2, 4), np.float32), np.zeros((5, 1), np.float32))
         if case == "jvp_without_jac_soa":
             model = tac.MODEL.__class__(**{**tac.MODEL.__dict__,
                                            "jac_soa": None})
-        with pytest.raises(NotImplementedError, match=item):
-            solve_batch_fused(model, tac.default_params(), cfg, 0.02,
-                              np.zeros((2, 4), np.float32),
-                              np.zeros((5, 1), np.float32), device="cpu")
+            with pytest.raises(NotImplementedError, match="B2"):
+                solve_batch_fused(model, *args, device="cpu")
+            assert not fused.fused_applicable(model, cfg)
+        else:
+            assert fused.fused_applicable(model, cfg)
+            with pytest.raises(Reached, match="rk4"):
+                solve_batch_fused(model, *args, device="cpu")
+            # on the card the split sweep's kernels exist for this model
+            fused._check_kernels(model, cfg, torch.device("cuda"))
 
 
 def test_every_cuda_source_is_built_and_packaged():
     """Each csrc/*.cu and *.cuh is one of the build's sources (a header
     change rebuilds) and lies under the package data of pyproject.toml (a
     wheel carries it); each model with fused kernels has its own .cu, and
-    its stencil (fd) instantiations a kernels_<model>_fd.cu of their own
-    (the quadrotor's iteration kernels apart, in
-    kernels_<model>_iteration_fd.cu), so that they compile in parallel."""
+    its stencil (fd) and dual-number (jvp) instantiations a
+    kernels_<model>_fd.cu and a kernels_<model>_jvp.cu of their own (the
+    quadrotor's iteration kernels apart, in kernels_<model>_iteration_fd.cu
+    and kernels_<model>_iteration_jvp.cu), so that they compile in
+    parallel; derivs.cu instantiates the derivative kernel for each model of
+    DERIVS_KERNEL_MODELS and backward.cu the backward kernel for each n of
+    BACKWARD_KERNEL_NS."""
     import fnmatch
     import tomllib
 
@@ -247,14 +287,23 @@ def test_every_cuda_source_is_built_and_packaged():
             assert f"ILQR_ITERATION_LAUNCHER({name}," in apart.read_text()
         else:
             assert f"ILQR_FUSED_LAUNCHERS({name}," in text
-        fd = (csrc / f"kernels_{name}_fd.cu").read_text()
-        fd_apart = csrc / f"kernels_{name}_iteration_fd.cu"
-        if fd_apart.exists():
-            assert f"ILQR_FD_SWEEP_LAUNCHER({name}," in fd
-            assert (f"ILQR_FD_ITERATION_LAUNCHER({name},"
-                    in fd_apart.read_text())
-        else:
-            assert f"ILQR_FD_LAUNCHERS({name}," in fd
+        for mode in ("fd", "jvp"):
+            text = (csrc / f"kernels_{name}_{mode}.cu").read_text()
+            apart = csrc / f"kernels_{name}_iteration_{mode}.cu"
+            macro = f"ILQR_{mode.upper()}"
+            if apart.exists():
+                assert f"{macro}_SWEEP_LAUNCHER({name}," in text
+                assert (f"{macro}_ITERATION_LAUNCHER({name},"
+                        in apart.read_text())
+            else:
+                assert f"{macro}_LAUNCHERS({name}," in text
+    derivs = (csrc / "derivs.cu").read_text()
+    for name in kernel_derivs.DERIVS_KERNEL_MODELS:
+        assert f"ILQR_DERIVS_LAUNCHER({name}, {name}::Model)" in derivs
+    backward = (csrc / "backward.cu").read_text()
+    for n in kernel_backward.BACKWARD_KERNEL_NS:
+        assert f"ILQR_BACKWARD_LAUNCHER({n})" in backward
+        assert _build.signature(f"ilqr_backward_n{n}")
 
 
 def test_pack_params_layout():
@@ -340,7 +389,10 @@ def test_ptxas_table_files_rows_under_their_own_model():
     thruster_ring::Model; each row keeps its source file. The stencil
     instantiations (kernels_<model>_fd.cu, kernels_<model>_iteration_fd.cu;
     FiniteDiff in the mangled name) are filed as sweep_kernel_fd and
-    iteration_kernel_fd under their model."""
+    iteration_kernel_fd under their model, the dual-number ones (_jvp.cu;
+    Jvp) as <kernel>_jvp. derivs.cu's rows go to the model in the mangled
+    name (its stencil mode as derivs_kernel_fd), backward.cu's n = 2 row to
+    pendulum and its n = 4 row to acrobot and cartpole."""
     import chip_smoke
 
     def entry(mangled, regs, stack):
@@ -353,9 +405,15 @@ def test_ptxas_table_files_rows_under_their_own_model():
     ring = "_ZN5fused{}IN13thruster_ring5ModelILi{}EEE{}EvPKf"
     log = "".join([
         "ptxas log of backward.cu\n",
-        entry("_Z15backward_kernelPKf", 80, 0),
+        entry("_ZN12_GLOBAL__N_115backward_kernelILi2EEEvPKf", 40, 0),
+        entry("_ZN12_GLOBAL__N_115backward_kernelILi4EEEvPKf", 80, 0),
         "ptxas log of derivs.cu\n",
-        entry("_Z13derivs_kernelILb1EEvPKf", 64, 0),
+        entry("_ZN12_GLOBAL__N_113derivs_kernelIN7acrobot5ModelEN5sweep3"
+              "JvpEEEvPKf", 64, 0),
+        entry("_ZN12_GLOBAL__N_113derivs_kernelIN7acrobot5ModelEN5sweep10"
+              "FiniteDiffEEEvPKf", 65, 0),
+        entry("_ZN12_GLOBAL__N_113derivs_kernelIN8pendulum5ModelEN5sweep3"
+              "JvpEEEvPKf", 66, 16),
         "ptxas log of kernels.cu\n",
         entry("_ZN5fused12sweep_kernelIN7acrobot5ModelELb1EEEvPKf", 72, 32),
         "ptxas log of kernels_omni_thruster.cu\n",
@@ -379,7 +437,13 @@ def test_ptxas_table_files_rows_under_their_own_model():
               "FiniteDiffEEEvPKf", 206, 4720),
         "ptxas log of kernels_acrobot_fd.cu\n",
         entry("_ZN5fused12sweep_kernelIN7acrobot5ModelELb0EN5sweep10"
-              "FiniteDiffEEEvPKf", 92, 288)])
+              "FiniteDiffEEEvPKf", 92, 288),
+        "ptxas log of kernels_quadrotor_iteration_jvp.cu\n",
+        entry("_ZN5fused16iteration_kernelIN9quadrotor5ModelELb1EN5sweep3"
+              "JvpEEEvPKf", 207, 5000),
+        "ptxas log of kernels_cartpole_jvp.cu\n",
+        entry("_ZN5fused12sweep_kernelIN8cartpole5ModelELb1EN5sweep3"
+              "JvpEEEvPKf", 93, 320)])
     t = chip_smoke.ptxas_table(log)
     assert t[("sweep_kernel", "thruster_ring", True)]["registers"] == 200
     assert t[("sweep_kernel", "thruster_ring", False)]["registers"] == 96
@@ -394,9 +458,19 @@ def test_ptxas_table_files_rows_under_their_own_model():
         source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration.cu")
     assert t[("sweep_kernel", "acrobot", True)]["registers"] == 72
     assert t[("derivs_kernel", "acrobot", None)]["registers"] == 64
+    assert t[("derivs_kernel_fd", "acrobot", None)]["registers"] == 65
+    assert t[("derivs_kernel", "pendulum", None)] == dict(
+        registers=66, stack_bytes=16, spill_stores=8, spill_loads=12,
+        source="ilqr_tpu_torch/csrc/derivs.cu")
     assert t[("backward_kernel", "acrobot", None)]["registers"] == 80
+    assert t[("backward_kernel", "cartpole", None)]["registers"] == 80
+    assert t[("backward_kernel", "pendulum", None)]["registers"] == 40
+    assert t[("iteration_kernel_jvp", "quadrotor", True)] == dict(
+        registers=207, stack_bytes=5000, spill_stores=8, spill_loads=12,
+        source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration_jvp.cu")
+    assert t[("sweep_kernel_jvp", "cartpole", True)]["registers"] == 93
     assert t[("iteration_kernel_fd", "quadrotor", True)] == dict(
         registers=206, stack_bytes=4720, spill_stores=8, spill_loads=12,
         source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration_fd.cu")
     assert t[("sweep_kernel_fd", "acrobot", False)]["registers"] == 92
-    assert len(t) == 12
+    assert len(t) == 18
