@@ -28,9 +28,9 @@ Phases (any failure raises and the script exits non-zero):
      by kernel and the device's busy share;
   5. the fused split route (sweep + line-search kernels) against the merged
      one, and the kernel path against the plain path on the card, at
-     B = 1024, max_iter = 4; beside them, not asserted, the plain path on
-     the CPU and the kernel path from an x0 moved by 1e-6, which show how
-     far rounding alone carries a lane on this chaotic workload;
+     B = 1024, max_iter = 4; beside them, not asserted, the kernel path
+     from an x0 moved by 1e-6, which shows how far rounding alone carries
+     a lane on this chaotic workload;
   6. the composable path: solve_batch at the same size on the same x0
      (derivative, backward and rollout kernels; the line search as one
      rollout over B·A lanes) beside solve_batch_fused — solves/s, cost,
@@ -40,28 +40,28 @@ Phases (any failure raises and the script exits non-zero):
      (the gauge below), with the share of lanes a 1e-6 nudge of x0 forks;
   8. the m = 2…4 slice (experiments/secondary_bench.py's workloads): the
      quadrotor path at full width (B = 1024, T = 80, max_iter = 40:
-     solves/s, cost, iterations, reasons, launches, a profiled solve, and
-     unasserted at B = 8192) and its merged route against its split one
-     under the gauge; the double integrator (with and without limits) and
-     3-D point mass paths (B = 1024, T = 99), and their split routes
-     against the merged ones; the double integrator's reference solve
+     solves/s, cost, iterations, reasons, launches, a profiled solve) and
+     its merged route against its split one under the gauge; the double
+     integrator (with and without limits) and 3-D point mass paths
+     (B = 1024, T = 99), and their split routes against the merged ones; the double integrator's reference solve
      against golden/integrator_golden.csv, and short solves of the point
      mass and the quadrotor against the plain path on the CPU;
   9. the m ≥ 5 slice (projected Newton in the sweep): the thruster_ring
      path at full width (B = 1024, T = 80, max_iter = 40: solves/s, cost,
      iterations, reasons, the share of controls on the lower bound,
-     launches, a profiled solve, and unasserted at B = 8192) and its
-     merged route; the omni_thruster (with and without limits) and
-     free_flyer paths and their merged routes under the gauge;
+     launches, a profiled solve) and its merged route; the omni_thruster
+     (with and without limits) and free_flyer paths and their merged
+     routes under the gauge;
      thruster_ring24 at the cap (one solve, max_iter cut if it would take
-     over 30 s) and thruster_ring16/20 at a cut depth; short omni_thruster
+     over 10 s) and thruster_ring16/20 at a cut depth; short omni_thruster
      and thruster_ring solves against the plain path on the CPU;
  10. the last four models (pendulum, cartpole, bicycle, power_mass — the
      live cxu, cxx off-diagonals and full cuu of the sweep's general
      terms): each model's path at full width (the CLI's canonical problem
      at --batch 1024, uncut: solves/s, ms per iteration, cost against the
-     initial rollout's, iterations, reasons, launches, a profiled solve),
-     its split route against the merged one under the gauge, its path
+     initial rollout's, iterations, reasons, launches; power_mass, the
+     headline, timed thrice and profiled), its split route against the
+     merged one under the gauge, its path
      without limits, and a short solve against the plain path on the CPU;
  11. the reference's central stencils inside the fused sweep
      (deriv_mode="fd", the CLI's default) and RK4: the CLI's batch solves
@@ -72,7 +72,8 @@ Phases (any failure raises and the script exits non-zero):
      iteration), the other twelve models' canonical problems at B = 1024
      (the rings 16-24 at a cut depth, thruster_ring's max_iter capped) —
      solves/s, ms per iteration, host iterations, cost against each lane's
-     initial rollout's, reasons, launches, profiled solves — each route
+     initial rollout's, reasons, launches, acrobot's solve profiled — each
+     route
      against the other under the gauge (the m·n ≥ 32 models' merged routes
      at a cut depth), the paths without limits, and short solves against
      the plain path on the CPU;
@@ -88,11 +89,29 @@ Phases (any failure raises and the script exits non-zero):
      Euler, analytic RK4, fd Euler) and acrobot (analytic and fd RK4, B =
      8192, T = 499), each against the merged route under the gauge; short
      solves against the plain path on the CPU;
- 13. one JSON line listing every kernel × model instantiation launched (the
+ 13. per-problem params and the fleet warm start: first, every per-lane
+     kernel with lane 0's problem on every row against the same problem
+     as shared params, bit for bit; then (a) examples/free_flyer_docking.py's
+     fleet at B = 1024, T = 80, max_iter 40 (per-craft docking ports and
+     thrust ceilings; solves/s, cost, iterations, median docking error;
+     every craft under its own ceiling, every lane at or below its initial
+     rollout's cost); (b) the CLI's pendulum problem (T = 199) at B = 1024
+     with per-lane goals and limits ±8 on the whole-iteration kernel and
+     on the split sweep (each lane at or below its initial cost, three
+     lanes solved alone with shared params equal to the batch, the split
+     sweep against the merged one under the gauge); (c) the fleet MPC of
+     experiments/secondary_bench.py:296-327 (acrobot, B = 1024, T = 199,
+     max_iter 20): a cold fleet_init, a warm re-solve from the same states
+     (no lane worse by over 1e-3), FLEET_CYCLES fleet_step replans
+     (replans/s, cycle ms, iterations); phase 3 holds the per-lane params
+     mode of the rollout, sweep and line search at (a)'s shapes and of the
+     rollout, whole iteration and derivative kernel at (b)'s (lanes_cases;
+     readings lanes_* of their rows);
+ 14. one JSON line listing every kernel × model instantiation launched (the
      RK4 readings as rk4_* fields of the kernel's row, the stencil mode's
-     RK4 reading of the derivative kernel as rk4_fd_*), the card's line,
-     and the last line {"ok": true, "device": {...}}. Each phase prints its
-     seconds.
+     RK4 reading of the derivative kernel as rk4_fd_*, the per-lane params
+     readings as lanes_*), the card's line, and the last line
+     {"ok": true, "device": {...}}. Each phase prints its seconds.
 
 It needs one CUDA device and the ilqr_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -116,8 +135,10 @@ from ilqr_tpu_torch import (
     SolverConfig,
     fused,
     get_model,
+    mpc,
     solve_batch,
     solve_batch_fused,
+    solve_batch_fused_warm,
     solver,
 )
 from ilqr_tpu_torch.models import acrobot, omni_thruster, quadrotor
@@ -448,8 +469,12 @@ def check_case(case):
     # bit for bit, NaNs in the same places counting as equal
     bitwise = all(bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
                   for g, w in zip(got, want))
-    total = nbytes(*[a for a in case.args if isinstance(a, torch.Tensor)],
-                   *got)
+    # every tensor argument, the packed params (one row per lane in the
+    # per-lane mode) among them, read once and every output written once
+    total = nbytes(*[a.vec if isinstance(a, kernel_rollout.PackedParams)
+                     else a for a in case.args
+                     if isinstance(a, (torch.Tensor,
+                                       kernel_rollout.PackedParams))], *got)
     if case.unread is not None:
         total -= case.unread(got)
     ops = case.ops()
@@ -466,7 +491,8 @@ def comparison_sets():
                                             *CLI_MODELS)]
             + [("fd", name) for name in CLI_SPECS]
             + [("jvp", name) for name in CLI_SPECS]
-            + [("split", name) for name in SPLIT_MODELS])
+            + [("split", name) for name in SPLIT_MODELS]
+            + [("lanes", name) for name in LANES_KERNELS])
 
 
 def build_cases(dev, which):
@@ -478,6 +504,8 @@ def build_cases(dev, which):
         return jvp_cases(dev, which[1])
     if which[0] == "split":
         return split_cases(dev, which[1])
+    if which[0] == "lanes":
+        return lanes_cases(dev, which[1])
     return fd_cases(dev, which[1])
 
 
@@ -502,13 +530,19 @@ def _worker_job(key):
     return key, dict(r, job_s=time.perf_counter() - t0)
 
 
+# the readings of a row's kernel in another mode, by their group: their key
+# in the readings (the row's key and this suffix) and their fields' prefix
+READING_SUFFIX = {"rk4": "", "rk4_fd": "#fd", "lanes": "#lanes"}
+READING_PREFIX = {"": "rk4_", "fd": "rk4_fd_", "lanes": "lanes_"}
+
+
 def run_comparisons(dev, tick):
     """Phase 3: every kernel × model instantiation against its plain version
-    on the card (and each RK4 reading, a runtime mode of a kernel). This
-    process times the kernels while it is alone on the card (3a); then
-    COMPARE_WORKERS processes run the plain versions, which are host-bound
-    and take minutes in sum, longest first (3b). Returns (rows by key, RK4
-    readings by the key of their row)."""
+    on the card (and each reading of a kernel's runtime mode: RK4, per-lane
+    params). This process times the kernels while it is alone on the card
+    (3a); then COMPARE_WORKERS processes run the plain versions, which are
+    host-bound and take minutes in sum, longest first (3b). Returns (rows
+    by key, readings by the key of their row and READING_SUFFIX)."""
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(COMPARE_WORKERS, initializer=_worker_init) as pool:
         order, times, wheres, metas, jobs = [], {}, {}, {}, []
@@ -550,9 +584,9 @@ def run_comparisons(dev, tick):
                          if k not in ("row", "group", "effort")})
         if meta["group"] == "row":
             rows[meta["row"]] = row
-        else:   # "rk4", or "rk4_fd": the RK4 reading of the row's fd mode
-            rk4[meta["row"] + ("#fd" if meta["group"] == "rk4_fd"
-                               else "")] = row
+        else:   # "rk4"; "rk4_fd", the RK4 reading of the row's fd mode;
+            #     "lanes", the per-lane params reading
+            rk4[meta["row"] + READING_SUFFIX[meta["group"]]] = row
     print(design_traffic_line())
     busy = sum(results[key]["job_s"] for key in order)
     print(f"[compare] {len(order)} plain comparisons in {COMPARE_WORKERS} "
@@ -705,8 +739,8 @@ def profile_solve(label, solve_fn, wall_s, x0=None, u0=None):
 
 def run_split_path(dev, model, params, cfg):
     """Phase 5: split vs merged, and the kernel path vs the plain path on
-    the card, at B = 1024; then, for information only, how far rounding
-    alone moves per-lane costs on this chaotic workload."""
+    the card, at B = 1024; then, for information only, how far a 1e-6
+    nudge of x0 moves per-lane costs on this chaotic workload."""
     rng = np.random.default_rng(1)
     x0 = (0.05 * rng.normal(size=(B_SPLIT, N))).astype(np.float32)
     u0 = np.zeros((T, M), np.float32)
@@ -739,22 +773,17 @@ def run_split_path(dev, model, params, cfg):
     print(f"[split] launches on the split path {counts}; the plain path on "
           f"the card took {plain_s:.1f} s")
 
-    # Not asserted: the CPU's sin/cos round differently from the card's in
-    # the last ulp, and an x0 moved by 1e-6 shows how far such a difference
+    # Not asserted: an x0 moved by 1e-6 shows how far a last-ulp difference
     # alone can carry a lane by iteration 4 (experiments/equiv_tpu.py).
-    t0 = time.perf_counter()
-    cpu = solve_batch_fused(model, params, c4, DT, x0, u0, device="cpu")
-    cpu_s = time.perf_counter() - t0
     nudged = solve_batch_fused(model, params, c4, DT, x0 + np.float32(1e-6),
                                u0)
-    for label, a in (("cpu_plain_vs_card", cpu.cost.numpy()),
-                     ("card_x0+1e-6_vs_card", nudged.cost.cpu().numpy())):
-        p99, mx = gauge(a, cm)
-        forked = float(np.mean(np.abs(a - cm) / (1.0 + np.abs(cm)) > 1e-3))
-        res[label] = dict(p99=p99, max=mx, share_over_1e3=forked)
-        print(f"[split] {label} (information, not asserted): p99 {p99:.3e}, "
-              f"max {mx:.3e}, share of lanes over 1e-3 {forked:.4f}")
-    print(f"[split] the plain path on the CPU took {cpu_s:.1f} s")
+    a = nudged.cost.cpu().numpy()
+    p99, mx = gauge(a, cm)
+    forked = float(np.mean(np.abs(a - cm) / (1.0 + np.abs(cm)) > 1e-3))
+    res["card_x0+1e-6_vs_card"] = dict(p99=p99, max=mx,
+                                       share_over_1e3=forked)
+    print(f"[split] card_x0+1e-6_vs_card (information, not asserted): p99 "
+          f"{p99:.3e}, max {mx:.3e}, share of lanes over 1e-3 {forked:.4f}")
     return counts, res
 
 
@@ -943,7 +972,6 @@ def run_equivalence(dev, model, params, cfg):
 # 3-D point mass at :55-70.
 
 B_M = 1024
-B_WIDE = 8192          # the quadrotor path again: printed, not asserted
 QUAD_T, QUAD_ITERS = 80, 40
 M23_T, M23_ITERS = 99, 100
 SLICE_MODELS = ("double_integrator", "point_mass_3d", "quadrotor")
@@ -977,7 +1005,7 @@ T_BACKWARD = {"thruster_ring16": 4, "thruster_ring20": 4,
 # core but one): they are host-bound, one PyTorch op per operation.
 COMPARE_WORKERS = max(1, min(7, (os.cpu_count() or 2) - 1))
 DEVICE = "cuda"
-CAP_SOLVE_S = 30.0    # thruster_ring24: max_iter is cut if a solve would
+CAP_SOLVE_S = 10.0    # thruster_ring24: max_iter is cut if a solve would
 #                       take longer
 SHORT_ITERS = 2       # thruster_ring16/20's solves (and ring24's merged
 #                       route): a cut depth that launches every kernel
@@ -1153,7 +1181,7 @@ def model_cases(dev, name):
     return out
 
 
-def run_model_path(dev, name, label, B=B_M, reps=3, warmup=True,
+def run_model_path(dev, name, label, B=B_M, reps=1, warmup=True,
                    **cfg_extra):
     """One slice path through solve_batch_fused: a warm-up solve on the
     first x0 draw (unless ``warmup`` is False), then ``reps`` timed solves
@@ -1376,7 +1404,7 @@ def run_slice(dev, rows):
     ``rows``. Returns the results."""
     res = {}
     quad, (qx0, qcost, qwalls) = run_model_path(dev, "quadrotor",
-                                                "quadrotor")
+                                                "quadrotor", reps=3)
     c = quad["launches"]
     if (c["sweep_packed"] < quad["host_iterations"]
             or c["linesearch_packed"] < 1 or c["iteration_packed"]):
@@ -1387,9 +1415,6 @@ def run_slice(dev, rows):
         "quadrotor", lambda x0, u0_: solve_batch_fused(model, params, cfg,
                                                        dt, x0, u0_),
         float(np.median(qwalls)), draw(np.random.default_rng(2)), u0)
-    quad["wide"], _w = run_model_path(dev, "quadrotor",
-                                      "quadrotor at B = 8192 (not asserted)",
-                                      B=B_WIDE, reps=1)
     quad["merged_route"] = route_gauge(
         dev, "quadrotor", "quadrotor merged route vs split", qx0, qcost,
         iter_kernel="merged")
@@ -1470,16 +1495,13 @@ def run_wide_slice(dev, rows):
     # (b) thruster_ring, the full-width path
     t0 = time.perf_counter()
     ring, (rx0, rcost, rwalls) = run_model_path(
-        dev, "thruster_ring", "thruster_ring (m = 12, full width)")
+        dev, "thruster_ring", "thruster_ring (m = 12, full width)", reps=3)
     split_route(ring, "thruster_ring")
     model, params, cfg, T, dt, u0, draw = workload("thruster_ring")
     ring["profile"] = profile_solve(
         "thruster_ring", lambda x0, u0_: solve_batch_fused(
             model, params, cfg, dt, x0, u0_),
         float(np.median(rwalls)), draw(np.random.default_rng(2)), u0)
-    ring["wide"], _w = run_model_path(
-        dev, "thruster_ring", "thruster_ring at B = 8192 (not asserted)",
-        B=B_WIDE, reps=1, warmup=False)
     ring["merged_route"] = route_gauge(
         dev, "thruster_ring", "thruster_ring merged route vs split", rx0,
         rcost, iter_kernel="merged")
@@ -1565,8 +1587,10 @@ def run_cli_slice(dev, rows):
     ``rows``. Returns the results."""
     res = {}
     for name in CLI_MODELS:
+        headline = name == "power_mass"
         out, (x0, cost, walls) = run_model_path(
-            dev, name, f"{name} (CLI problem, full width)")
+            dev, name, f"{name} (CLI problem, full width)",
+            reps=3 if headline else 1)
         c = out["launches"]
         if (c["iteration_packed"] < out["host_iterations"]
                 or c["sweep_packed"] or c["linesearch_packed"]):
@@ -1593,10 +1617,11 @@ def run_cli_slice(dev, rows):
         if not np.all(cost <= init):
             raise AssertionError(f"{name}: a lane ended above its initial "
                                  f"rollout's cost")
-        out["profile"] = profile_solve(
-            name, lambda x0_, u0_: solve_batch_fused(model, params, cfg, dt,
-                                                     x0_, u0_),
-            float(np.median(walls)), draw(np.random.default_rng(2)), u0)
+        if headline:
+            out["profile"] = profile_solve(
+                name, lambda x0_, u0_: solve_batch_fused(
+                    model, params, cfg, dt, x0_, u0_),
+                float(np.median(walls)), draw(np.random.default_rng(2)), u0)
         out["split_route"] = route_gauge(
             dev, name, f"{name} split route vs merged", x0, cost,
             iter_kernel="split")
@@ -1772,7 +1797,7 @@ def fd_cases(dev, name):
     return out
 
 
-def run_fd_path(dev, name, label, B=B_M, reps=2, warmup=True, profile=False,
+def run_fd_path(dev, name, label, B=B_M, reps=1, warmup=False, profile=False,
                 **cfg_extra):
     """One CLI batch solve through solve_batch_fused: an untimed warm-up
     solve (unless ``warmup`` is False), then ``reps`` timed solves of the
@@ -1924,8 +1949,7 @@ def run_fd_slice(dev, rows, rk4):
     for integ in ("euler", "rk4"):   # phase 3 warmed the kernels up
         out, _c = run_fd_path(
             dev, "acrobot", f"acrobot {integ} (the CLI's batch solve)",
-            B=B_MAIN, reps=1, warmup=False, profile=integ == "euler",
-            integrator=integ)
+            B=B_MAIN, profile=integ == "euler", integrator=integ)
         short = dict(B=B_SPLIT, T=FD_EQ_T, max_iter=FD_EQ_ITERS,
                      integrator=integ)
         merged, ref = fd_solve(dev, "acrobot", f"acrobot {integ} merged",
@@ -1951,8 +1975,8 @@ def run_fd_slice(dev, rows, rk4):
     # (c) the quadrotor's CLI problem with fd and RK4 (the split iteration)
     # and its merged route
     t0 = time.perf_counter()
-    quad, qcost = run_fd_path(dev, "quadrotor", "quadrotor fd + rk4", reps=1,
-                              warmup=False, profile=True, integrator="rk4")
+    quad, qcost = run_fd_path(dev, "quadrotor", "quadrotor fd + rk4",
+                              integrator="rk4")
     # the merged route at a cut depth (it runs the split route's
     # arithmetic, one launch where the split takes two)
     _s, qcost = fd_solve(dev, "quadrotor", f"quadrotor rk4 at max_iter "
@@ -2010,8 +2034,7 @@ def run_fd_slice(dev, rows, rk4):
                   + ("" if cap == CLI_ITERS else
                      f" (cut from {CLI_ITERS} to keep one solve under "
                      f"{FD_CAP_S:g} s)"))
-            out, _cost = run_fd_path(dev, name, label, reps=1, warmup=False,
-                                     max_iter=cap)
+            out, _cost = run_fd_path(dev, name, label, max_iter=cap)
             out["sweep_ms_per_launch"] = sweep_ms
             # the merged route at a cut depth: it runs the split route's
             # arithmetic, one launch where the split takes two
@@ -2022,8 +2045,7 @@ def run_fd_slice(dev, rows, rk4):
                 dev, name, f"{name} merged route vs split", cost,
                 max_iter=SHORT_ITERS, **other)
         else:
-            out, cost = run_fd_path(dev, name, label,
-                                    profile=name == "power_mass")
+            out, cost = run_fd_path(dev, name, label)
             out["other_route"], _c = fd_solve(
                 dev, name, f"{name} {other['iter_kernel']} route vs auto",
                 cost, **other)
@@ -2033,7 +2055,6 @@ def run_fd_slice(dev, rows, rk4):
         record(f"{other_key}/{name}/fd", out["other_route"]["launches"])
         if name in FD_FREE:
             free, _c = run_fd_path(dev, name, f"{name} fd without limits",
-                                   reps=1, warmup=False,
                                    use_control_limits=False)
             record(f"{auto_key}/{name}/fd/unconstrained", free["launches"])
             out["unconstrained"] = free
@@ -2241,7 +2262,7 @@ def run_jvp_slice(dev, rows, rk4):
     t0 = time.perf_counter()
     out, _c = run_fd_path(dev, "acrobot",
                           "acrobot analytic + rk4 (the CLI's batch solve)",
-                          B=B_MAIN, reps=1, warmup=False, profile=True, **jvp)
+                          B=B_MAIN, profile=True, **jvp)
     short = dict(B=B_SPLIT, T=T_EQ, max_iter=ITER_EQ, **jvp)
     _m, ref = fd_solve(dev, "acrobot", "acrobot analytic rk4 merged", **short)
     out["split_iteration"], _c = fd_solve(
@@ -2257,7 +2278,7 @@ def run_jvp_slice(dev, rows, rk4):
     # full width) and its merged route at a cut depth
     t0 = time.perf_counter()
     quad, _c = run_fd_path(dev, "quadrotor", "quadrotor analytic + rk4",
-                           reps=1, warmup=False, profile=True, **jvp)
+                           **jvp)
     _s, qcost = fd_solve(dev, "quadrotor", f"quadrotor analytic rk4 at "
                          f"max_iter {SHORT_ITERS}", max_iter=SHORT_ITERS,
                          **jvp)
@@ -2311,9 +2332,7 @@ def run_jvp_slice(dev, rows, rk4):
                       + ("" if cap == CLI_ITERS else
                          f" (cut from {CLI_ITERS} to keep one solve under "
                          f"{FD_CAP_S:g} s)"))
-            out, cost = run_fd_path(dev, name, label, reps=1, warmup=False,
-                                    profile=name == "omni_thruster",
-                                    max_iter=cap, **jvp)
+            out, cost = run_fd_path(dev, name, label, max_iter=cap, **jvp)
             # the m·n ≥ 32 models' merged route at a cut depth: it runs the
             # split route's arithmetic, one launch where the split takes two
             depth = CLI_ITERS if merged_auto else SHORT_ITERS
@@ -2329,7 +2348,7 @@ def run_jvp_slice(dev, rows, rk4):
         record(f"{other_key}/{name}/jvp", out["other_route"]["launches"])
         if name in FD_FREE:
             free, _c = run_fd_path(dev, name, f"{name} analytic + rk4 "
-                                   "without limits", reps=1, warmup=False,
+                                   "without limits",
                                    use_control_limits=False, **jvp)
             record(f"{auto_key}/{name}/jvp/unconstrained", free["launches"])
             out["unconstrained"] = free
@@ -2353,10 +2372,7 @@ def run_jvp_slice(dev, rows, rk4):
         for dm, integ in routes:
             cfg_r = dict(deriv_mode=dm, integrator=integ)
             out, cost = run_fd_path(
-                dev, name, f"{name} {dm} + {integ}, split sweep", B=B, reps=1,
-                warmup=False, profile=(name, dm, integ) == ("pendulum",
-                                                            "analytic",
-                                                            "euler"),
+                dev, name, f"{name} {dm} + {integ}, split sweep", B=B,
                 **split, **cfg_r)
             # the gauge: acrobot at T = T_EQ (rounding alone forks its
             # lanes at T = 499); fd on its first iteration (see
@@ -2407,6 +2423,402 @@ def run_jvp_slice(dev, rows, rk4):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The eighth slice: per-problem params (params_batched=True: one row of the
+# packed params per lane, which every kernel reads on its lane — the
+# per-lane params mode of the five model kernels) and the fleet warm start
+# (solve_batch_fused_warm) with the fleet MPC on it (ilqr_tpu_torch.mpc).
+# Three paths at full width, B = 1024: (a) examples/free_flyer_docking.py's
+# fleet, each craft with its own docking port and thrust ceiling (the
+# split iteration: rollout, sweep and line-search kernels); (b) the CLI's
+# pendulum problem (ilqr_tpu/__main__.py:101) with per-lane goals and
+# limits ±8, on the whole-iteration kernel and on the split sweep
+# (derivative and backward kernels); (c) experiments/secondary_bench.py
+# :296-327's fleet MPC (acrobot, T = 199, analytic, clamped, max_iter 20):
+# a cold fleet_init, then warm fleet_step replans.
+
+DOCK_T, DOCK_ITERS, DOCK_DT = 80, 40, 0.05
+# tests/test_fused_batched_params.py:37-64 solves goals of -2.5, 2.0 and
+# 3.14159 rad; the pendulum fleet spreads its 1024 goals over that span
+PEND_GOAL_SPAN, PEND_LIMIT = (-2.5, 3.14159), 8.0
+FLEET_T, FLEET_ITERS, FLEET_CYCLES = 199, 20, 6
+WARM_WORSEN_TOL = 1e-3   # tests/test_fused_solver.py:134
+# the kernels of each per-lane path compared in phase 3 (lanes_* readings)
+LANES_KERNELS = {
+    "free_flyer": ("rollout", "sweep", "linesearch"),
+    "pendulum": ("rollout", "iteration", "derivs"),
+}
+
+
+def _rows(params, B):
+    """``params`` (one problem's leaves) repeated on B lanes, numpy."""
+    return type(params)(*[np.repeat(np.asarray(v, np.float32)[None], B,
+                                    axis=0) for v in params])
+
+
+def docking_workload(B=B_M):
+    """examples/free_flyer_docking.py at --batch B (--horizon 80,
+    --max-iter 40, dt 0.05), its draws from default_rng(0): docking ports
+    on a ring of radius 2 at heights in ±0.5, thrust ceilings in 2.5-4.0,
+    x0 = 0.2·normal for the first (untimed) call and again for the timed
+    one. Returns (model, per-lane params, cfg, T, dt, u0, x0, x0 of the
+    timed call, goals, ceilings)."""
+    model = get_model("free_flyer")
+    rng = np.random.default_rng(0)
+    theta = 2.0 * np.pi * rng.uniform(size=B)
+    goals = np.zeros((B, 6), np.float32)
+    goals[:, 0] = 2.0 * np.cos(theta)
+    goals[:, 1] = 2.0 * np.sin(theta)
+    goals[:, 2] = rng.uniform(-0.5, 0.5, size=B)
+    fmax = rng.uniform(2.5, 4.0, size=B).astype(np.float32)
+    params = _rows(model.default_params(), B)._replace(
+        goal=goals, u_max=np.repeat(fmax[:, None], model.m, axis=1))
+    x0 = (0.2 * rng.normal(size=(B, 6))).astype(np.float32)
+    x0_timed = (0.2 * rng.normal(size=(B, 6))).astype(np.float32)
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       max_iter=DOCK_ITERS)
+    return (model, params, cfg, DOCK_T, DOCK_DT,
+            np.zeros((DOCK_T, model.m), np.float32), x0, x0_timed, goals,
+            fmax)
+
+
+def pendulum_goals_workload(B=B_M):
+    """The CLI's pendulum problem as phase 10 runs it (T = 199, dt 0.02,
+    x0 = 0.05·normal from default_rng(0), analytic, clamped, max_iter 100)
+    with per-lane goal angles spread over PEND_GOAL_SPAN and limits
+    ±PEND_LIMIT. Returns (model, per-lane params, cfg, T, dt, u0, x0)."""
+    model, params, cfg, T, dt, u0, draw = workload("pendulum", B)
+    goals = np.stack([np.linspace(*PEND_GOAL_SPAN, B), np.zeros(B)], axis=1)
+    params = _rows(params, B)._replace(
+        goal=goals.astype(np.float32),
+        u_min=np.full((B, 1), -PEND_LIMIT, np.float32),
+        u_max=np.full((B, 1), PEND_LIMIT, np.float32))
+    return model, params, cfg, T, dt, u0, draw(np.random.default_rng(0))
+
+
+def _lane_params(params, b):
+    """Lane b's problem of per-lane numpy params: shared params."""
+    return type(params)(*[torch.as_tensor(v[b]) for v in params])
+
+
+def lanes_cases(dev, name, packing="lanes"):
+    """The per-lane params mode of the kernels of phase 13's path of
+    ``name`` (LANES_KERNELS) at that path's shapes: for free_flyer the
+    docking fleet's rollout, sweep and line search (B = 1024, T = 80); for
+    pendulum the goal fleet's rollout, whole iteration and the split
+    sweep's derivative kernel (B = 1024, T = 199). Inputs: the path's x0,
+    its clamped open-loop rollout under the per-lane params and that
+    rollout's first gains; masks mixed. Each is a reading (lanes_*) of its
+    kernel's row. ``packing`` "shared" (lane 0's problem as shared params)
+    and "rows" (lane 0's problem on every lane's row) give the inputs of
+    the bitwise check of phase 13."""
+    if name == "free_flyer":
+        model, params, cfg, T, dt, u0, x0_np, *_r = docking_workload()
+    else:
+        model, params, cfg, T, dt, u0, x0_np = pendulum_goals_workload()
+    B, A, n, m = len(x0_np), len(cfg.alphas), model.n, model.m
+    if packing == "shared":
+        pp = kernel_rollout.pack_params(_lane_params(params, 0), dt, dev)
+    else:
+        pp = kernel_rollout.pack_params_batched(
+            params if packing == "lanes" else _rows(
+                _lane_params(params, 0), B), dt, dev)
+    rng = np.random.default_rng(7)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    x0 = f(x0_np).t().contiguous()
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    xs0, us0, xT0, c0 = kernel_rollout.rollout_packed(
+        model, "euler", True, pp, x0,
+        f(u0)[:, :, None].expand(T, m, B).contiguous(), zeros(T, n, B),
+        zeros(T, m, n, B))
+    lam = torch.ones(B, device=dev)
+    k1, K1, dv1, _d, _g = kernel_sweep.sweep_packed(model, "euler", pp, xs0,
+                                                    xT0, us0, lam)
+    live, gate, keep = (f(rng.uniform(size=B) > 0.5) for _ in range(3))
+    alphas = f(cfg.alphas)
+    xsr = xs0 + f(0.01 * rng.normal(size=(T, n, B)))
+    Kr = f(0.05 * rng.normal(size=(T, m, n, B)))
+    uff = us0 + f(0.2 * rng.normal(size=(T, m, B)))
+    kold, Kold = f(rng.normal(size=(T, m, B))), f(rng.normal(size=(T, m, n,
+                                                                   B)))
+    old = nbytes(kold, Kold)
+    shared = model.default_params()
+    pp_cpu = kernel_rollout.pack_params(shared, dt)
+
+    def kernel_ops(kind):
+        if kind != "derivs":
+            step, rest = lane_ops(model, shared, kind, True, A, dt)
+            return step * T * B + rest * B
+        lane_rng = np.random.default_rng(3)
+        step, rest = ops_per_step(lambda t: kernel_derivs.derivs_plain(
+            model, "euler", pp_cpu,
+            torch.as_tensor(0.3 * lane_rng.normal(size=(t + 1, n, 1)),
+                            dtype=torch.float32),
+            torch.as_tensor(lane_rng.normal(size=(t, m, 1)),
+                            dtype=torch.float32)))
+        return step * T * B + rest * B
+
+    every = {
+        "rollout": (kernel_rollout.rollout_packed,
+                    kernel_rollout.rollout_plain,
+                    (model, "euler", True, pp, x0, uff, xsr, Kr), None),
+        "sweep": (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+                  (model, "euler", pp, xs0, xT0, us0, lam), None),
+        "linesearch": (
+            kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+            (model, "euler", True, pp, x0, us0, xs0, xT0, K1, k1, Kold, kold,
+             alphas, dv1, c0, gate, keep, cfg.z_min),
+            lambda got: old * (keep > 0.5).float().mean().item()),
+        "iteration": (
+            kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+            (model, "euler", True, pp, x0, xs0, xT0, us0, kold, Kold, lam,
+             c0, live, alphas, "jvp", True, cfg.z_min, cfg.tol_grad,
+             cfg.lambda_grad_term),
+            lambda got: old * ((got[10] < 0.5) & (live > 0.5)).float()
+            .mean().item()),
+        "derivs": (kernel_derivs.derivs_packed, kernel_derivs.derivs_plain,
+                   (model, "euler", pp,
+                    torch.cat([xs0, xT0[None]]).contiguous(), us0, "jvp"),
+                   None),
+    }
+    out = {}
+    for kind in LANES_KERNELS[name]:
+        op, plain, args, unread = every[kind]
+        row = f"{kind}_packed/{name}"
+        out[f"{row} (per-lane params)"] = Case(
+            op, plain, args, lambda kind=kind: kernel_ops(kind),
+            f"at B={B} T={T} A={A}, one params row per lane", unread,
+            dict(row=row, group="lanes", kernel=f"{kind}_kernel", model=name,
+                 limits=True, T=T, effort=effort(kind, T, n, m)))
+    return out
+
+
+def _timed_solve(solve_fn, x0):
+    """One solve ending in a full device-to-host copy, launch counts and
+    host counters set to 0 just before and read just after: (host
+    Solution fields, wall seconds, launches, host iterations)."""
+    reset_launch_counts()
+    fused._host_any.syncs = 0
+    fused._iteration.calls = 0
+    fused._iteration.retried = 0
+    t0 = time.perf_counter()
+    sol = solve_fn(x0)
+    host = {k: v.cpu().numpy() for k, v in sol._asdict().items()}
+    return (host, time.perf_counter() - t0, launch_counts(),
+            fused._iteration.calls)
+
+
+def _initial_costs(dev, model, pp, T, u0, x0):
+    z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+    B = len(x0)
+    return kernel_rollout.rollout_packed(
+        model, "euler", True, pp, torch.as_tensor(x0, device=dev).t()
+        .contiguous(), torch.as_tensor(u0, device=dev)[:, :, None].expand(
+            T, model.m, B).contiguous(), z(T, model.n, B),
+        z(T, model.m, model.n, B))[3].cpu().numpy()
+
+
+def run_lanes_slice(dev, readings):
+    """Phase 13: per-problem params and the fleet warm start; the launches
+    of the per-lane paths go into the lanes_* ``readings``. Returns the
+    results."""
+    res = {}
+
+    def record(name, counts):
+        for kind in LANES_KERNELS[name]:
+            key = f"{kind}_packed"
+            if counts[key]:
+                readings[f"{key}/{name}#lanes"]["launches"] = counts[key]
+
+    # every per-lane kernel, rows equal across the lanes: exactly the
+    # shared params' outputs (the stride-0 kernels) at the paths' shapes
+    for name in LANES_KERNELS:
+        shared = lanes_cases(dev, name, "shared")
+        rows = lanes_cases(dev, name, "rows")
+        for label, case in shared.items():
+            want, got = case.op(*case.args), rows[label].op(*rows[label].args)
+            same = all(torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+                       and torch.equal(torch.isnan(g), torch.isnan(w))
+                       for g, w in zip(got, want))
+            print(f"[lanes] {label}, lane 0's problem on every row vs the "
+                  f"same problem as shared params: bitwise {same}")
+            if not same:
+                raise AssertionError(f"{label}: identical per-lane rows "
+                                     f"differ from shared params")
+        del shared, rows
+    torch.cuda.empty_cache()
+
+    # (a) the docking fleet
+    t0 = time.perf_counter()
+    (model, params, cfg, T, dt, u0, x0, x0_timed, goals,
+     fmax) = docking_workload()
+    pp = kernel_rollout.pack_params_batched(params, dt, dev)
+    init = _initial_costs(dev, model, pp, T, u0, x0_timed)
+    solve = lambda x: solve_batch_fused(model, params, cfg, dt, x, u0,
+                                        params_batched=True)
+    solve(x0)                          # the example's first, untimed call
+    torch.cuda.synchronize()
+    sol, wall, c, its = _timed_solve(solve, x0_timed)
+    cost, us = sol["cost"], sol["us"]
+    err = np.linalg.norm(sol["xs"][:, -1, :3] - goals[:, :3], axis=1)
+    peak = us.max(axis=(1, 2))
+    out = dict(B=len(x0), T=T, max_iter=cfg.max_iter,
+               solves_per_s=len(x0) / wall, wall_s=wall,
+               mean_cost=float(cost.mean()), init_mean_cost=float(init.mean()),
+               mean_iters=float(sol["iterations"].mean()),
+               median_docking_error_m=float(np.median(err)),
+               launches=c, host_iterations=its,
+               ms_per_iteration=wall * 1e3 / max(1, its),
+               ceilings=(float(fmax.min()), float(fmax.max())),
+               crafts_at_ceiling=float(np.mean(peak >= fmax - 1e-4)))
+    print(f"[lanes] docking fleet (free_flyer, per-craft ports and thrust "
+          f"ceilings): B={len(x0)} T={T} max_iter={cfg.max_iter}: "
+          f"{out['solves_per_s']:.1f} solves/s ({nvidia_smi()}), "
+          f"{out['ms_per_iteration']:.3f} ms/iteration over {its} host "
+          f"iterations, mean cost {out['mean_cost']:.4f} (initial rollout "
+          f"{out['init_mean_cost']:.4f}), mean iterations "
+          f"{out['mean_iters']:.2f}, median docking error "
+          f"{out['median_docking_error_m']:.3f} m, crafts at their own "
+          f"ceiling {out['crafts_at_ceiling']:.3f} (ceilings "
+          f"{fmax.min():.2f}-{fmax.max():.2f}), launches {c}")
+    if not np.all(peak <= fmax + 1e-4):
+        raise AssertionError("a craft's thrust exceeds its own ceiling")
+    if not (np.all(np.isfinite(cost)) and np.all(cost <= init)):
+        raise AssertionError("docking: a cost is not finite or above its "
+                             "initial rollout's")
+    if (c["rollout_packed"] != 1 or c["sweep_packed"] < its
+            or c["linesearch_packed"] < 1 or c["iteration_packed"]):
+        raise AssertionError(f"docking: the route is free_flyer's split "
+                             f"iteration: {c}")
+    record("free_flyer", c)
+    res["docking"] = out
+    print(f"[time] phase 13a (docking fleet) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (b) the pendulum goals, on the whole-iteration kernel and the split
+    # sweep; the split sweep against the merged one under the gauge
+    t0 = time.perf_counter()
+    model, params, cfg, T, dt, u0, x0 = pendulum_goals_workload()
+    pp = kernel_rollout.pack_params_batched(params, dt, dev)
+    init = _initial_costs(dev, model, pp, T, u0, x0)
+    costs = {}
+    for route, extra in (("whole-iteration", {}),
+                         ("split sweep", dict(sweep_kernel="split"))):
+        cfg_r = cfg.replace(**extra)
+        solve = lambda x: solve_batch_fused(model, params, cfg_r, dt, x, u0,
+                                            params_batched=True)
+        sol, wall, c, its = _timed_solve(solve, x0)
+        cost = sol["cost"]
+        r = dict(solves_per_s=len(x0) / wall, wall_s=wall,
+                 mean_cost=float(cost.mean()),
+                 init_mean_cost=float(init.mean()),
+                 mean_iters=float(sol["iterations"].mean()), launches=c,
+                 host_iterations=its, ms_per_iteration=wall * 1e3 / max(1,
+                                                                          its))
+        print(f"[lanes] pendulum with per-lane goals ({route}): B={len(x0)} "
+              f"T={T} max_iter={cfg.max_iter}: {r['solves_per_s']:.1f} "
+              f"solves/s ({nvidia_smi()}), {r['ms_per_iteration']:.3f} "
+              f"ms/iteration over {its} host iterations, mean cost "
+              f"{r['mean_cost']:.4f} (initial rollout "
+              f"{r['init_mean_cost']:.4f}), mean iterations "
+              f"{r['mean_iters']:.2f}, launches {c}")
+        if not (np.all(np.isfinite(cost)) and np.all(cost <= init)):
+            raise AssertionError(f"pendulum goals ({route}): a cost is not "
+                                 f"finite or above its initial rollout's")
+        kernel = ("iteration_packed" if not extra
+                  else "backward_sweep_packed")
+        if c["rollout_packed"] != 1 or c[kernel] < its or (
+                extra and c["derivs_packed"] < its):
+            raise AssertionError(f"pendulum goals ({route}): launches {c}")
+        record("pendulum", c)
+        res[f"pendulum_goals_{route}"] = r
+        costs[route] = cost
+    # three lanes, each solved alone with its problem as shared params:
+    # the same solve bit for bit (lanes never interact)
+    alone = {}
+    for b in (0, len(x0) // 2, len(x0) - 1):
+        one = solve_batch_fused(model, _lane_params(params, b), cfg, dt,
+                                x0[b:b + 1], u0)
+        alone[b] = float(one.cost.item())
+    print(f"[lanes] pendulum goals: lanes {list(alone)} solved alone with "
+          f"shared params: costs {list(alone.values())}, in the batch "
+          f"{[float(costs['whole-iteration'][b]) for b in alone]}")
+    if any(alone[b] != float(costs["whole-iteration"][b]) for b in alone):
+        raise AssertionError("pendulum goals: a lane solved alone with its "
+                             "params shared differs from the batch")
+    eq = dict(max_iter=ITER_EQ)
+    merged = solve_batch_fused(model, params, cfg.replace(**eq), dt, x0, u0,
+                               params_batched=True).cost.cpu().numpy()
+    split = solve_batch_fused(model, params, cfg.replace(
+        sweep_kernel="split", **eq), dt, x0, u0,
+        params_batched=True).cost.cpu().numpy()
+    p99, mx = gauge(split, merged)
+    print(f"[lanes] pendulum goals, split sweep vs merged at max_iter "
+          f"{ITER_EQ}: per-lane |c1-c2|/(1+|c2|) p99 {p99:.3e} (≤ "
+          f"{GAUGE_P99:g}), max {mx:.3e} (≤ {GAUGE_MAX:g})")
+    if not (np.isfinite(split).all() and p99 <= GAUGE_P99
+            and mx <= GAUGE_MAX):
+        raise AssertionError("pendulum goals: split sweep outside the gauge")
+    res["pendulum_goals_split_vs_merged"] = dict(p99=p99, max=mx)
+    print(f"[time] phase 13b (pendulum goals) {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+
+    # (c) the fleet MPC: a cold plan, a warm re-solve from the same states
+    # (never worse than the cold plan by more than WARM_WORSEN_TOL per
+    # lane), then FLEET_CYCLES warm replans of the whole fleet
+    t0 = time.perf_counter()
+    model, params = get_model("acrobot"), acrobot.default_params()
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       max_iter=FLEET_ITERS)
+    x0 = (0.05 * np.random.default_rng(0).normal(size=(B_M, N))).astype(
+        np.float32)
+    u0 = np.zeros((FLEET_T, M), np.float32)
+    t1 = time.perf_counter()
+    fleet = mpc.fleet_init(model, params, cfg, DT, x0, u0)
+    cold = fleet.plan.cost.cpu().numpy()
+    cold_s = time.perf_counter() - t1
+    warm = solve_batch_fused_warm(model, params, cfg, DT, x0, fleet.plan)
+    worse = float(np.max(warm.cost.cpu().numpy() - cold))
+    print(f"[lanes] fleet MPC (acrobot, B={B_M} T={FLEET_T} max_iter="
+          f"{FLEET_ITERS}): cold plan {cold_s:.3f} s, mean cost "
+          f"{cold.mean():.4f}; a warm re-solve from the same states: mean "
+          f"iterations {warm.iterations.float().mean().item():.2f}, largest "
+          f"cost increase {worse:.3e} (≤ {WARM_WORSEN_TOL:g})")
+    if not (np.isfinite(cold).all() and worse <= WARM_WORSEN_TOL):
+        raise AssertionError("fleet MPC: the warm re-solve worsened a lane")
+    reset_launch_counts()
+    cycles, iters = [], []
+    for _ in range(FLEET_CYCLES):
+        t1 = time.perf_counter()
+        fleet = mpc.fleet_step(model, params, cfg, DT, fleet)
+        cost = fleet.plan.cost.cpu().numpy()
+        cycles.append(time.perf_counter() - t1)
+        iters.append(float(fleet.plan.iterations.float().mean().item()))
+        if not np.isfinite(cost).all():
+            raise AssertionError("fleet MPC: non-finite replanned costs")
+    c = launch_counts()
+    cyc = float(np.median(cycles))
+    out = dict(B=B_M, T=FLEET_T, max_iter=FLEET_ITERS, cold_s=cold_s,
+               cold_mean_cost=float(cold.mean()), warm_worst_increase=worse,
+               cycle_ms=[v * 1e3 for v in cycles], cycle_ms_median=cyc * 1e3,
+               replans_per_s=B_M / cyc, mean_iters=iters,
+               mean_cost=float(cost.mean()), launches=c)
+    print(f"[lanes] fleet MPC: {FLEET_CYCLES} replanning cycles (plant step, "
+          f"shift, warm re-solve): {out['replans_per_s']:.1f} replans/s "
+          f"({nvidia_smi()}), cycle {cyc * 1e3:.3f} ms (median; all "
+          f"{[round(v * 1e3, 3) for v in cycles]}), mean iterations per "
+          f"replan {[round(v, 2) for v in iters]}, mean cost "
+          f"{out['mean_cost']:.4f}, launches {c}")
+    if (c["rollout_packed"] != FLEET_CYCLES or not c["iteration_packed"]
+            or not np.all(fleet.t.cpu().numpy() == FLEET_CYCLES)):
+        raise AssertionError(f"fleet MPC: launches {c}, step counters "
+                             f"{fleet.t}")
+    res["fleet_mpc"] = out
+    print(f"[time] phase 13c (fleet MPC) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2444,7 +2856,7 @@ def main() -> int:
         t_phase = now
 
     tick("phases 1-2 (environment, build)")
-    rows, rk4_readings = run_comparisons(dev, tick)
+    rows, readings = run_comparisons(dev, tick)
     tick(f"phase 3b (plain versions, {COMPARE_WORKERS} processes)")
     model, params, cfg = flagship()
     main_out = run_main_path(dev, model, params, cfg)
@@ -2471,15 +2883,17 @@ def main() -> int:
     tick("phase 9 (the m ≥ 5 slice)")
     cli_out = run_cli_slice(dev, rows)
     tick("phase 10 (pendulum, cartpole, bicycle, power_mass)")
-    fd_out = run_fd_slice(dev, rows, rk4_readings)
+    fd_out = run_fd_slice(dev, rows, readings)
     tick("phase 11 (the stencils in the fused kernels, RK4)")
-    jvp_out = run_jvp_slice(dev, rows, rk4_readings)
+    jvp_out = run_jvp_slice(dev, rows, readings)
     tick("phase 12 (the dual-number slice: analytic + RK4, the split sweep)")
-    print(f"[time] phases 2-12 {time.perf_counter() - t0:.1f} s", flush=True)
-    for key, r in rk4_readings.items():   # RK4, a mode of a row's kernel
-        row, _sep, fd_mode = key.partition("#")
-        prefix = "rk4_fd_" if fd_mode else "rk4_"
-        rows[row].update({f"{prefix}{k}": v for k, v in r.items()
+    lanes_out = run_lanes_slice(dev, readings)
+    tick("phase 13 (per-problem params, the fleet warm start and MPC)")
+    print(f"[time] phases 2-13 {time.perf_counter() - t0:.1f} s", flush=True)
+    for key, r in readings.items():   # a mode of a row's kernel
+        row, _sep, mode = key.partition("#")
+        rows[row].update({f"{READING_PREFIX[mode]}{k}": v
+                          for k, v in r.items()
                           if k not in ("kernel", "model", "limits",
                                        "source")})
     for name, r in rows.items():
@@ -2496,12 +2910,16 @@ def main() -> int:
         r.update(ptxas.get((r["kernel"], r["model"], limits), {}))
     if not all(r.get("launches") for r in rows.values()):
         raise AssertionError(f"a kernel was never launched: {rows}")
+    if not all(rows[f"{kind}_packed/{name}"].get("lanes_launches")
+               for name, kinds in LANES_KERNELS.items() for kind in kinds):
+        raise AssertionError("a per-lane params kernel was never launched on "
+                             "its path")
 
     print(json.dumps({"main_path": main_out, "split_path": gauges,
                       "composable_path": comp_out, "equivalence": equiv,
                       "slice": slice_out, "wide_slice": wide_out,
                       "cli_slice": cli_out, "fd_slice": fd_out,
-                      "jvp_slice": jvp_out}))
+                      "jvp_slice": jvp_out, "lanes_slice": lanes_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

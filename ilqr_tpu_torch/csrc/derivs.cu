@@ -23,6 +23,9 @@
 // triangle of second-order pairs into local arrays (the symmetric entries
 // mirrored, as the TPU kernel does) and stores them.
 //
+// Params: one shared vector (pstride 0) or one row of P per lane, (B, P),
+// which every (t, lane) thread of that lane reads (pstride P).
+//
 // Layout (lane last): xs (T+1, n, B), us (T, m, B) → fx (T, n, n, B),
 // fu (T, n, m, B), cx (T+1, n, B), cu (T, m, B), cxx (T+1, n, n, B),
 // cxu (T, n, m, B), cuu (T, m, m, B).
@@ -40,19 +43,20 @@ constexpr int kBlock = 256;
 
 template <class Model, class Deriv>
 __global__ void __launch_bounds__(kBlock)
-derivs_kernel(const float* __restrict__ params, const float* __restrict__ xs,
-              const float* __restrict__ us, float* __restrict__ fx,
-              float* __restrict__ fu, float* __restrict__ cx,
-              float* __restrict__ cu, float* __restrict__ cxx,
-              float* __restrict__ cxu, float* __restrict__ cuu, int T,
-              int B_, Deriv d) {
+derivs_kernel(const float* __restrict__ params, int pstride,
+              const float* __restrict__ xs, const float* __restrict__ us,
+              float* __restrict__ fx, float* __restrict__ fu,
+              float* __restrict__ cx, float* __restrict__ cu,
+              float* __restrict__ cxx, float* __restrict__ cxu,
+              float* __restrict__ cuu, int T, int B_, Deriv d) {
   constexpr int N = Model::N, M = Model::M;
   const size_t B = B_;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= (static_cast<size_t>(T) + 1) * B) return;
   const size_t t = idx / B;
   const size_t lane = idx - t * B;
-  const typename Model::Params p = Model::load(params);
+  // shared params (pstride 0), or lane's own row of P (pstride P)
+  const typename Model::Params p = Model::load(params + lane * pstride);
   float x[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = xs[(t * N + i) * B + lane];
@@ -98,10 +102,11 @@ derivs_kernel(const float* __restrict__ params, const float* __restrict__ xs,
 }
 
 template <class Model>
-int launch_derivs(const void* params, const void* xs, const void* us,
-                  void* fx, void* fu, void* cx, void* cu, void* cxx,
-                  void* cxu, void* cuu, int fd, int scheme, float eps,
-                  float den1, float den2, int T, int B, void* stream) {
+int launch_derivs(const void* params, int pstride, const void* xs,
+                  const void* us, void* fx, void* fu, void* cx, void* cu,
+                  void* cxx, void* cxu, void* cuu, int fd, int scheme,
+                  float eps, float den1, float den2, int T, int B,
+                  void* stream) {
   const size_t threads = (static_cast<size_t>(T) + 1) * B;
   const dim3 grid(static_cast<unsigned>((threads + kBlock - 1) / kBlock));
   const float* p = (const float*)params;
@@ -110,13 +115,13 @@ int launch_derivs(const void* params, const void* xs, const void* us,
   cudaStream_t st = (cudaStream_t)stream;
   if (fd)
     derivs_kernel<Model, sweep::FiniteDiff><<<grid, kBlock, 0, st>>>(
-        p, x, u, (float*)fx, (float*)fu, (float*)cx, (float*)cu, (float*)cxx,
-        (float*)cxu, (float*)cuu, T, B,
+        p, pstride, x, u, (float*)fx, (float*)fu, (float*)cx, (float*)cu,
+        (float*)cxx, (float*)cxu, (float*)cuu, T, B,
         sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}});
   else
     derivs_kernel<Model, sweep::Jvp><<<grid, kBlock, 0, st>>>(
-        p, x, u, (float*)fx, (float*)fu, (float*)cx, (float*)cu, (float*)cxx,
-        (float*)cxu, (float*)cuu, T, B, sweep::Jvp{scheme});
+        p, pstride, x, u, (float*)fx, (float*)fu, (float*)cx, (float*)cu,
+        (float*)cxx, (float*)cxu, (float*)cuu, T, B, sweep::Jvp{scheme});
   return (int)cudaGetLastError();
 }
 
@@ -127,13 +132,13 @@ int launch_derivs(const void* params, const void* xs, const void* us,
 // scheme is the step differentiated (0 Euler, 1 RK4).
 #define ILQR_DERIVS_LAUNCHER(NAME, MODEL)                                   \
   extern "C" int ilqr_##NAME##_derivs(                                      \
-      const void* params, const void* xs, const void* us, void* fx,         \
-      void* fu, void* cx, void* cu, void* cxx, void* cxu, void* cuu,        \
-      int fd, int scheme, float eps, float den1, float den2, int T, int B,  \
-      void* stream) {                                                       \
-    return launch_derivs<MODEL>(params, xs, us, fx, fu, cx, cu, cxx, cxu,   \
-                                cuu, fd, scheme, eps, den1, den2, T, B,     \
-                                stream);                                    \
+      const void* params, int pstride, const void* xs, const void* us,      \
+      void* fx, void* fu, void* cx, void* cu, void* cxx, void* cxu,         \
+      void* cuu, int fd, int scheme, float eps, float den1, float den2,     \
+      int T, int B, void* stream) {                                         \
+    return launch_derivs<MODEL>(params, pstride, xs, us, fx, fu, cx, cu,    \
+                                cxx, cxu, cuu, fd, scheme, eps, den1, den2, \
+                                T, B, stream);                              \
   }
 
 ILQR_DERIVS_LAUNCHER(acrobot, acrobot::Model)

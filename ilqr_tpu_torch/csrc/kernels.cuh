@@ -44,6 +44,17 @@ __device__ __forceinline__ int lane_index() {
   return blockIdx.x * blockDim.x + threadIdx.x;
 }
 
+// The params of one lane: shared params (pstride 0) are one vector every
+// lane reads; per-problem params (pstride P) are one row of P floats per
+// lane, (B, P), read by that lane alone (ops/kernel_rollout.py
+// pack_params_batched). Each lane reads its params once per launch, so the
+// uncoalesced row read is paid once against the whole time loop.
+template <class Model>
+__device__ __forceinline__ typename Model::Params load_lane(
+    const float* __restrict__ params, int pstride, int lane) {
+  return Model::load(params + static_cast<size_t>(lane) * pstride);
+}
+
 // ---------------------------------------------------------------------------
 // rollout_packed (full-output mode)
 //
@@ -94,15 +105,15 @@ __device__ __forceinline__ void rollout_lane(
 
 template <class Model>
 __global__ void __launch_bounds__(kBlock)
-rollout_kernel(const float* __restrict__ params, const float* __restrict__ x0,
-               const float* __restrict__ uff, const float* __restrict__ xsr,
-               const float* __restrict__ K, float* __restrict__ xs,
-               float* __restrict__ us, float* __restrict__ xfin,
-               float* __restrict__ cost, int T, int B_, int clamp,
-               int scheme) {
+rollout_kernel(const float* __restrict__ params, int pstride,
+               const float* __restrict__ x0, const float* __restrict__ uff,
+               const float* __restrict__ xsr, const float* __restrict__ K,
+               float* __restrict__ xs, float* __restrict__ us,
+               float* __restrict__ xfin, float* __restrict__ cost, int T,
+               int B_, int clamp, int scheme) {
   const int lane = lane_index();
   if (lane >= B_) return;
-  const typename Model::Params p = Model::load(params);
+  const typename Model::Params p = load_lane<Model>(params, pstride, lane);
   if (scheme == integrate::kRK4)
     rollout_lane<Model, integrate::kRK4>(p, x0, uff, xsr, K, xs, us, xfin,
                                          cost, T, B_, lane, clamp != 0);
@@ -164,7 +175,8 @@ __device__ __forceinline__ sweep::Carry<Model> backward_phase(
 // ---------------------------------------------------------------------------
 template <class Model, bool kLimits, class Deriv>
 __global__ void __launch_bounds__(kBlock)
-sweep_kernel(const float* __restrict__ params, const float* __restrict__ xs,
+sweep_kernel(const float* __restrict__ params, int pstride,
+             const float* __restrict__ xs,
              const float* __restrict__ xterm, const float* __restrict__ us,
              const float* __restrict__ lam, float* __restrict__ k_out,
              float* __restrict__ K_out, float* __restrict__ dv,
@@ -174,7 +186,7 @@ sweep_kernel(const float* __restrict__ params, const float* __restrict__ xs,
   const int lane = lane_index();
   if (lane >= B_) return;
   const size_t B = B_;
-  const typename Model::Params p = Model::load(params);
+  const typename Model::Params p = load_lane<Model>(params, pstride, lane);
   const sweep::Carry<Model> c = backward_phase<Model, kLimits>(
       p, d, xs, xterm, us, lam[lane], T, B, lane, k_out, K_out, M * B,
       M * N * B);
@@ -197,7 +209,7 @@ sweep_kernel(const float* __restrict__ params, const float* __restrict__ xs,
 // ---------------------------------------------------------------------------
 template <class Model>
 __global__ void __launch_bounds__(kBlock)
-linesearch_kernel(const float* __restrict__ params,
+linesearch_kernel(const float* __restrict__ params, int pstride,
                   const float* __restrict__ x0, const float* __restrict__ us,
                   const float* __restrict__ xsr,
                   const float* __restrict__ xterm,
@@ -219,7 +231,7 @@ linesearch_kernel(const float* __restrict__ params,
   const int lane = lane_index();
   if (lane >= B_) return;
   const size_t B = B_;
-  const typename Model::Params p = Model::load(params);
+  const typename Model::Params p = load_lane<Model>(params, pstride, lane);
   float al[kMaxA];
 #pragma unroll
   for (int a = 0; a < kMaxA; ++a) al[a] = (a < A) ? alphas[a] : 0.0f;
@@ -263,7 +275,7 @@ linesearch_kernel(const float* __restrict__ params,
 // ---------------------------------------------------------------------------
 template <class Model, bool kLimits, class Deriv>
 __global__ void __launch_bounds__(kBlock)
-iteration_kernel(const float* __restrict__ params,
+iteration_kernel(const float* __restrict__ params, int pstride,
                  const float* __restrict__ x0, const float* __restrict__ xs,
                  const float* __restrict__ xterm,
                  const float* __restrict__ us,
@@ -285,7 +297,7 @@ iteration_kernel(const float* __restrict__ params,
   const int lane = lane_index();
   if (lane >= B_) return;
   const size_t B = B_;
-  const typename Model::Params p = Model::load(params);
+  const typename Model::Params p = load_lane<Model>(params, pstride, lane);
   const size_t G = M * (N + 1) * B;  // gain-buffer row stride: k then K
 
   // phase 0: merged linearize + backward sweep into the gain buffer
@@ -337,14 +349,14 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
 }
 
 template <class Model, class Deriv>
-inline int launch_sweep(const void* params, const void* xs,
+inline int launch_sweep(const void* params, int pstride, const void* xs,
                         const void* xterm, const void* us, const void* lam,
                         void* k, void* K, void* dv, void* div, void* gnorm,
                         int T, int B, int use_limits, Deriv d,
                         void* stream) {
   return launch(use_limits ? sweep_kernel<Model, true, Deriv>
                            : sweep_kernel<Model, false, Deriv>,
-                B, stream, (const float*)params, (const float*)xs,
+                B, stream, (const float*)params, pstride, (const float*)xs,
                 (const float*)xterm, (const float*)us, (const float*)lam,
                 (float*)k, (float*)K, (float*)dv, (float*)div, (float*)gnorm,
                 T, B, d);
@@ -352,25 +364,25 @@ inline int launch_sweep(const void* params, const void* xs,
 
 template <class Model, class Deriv>
 inline int launch_iteration(
-    const void* params, const void* x0, const void* xs, const void* xterm,
-    const void* us, const void* Kold, const void* kold, const void* alphas,
-    int A, const void* lam, const void* cprev, const void* live,
-    void* xs_out, void* us_out, void* xfin, void* k_out, void* K_out,
-    void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,
-    void* div, void* gnorm, void* gains, float z_min, float tol_grad,
-    float lam_grad_term, int T, int B, int clamp, int use_limits, int scheme,
-    Deriv d, void* stream) {
+    const void* params, int pstride, const void* x0, const void* xs,
+    const void* xterm, const void* us, const void* Kold, const void* kold,
+    const void* alphas, int A, const void* lam, const void* cprev,
+    const void* live, void* xs_out, void* us_out, void* xfin, void* k_out,
+    void* K_out, void* lscost, void* alpha_sel, void* acc, void* dcost,
+    void* expected, void* div, void* gnorm, void* gains, float z_min,
+    float tol_grad, float lam_grad_term, int T, int B, int clamp,
+    int use_limits, int scheme, Deriv d, void* stream) {
   return launch(
       use_limits ? iteration_kernel<Model, true, Deriv>
                  : iteration_kernel<Model, false, Deriv>,
-      B, stream, (const float*)params, (const float*)x0, (const float*)xs,
-      (const float*)xterm, (const float*)us, (const float*)Kold,
-      (const float*)kold, (const float*)alphas, A, (const float*)lam,
-      (const float*)cprev, (const float*)live, (float*)xs_out,
-      (float*)us_out, (float*)xfin, (float*)k_out, (float*)K_out,
-      (float*)lscost, (float*)alpha_sel, (float*)acc, (float*)dcost,
-      (float*)expected, (float*)div, (float*)gnorm, (float*)gains, z_min,
-      tol_grad, lam_grad_term, T, B, clamp, scheme, d);
+      B, stream, (const float*)params, pstride, (const float*)x0,
+      (const float*)xs, (const float*)xterm, (const float*)us,
+      (const float*)Kold, (const float*)kold, (const float*)alphas, A,
+      (const float*)lam, (const float*)cprev, (const float*)live,
+      (float*)xs_out, (float*)us_out, (float*)xfin, (float*)k_out,
+      (float*)K_out, (float*)lscost, (float*)alpha_sel, (float*)acc,
+      (float*)dcost, (float*)expected, (float*)div, (float*)gnorm,
+      (float*)gains, z_min, tol_grad, lam_grad_term, T, B, clamp, scheme, d);
 }
 
 }  // namespace fused
@@ -405,49 +417,50 @@ inline int launch_iteration(
   ILQR_JVP_SWEEP_LAUNCHER(NAME, MODEL)  \
   ILQR_JVP_ITERATION_LAUNCHER(NAME, MODEL)
 
-#define ILQR_SWEEP_PARAMS                                                   \
-  const void* params, const void* xs, const void* xterm, const void* us,    \
-      const void* lam, void* k, void* K, void* dv, void* div, void* gnorm, \
-      int T, int B, int use_limits
+#define ILQR_SWEEP_PARAMS                                                  \
+  const void* params, int pstride, const void* xs, const void* xterm,      \
+      const void* us, const void* lam, void* k, void* K, void* dv,         \
+      void* div, void* gnorm, int T, int B, int use_limits
 #define ILQR_SWEEP_ARGS \
-  params, xs, xterm, us, lam, k, K, dv, div, gnorm, T, B, use_limits
-#define ILQR_ITERATION_PARAMS                                                  \
-  const void* params, const void* x0, const void* xs, const void* xterm,      \
-      const void* us, const void* Kold, const void* kold, const void* alphas, \
-      int A, const void* lam, const void* cprev, const void* live,            \
-      void* xs_out, void* us_out, void* xfin, void* k_out, void* K_out,       \
-      void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,  \
-      void* div, void* gnorm, void* gains, float z_min, float tol_grad,       \
-      float lam_grad_term, int T, int B, int clamp, int use_limits
+  params, pstride, xs, xterm, us, lam, k, K, dv, div, gnorm, T, B, use_limits
+#define ILQR_ITERATION_PARAMS                                                 \
+  const void* params, int pstride, const void* x0, const void* xs,           \
+      const void* xterm, const void* us, const void* Kold, const void* kold, \
+      const void* alphas, int A, const void* lam, const void* cprev,         \
+      const void* live, void* xs_out, void* us_out, void* xfin, void* k_out, \
+      void* K_out, void* lscost, void* alpha_sel, void* acc, void* dcost,    \
+      void* expected, void* div, void* gnorm, void* gains, float z_min,      \
+      float tol_grad, float lam_grad_term, int T, int B, int clamp,          \
+      int use_limits
 #define ILQR_ITERATION_ARGS                                                  \
-  params, x0, xs, xterm, us, Kold, kold, alphas, A, lam, cprev, live,        \
-      xs_out, us_out, xfin, k_out, K_out, lscost, alpha_sel, acc, dcost,     \
-      expected, div, gnorm, gains, z_min, tol_grad, lam_grad_term, T, B,     \
-      clamp, use_limits
+  params, pstride, x0, xs, xterm, us, Kold, kold, alphas, A, lam, cprev,     \
+      live, xs_out, us_out, xfin, k_out, K_out, lscost, alpha_sel, acc,      \
+      dcost, expected, div, gnorm, gains, z_min, tol_grad, lam_grad_term, T, \
+      B, clamp, use_limits
 
 #define ILQR_SPLIT_LAUNCHERS(NAME, MODEL)                                      \
   extern "C" {                                                                 \
-  int ilqr_##NAME##_rollout(const void* params, const void* x0,                \
+  int ilqr_##NAME##_rollout(const void* params, int pstride, const void* x0,   \
                             const void* uff, const void* xsr, const void* K,   \
                             void* xs, void* us, void* xfin, void* cost, int T, \
                             int B, int clamp, int scheme, void* stream) {      \
     return fused::launch(                                                      \
         fused::rollout_kernel<MODEL>, B, stream, (const float*)params,         \
-        (const float*)x0, (const float*)uff, (const float*)xsr,                \
+        pstride, (const float*)x0, (const float*)uff, (const float*)xsr,       \
         (const float*)K, (float*)xs, (float*)us, (float*)xfin, (float*)cost,   \
         T, B, clamp, scheme);                                                  \
   }                                                                            \
   int ilqr_##NAME##_linesearch(                                                \
-      const void* params, const void* x0, const void* us, const void* xsr,     \
-      const void* xterm, const void* K, const void* k, const void* Kold,       \
-      const void* kold, const void* alphas, int A, const void* dv,             \
-      const void* cprev, const void* gate, const void* keep, void* xs_out,     \
-      void* us_out, void* xfin, void* k_out, void* K_out, void* lscost,        \
-      void* alpha_sel, void* acc, void* dcost, void* expected, float z_min,    \
-      int T, int B, int clamp, int scheme, void* stream) {                     \
+      const void* params, int pstride, const void* x0, const void* us,         \
+      const void* xsr, const void* xterm, const void* K, const void* k,        \
+      const void* Kold, const void* kold, const void* alphas, int A,           \
+      const void* dv, const void* cprev, const void* gate, const void* keep,   \
+      void* xs_out, void* us_out, void* xfin, void* k_out, void* K_out,        \
+      void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,   \
+      float z_min, int T, int B, int clamp, int scheme, void* stream) {        \
     return fused::launch(                                                      \
         fused::linesearch_kernel<MODEL>, B, stream, (const float*)params,      \
-        (const float*)x0, (const float*)us, (const float*)xsr,                 \
+        pstride, (const float*)x0, (const float*)us, (const float*)xsr,        \
         (const float*)xterm, (const float*)K, (const float*)k,                 \
         (const float*)Kold, (const float*)kold, (const float*)alphas, A,       \
         (const float*)dv, (const float*)cprev, (const float*)gate,             \

@@ -44,9 +44,10 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the launchers in csrc/*.cu, in argument order. The fused
 # solver's four kernels have one launcher per model, ilqr_<model>_<kernel>
-# (each model's own csrc/kernels*.cu), all with the signature of <kernel>;
-# the rollout and line-search launchers take the integrator (0 Euler, 1
-# RK4). The stencil sweep and iteration kernels, ilqr_<model>_<kernel>_fd
+# (each model's own csrc/kernels*.cu), all with the signature of <kernel>,
+# the packed params and their lane stride (0 shared, P for one row per
+# lane) first; the rollout and line-search launchers take the integrator
+# (0 Euler, 1 RK4). The stencil sweep and iteration kernels, ilqr_<model>_<kernel>_fd
 # (csrc/kernels_<model>_fd.cu), take their analytic twins' arguments and
 # then the integrator and the stencil's eps, 2·eps and 4·eps²; the
 # dual-number ones, ilqr_<model>_<kernel>_jvp (csrc/kernels_<model>_jvp.cu),
@@ -54,19 +55,22 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel has one launcher per model, ilqr_<model>_derivs (csrc/derivs.cu),
 # and the backward kernel one per state dimension, ilqr_backward_n<n>
 # (csrc/backward.cu).
-_SWEEP = [_P] * 10 + [_I, _I, _I]
-_ITERATION = [_P] * 8 + [_I] + [_P] * 16 + [_F, _F, _F, _I, _I, _I, _I]
+_PARAMS = [_P, _I]   # the packed params and their lane stride (0 or P)
+_SWEEP = _PARAMS + [_P] * 9 + [_I, _I, _I]
+_ITERATION = (_PARAMS + [_P] * 7 + [_I] + [_P] * 16
+              + [_F, _F, _F, _I, _I, _I, _I])
 _STENCIL = [_I, _F, _F, _F]
 _FUSED_SIGNATURES = {
-    "rollout": [_P] * 9 + [_I, _I, _I, _I, _P],
+    "rollout": _PARAMS + [_P] * 8 + [_I, _I, _I, _I, _P],
     "sweep": _SWEEP + [_P],
-    "linesearch": [_P] * 10 + [_I] + [_P] * 14 + [_F, _I, _I, _I, _I, _P],
+    "linesearch": (_PARAMS + [_P] * 9 + [_I] + [_P] * 14
+                   + [_F, _I, _I, _I, _I, _P]),
     "iteration": _ITERATION + [_P],
     "sweep_fd": _SWEEP + _STENCIL + [_P],
     "iteration_fd": _ITERATION + _STENCIL + [_P],
     "sweep_jvp": _SWEEP + [_I, _P],
     "iteration_jvp": _ITERATION + [_I, _P],
-    "derivs": [_P] * 10 + [_I, _I, _F, _F, _F, _I, _I, _P],
+    "derivs": _PARAMS + [_P] * 9 + [_I, _I, _F, _F, _F, _I, _I, _P],
 }
 _BACKWARD = [_P] * 16 + [_I, _I, _P]
 _SIGNATURES = {"ilqr_backward_n2": _BACKWARD, "ilqr_backward_n4": _BACKWARD}

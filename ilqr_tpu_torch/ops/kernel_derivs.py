@@ -40,6 +40,7 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     integrate,
     lane_last,
     on_cuda,
+    param_stride,
     require_kernel_model,
     scheme,
     unpack_params,
@@ -367,9 +368,9 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
             f"csrc/derivs.cu is instantiated for {have}, not {model.name!r} "
             "(the m >= 2 models wait for the composable path's models, "
             "ROADMAP.md §A4)")
-    prefix = require_kernel_model(model, integrator, pp, dev,
-                                  have=DERIVS_KERNEL_MODELS)
     T, m, B = us.shape
+    prefix = require_kernel_model(model, integrator, pp, dev,
+                                  have=DERIVS_KERNEL_MODELS, lanes=B)
     n = model.n
     _build.require(xs, (T + 1, n, B), "xs", dev)
     _build.require(us, (T, m, B), "us", dev)
@@ -378,8 +379,8 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
             e(T + 1, n, n, B), e(T, n, m, B), e(T, m, m, B))
     # the stencil's constants as the JAX kernel rounds them: eps, 2·eps and
     # 4·eps² taken in double, then to f32
-    _build.launch(f"{prefix}_derivs", dev, pp.vec, xs, us, *outs,
-                  int(mode == "fd"), scheme(integrator), float(eps),
+    _build.launch(f"{prefix}_derivs", dev, pp.vec, param_stride(pp), xs, us,
+                  *outs, int(mode == "fd"), scheme(integrator), float(eps),
                   float(2.0 * eps), float(4.0 * eps * eps), T, B)
     derivs_packed.launches += 1
     return outs

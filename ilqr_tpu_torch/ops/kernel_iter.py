@@ -19,6 +19,7 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     PackedParams,
     linesearch_plain,
     on_cuda,
+    param_stride,
     require_kernel_model,
 )
 from ilqr_tpu_torch.ops.kernel_sweep import (
@@ -72,9 +73,9 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
                                alphas, mode, use_limits, z_min, tol_grad,
                                lambda_grad_term, eps)
     dev = us.device
-    prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, B = us.shape
     n = model.n
+    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B)
     A = alphas.shape[0]
     max_a = _build.library().ilqr_max_alphas()
     if not 1 <= A <= max_a:
@@ -94,9 +95,10 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(7)))
     gains = torch.empty((T, m * (n + 1), B), dtype=F32, device=dev)
     suffix, extra = kernel_args(mode, integrator, eps)
-    _build.launch(f"{prefix}_iteration{suffix}", dev, pp.vec, x0, xs_body,
-                  xterm, us, Kold, kold, alphas, A, lam, cost_prev, live,
-                  *outs, gains, float(z_min), float(tol_grad),
+    _build.launch(f"{prefix}_iteration{suffix}", dev, pp.vec,
+                  param_stride(pp), x0, xs_body, xterm, us, Kold, kold,
+                  alphas, A, lam, cost_prev, live, *outs, gains,
+                  float(z_min), float(tol_grad),
                   float(lambda_grad_term), T, B, int(bool(clamp)),
                   int(bool(use_limits)), *extra)
     iteration_packed.launches += 1

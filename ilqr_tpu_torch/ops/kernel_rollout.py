@@ -19,6 +19,7 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ilqr_tpu_torch.models.acrobot import AcrobotParams
@@ -38,13 +39,15 @@ F32 = torch.float32
 
 
 # ---------------------------------------------------------------------------
-# Param packing: params NamedTuple → one flat f32 vector, dt last
+# Param packing: params NamedTuple → one flat f32 vector, dt last; or, with
+# per-problem params, one such row per lane
 # ---------------------------------------------------------------------------
 
 class PackedParams(NamedTuple):
-    vec: torch.Tensor  # (P,) f32: leaves in field order, then dt
+    vec: torch.Tensor  # (P,) shared, or (B, P) one row per lane; f32,
+    #                    leaves in field order, then dt
     cls: type          # the params NamedTuple type
-    shapes: tuple      # each field's shape
+    shapes: tuple      # each field's shape (per lane when batched)
 
 
 def pack_params(params, dt, device=None) -> PackedParams:
@@ -59,16 +62,64 @@ def pack_params(params, dt, device=None) -> PackedParams:
     return PackedParams(torch.cat(flat).to(device), type(params), shapes)
 
 
+def pack_params_batched(params, dt, device=None) -> PackedParams:
+    """Per-problem params (counterpart of
+    ``pallas_rollout.pack_params_batched``): every leaf (a numpy array or a
+    tensor) carries a leading batch axis B. Returns a (B, P) f32 ``vec``,
+    lane b's row holding problem b's leaves in field order and then ``dt``,
+    which stays shared (repeated on every row); ``shapes`` are the per-lane
+    leaf shapes. A kernel reads row b on lane b (its params stride P)."""
+    leaves = [_as_f32(getattr(params, f)) for f in params._fields]
+    B = leaves[0].shape[0] if leaves[0].ndim else 0
+    if B == 0 or any(leaf.ndim == 0 or leaf.shape[0] != B
+                     for leaf in leaves):
+        raise ValueError(
+            "params_batched: every params leaf needs the same leading batch "
+            f"axis, got shapes {[tuple(leaf.shape) for leaf in leaves]}")
+    shapes = tuple(tuple(leaf.shape[1:]) for leaf in leaves)
+    rows = [leaf.reshape(B, -1) for leaf in leaves]
+    rows.append(torch.full((B, 1), float(dt), dtype=F32))
+    return PackedParams(torch.cat(rows, dim=1).contiguous().to(device),
+                        type(params), shapes)
+
+
+def _as_f32(leaf) -> torch.Tensor:
+    """A params leaf (a tensor, or anything numpy converts) as a CPU f32
+    tensor."""
+    if not isinstance(leaf, torch.Tensor):
+        leaf = torch.from_numpy(np.asarray(leaf))
+    return leaf.to(device="cpu", dtype=F32)
+
+
+def is_batched(pp: PackedParams) -> bool:
+    """Whether ``pp`` holds one row of params per lane."""
+    return pp.vec.ndim == 2
+
+
+def param_stride(pp: PackedParams) -> int:
+    """The kernels' params lane stride: 0 for shared params (every lane
+    reads the one vector), P for per-lane rows."""
+    return pp.vec.shape[1] if is_batched(pp) else 0
+
+
 def unpack_params(pp: PackedParams):
-    """Inverse of :func:`pack_params`: (params with tensor leaves viewing
-    ``pp.vec``, dt as a 0-d tensor)."""
+    """Inverse of :func:`pack_params` / :func:`pack_params_batched`:
+    (params with tensor leaves, dt as a 0-d tensor). Shared leaves view
+    ``pp.vec``; per-lane leaves come lane-last, (*leaf_shape, B), so a
+    component (``p.goal[i]``, ``p.u_min[j]``) is a (B,) tensor that
+    broadcasts against the plain versions' (…, B) lanes."""
+    batched = is_batched(pp)
     leaves = []
     r = 0
     for shape in pp.shapes:
         size = math.prod(shape)
-        leaves.append(pp.vec[r:r + size].reshape(shape))
+        if batched:
+            leaves.append(pp.vec[:, r:r + size].t().reshape(
+                *shape, pp.vec.shape[0]))
+        else:
+            leaves.append(pp.vec[r:r + size].reshape(shape))
         r += size
-    return pp.cls(*leaves), pp.vec[r]
+    return pp.cls(*leaves), (pp.vec[0, r] if batched else pp.vec[r])
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +176,13 @@ def scheme(integrator: str) -> int:
 
 
 def require_kernel_model(model, integrator: str, pp: PackedParams, device,
-                         have=None) -> str:
+                         have=None, lanes=None) -> str:
     """Checks that CUDA kernels are compiled for ``model`` (with params of
     its type) among ``have`` (name → params type; default the fused
-    kernels' models), and that ``integrator`` is one they take (Euler or
-    RK4). Returns the prefix of the model's launchers, ``ilqr_<model>``."""
+    kernels' models), that ``integrator`` is one they take (Euler or RK4),
+    and that the packed params are one (P,) vector or one row per lane,
+    (``lanes``, P). Returns the prefix of the model's launchers,
+    ``ilqr_<model>``."""
     have = FUSED_KERNEL_MODELS if have is None else have
     if have.get(model.name) is not pp.cls:
         raise NotImplementedError(
@@ -141,7 +194,11 @@ def require_kernel_model(model, integrator: str, pp: PackedParams, device,
             f"{model.name}: params leaf shapes {pp.shapes}, the CUDA loader "
             f"reads {_param_shapes(model)}")
     scheme(integrator)
-    _build.require(pp.vec, (pp.vec.numel(),), "packed params", device)
+    if is_batched(pp) and lanes is None:
+        raise ValueError("per-lane params need the op's lane count")
+    P = pp.vec.shape[-1]
+    _build.require(pp.vec, (lanes, P) if is_batched(pp) else (P,),
+                   "packed params", device)
     return f"ilqr_{model.name}"
 
 
@@ -232,8 +289,8 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     if not on_cuda(x0):
         return rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K)
     dev = x0.device
-    prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, n, B = K.shape
+    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B)
     for t, shape, name in ((x0, (n, B), "x0"), (uff, (T, m, B), "uff"),
                            (xsr, (T, n, B), "xsr"), (K, (T, m, n, B), "K")):
         _build.require(t, shape, name, dev)
@@ -241,8 +298,9 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     us = torch.empty((T, m, B), dtype=F32, device=dev)
     xfin = torch.empty((n, B), dtype=F32, device=dev)
     cost = torch.empty((B,), dtype=F32, device=dev)
-    _build.launch(f"{prefix}_rollout", dev, pp.vec, x0, uff, xsr, K, xs, us,
-                  xfin, cost, T, B, int(bool(clamp)), scheme(integrator))
+    _build.launch(f"{prefix}_rollout", dev, pp.vec, param_stride(pp), x0,
+                  uff, xsr, K, xs, us, xfin, cost, T, B, int(bool(clamp)),
+                  scheme(integrator))
     rollout_packed.launches += 1
     return xs, us, xfin, cost
 
@@ -360,8 +418,8 @@ def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
                                 xterm, K, k, Kold, kold, alphas, dv,
                                 cost_prev, gate, keep, z_min)
     dev = x0.device
-    prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, n, B = K.shape
+    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B)
     A = alphas.shape[0]
     max_a = _build.library().ilqr_max_alphas()
     if not 1 <= A <= max_a:
@@ -380,9 +438,9 @@ def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             torch.empty((T, m, B), dtype=F32, device=dev),
             torch.empty((T, m, n, B), dtype=F32, device=dev),
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(5)))
-    _build.launch(f"{prefix}_linesearch", dev, pp.vec, x0, us, xsr, xterm,
-                  K, k, Kold, kold, alphas, A, dv, cost_prev, gate, keep,
-                  *outs, float(z_min), T, B, int(bool(clamp)),
+    _build.launch(f"{prefix}_linesearch", dev, pp.vec, param_stride(pp), x0,
+                  us, xsr, xterm, K, k, Kold, kold, alphas, A, dv, cost_prev,
+                  gate, keep, *outs, float(z_min), T, B, int(bool(clamp)),
                   scheme(integrator))
     linesearch_packed.launches += 1
     return outs

@@ -48,6 +48,7 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
     on_cuda,
+    param_stride,
     require_kernel_model,
     scheme,
     unpack_params,
@@ -389,9 +390,9 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
         return sweep_plain(model, integrator, pp, xs_body, xterm, us, lam,
                            mode, use_limits, eps)
     dev = us.device
-    prefix = require_kernel_model(model, integrator, pp, dev)
     T, m, B = us.shape
     n = model.n
+    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B)
     for t, shape, name in ((xs_body, (T, n, B), "xs_body"),
                            (xterm, (n, B), "xterm"), (us, (T, m, B), "us"),
                            (lam, (B,), "lam")):
@@ -402,9 +403,9 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     div = torch.empty((B,), dtype=F32, device=dev)
     gnorm = torch.empty((B,), dtype=F32, device=dev)
     suffix, extra = kernel_args(mode, integrator, eps)
-    _build.launch(f"{prefix}_sweep{suffix}", dev, pp.vec, xs_body, xterm, us,
-                  lam, k, K, dv, div, gnorm, T, B, int(bool(use_limits)),
-                  *extra)
+    _build.launch(f"{prefix}_sweep{suffix}", dev, pp.vec, param_stride(pp),
+                  xs_body, xterm, us, lam, k, K, dv, div, gnorm, T, B,
+                  int(bool(use_limits)), *extra)
     sweep_packed.launches += 1
     return k, K, dv, div, gnorm
 

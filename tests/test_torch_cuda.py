@@ -13,9 +13,11 @@ import torch
 from ilqr_tpu_torch import (
     SolverConfig,
     get_model,
+    mpc,
     solve,
     solve_batch,
     solve_batch_fused,
+    solve_batch_fused_warm,
 )
 from ilqr_tpu_torch.models import acrobot as tac
 from ilqr_tpu_torch.models import bicycle as tbc
@@ -552,3 +554,148 @@ def test_jvp_and_split_solves_on_card_match_plain_solve(dev, name, extra):
         assert counts["derivs_packed"] >= 5
     else:
         assert counts["iteration_packed"] + counts["sweep_packed"] >= 5
+
+
+def _per_lane_params(name, b, seed):
+    """``name``'s default params with every leaf drawn per lane (× U(0.8,
+    1.2)) and, where the box has a lower bound below zero, an asymmetric
+    box per lane: a params NamedTuple of (b, …) tensors."""
+    p = get_model(name).default_params()
+    rng = np.random.default_rng(seed)
+    leaves = {f: torch.as_tensor(
+        np.asarray(getattr(p, f), np.float32)[None]
+        * rng.uniform(0.8, 1.2, size=(b,) + tuple(getattr(p, f).shape)),
+        dtype=torch.float32) for f in p._fields}
+    return type(p)(**leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pendulum", "free_flyer", "acrobot"])
+def test_per_lane_kernels_match_plain(dev, name):
+    """The per-lane params mode (one row of the packed params per lane) of
+    the rollout, sweep, line-search, iteration and (for the split sweep's
+    models) derivative kernels against their plain versions on the card;
+    rows equal across the lanes give the shared kernels' outputs bit for
+    bit."""
+    m = get_model(name)
+    n, mm, b = m.n, m.m, 200
+    rng = np.random.default_rng(21)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    u_mid = U_MID.get(name, 0.0)
+    x0 = f(0.3 * rng.normal(size=(n, b)))
+    us = f(u_mid + rng.normal(size=(T, mm, b)))
+    xs = f(0.3 * rng.normal(size=(T, n, b)))
+    xT = f(0.3 * rng.normal(size=(n, b)))
+    K = f(0.1 * rng.normal(size=(T, mm, n, b)))
+    k = f(0.5 * rng.normal(size=(T, mm, b)))
+    lam = f(np.where(rng.uniform(size=b) < 0.2, 1e-3, 1.0))
+    cprev = f(100.0 + rng.normal(size=b))
+    mask = f(rng.uniform(size=b) > 0.5)
+    al = f(ALPHAS)
+    dv = torch.stack([-f(np.abs(rng.normal(size=b))), f(rng.normal(size=b))])
+    per_lane = kernel_rollout.pack_params_batched(
+        _per_lane_params(name, b, 3), 0.02, dev)
+    p0 = get_model(name).default_params()
+    shared = kernel_rollout.pack_params(p0, 0.02, dev)
+    rows = kernel_rollout.pack_params_batched(
+        type(p0)(*[v[None].expand((b,) + tuple(v.shape)) for v in p0]), 0.02,
+        dev)
+
+    def ops(pp):
+        out = {
+            "rollout": (kernel_rollout.rollout_packed, kernel_rollout
+                        .rollout_plain, (m, "rk4", True, pp, x0, us, xs, K)),
+            "sweep": (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+                      (m, "euler", pp, xs, xT, us, lam)),
+            "linesearch": (kernel_rollout.linesearch_packed,
+                           kernel_rollout.linesearch_plain,
+                           (m, "euler", True, pp, x0, us, xs, xT, K, k, K, k,
+                            al, dv, cprev, mask, mask, 0.0)),
+            "iteration": (kernel_iter.iteration_packed,
+                          kernel_iter.iteration_plain,
+                          (m, "euler", True, pp, x0, xs, xT, us, k, K, lam,
+                           cprev, mask, al)),
+        }
+        if name in kernel_derivs.DERIVS_KERNEL_MODELS:
+            out["derivs"] = (kernel_derivs.derivs_packed,
+                             kernel_derivs.derivs_plain,
+                             (m, "rk4", pp, torch.cat([xs, xT[None]]), us,
+                              "fd"))
+        return out
+
+    for op, (kernel, plain, args) in ops(per_lane).items():
+        reset_launch_counts()
+        got = kernel(*args)
+        assert launch_counts()[kernel.__name__] == 1, op
+        for i, (g, w) in enumerate(zip(got, plain(*args))):
+            _close(g, w, f"{name} {op} output {i}")
+    shared_ops, rows_ops = ops(shared), ops(rows)
+    for op, (kernel, _plain, args) in shared_ops.items():
+        for g, w in zip(kernel(*rows_ops[op][2]), kernel(*args)):
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), op
+            assert torch.equal(g.nan_to_num(), w.nan_to_num()), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["whole-iteration", "split iteration",
+                                   "split sweep"])
+def test_batched_and_warm_solves_on_card_match_cpu(dev, route):
+    """Per-problem goals and boxes (pendulum) and a warm re-solve from the
+    moved states, through the kernels, against the same solves through
+    the plain versions on the CPU: costs to rtol 1e-3 (sin/cos ulps)."""
+    m = get_model("pendulum")
+    b = 64
+    rng = np.random.default_rng(2)
+    p = _per_lane_params("pendulum", b, 4)
+    p = p._replace(goal=torch.as_tensor(np.stack(
+        [rng.uniform(-3.0, 3.0, b), np.zeros(b)], 1), dtype=torch.float32),
+        u_min=-torch.full((b, 1), 8.0), u_max=torch.full((b, 1), 8.0))
+    extra = {"whole-iteration": {}, "split iteration":
+             dict(iter_kernel="split"), "split sweep":
+             dict(sweep_kernel="split")}[route]
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       max_iter=6, alphas=(1.0, 0.3, 0.03), **extra)
+    x0 = (0.1 * rng.normal(size=(b, 2))).astype(np.float32)
+    u0 = np.zeros((20, 1), np.float32)
+    reset_launch_counts()
+    card = solve_batch_fused(m, p, cfg, 0.05, x0, u0, params_batched=True)
+    assert launch_counts()["rollout_packed"] == 1
+    cpu = solve_batch_fused(m, p, cfg, 0.05, x0, u0, device="cpu",
+                            params_batched=True)
+    np.testing.assert_allclose(card.cost.cpu().numpy(), cpu.cost.numpy(),
+                               rtol=1e-3)
+    shared = m.default_params()
+    x1 = x0 + np.float32(0.02)
+    cold = solve_batch_fused(m, shared, cfg, 0.05, x0, u0)
+    cold_cpu = solve_batch_fused(m, shared, cfg, 0.05, x0, u0, device="cpu")
+    reset_launch_counts()
+    warm = solve_batch_fused_warm(m, shared, cfg, 0.05, x1, cold)
+    assert launch_counts()["rollout_packed"] == 1
+    warm_cpu = solve_batch_fused_warm(m, shared, cfg, 0.05, x1, cold_cpu,
+                                      device="cpu")
+    np.testing.assert_allclose(warm.cost.cpu().numpy(),
+                               warm_cpu.cost.numpy(), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_fleet_mpc_on_card_matches_cpu(dev):
+    """fleet_init and two fleet_step replans of an acrobot fleet (the
+    secondary bench's fleet MPC at B = 64, T = 30) on the card against the
+    CPU: states to 1e-4, costs to rtol 1e-3."""
+    m = get_model("acrobot")
+    p = m.default_params()
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       max_iter=5, alphas=(1.0, 0.3, 0.03))
+    x0 = (0.05 * np.random.default_rng(3).normal(size=(64, 4))).astype(
+        np.float32)
+    u0 = np.zeros((30, 1), np.float32)
+    card = mpc.fleet_init(m, p, cfg, 0.02, x0, u0)
+    cpu = mpc.fleet_init(m, p, cfg, 0.02, x0, u0, device="cpu")
+    for _ in range(2):
+        card = mpc.fleet_step(m, p, cfg, 0.02, card)
+        cpu = mpc.fleet_step(m, p, cfg, 0.02, cpu)
+        np.testing.assert_allclose(card.x.cpu().numpy(), cpu.x.numpy(),
+                                   rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(card.plan.cost.cpu().numpy(),
+                                   cpu.plan.cost.numpy(), rtol=1e-3)
+    assert card.x.device.type == "cuda" and int(card.t[0]) == 2

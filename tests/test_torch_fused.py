@@ -185,9 +185,11 @@ def test_unsupported_configurations_raise():
         with pytest.raises(exc):
             solve_batch_fused(m, p, SolverConfig(**bad), 0.02, x0, u0,
                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        solve_batch_fused(m, p, SolverConfig(), 0.02, x0, u0, device="cpu",
-                          params_batched=True)
+    # per-problem params run (every leaf with a leading batch axis)
+    batched = type(p)(*[v.expand((2,) + tuple(v.shape)) for v in p])
+    sol = solve_batch_fused(m, batched, SolverConfig(max_iter=2), 0.02, x0,
+                            u0, device="cpu", params_batched=True)
+    assert np.all(np.isfinite(sol.cost.numpy()))
     # m >= 2 runs on the merged sweep only (the split sweep's backward
     # kernel is the closed-form m = 1 QP)
     di = get_model("double_integrator")
@@ -207,9 +209,10 @@ def test_unsupported_configurations_raise():
     assert not fused_applicable(wide, SolverConfig())
     from ilqr_tpu_torch.fused import solve_batch_fused_warm
 
-    with pytest.raises(NotImplementedError):
-        solve_batch_fused_warm(m, p, SolverConfig(), 0.02, x0, None,
-                               device="cpu")
+    # the warm start runs from a previous Solution
+    warm = solve_batch_fused_warm(m, p, SolverConfig(max_iter=2), 0.02, x0,
+                                  sol, device="cpu")
+    assert np.all(np.isfinite(warm.cost.numpy()))
     assert fused_applicable(m, SolverConfig())
     assert fused_applicable(m, SolverConfig(use_control_limits=False))
     assert fused_applicable(m, SolverConfig(deriv_mode="fd"))
