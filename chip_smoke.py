@@ -28,7 +28,7 @@ Phases (any failure raises and the script exits non-zero):
      by kernel and the device's busy share;
   5. the fused split route (sweep + line-search kernels) against the merged
      one, and the kernel path against the plain path on the card, at
-     B = 1024, max_iter = 4; beside them, not asserted, the kernel path
+     B = 1024, max_iter = 2; beside them, not asserted, the kernel path
      from an x0 moved by 1e-6, which shows how far rounding alone carries
      a lane on this chaotic workload;
   6. the composable path: solve_batch at the same size on the same x0
@@ -107,7 +107,23 @@ Phases (any failure raises and the script exits non-zero):
      mode of the rollout, sweep and line search at (a)'s shapes and of the
      rollout, whole iteration and derivative kernel at (b)'s (lanes_cases;
      readings lanes_* of their rows);
- 14. one JSON line listing every kernel × model instantiation launched (the
+ 14. the composable solver at m ≥ 2 (solve, solve_verbose, solve_batch and
+     the single-controller MPC on the derivative kernel of every model;
+     the backward pass's QPs in plain PyTorch, as the JAX package runs
+     them in XLA): (a) the reference's main path, the CLI's integrator
+     problem through solve_verbose (fd, the iterative QP, unclamped, T =
+     99) against golden/integrator_golden.csv, its iterations beside the
+     reference's 14; (b) examples/quadrotor_waypoints.py --vmap (B = 256,
+     T = 80, max_iter 40): solves/s, ms and host syncs per iteration,
+     every lane at or below its initial cost, the mean cost within 2% of
+     the fused solver's, a profiled iteration, a short slice against the
+     CPU; (c) short solves (B = 64, T = 20) of the other ten m ≥ 2 models
+     (the double integrator with RK4, omni_thruster with pn_fixed,
+     power_mass with per-lane params) against the CPU; (d) 20 replans of
+     tests/test_mpc.py's controller against the CPU, step by step; phase
+     3 holds each model's derivative kernel at these paths' shapes
+     (derivs_cases);
+ 15. one JSON line listing every kernel × model instantiation launched (the
      RK4 readings as rk4_* fields of the kernel's row, the stencil mode's
      RK4 reading of the derivative kernel as rk4_fd_*, the per-lane params
      readings as lanes_*), the card's line, and the last line
@@ -133,6 +149,7 @@ import torch
 
 from ilqr_tpu_torch import (
     SolverConfig,
+    TerminationReason,
     fused,
     get_model,
     mpc,
@@ -141,9 +158,15 @@ from ilqr_tpu_torch import (
     solve_batch_fused_warm,
     solver,
 )
-from ilqr_tpu_torch.models import acrobot, omni_thruster, quadrotor
+from ilqr_tpu_torch.models import (
+    acrobot,
+    double_integrator,
+    omni_thruster,
+    quadrotor,
+)
 from ilqr_tpu_torch.ops import (
     _build,
+    boxqp,
     kernel_backward,
     kernel_derivs,
     kernel_iter,
@@ -154,9 +177,9 @@ from ilqr_tpu_torch.ops import (
 )
 
 B_MAIN, T, DT, MAX_ITER = 8192, 499, 0.02, 100
-# Phase 5 at a cut depth (4 iterations): its plain path takes ~7 s per
+# Phase 5 at a cut depth (2 iterations): its plain path takes ~7 s per
 # iteration at T = 499 on an H100 80GB HBM3 (700 W).
-B_SPLIT, ITER_SPLIT = 1024, 4
+B_SPLIT, ITER_SPLIT = 1024, 2
 # Equivalence of whole solves across routes: a horizon short enough that
 # rounding alone (a 1e-6 nudge of x0) forks under 1% of lanes by iteration
 # 12; phase 7 prints that share.
@@ -189,7 +212,7 @@ REPLACES = {
     "backward_sweep_packed": "ilqr_tpu/ops/pallas_backward.py:185",
 }
 SOURCES = {
-    "derivs_packed": "ilqr_tpu_torch/csrc/derivs.cu",
+    "derivs_packed": "ilqr_tpu_torch/csrc/derivs_acrobot.cu",
     "backward_sweep_packed": "ilqr_tpu_torch/csrc/backward.cu",
 }
 KERNEL_NAMES = ("iteration_kernel", "rollout_kernel", "sweep_kernel",
@@ -492,7 +515,8 @@ def comparison_sets():
             + [("fd", name) for name in CLI_SPECS]
             + [("jvp", name) for name in CLI_SPECS]
             + [("split", name) for name in SPLIT_MODELS]
-            + [("lanes", name) for name in LANES_KERNELS])
+            + [("lanes", name) for name in LANES_KERNELS]
+            + [("derivs", name) for name in COMP_MODELS])
 
 
 def build_cases(dev, which):
@@ -506,6 +530,8 @@ def build_cases(dev, which):
         return split_cases(dev, which[1])
     if which[0] == "lanes":
         return lanes_cases(dev, which[1])
+    if which[0] == "derivs":
+        return derivs_cases(dev, which[1])
     return fd_cases(dev, which[1])
 
 
@@ -551,7 +577,7 @@ def run_comparisons(dev, tick):
             for label, case in cases.items():
                 key = (which, label)
                 order.append(key)
-                times[key] = time_ms(lambda: case.op(*case.args), reps=5)
+                times[key] = time_ms(lambda: case.op(*case.args), reps=3)
                 wheres[key], metas[key] = case.where, case.meta
                 jobs.append((case.meta["effort"], key))
             del cases
@@ -697,11 +723,13 @@ def plain_ops():
             setattr(fused, name, fn)
 
 
-def profile_solve(label, solve_fn, wall_s, x0=None, u0=None):
+def profile_solve(label, solve_fn, wall_s, x0=None, u0=None, host=True):
     """Where one solve's time goes: device time by kernel from
     torch.profiler (CUPTI), and the device's busy share of the unprofiled
     median wall time ``wall_s``. ``solve_fn(x0, u0)`` runs it; x0 and u0
-    default to a flagship-size acrobot draw."""
+    default to a flagship-size acrobot draw. ``host=False`` traces the
+    device alone (a solve of tens of thousands of small ops, whose host
+    events would cost the trace seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
     if x0 is None:
@@ -709,8 +737,8 @@ def profile_solve(label, solve_fn, wall_s, x0=None, u0=None):
         x0 = (0.05 * rng.normal(size=(B_MAIN, N))).astype(np.float32)
         u0 = np.zeros((T, M), np.float32)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         solve_fn(x0, u0)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
@@ -798,8 +826,11 @@ def run_composable_path(dev, model, params, cfg, fused_out):
     solve_batch(model, params, cfg, DT, draw(), u0)
     torch.cuda.synchronize()
     print(f"[composable] warm-up solve {time.perf_counter() - t0:.2f} s")
+    # one timed solve (three before; PERF.md §7), on phase 4's last draw,
+    # whose fused solve gave fused_out's mean cost
+    draw(), draw()
     runs = []
-    for rep in range(3):
+    for rep in range(1):
         x0 = draw()
         reset_launch_counts()
         solver._host_any.syncs = 0
@@ -1003,9 +1034,10 @@ T_BACKWARD = {"thruster_ring16": 4, "thruster_ring20": 4,
               "thruster_ring24": 4}
 # Phase 3's plain versions run in this many worker processes (one per host
 # core but one): they are host-bound, one PyTorch op per operation.
-COMPARE_WORKERS = max(1, min(7, (os.cpu_count() or 2) - 1))
+# every core: the main process waits while the plain versions run
+COMPARE_WORKERS = max(1, min(8, os.cpu_count() or 1))
 DEVICE = "cuda"
-CAP_SOLVE_S = 10.0    # thruster_ring24: max_iter is cut if a solve would
+CAP_SOLVE_S = 5.0     # thruster_ring24: max_iter is cut if a solve would
 #                       take longer
 SHORT_ITERS = 2       # thruster_ring16/20's solves (and ring24's merged
 #                       route): a cut depth that launches every kernel
@@ -1021,6 +1053,9 @@ LOWER_SHARE = 0.3     # controls on the lower bound where limits apply
 CLI_MODELS = {"pendulum": (199, 0.02), "cartpole": (299, 0.02),
               "bicycle": (100, 0.05), "power_mass": (120, 0.05)}
 CLI_ITERS = 100
+# the B = 8192 acrobot RK4 paths of phases 11-12 (fd and analytic) at a cut
+# depth, to keep the script inside its time limit on slow hosts
+RK4_HEADLINE_ITERS = 40
 CLI_CPU_T, CLI_CPU_ITERS = 30, 5   # the short card-against-CPU solves
 
 
@@ -1353,8 +1388,8 @@ def ptxas_table(log: str):
     where a model's iteration kernels compile apart, and the stencil and
     dual-number instantiations' kernels_<model>[_iteration]_fd.cu and
     kernels_<model>[_iteration]_jvp.cu) instantiates one model, and
-    kernels.cu is acrobot's. derivs.cu instantiates the split sweep's models
-    (the model read from the mangled name) and backward.cu one kernel per n
+    kernels.cu is acrobot's. derivs_<model>.cu instantiates the derivative
+    kernel for its model, and backward.cu one kernel per n
     (n = 2 filed under pendulum, n = 4 under acrobot and cartpole). The
     stencil and dual-number sweep, iteration and derivative kernels are
     filed as <kernel>_fd and <kernel>_jvp (the derivative kernel's jvp mode
@@ -1366,7 +1401,9 @@ def ptxas_table(log: str):
             stem = source.removesuffix(".cu")
             model = (stem[len("kernels_"):].removesuffix("_fd")
                      .removesuffix("_jvp").removesuffix("_iteration")
-                     if stem.startswith("kernels_") else "acrobot")
+                     if stem.startswith("kernels_") else
+                     stem[len("derivs_"):] if stem.startswith("derivs_")
+                     else "acrobot")
         elif "Compiling entry function" in line:
             name = line.split("'")[1]
             kernel = next((k for k in KERNEL_NAMES if k in name), name)
@@ -1379,10 +1416,7 @@ def ptxas_table(log: str):
                     kernel += "_fd"
                 elif "Jvp" in name and kernel != "derivs_kernel":
                     kernel += "_jvp"
-            if kernel.startswith("derivs_kernel"):
-                models = [next((mm for mm in ("pendulum", "cartpole")
-                                if mm in name), "acrobot")]
-            elif kernel == "backward_kernel":
+            if kernel == "backward_kernel":
                 models = (["pendulum"] if "ILi2E" in name
                           else ["acrobot", "cartpole"])
             entry = {"source": f"ilqr_tpu_torch/csrc/{source}"}
@@ -1947,9 +1981,13 @@ def run_fd_slice(dev, rows, rk4):
     # RK4 twin; their split routes against the merged ones at T = FD_EQ_T
     t0 = time.perf_counter()
     for integ in ("euler", "rk4"):   # phase 3 warmed the kernels up
+        # the RK4 twin at a cut depth (PERF.md §7)
+        depth = {} if integ == "euler" else dict(max_iter=RK4_HEADLINE_ITERS)
         out, _c = run_fd_path(
-            dev, "acrobot", f"acrobot {integ} (the CLI's batch solve)",
-            B=B_MAIN, profile=integ == "euler", integrator=integ)
+            dev, "acrobot", f"acrobot {integ} (the CLI's batch solve"
+            + (")" if integ == "euler" else
+               f", max_iter {RK4_HEADLINE_ITERS}, cut from {CLI_ITERS})"),
+            B=B_MAIN, profile=integ == "euler", integrator=integ, **depth)
         short = dict(B=B_SPLIT, T=FD_EQ_T, max_iter=FD_EQ_ITERS,
                      integrator=integ)
         merged, ref = fd_solve(dev, "acrobot", f"acrobot {integ} merged",
@@ -2027,13 +2065,13 @@ def run_fd_slice(dev, rows, rk4):
             sweep_ms = time_ms(lambda: kernel_sweep.sweep_packed(
                 m_, "euler", pp, xs0, xT0, us0, torch.ones(B, device=dev),
                 "fd"), reps=1)
-            cap = min(CLI_ITERS, max(SHORT_ITERS, int(
+            # at most secondary_bench.py's 40 iterations of these models
+            cap = min(WIDE_ITERS, max(SHORT_ITERS, int(
                 FD_CAP_S * 1e3 / (1.5 * sweep_ms))))
             print(f"[fd] {name}: one stencil sweep {sweep_ms:.1f} ms "
-                  f"at B={B} T={T}; max_iter {cap}"
-                  + ("" if cap == CLI_ITERS else
-                     f" (cut from {CLI_ITERS} to keep one solve under "
-                     f"{FD_CAP_S:g} s)"))
+                  f"at B={B} T={T}; max_iter {cap} (cut from {CLI_ITERS}: "
+                  f"at most {WIDE_ITERS}, and one solve under "
+                  f"{FD_CAP_S:g} s)")
             out, _cost = run_fd_path(dev, name, label, max_iter=cap)
             out["sweep_ms_per_launch"] = sweep_ms
             # the merged route at a cut depth: it runs the split route's
@@ -2054,8 +2092,9 @@ def run_fd_slice(dev, rows, rk4):
         record(f"{auto_key}/{name}/fd", out["launches"])
         record(f"{other_key}/{name}/fd", out["other_route"]["launches"])
         if name in FD_FREE:
+            depth = ({} if merged_auto else dict(max_iter=WIDE_ITERS))
             free, _c = run_fd_path(dev, name, f"{name} fd without limits",
-                                   use_control_limits=False)
+                                   use_control_limits=False, **depth)
             record(f"{auto_key}/{name}/fd/unconstrained", free["launches"])
             out["unconstrained"] = free
         res[name] = out
@@ -2195,7 +2234,7 @@ def split_cases(dev, name):
         return step * T * B + rest * B
 
     out = {}
-    src = "ilqr_tpu_torch/csrc/derivs.cu"
+    src = f"ilqr_tpu_torch/csrc/derivs_{name}.cu"
     readings = [("jvp", "rk4", "rk4"), ("fd", "rk4", "rk4_fd")]
     if name != "acrobot":
         readings = [("jvp", "euler", "row"), ("fd", "euler", "fd_of")] + (
@@ -2261,8 +2300,10 @@ def run_jvp_slice(dev, rows, rk4):
     # its split iteration against the whole-iteration kernel at T = T_EQ
     t0 = time.perf_counter()
     out, _c = run_fd_path(dev, "acrobot",
-                          "acrobot analytic + rk4 (the CLI's batch solve)",
-                          B=B_MAIN, profile=True, **jvp)
+                          f"acrobot analytic + rk4 (the CLI's batch solve, "
+                          f"max_iter {RK4_HEADLINE_ITERS}, cut from "
+                          f"{CLI_ITERS})", B=B_MAIN, profile=True,
+                          max_iter=RK4_HEADLINE_ITERS, **jvp)
     short = dict(B=B_SPLIT, T=T_EQ, max_iter=ITER_EQ, **jvp)
     _m, ref = fd_solve(dev, "acrobot", "acrobot analytic rk4 merged", **short)
     out["split_iteration"], _c = fd_solve(
@@ -2819,6 +2860,400 @@ def run_lanes_slice(dev, readings):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the composable solver at m ≥ 2 (solve, solve_verbose,
+# solve_batch, the single-controller MPC) on the derivative kernel of every
+# model. Its backward pass at m ≥ 2 is the JAX package's scan with its QPs
+# (ops/boxqp.py) in plain PyTorch on the card, as the JAX package runs them
+# in XLA: no Pallas kernel computes them.
+
+COMP_MODELS = ("double_integrator", "point_mass_3d", "quadrotor", "bicycle",
+               "power_mass", "omni_thruster", "free_flyer", "thruster_ring",
+               "thruster_ring16", "thruster_ring20", "thruster_ring24")
+# (c) the short composable batch solves of each model's widths: B lanes,
+# T steps, a few iterations, each with the QP mode or option it covers
+COMP_B, COMP_T, COMP_ITERS, COMP_DT = 64, 20, 3, 0.05
+COMP_EXTRA = {"double_integrator": dict(integrator="rk4"),
+              "omni_thruster": dict(boxqp_mode="pn_fixed")}
+COMP_PER_LANE = ("power_mass",)
+# (b) examples/quadrotor_waypoints.py --vmap: B, T, max_iter, dt
+WP_B, WP_T, WP_ITERS, WP_DT = 256, 80, 40, 0.02
+WP_FUSED_TOL = 0.02      # mean cost against the fused solver's
+WP_CPU = (4, 20, 5)      # card against the CPU: lanes, T, iterations
+# (c)'s card solves against the CPU on their first CPU_LANES lanes (each
+# lane's iterates do not depend on the others)
+CPU_LANES = 8
+# (a) the CLI's integrator problem, run_ilqr integrator
+# (ilqr_tpu/__main__.py:232-236): the reference converges in 14
+# iterations (golden/README.md)
+INTEG_T, INTEG_DT, REF_ITERS = 99, 0.02, 14
+# (d) tests/test_mpc.py:14-31's controller
+MPC_T, MPC_DT, MPC_STEPS, MPC_REL = 40, 0.05, 20, 1e-4
+
+
+def comp_problem(name):
+    """(model, params, cfg, dt, x0 (B, n), u0 (T_c, m), params_batched) of
+    phase 14 (c)'s short solve of ``name``: 0.3·normal x0 from
+    default_rng(5), hover or zero u0, analytic, clamped; power_mass with
+    one row of params per lane (every leaf × U(0.8, 1.2))."""
+    model = get_model(name)
+    params = model.default_params()
+    B, T_c = COMP_B, COMP_T
+    rng = np.random.default_rng(5)
+    x0 = (0.3 * rng.normal(size=(B, model.n))).astype(np.float32)
+    hover = {"quadrotor": quadrotor, "omni_thruster": omni_thruster}
+    u0 = (np.tile(hover[name].hover_control(params).numpy()[None], (T_c, 1))
+          if name in hover else np.zeros((T_c, model.m))).astype(np.float32)
+    batched = name in COMP_PER_LANE
+    if batched:
+        params = type(params)(*[
+            (np.asarray(v, np.float32)[None] * rng.uniform(
+                0.8, 1.2, size=(B,) + tuple(np.shape(v)))).astype(np.float32)
+            for v in params])
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       max_iter=COMP_ITERS, **COMP_EXTRA.get(name, {}))
+    return model, params, cfg, COMP_DT, x0, u0, batched
+
+
+def derivs_cases(dev, name):
+    """derivs_packed of ``name`` at the shapes of its phase-14 paths, on
+    each path's open-loop rollout: jvp mode with the Euler step (the row)
+    and fd mode (its fd_* fields) at (c)'s B = 64, T = 20, the quadrotor at
+    (b)'s B = 256, T = 80, the double integrator at (d)'s B = 1, T = 40
+    (its fd mode at (a)'s T = 99 and its RK4 reading at (c)'s); power_mass
+    also with one row of params per lane (the lanes_* reading)."""
+    model, params, cfg, dt, x0, u0, batched = comp_problem(name)
+    shapes = {"row": (COMP_B, COMP_T, "euler"), "fd_of": (COMP_B, COMP_T,
+                                                          "euler")}
+    if name == "quadrotor":
+        shapes = {"row": (WP_B, WP_T, "euler"), "fd_of": (WP_B, WP_T,
+                                                          "euler")}
+    elif name == "double_integrator":
+        shapes = {"row": (1, MPC_T, "euler"), "fd_of": (1, INTEG_T, "euler"),
+                  "rk4": (COMP_B, COMP_T, "rk4")}
+    elif batched:
+        shapes["lanes"] = (COMP_B, COMP_T, "euler")
+    shared = model.default_params()
+    n, m = model.n, model.m
+    pp_cpu = kernel_rollout.pack_params(shared, dt)
+    lane_rng = np.random.default_rng(3)
+
+    def lane_inputs(t):
+        xs = torch.as_tensor(0.3 * lane_rng.normal(size=(t + 1, n, 1)),
+                             dtype=torch.float32)
+        us = torch.as_tensor(lane_rng.normal(size=(t, m, 1)),
+                             dtype=torch.float32)
+        return xs, us
+
+    out = {}
+    for group, (B, Tc, integ) in shapes.items():
+        mode = "fd" if group == "fd_of" else "jvp"
+        pp = (kernel_rollout.pack_params_batched(params, dt, dev)
+              if group == "lanes" else kernel_rollout.pack_params(shared, dt,
+                                                                  dev))
+        xb = torch.as_tensor(np.resize(x0, (B, n)), device=dev)
+        ub = torch.as_tensor(np.resize(u0, (Tc, m)), device=dev)
+        z = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=dev)
+        xs, us, xT, _c = kernel_rollout.rollout_packed(
+            model, integ, True, pp, xb.t().contiguous(),
+            ub[:, :, None].expand(Tc, m, B).contiguous(), z(Tc, n, B),
+            z(Tc, m, n, B))
+        xs_full = torch.cat([xs, xT[None]]).contiguous()
+
+        def ops(mode=mode, integ=integ, Tc=Tc, B=B):
+            step, rest = ops_per_step(lambda t: kernel_derivs.derivs_plain(
+                model, integ, pp_cpu, *lane_inputs(t), mode=mode))
+            return step * Tc * B + rest * B
+
+        meta = dict(row=f"derivs_packed/{name}", group=group,
+                    kernel="derivs_kernel", model=name, limits=True, T=Tc,
+                    effort=effort("derivs", Tc, n, m) * B // 64 * (n + m),
+                    source=f"ilqr_tpu_torch/csrc/derivs_{name}.cu")
+        label = f"derivs_packed/{name} ({mode}, {integ}" + (
+            ", per-lane params)" if group == "lanes" else ")")
+        out[label] = Case(kernel_derivs.derivs_packed,
+                          kernel_derivs.derivs_plain,
+                          (model, integ, pp, xs_full, us, mode),
+                          ops, f"at B={B} T={Tc}", None, meta)
+    return out
+
+
+def _comp_counters():
+    """Sets the composable path's launch and host counters to 0."""
+    reset_launch_counts()
+    solver._host_any.syncs = 0
+    solver.ilqr_iteration.calls = 0
+    solver.ilqr_iteration.retried = 0
+    boxqp.boxqp.iterations = 0
+
+
+def _comp_stats(wall):
+    """The counters since _comp_counters, per host iteration."""
+    iters = max(1, solver.ilqr_iteration.calls)
+    c = launch_counts()
+    return dict(wall_s=wall, launches=c, host_iterations=iters,
+                host_syncs=solver._host_any.syncs,
+                syncs_per_iteration=solver._host_any.syncs / iters,
+                qp_loop_passes=boxqp.boxqp.iterations,
+                launches_per_iteration=sum(c.values()) / iters,
+                retried_share=solver.ilqr_iteration.retried / iters,
+                ms_per_iteration=wall * 1e3 / iters)
+
+
+def _read_golden():
+    rows = [[float(v) for v in line.replace(",", " ").split()]
+            for line in open(GOLDEN_CSV).read().splitlines()[1:]]
+    return np.asarray([r[4:6] for r in rows[:-1]])
+
+
+def run_integrator_path(dev):
+    """(a): the CLI's integrator problem through solve_verbose on the card,
+    against golden/integrator_golden.csv."""
+    model = get_model("double_integrator")
+    params = double_integrator.default_params(goal=(1.0, 0.5, 0.0, 0.0))
+    cfg = SolverConfig(deriv_mode="fd", clamp_forward=False)
+    x0 = np.asarray([-1.0, 0.0, 0.0, -0.2], np.float32)
+    u0 = np.zeros((INTEG_T, 2), np.float32)
+    _comp_counters()
+    t0 = time.perf_counter()
+    sol = solver.solve_verbose(model, params, cfg, INTEG_DT, x0, u0)
+    cost, us = float(sol.cost.item()), sol.us.cpu().numpy()
+    wall = time.perf_counter() - t0
+    out = _comp_stats(wall)
+    us_err = float(np.abs(us - _read_golden()).max())
+    reason = TerminationReason(int(sol.reason.item())).name
+    out.update(cost=cost, golden_cost=GOLDEN_COST, max_us_err=us_err,
+               reason=reason, iterations=int(sol.iterations.item()),
+               reference_iterations=REF_ITERS)
+    print(f"[composable] (a) run_ilqr integrator on the card (fd, iterative "
+          f"QP, unclamped, Euler, T={INTEG_T}): cost {cost:.4f} (reference "
+          f"{GOLDEN_COST}, ≤ {GOLDEN_COST_TOL}), max |u − u_ref| {us_err:.2e}"
+          f" (≤ {GOLDEN_US_TOL:g}), {out['iterations']} iterations (the "
+          f"reference's f64 solve: {REF_ITERS}, FUN_TOL), reason {reason}; "
+          f"{wall:.2f} s, {out['ms_per_iteration']:.1f} ms/iteration, "
+          f"{out['syncs_per_iteration']:.1f} host syncs/iteration, "
+          f"{out['launches_per_iteration']:.2f} kernel launches/iteration "
+          f"({out['launches']})")
+    if not (abs(cost - GOLDEN_COST) <= GOLDEN_COST_TOL
+            and us_err <= GOLDEN_US_TOL):
+        raise AssertionError("the integrator left the reference's solution")
+    if out["launches"]["derivs_packed"] < 1:
+        raise AssertionError("(a) never launched derivs_packed")
+    return out
+
+
+def run_waypoints_path(dev):
+    """(b): examples/quadrotor_waypoints.py --vmap on the card."""
+    model = get_model("quadrotor")
+    params = model.default_params()
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       max_iter=WP_ITERS)
+    rng = np.random.default_rng(0)
+    x0 = (0.1 * rng.normal(size=(WP_B, 12))).astype(np.float32)
+    u0 = np.tile(quadrotor.hover_control(params).numpy()[None],
+                 (WP_T, 1)).astype(np.float32)
+    _comp_counters()
+    t0 = time.perf_counter()
+    sol = solve_batch(model, params, cfg, WP_DT, x0, u0)
+    host = {k: v.cpu().numpy() for k, v in sol._asdict().items()}
+    wall = time.perf_counter() - t0
+    out = _comp_stats(wall)
+    cost = host["cost"]
+    init = _initial_costs(dev, model, kernel_rollout.pack_params(
+        params, WP_DT, dev), WP_T, u0, x0)
+    fsol = solve_batch_fused(model, params, cfg, WP_DT, x0, u0)
+    fcost = fsol.cost.cpu().numpy()
+    rel = abs(float(cost.mean()) - float(fcost.mean())) / float(fcost.mean())
+    out.update(B=WP_B, T=WP_T, solves_per_s=WP_B / wall,
+               mean_cost=float(cost.mean()), init_mean_cost=float(init.mean()),
+               fused_mean_cost=float(fcost.mean()), rel_to_fused=rel,
+               mean_iters=float(host["iterations"].mean()),
+               worse_than_initial=int((cost > init).sum()))
+    print(f"[composable] (b) quadrotor waypoints, solve_batch B={WP_B} "
+          f"T={WP_T} max_iter={WP_ITERS} (analytic, clamped, iterative QP): "
+          f"{out['solves_per_s']:.1f} solves/s ({wall:.2f} s; "
+          f"{nvidia_smi()}), {out['ms_per_iteration']:.1f} ms/iteration, "
+          f"{out['syncs_per_iteration']:.1f} host syncs/iteration "
+          f"({out['qp_loop_passes']} QP loop passes), "
+          f"{out['launches_per_iteration']:.2f} kernel launches/iteration, "
+          f"λ retries in {out['retried_share']:.3f} of iterations; mean cost "
+          f"{out['mean_cost']:.4f} (initial {out['init_mean_cost']:.4f}), "
+          f"the fused solver's (enumeration QP) {out['fused_mean_cost']:.4f} "
+          f"(rel. diff {rel:.2e}, ≤ {WP_FUSED_TOL}); mean iterations "
+          f"{out['mean_iters']:.2f}; lanes above their initial cost "
+          f"{out['worse_than_initial']}")
+    if not np.isfinite(cost).all() or out["worse_than_initial"]:
+        raise AssertionError("(b) a lane is non-finite or above its initial "
+                             "rollout's cost")
+    if not rel <= WP_FUSED_TOL:
+        raise AssertionError(f"(b) mean cost {cost.mean()} parts from the "
+                             f"fused solver's {fcost.mean()}")
+    # the busy share of one profiled iteration against its unprofiled wall
+    short = cfg.replace(max_iter=1)
+    t0 = time.perf_counter()
+    solve_batch(model, params, short, WP_DT, x0, u0).cost.cpu()
+    out["profile"] = profile_solve(
+        "composable quadrotor, one iteration",
+        lambda x, u: solve_batch(model, params, short, WP_DT, x, u).cost
+        .cpu(), time.perf_counter() - t0, x0, u0, host=False)
+    lanes, T_c, iters = WP_CPU
+    out["card_vs_cpu"] = comp_card_vs_cpu(
+        "quadrotor", model, params, cfg.replace(max_iter=iters), WP_DT,
+        x0[:lanes], u0[:T_c], False, CPU_RTOL["quadrotor"])
+    return out
+
+
+def comp_card_vs_cpu(name, model, params, cfg, dt, x0, u0, batched, tol,
+                     card=None):
+    """The composable solve on the card (``card``, a Solution of all of
+    x0's lanes, or solved here) against the same problems' first
+    CPU_LANES lanes on the CPU: max relative cost difference ≤ ``tol``
+    (the iteration counts printed: the QPs' matrix products round
+    otherwise in cuBLAS, which can move a knife-edge stopping test)."""
+    if card is None:
+        card = solve_batch(model, params, cfg, dt, x0, u0,
+                           params_batched=batched)
+    k = min(CPU_LANES, len(x0))
+    lanes = (type(params)(*[np.asarray(v)[:k] for v in params]) if batched
+             else params)
+    cpu = solve_batch(model, lanes, cfg, dt, x0[:k], u0, device="cpu",
+                      params_batched=batched)
+    c_card, c_cpu = card.cost[:k].cpu().numpy(), cpu.cost.numpy()
+    rel = float(np.max(np.abs(c_card - c_cpu) / np.abs(c_cpu)))
+    same_iters = bool((card.iterations[:k].cpu() == cpu.iterations).all())
+    print(f"[composable] {name}, {k} lanes, T={len(u0)}, max_iter="
+          f"{cfg.max_iter}: card vs the CPU, max relative cost difference "
+          f"{rel:.2e} (≤ {tol:g}), iterations equal {same_iters}")
+    if not np.isfinite(c_card).all() or rel > tol:
+        raise AssertionError(f"{name}: the composable card solve left the "
+                             "CPU's")
+    return dict(max_rel_cost_diff=rel, lanes=k, T=len(u0),
+                same_iterations=same_iters)
+
+
+def run_mpc_path(dev):
+    """(d): the single-controller MPC on the card against the CPU, step by
+    step."""
+    model = get_model("double_integrator")
+    params = double_integrator.default_params(goal=(1.0, 0.5, 0.0, 0.0))
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       max_iter=30)
+    x0 = np.asarray([-1.0, 0.0, 0.0, 0.0], np.float32)
+    u0 = np.zeros((MPC_T, 2), np.float32)
+    states = {}
+    _comp_counters()
+    for device in ("cuda", "cpu"):
+        state = mpc.mpc_init(model, params, cfg, MPC_DT, x0, u0,
+                             device=device)
+        xs, iters = [], []
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _comp_counters()
+            t0 = time.perf_counter()
+        for _ in range(MPC_STEPS):
+            state = mpc.mpc_step(model, params, cfg, MPC_DT, state)
+            xs.append(state.x.cpu().numpy())
+            iters.append(int(state.plan.iterations.item()))
+        if device == "cuda":
+            wall = time.perf_counter() - t0
+            out = _comp_stats(wall)
+        states[device] = (np.asarray(xs), iters)
+    (xc, ic), (xp, ip) = states["cuda"], states["cpu"]
+    rel = float((np.abs(xc - xp) / (1.0 + np.abs(xp))).max())
+    out.update(steps=MPC_STEPS, replans_per_s=MPC_STEPS / out["wall_s"],
+               iterations_per_replan=float(np.mean(ic)),
+               max_rel_state_diff=rel, final_x=xc[-1].tolist())
+    print(f"[composable] (d) MPC (double integrator, T={MPC_T}, "
+          f"dt={MPC_DT}, max_iter 30): {MPC_STEPS} replans on the card, "
+          f"{out['replans_per_s']:.1f} replans/s, "
+          f"{out['iterations_per_replan']:.2f} iterations per replan "
+          f"({ic}), {out['syncs_per_iteration']:.1f} host syncs/iteration; "
+          f"states against the CPU's, step by step: max relative "
+          f"difference {rel:.2e} (≤ {MPC_REL:g}); iterations equal "
+          f"{ic == ip}")
+    out["same_iterations"] = ic == ip
+    if not rel <= MPC_REL:
+        raise AssertionError("(d) the card's MPC left the CPU's")
+    return out
+
+
+def run_composable_slice(dev, rows, readings):
+    """Phase 14; fills in the launches of the derivs_packed rows and
+    readings of COMP_MODELS from the runs that launched them (counts set to
+    0 just before each run and read just after)."""
+    res = {}
+    launches = {name: {} for name in COMP_MODELS}
+
+    def note(name, group, n):
+        launches[name][group] = launches[name].get(group, 0) + n
+
+    t0 = time.perf_counter()
+    res["integrator"] = run_integrator_path(dev)
+    note("double_integrator", "fd_of",
+         res["integrator"]["launches"]["derivs_packed"])
+    print(f"[time] phase 14a (integrator) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    res["waypoints"] = run_waypoints_path(dev)
+    note("quadrotor", "row", res["waypoints"]["launches"]["derivs_packed"])
+    print(f"[time] phase 14b (quadrotor waypoints) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    res["short"] = {}
+    for name in COMP_MODELS:
+        if name == "quadrotor":
+            continue
+        model, params, cfg, dt, x0, u0, batched = comp_problem(name)
+        _comp_counters()
+        t1 = time.perf_counter()
+        sol = solve_batch(model, params, cfg, dt, x0, u0,
+                          params_batched=batched)
+        cost = sol.cost.cpu().numpy()
+        stats = _comp_stats(time.perf_counter() - t1)
+        stats["card_vs_cpu"] = comp_card_vs_cpu(
+            name, model, params, cfg, dt, x0, u0, batched,
+            CPU_RTOL.get(name, 1e-4), card=sol)
+        group = ("rk4" if cfg.integrator == "rk4" else
+                 "lanes" if batched else "row")
+        note(name, group, stats["launches"]["derivs_packed"])
+        if not np.isfinite(cost).all():
+            raise AssertionError(f"{name}: non-finite composable costs")
+        stats.update(mean_cost=float(cost.mean()),
+                     qp_mode=cfg.boxqp_mode, integrator=cfg.integrator,
+                     params_batched=batched)
+        if batched:   # and the same problems with shared params (the row)
+            _comp_counters()
+            stats["card_vs_cpu_shared"] = comp_card_vs_cpu(
+                name, model, model.default_params(), cfg, dt, x0, u0, False,
+                CPU_RTOL.get(name, 1e-4))
+            note(name, "row", launch_counts()["derivs_packed"])
+        print(f"[composable] (c) {name} (n={model.n}, m={model.m}, "
+              f"{cfg.boxqp_mode} QP, {cfg.integrator}"
+              + (", per-lane params" if batched else "")
+              + f"): B={COMP_B} T={COMP_T}, {stats['wall_s']:.2f} s, "
+              f"{stats['ms_per_iteration']:.1f} ms/iteration, "
+              f"{stats['syncs_per_iteration']:.1f} syncs/iteration, "
+              f"launches {stats['launches']}")
+        res["short"][name] = stats
+    print(f"[time] phase 14c (short solves) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    res["mpc"] = run_mpc_path(dev)
+    note("double_integrator", "row", res["mpc"]["launches"]["derivs_packed"])
+    print(f"[time] phase 14d (MPC) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, by_group in launches.items():
+        for group, n in by_group.items():
+            if group == "row":
+                rows[f"derivs_packed/{name}"]["launches"] = n
+            elif group == "fd_of":
+                rows[f"derivs_packed/{name}"]["fd_launches"] = n
+            else:
+                key = f"derivs_packed/{name}" + READING_SUFFIX[group]
+                readings[key]["launches"] = n
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2889,7 +3324,9 @@ def main() -> int:
     tick("phase 12 (the dual-number slice: analytic + RK4, the split sweep)")
     lanes_out = run_lanes_slice(dev, readings)
     tick("phase 13 (per-problem params, the fleet warm start and MPC)")
-    print(f"[time] phases 2-13 {time.perf_counter() - t0:.1f} s", flush=True)
+    slice14_out = run_composable_slice(dev, rows, readings)
+    tick("phase 14 (the composable solver at m ≥ 2, the single MPC)")
+    print(f"[time] phases 2-14 {time.perf_counter() - t0:.1f} s", flush=True)
     for key, r in readings.items():   # a mode of a row's kernel
         row, _sep, mode = key.partition("#")
         rows[row].update({f"{READING_PREFIX[mode]}{k}": v
@@ -2919,7 +3356,8 @@ def main() -> int:
                       "composable_path": comp_out, "equivalence": equiv,
                       "slice": slice_out, "wide_slice": wide_out,
                       "cli_slice": cli_out, "fd_slice": fd_out,
-                      "jvp_slice": jvp_out, "lanes_slice": lanes_out}))
+                      "jvp_slice": jvp_out, "lanes_slice": lanes_out,
+                      "composable_slice": slice14_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ import torch
 
 from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model
-from ilqr_tpu_torch.ops.kernel_rollout import pack_params
+from ilqr_tpu_torch.ops.kernel_rollout import pack_params, pack_params_batched
 from ilqr_tpu_torch.solver import (
     as_f32,
     check_supported,
@@ -29,10 +29,12 @@ from ilqr_tpu_torch.types import Solution, TerminationReason
 def solve_batch(model: Model, params, cfg: SolverConfig, dt, x0, u0,
                 device=None, params_batched: bool = False) -> Solution:
     """Solves a batch of problems: x0 (B, n); u0 (T, m) shared or
-    (B, T, m); params shared by every problem. ``device`` defaults to the
-    card and raises without one; with ``device="cpu"`` every stage runs its
-    plain PyTorch version. Returns a Solution with leading batch axis B, on
-    ``device``."""
+    (B, T, m); params shared by every problem, or with
+    ``params_batched=True`` one per problem (every leaf with a leading
+    batch axis B: per-problem goals, limits, weights). ``device`` defaults
+    to the card and raises without one; with ``device="cpu"`` every stage
+    runs its plain PyTorch version. Returns a Solution with leading batch
+    axis B, on ``device``."""
     check_supported(model, cfg, params_batched)
     dev = resolve_device(device)
     x0 = as_f32(x0, dev)
@@ -43,8 +45,12 @@ def solve_batch(model: Model, params, cfg: SolverConfig, dt, x0, u0,
         raise ValueError(f"x0/u0 dims ({x0.shape[-1]}, {u0.shape[-1]}) do "
                          f"not match model {model.name!r} ({model.n}, "
                          f"{model.m})")
-    return solve_lanes(model, pack_params(params, dt, dev), cfg, x0,
-                       u0.contiguous())
+    pack = pack_params_batched if params_batched else pack_params
+    pp = pack(params, dt, dev)
+    if params_batched and pp.vec.shape[0] != x0.shape[0]:
+        raise ValueError(f"params_batched: {pp.vec.shape[0]} params rows "
+                         f"for {x0.shape[0]} problems")
+    return solve_lanes(model, pp, cfg, x0, u0.contiguous())
 
 
 def convergence_stats(sol: Solution) -> dict:

@@ -1,5 +1,7 @@
-// The linearization kernel for Hopper (sm_90a), for the m = 1 models whose
-// split sweep the fused solver runs (acrobot, pendulum, cartpole).
+// The linearization kernel for Hopper (sm_90a), a template on the model:
+// one derivs_<model>.cu per model instantiates it with
+// ILQR_DERIVS_LAUNCHER, so that the models compile in parallel, one nvcc
+// each (the quadrotor's dense 12 x 12 steps alone take minutes).
 //
 // Replaces: ilqr_tpu/ops/pallas_derivs.py derivs_packed (_kernel). For every
 // (timestep, lane) it writes fx, fu, cx, cu, cxx, cxu, cuu of the discrete
@@ -30,11 +32,10 @@
 // fu (T, n, m, B), cx (T+1, n, B), cu (T, m, B), cxx (T+1, n, n, B),
 // cxu (T, n, m, B), cuu (T, m, m, B).
 
+#pragma once
+
 #include <cuda_runtime.h>
 
-#include "acrobot.cuh"
-#include "cartpole.cuh"
-#include "pendulum.cuh"
 #include "sweep_step.cuh"
 
 namespace {
@@ -140,7 +141,3 @@ int launch_derivs(const void* params, int pstride, const void* xs,
                                 cxx, cxu, cuu, fd, scheme, eps, den1, den2, \
                                 T, B, stream);                              \
   }
-
-ILQR_DERIVS_LAUNCHER(acrobot, acrobot::Model)
-ILQR_DERIVS_LAUNCHER(pendulum, pendulum::Model)
-ILQR_DERIVS_LAUNCHER(cartpole, cartpole::Model)

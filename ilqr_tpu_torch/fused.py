@@ -402,10 +402,9 @@ def _check_config(model: Model, cfg: SolverConfig):
 
 def _check_kernels(model: Model, cfg: SolverConfig, dev: torch.device):
     """On the card every op of the route must have its kernel. The split
-    sweep's derivative kernel (csrc/derivs.cu) is instantiated for
-    acrobot, pendulum and cartpole and the backward kernel
-    (csrc/backward.cu) for n = 2 and 4, so any other model raises there
-    before anything runs."""
+    sweep's derivative kernel (csrc/derivs_<model>.cu) is instantiated for
+    every registered model and the backward kernel (csrc/backward.cu) for
+    n = 2 and 4, so any other model raises there before anything runs."""
     if (dev.type == "cuda" and cfg.sweep_kernel == "split"
             and (model.name not in DERIVS_KERNEL_MODELS
                  or model.n not in BACKWARD_KERNEL_NS)):

@@ -1,8 +1,10 @@
-"""Fleet-scale receding-horizon MPC on the fused solver (counterpart of the
-fleet half of ``ilqr_tpu/mpc.py``: ``MPCState``, ``fleet_init``,
-``fleet_step``).
+"""Receding-horizon MPC (counterpart of ``ilqr_tpu/mpc.py``): one
+controller on the composable solver (``mpc_init``, ``mpc_step``,
+``make_mpc_controller``, ``run_mpc``) and whole fleets on the fused solver
+(``fleet_init``, ``fleet_step``).
 
-One replanning cycle of a whole fleet:
+One replanning cycle of a whole fleet (a single controller's is the same,
+with a warm composable solve of its one problem):
 
   1. each controller applies its plan's first control with its feedback
      correction, u = ū₀ + K₀ (x − x̄₀) (clamped to the box when
@@ -17,13 +19,12 @@ One replanning cycle of a whole fleet:
 
 The plant step is plain tensor code on lane-last tensors, as the JAX
 package's is XLA code (a vmapped step, no kernel); the re-plan runs the
-fused solver's kernels on the card. The single-controller half of the JAX
-module (``mpc_init``, ``mpc_step``, ``make_mpc_controller``, ``run_mpc``)
-runs on the composable solver's warm ``init_state`` and is not ported.
+solver's kernels on the card.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,15 +39,15 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     pack_params,
     unpack_params,
 )
-from ilqr_tpu_torch.solver import as_f32
+from ilqr_tpu_torch.solver import as_f32, solve, solve_warm
 from ilqr_tpu_torch.types import Solution
 
 
 class MPCState(NamedTuple):
-    """A fleet's controller state between replanning steps, with a leading
-    fleet axis B: the observed states x (B, n), the last plan (a Solution
-    of B problems; plan.us[:, 0] is each controller's next control) and
-    the step counters t (B,) int32."""
+    """Controller state between replanning steps: the observed state x,
+    the last plan (a Solution; its us[0] is the next control) and the step
+    counter t (int32). A fleet's carries a leading fleet axis B on each:
+    x (B, n), a Solution of B problems, t (B,)."""
 
     x: torch.Tensor
     plan: Solution
@@ -104,3 +105,57 @@ def fleet_step(model: Model, params, cfg: SolverConfig, dt, state: MPCState,
     sol = solve_batch_fused_warm(model, params, cfg, dt, x_next, prev,
                                  device=dev)
     return MPCState(x=x_next, plan=sol, t=state.t + 1)
+
+
+# ---------------------------------------------------------------------------
+# One controller on the composable solver
+# ---------------------------------------------------------------------------
+
+def mpc_init(model: Model, params, cfg: SolverConfig, dt, x0, u0,
+             device=None) -> MPCState:
+    """The first plan, a cold :func:`~ilqr_tpu_torch.solver.solve` of x0
+    (n,) from u0 (T, m); ``device`` as there, and the state lives on it."""
+    sol = solve(model, params, cfg, dt, x0, u0, device=device)
+    dev = sol.cost.device
+    return MPCState(x=as_f32(x0, dev), plan=sol,
+                    t=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def mpc_step(model: Model, params, cfg: SolverConfig, dt, state: MPCState,
+             disturbance=None) -> MPCState:
+    """One replanning cycle of one controller on the state's device: apply
+    the plan's first control with its feedback, simulate one step (plus
+    ``disturbance``, optional (n,)), shift the plan and re-solve it warm
+    (:func:`~ilqr_tpu_torch.solver.solve_warm`, λ and dλ carried)."""
+    dev = state.x.device
+    plan = Solution(*(a[None] for a in state.plan))     # one lane
+    x_next = plant_step(model, params, cfg, dt, MPCState(
+        x=state.x[None], plan=plan, t=state.t[None]))[0]
+    if disturbance is not None:
+        x_next = x_next + as_f32(disturbance, dev)
+    prev = plan._replace(us=_shift(plan.us), xs=_shift(plan.xs),
+                         K=_shift(plan.K))
+    sol = solve_warm(model, params, cfg, dt, x_next,
+                     Solution(*(a[0] for a in prev)), device=dev)
+    return MPCState(x=x_next, plan=sol, t=state.t + 1)
+
+
+def make_mpc_controller(model: Model, cfg: SolverConfig, dt):
+    """(init_fn, step_fn): :func:`mpc_init` and :func:`mpc_step` with the
+    model, config and dt bound (the JAX package jits them; here there is
+    nothing to compile)."""
+    return (functools.partial(mpc_init, model, cfg=cfg, dt=dt),
+            functools.partial(mpc_step, model, cfg=cfg, dt=dt))
+
+
+def run_mpc(model: Model, params, cfg: SolverConfig, dt, x0, u0,
+            n_steps: int, device=None) -> tuple:
+    """``n_steps`` replanning cycles from a cold plan, a host loop. Returns
+    (the final MPCState, (x (n_steps, n), cost (n_steps,)) per step)."""
+    state = mpc_init(model, params, cfg, dt, x0, u0, device=device)
+    xs, costs = [], []
+    for _ in range(n_steps):
+        state = mpc_step(model, params, cfg, dt, state)
+        xs.append(state.x)
+        costs.append(state.plan.cost)
+    return state, (torch.stack(xs), torch.stack(costs))

@@ -52,9 +52,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # then the integrator and the stencil's eps, 2·eps and 4·eps²; the
 # dual-number ones, ilqr_<model>_<kernel>_jvp (csrc/kernels_<model>_jvp.cu),
 # their analytic twins' arguments and then the integrator. The derivative
-# kernel has one launcher per model, ilqr_<model>_derivs (csrc/derivs.cu),
-# and the backward kernel one per state dimension, ilqr_backward_n<n>
-# (csrc/backward.cu).
+# kernel has one launcher per model, ilqr_<model>_derivs
+# (csrc/derivs_<model>.cu), and the backward kernel one per state
+# dimension, ilqr_backward_n<n> (csrc/backward.cu).
 _PARAMS = [_P, _I]   # the packed params and their lane stride (0 or P)
 _SWEEP = _PARAMS + [_P] * 9 + [_I, _I, _I]
 _ITERATION = (_PARAMS + [_P] * 7 + [_I] + [_P] * 16

@@ -4,9 +4,14 @@
 
 :func:`compute_derivs` dispatches by ``cfg.deriv_kernel``: ``"auto"`` and
 ``"pallas"`` run the derivative op (ops/kernel_derivs.py) — its CUDA kernel
-on the card, its plain version on the CPU — in ``"jvp"`` mode for
+on the card, its plain version on the CPU — for every model, with the
+Euler or RK4 step and shared or per-lane params, in ``"jvp"`` mode for
 ``deriv_mode="analytic"`` and in ``"fd"`` mode with ``cfg.fd_eps`` for
-``"fd"``; ``"xla"`` runs the JAX package's non-kernel counterparts:
+``"fd"``. The JAX package's ``"auto"`` takes its XLA route above
+``MAX_STAGE_KERNEL_M`` = 8 on the TPU (ilqr_tpu/ops/rollout.py:59), a cap
+that fences off an XLA:TPU worker fault; the H100 has shown no such fault,
+so the port has no cap (ROADMAP.md §A5). ``"xla"`` runs the JAX package's
+non-kernel counterparts (shared params only):
 
 - :func:`analytic_derivs`: ``torch.func`` Jacobians and Hessians of the
   model's step and cost (the per-problem functions, vmapped);

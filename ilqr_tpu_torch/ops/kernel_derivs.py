@@ -18,8 +18,8 @@ kernel and the plain version compute the same IEEE operations.
 The helpers of both modes (:func:`jvp_running`, :func:`jvp_terminal`,
 :func:`fd_running`, :func:`fd_terminal`) are model-generic and take the
 integrator; the merged sweep's plain version (ops/kernel_sweep.py) takes
-its dense derivatives from them. The CUDA kernel (csrc/derivs.cu) is
-instantiated for the m = 1 models whose split sweep the fused solver runs
+its dense derivatives from them. The CUDA kernel (csrc/derivs.cuh) is
+instantiated for every registered model, one csrc/derivs_<model>.cu each
 (:data:`DERIVS_KERNEL_MODELS`); the plain version takes any model.
 
 Layout (lane last) and dispatch as in ops/kernel_rollout.py.
@@ -29,12 +29,10 @@ from __future__ import annotations
 
 import torch
 
-from ilqr_tpu_torch.models.acrobot import AcrobotParams
-from ilqr_tpu_torch.models.cartpole import CartPoleParams
-from ilqr_tpu_torch.models.pendulum import PendulumParams
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
+    FUSED_KERNEL_MODELS,
     PackedParams,
     batch_first,
     integrate,
@@ -341,12 +339,10 @@ def derivs_plain(model, integrator, pp: PackedParams, xs, us, mode="jvp",
             cxu.contiguous(), cuu.contiguous())
 
 
-# The models csrc/derivs.cu is compiled for, with their params types: the
-# m = 1 models whose split sweep the fused solver runs. The m >= 2 models
-# reach the derivative stage only on the composable path, which is
-# acrobot-only (ROADMAP.md §A4).
-DERIVS_KERNEL_MODELS = {"acrobot": AcrobotParams, "pendulum": PendulumParams,
-                        "cartpole": CartPoleParams}
+# The models csrc/derivs.cuh is compiled for (one csrc/derivs_<model>.cu
+# each), with their params types: every model the fused kernels carry. The
+# split sweep runs the m = 1 ones, the composable path all of them.
+DERIVS_KERNEL_MODELS = dict(FUSED_KERNEL_MODELS)
 
 
 def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
@@ -362,12 +358,6 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
     if not on_cuda(us):
         return derivs_plain(model, integrator, pp, xs, us, mode, eps)
     dev = us.device
-    if model.name not in DERIVS_KERNEL_MODELS:
-        have = ", ".join(DERIVS_KERNEL_MODELS)
-        raise NotImplementedError(
-            f"csrc/derivs.cu is instantiated for {have}, not {model.name!r} "
-            "(the m >= 2 models wait for the composable path's models, "
-            "ROADMAP.md §A4)")
     T, m, B = us.shape
     prefix = require_kernel_model(model, integrator, pp, dev,
                                   have=DERIVS_KERNEL_MODELS, lanes=B)

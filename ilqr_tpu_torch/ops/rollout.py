@@ -7,8 +7,9 @@ rollout op (ops/kernel_rollout.py ``rollout_batched`` — its CUDA kernel on
 the card, its plain version on the CPU); ``"xla"`` runs the JAX package's
 scan with the per-problem model functions. The line search evaluates all
 α-candidates as one rollout with the α axis folded into the lanes —
-candidate (b, a) at lane b·A + a — and picks the first accepted α per
-problem, exactly like the reference's serial backtracking order.
+candidate (b, a) at lane b·A + a, per-problem params row b tiled A
+times — and picks the first accepted α per problem, exactly like the
+reference's serial backtracking order.
 
 ``clamp_forward=False`` reproduces the reference's unclamped rollout
 (ilqr_core.cpp:322-329); ``True`` clamps the controls to the box.
@@ -25,6 +26,7 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
     _sign,
+    is_batched,
     rollout_batched,
     unpack_params,
 )
@@ -92,6 +94,8 @@ def line_search(model: Model, pp: PackedParams, cfg: SolverConfig, x0, xs,
             (B * A,) + tuple(a.shape[1:]))
 
     u_ff = us[:, None] + alphas[None, :, None, None] * k[:, None]
+    if is_batched(pp):   # lane b·A + a reads problem b's row
+        pp = pp._replace(vec=pp.vec.repeat_interleave(A, dim=0))
     xs_c, us_c, costs = rollout(model, pp, cfg, tile(x0),
                                 u_ff.reshape((B * A, T, m)), tile(xs),
                                 tile(K))

@@ -7,16 +7,22 @@ loops run on the host:
 
 - the λ-escalation retry (ref :136-150) re-runs the backward pass for the
   live lanes whose last attempt diverged, with one host sync per attempt;
+  every attempt warm-starts its first QP from the previous sweep's
+  k[T-1];
 - the outer loop runs while any lane is neither done nor at max_iter, with
   one host sync per iteration; lanes that are done or at max_iter are
-  frozen (the vmapped ``while_loop`` and ``_masked_iteration``).
+  frozen (the vmapped ``while_loop`` and ``_masked_iteration``);
+- the iterative box QP (ops/boxqp.py) loops on the host too, one sync per
+  QP iteration (all syncs are counted in ``ops.boxqp.host_any.syncs``).
 
 Every stage runs on the device of the problem data: on the card its CUDA
-kernels (ops/kernel_*.py), on the CPU their plain versions, unless
-``cfg.{deriv,backward,rollout}_kernel="xla"`` asks for the JAX package's
-non-kernel counterparts. The derivatives are recomputed every iteration:
-the vmapped ``lax.cond`` on the trajectory-changed flag computes both
-branches, and an unchanged trajectory linearizes to the same values.
+kernels (ops/kernel_*.py; the backward pass's QPs at m ≥ 2 in plain
+PyTorch, as the JAX package runs them in XLA), on the CPU their plain
+versions, unless ``cfg.{deriv,backward,rollout}_kernel="xla"`` asks for
+the JAX package's non-kernel counterparts. The derivatives are recomputed
+every iteration: the vmapped ``lax.cond`` on the trajectory-changed flag
+computes both branches, and an unchanged trajectory linearizes to the
+same values, so a frozen lane's linearization is the one JAX carries.
 
 Semantics kept from the reference, each with its site: gradient-norm
 termination before the forward pass with λ < 1e-5 (:153-159); the 11-α line
@@ -35,14 +41,17 @@ from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model
 from ilqr_tpu_torch.ops.backward import backward_pass, gradient_norm
 from ilqr_tpu_torch.ops.backward import check_supported as _check_backward
+from ilqr_tpu_torch.ops.boxqp import host_any as _host_any
 from ilqr_tpu_torch.ops.derivatives import compute_derivs
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
+    is_batched,
     pack_params,
+    scheme,
     unpack_params,
 )
-from ilqr_tpu_torch.ops.rollout import line_search, open_loop_rollout
+from ilqr_tpu_torch.ops.rollout import line_search, open_loop_rollout, rollout
 from ilqr_tpu_torch.types import Solution, SolverState, TerminationReason
 
 KERNEL_ROUTES = ("auto", "pallas", "xla")
@@ -78,49 +87,56 @@ def check_supported(model: Model, cfg: SolverConfig,
         if getattr(cfg, field) not in KERNEL_ROUTES:
             raise ValueError(f"unknown {field} {getattr(cfg, field)!r}; "
                              f"have {KERNEL_ROUTES}")
-    if model.name != "acrobot" or not model.has_soa:
+    if not model.has_soa:
         raise NotImplementedError(
-            f"the composable solve is ported for acrobot only, not "
-            f"{model.name!r}")
-    if cfg.integrator != "euler":
+            f"model {model.name!r} has no SoA functions (a custom model): "
+            "the kernels cannot take its device functions yet (ROADMAP.md "
+            "§B2, custom models)")
+    scheme(cfg.integrator)
+    if params_batched and "xla" in (cfg.deriv_kernel, cfg.rollout_kernel):
         raise NotImplementedError(
-            f"integrator {cfg.integrator!r} on the composable path is not "
-            "ported (Euler only; ROADMAP.md §A4); solve_batch_fused takes "
-            "RK4")
-    if params_batched:
-        raise NotImplementedError(
-            "params_batched=True is not ported to ilqr_tpu_torch yet")
+            "params_batched=True runs the kernel routes; the 'xla' "
+            "derivative and rollout routes take shared params")
     _check_backward(cfg, model.m)
 
 
-def init_state(model: Model, pp: PackedParams, cfg: SolverConfig, x0,
-               u0) -> SolverState:
-    """Initial open-loop rollout and state (ref init_traj,
-    ilqr_core.cpp:11-56): x0 (B, n), u0 (B, T, m)."""
+def limits(pp: PackedParams):
+    """The control box (u_min, u_max): (m,) shared, or (B, m) per lane."""
+    p, _dt = unpack_params(pp)
+    if is_batched(pp):
+        return p.u_min.t(), p.u_max.t()
+    return p.u_min, p.u_max
+
+
+def init_state(model: Model, pp: PackedParams, cfg: SolverConfig, x0, u0,
+               lam=None, dlam=None, warm_xs=None,
+               warm_K=None) -> SolverState:
+    """Initial rollout and state (ref init_traj, ilqr_core.cpp:11-56):
+    x0 (B, n), u0 (B, T, m). Cold: the open-loop rollout of u0. Warm
+    (MPC): ``warm_xs`` (B, T+1, n) and ``warm_K`` (B, T, m, n) of a
+    previous solution re-roll u0 with the old gains around the old
+    trajectory (ref ilqr_core.cpp:65-76, 316), and ``lam``/``dlam`` (B,)
+    carry its λ and dλ."""
     B, T, m = u0.shape
     n = x0.shape[-1]
     dev = x0.device
-    xs, us, cost = open_loop_rollout(model, pp, cfg, x0, u0)
+    if warm_K is None:
+        xs, us, cost = open_loop_rollout(model, pp, cfg, x0, u0)
+    else:
+        xs, us, cost = rollout(model, pp, cfg, x0, u0, warm_xs, warm_K)
     full = lambda v: torch.full((B,), v, dtype=F32, device=dev)
+    carried = lambda v, default: (full(default) if v is None
+                                  else as_f32(v, dev).expand(B).clone())
     false = torch.zeros((B,), dtype=torch.bool, device=dev)
     return SolverState(
-        xs=xs, us=us, cost=cost, lam=full(cfg.lambda_init),
-        dlam=full(cfg.dlambda_init),
+        xs=xs, us=us, cost=cost, lam=carried(lam, cfg.lambda_init),
+        dlam=carried(dlam, cfg.dlambda_init),
         k=torch.zeros((B, T, m), dtype=F32, device=dev),
         K=torch.zeros((B, T, m, n), dtype=F32, device=dev),
         iteration=torch.zeros((B,), dtype=torch.int32, device=dev),
         done=false, reason=torch.zeros((B,), dtype=torch.int32, device=dev),
         gnorm=full(0.0), dcost=full(0.0), expected=full(0.0),
         step_accepted=false)
-
-
-def _host_any(flags: torch.Tensor) -> bool:
-    """``flags.any()`` read on the host — the solver's only syncs."""
-    _host_any.syncs += 1
-    return bool(flags.any().item())
-
-
-_host_any.syncs = 0
 
 
 def ilqr_iteration(model: Model, pp: PackedParams, cfg: SolverConfig,
@@ -131,7 +147,7 @@ def ilqr_iteration(model: Model, pp: PackedParams, cfg: SolverConfig,
     ilqr_iteration.calls += 1
     B = state.cost.shape[0]
     dev = state.cost.device
-    p, _dt = unpack_params(pp)
+    u_min, u_max = limits(pp)
     factor = torch.tensor(cfg.lambda_factor, dtype=F32, device=dev)
 
     # ---- STEP 1: linearize (ref :115-120)
@@ -146,7 +162,8 @@ def ilqr_iteration(model: Model, pp: PackedParams, cfg: SolverConfig,
     attempts = 0
     while True:
         attempts += 1
-        br = backward_pass(derivs, state.us, lam, p.u_min, p.u_max, cfg)
+        br = backward_pass(derivs, state.us, lam, u_min, u_max, cfg,
+                           prev_k_last=state.k[:, -1])
         k = torch.where(attempt[:, None, None], br.k, k)
         K = torch.where(attempt[:, None, None, None], br.K, K)
         dV = torch.where(attempt[:, None], br.dV, dV)
@@ -216,12 +233,16 @@ def _masked_iteration(model, pp, cfg, state: SolverState) -> SolverState:
 
 
 def solve_lanes(model: Model, pp: PackedParams, cfg: SolverConfig, x0,
-                u0) -> Solution:
+                u0, **warm) -> Solution:
     """The batch solve on prepared tensors: x0 (B, n), u0 (B, T, m) f32 on
-    the device of ``pp``."""
-    state = init_state(model, pp, cfg, x0, u0)
+    the device of ``pp``; ``warm`` as :func:`init_state` takes it."""
+    state = init_state(model, pp, cfg, x0, u0, **warm)
     while _host_any(~state.done & (state.iteration < cfg.max_iter)):
         state = _masked_iteration(model, pp, cfg, state)
+    return _solution(state)
+
+
+def _solution(state: SolverState) -> Solution:
     return Solution(
         xs=state.xs, us=state.us, k=state.k, K=state.K, cost=state.cost,
         lam=state.lam, dlam=state.dlam, iterations=state.iteration,
@@ -242,3 +263,59 @@ def solve(model: Model, params, cfg: SolverConfig, dt, x0, u0,
     sol = solve_lanes(model, pack_params(params, dt, dev), cfg,
                       as_f32(x0, dev)[None], as_f32(u0, dev)[None])
     return Solution(*(a[0] for a in sol))
+
+
+def solve_warm(model: Model, params, cfg: SolverConfig, dt, x0, prev: Solution,
+               device=None) -> Solution:
+    """MPC warm start (ref generate_trajectory overload 2,
+    ilqr_core.cpp:65-76) of one problem: re-rolls prev.us with prev.K
+    around prev.xs from the new x0 (n,), and carries prev.lam/prev.dlam
+    (the reference's statics, ilqr.h:17-18, made explicit). ``prev`` is a
+    Solution without a batch axis (tensors or numpy arrays); ``device`` as
+    in :func:`solve`."""
+    check_supported(model, cfg)
+    dev = resolve_device(device)
+    one = Solution(*(as_f32(a, dev)[None] for a in prev))
+    sol = solve_lanes(model, pack_params(params, dt, dev), cfg,
+                      as_f32(x0, dev)[None], one.us, lam=one.lam,
+                      dlam=one.dlam, warm_xs=one.xs, warm_K=one.K)
+    return Solution(*(a[0] for a in sol))
+
+
+REASON_MESSAGES = {
+    TerminationReason.GRAD_TOL: "SUCCESS: gradient norm < tolGrad",
+    TerminationReason.FUN_TOL: "SUCCESS: cost change < tolFun",
+    TerminationReason.LAMBDA_MAX: "EXIT: lambda > lambdaMax",
+    TerminationReason.MAX_ITER: "EXIT: Maximum iterations reached.",
+}
+
+
+def solve_verbose(model: Model, params, cfg: SolverConfig, dt, x0, u0,
+                  device=None) -> Solution:
+    """Host-driven solve of one problem printing the reference's
+    per-iteration table (ref SHOWPROGRESS output, ilqr_core.cpp:237-246)
+    in the JAX package's format, then its closing message. Used by the
+    CLI, not the hot path; ``device`` as in :func:`solve`."""
+    check_supported(model, cfg)
+    dev = resolve_device(device)
+    pp = pack_params(params, dt, dev)
+    state = init_state(model, pp, cfg, as_f32(x0, dev)[None],
+                       as_f32(u0, dev)[None])
+    live = torch.ones((1,), dtype=torch.bool, device=dev)
+    print(f"Initial cost: {float(state.cost[0]):.6g}")
+    print("iteration\tcost\t\treduction\texpect\t\tgrad\t\tlog10(lambda)")
+    it = 0
+    while not bool(state.done[0]) and it < cfg.max_iter:
+        state = ilqr_iteration(model, pp, cfg, state, live)
+        it = int(state.iteration[0])
+        lam = float(state.lam[0])
+        loglam = np.log10(lam) if lam > 0 else -np.inf
+        label = (f"{float(state.cost[0]):<12.6g}"
+                 if bool(state.step_accepted[0]) else "NO STEP     ")
+        print(f"{it - 1:<12d}\t{label}\t{float(state.dcost[0]):<12.3g}\t"
+              f"{float(state.expected[0]):<12.3g}\t"
+              f"{float(state.gnorm[0]):<12.3g}\t{loglam:<12.1f}")
+    sol = Solution(*(a[0] for a in _solution(state)))
+    reason = TerminationReason(int(sol.reason))
+    print(f"\n{REASON_MESSAGES.get(reason, str(reason))}\n")
+    return sol

@@ -48,6 +48,21 @@ class BackwardResult(NamedTuple):
     diverged: torch.Tensor
 
 
+class BoxQPResult(NamedTuple):
+    """The box QP's result per lane (ref: include/boxqp.h:35-43): x (B, m),
+    status (B,) int32 (< 1 failure, which the backward pass treats as
+    divergence; 2 line search failed, 4 small relative improvement, 5
+    small free gradient, 6 all clamped), free (B, m) bool, chol_free
+    (B, m, m) the lower Cholesky factor of Q on the free subspace padded
+    with identity on the clamped dims, n_iters (B,) int32."""
+
+    x: torch.Tensor
+    status: torch.Tensor
+    free: torch.Tensor
+    chol_free: torch.Tensor
+    n_iters: torch.Tensor
+
+
 class LineSearchResult(NamedTuple):
     """The chosen line-search candidate per problem: xs (B, T+1, n),
     us (B, T, m), cost, dcost, expected (−α(dV₀+α·dV₁)), z (dcost/expected),

@@ -108,16 +108,36 @@ def test_backward_pass_routes(route):
 
 
 def test_backward_pass_unported_configs_raise():
+    """Full DDP and the assoc modes still raise; the m = 1 QP modes other
+    than the closed form (the iterative box QP, the enumeration) and the
+    unconstrained Cholesky step are carried now and match the JAX scan
+    (the same problem, the previous k[T-1] zero) to SCAN_TOL."""
     d, us, _lo, _hi, lam = _problem()
     derivs = Derivs(*(torch.from_numpy(a) for a in d))
-    for bad in (dict(boxqp_mode="iterative"), dict(boxqp_mode="enum"),
-                dict(use_control_limits=False), dict(backward_mode="assoc"),
+    args = (derivs, torch.from_numpy(us), torch.from_numpy(lam),
+            torch.tensor([-5.0]), torch.tensor([5.0]))
+    for bad in (dict(backward_mode="assoc"),
                 dict(backward_mode="assoc_frozen"), dict(full_ddp=True)):
         with pytest.raises(NotImplementedError):
-            backward.backward_pass(derivs, torch.from_numpy(us),
-                                   torch.from_numpy(lam),
-                                   torch.tensor([-5.0]), torch.tensor([5.0]),
-                                   SolverConfig(**bad))
+            backward.backward_pass(*args, SolverConfig(**bad))
+    from ilqr_tpu import SolverConfig as JaxConfig
+    from ilqr_tpu.types import Derivs as JaxDerivs
+
+    for carried in (dict(boxqp_mode="iterative"), dict(boxqp_mode="enum"),
+                    dict(use_control_limits=False)):
+        got = backward.backward_pass(*args, SolverConfig(**carried))
+        jcfg = JaxConfig(backward_kernel="xla", **carried)
+        want = jax.vmap(lambda dd, u, lm: jax_backward.backward_pass(
+            JaxDerivs(*dd), u, lm, jnp.asarray([-5.0], jnp.float32),
+            jnp.asarray([5.0], jnp.float32), jcfg,
+            prev_k_last=jnp.zeros((1,), jnp.float32)))(
+                tuple(jnp.asarray(a) for a in d), us, lam)
+        div = np.asarray(want.diverged)
+        np.testing.assert_array_equal(got.diverged.numpy(), div)
+        ok = ~div
+        for i, what in enumerate(("k", "K", "dV")):
+            _close(got[i].numpy()[ok], np.asarray(want[i])[ok], what,
+                   SCAN_TOL)
 
 
 def test_gradient_norm_matches_jax():

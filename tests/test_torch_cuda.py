@@ -699,3 +699,67 @@ def test_fleet_mpc_on_card_matches_cpu(dev):
         np.testing.assert_allclose(card.plan.cost.cpu().numpy(),
                                    cpu.plan.cost.numpy(), rtol=1e-3)
     assert card.x.device.type == "cuda" and int(card.t[0]) == 2
+
+
+COMPOSABLE_MODELS = ("double_integrator", "point_mass_3d", "quadrotor",
+                     "bicycle", "power_mass", "omni_thruster", "free_flyer",
+                     "thruster_ring", "thruster_ring16", "thruster_ring20",
+                     "thruster_ring24")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COMPOSABLE_MODELS)
+def test_derivs_kernel_of_every_model_matches_plain(dev, name):
+    """derivs_packed of the m ≥ 2 models (one csrc/derivs_<model>.cu each)
+    in jvp and fd mode with the Euler and RK4 steps, shared and per-lane
+    params, against the plain version on the same card; held to 1e-4
+    relative, expected 0."""
+    m = get_model(name)
+    n, b, t = m.n, 160, 5
+    rng = np.random.default_rng(21)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    params = m.default_params()
+    pp = kernel_rollout.pack_params(params, 0.02, dev)
+    lanes = type(params)(*[
+        np.asarray(v, np.float32)[None] * rng.uniform(
+            0.8, 1.2, size=(b,) + tuple(np.shape(v))).astype(np.float32)
+        for v in params])
+    ppl = kernel_rollout.pack_params_batched(lanes, 0.02, dev)
+    xs = f(0.4 * rng.normal(size=(t + 1, n, b)))
+    us = f(rng.normal(size=(t, m.m, b)))
+    reset_launch_counts()
+    runs = 0
+    for packed in (pp, ppl):
+        for integrator in ("euler", "rk4"):
+            for mode in ("jvp", "fd"):
+                args = (m, integrator, packed, xs, us, mode)
+                got = kernel_derivs.derivs_packed(*args)
+                torch.cuda.synchronize()
+                want = kernel_derivs.derivs_plain(*args)
+                runs += 1
+                for i, (g, w) in enumerate(zip(got, want)):
+                    _close(g, w, f"{name} {integrator} {mode} [{i}]",
+                           tol=1e-4)
+    assert launch_counts()["derivs_packed"] == runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COMPOSABLE_MODELS)
+def test_composable_solve_on_card_matches_cpu(dev, name):
+    """A short composable solve (solve_batch: the derivative and rollout
+    kernels, the backward scan's QPs in plain PyTorch) on the card against
+    the same solve on the CPU: costs to 1e-3 relative (the trig ulps and
+    cuBLAS's rounding of the QPs' matrix products)."""
+    m = get_model(name)
+    rng = np.random.default_rng(22)
+    x0 = (0.3 * rng.normal(size=(4, m.n))).astype(np.float32)
+    u0 = np.zeros((8, m.m), np.float32)
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True, max_iter=3)
+    reset_launch_counts()
+    card = solve_batch(m, m.default_params(), cfg, 0.05, x0, u0)
+    counts = launch_counts()
+    cpu = solve_batch(m, m.default_params(), cfg, 0.05, x0, u0,
+                      device="cpu")
+    assert counts["derivs_packed"] >= 1 and counts["rollout_packed"] >= 2
+    np.testing.assert_allclose(card.cost.cpu().numpy(), cpu.cost.numpy(),
+                               rtol=1e-3)

@@ -63,6 +63,8 @@ def _run(code, cwd=REPO, extra_env=None):
     "import ilqr_tpu_torch.models.free_flyer\n"
     "import ilqr_tpu_torch.models.thruster_ring",
     "import chip_smoke",
+    "import ilqr_tpu_torch.ops.boxqp, ilqr_tpu_torch.mpc\n"
+    "import ilqr_tpu_torch.models.bicycle, ilqr_tpu_torch.models.power_mass",
 ])
 def test_imports_no_jax_nor_ilqr_tpu(imports):
     out = _run(_NO_JAX.format(imports=imports))
@@ -164,8 +166,8 @@ def test_kernel_path_rejects_other_models_and_integrators(case, monkeypatch):
     """The CUDA kernels are compiled for the registered models and take the
     Euler or the RK4 step: the rollout, line-search, sweep and iteration
     guards accept rk4 in both derivative modes, and derivs_packed takes it
-    (its kernel instantiated for the m = 1 models of the split sweep, any
-    other model raising NotImplementedError naming §A4 before a launch).
+    (its kernel instantiated for every registered model, any other raising
+    NotImplementedError before a launch).
     solve_batch_fused carries analytic + RK4 (the in-kernel JVP route) and
     RK4 on the split sweep: each reaches its first stage with the RK4 step
     (every stage a tripwire that records its integrator). A jvp request
@@ -202,20 +204,22 @@ def test_kernel_path_rejects_other_models_and_integrators(case, monkeypatch):
             assert [tuple(a.shape) for a in out] == [
                 tuple(a.shape) for a in euler]
             assert not torch.equal(out[0], euler[0])   # fx is the RK4 step's
-        assert set(kernel_derivs.DERIVS_KERNEL_MODELS) == {
-            "acrobot", "pendulum", "cartpole"}
+        assert set(kernel_derivs.DERIVS_KERNEL_MODELS) == set(
+            kernel_rollout.FUSED_KERNEL_MODELS)
         for name in kernel_derivs.DERIVS_KERNEL_MODELS:
             mm = get_model(name)
             ppm = kernel_rollout.pack_params(mm.default_params(), 0.02)
             kernel_rollout.require_kernel_model(
                 mm, "rk4", ppm, dev, have=kernel_derivs.DERIVS_KERNEL_MODELS)
         bi = get_model("bicycle")
+        other = bi.__class__(**{**bi.__dict__, "name": "other"})
         ppb = kernel_rollout.pack_params(bi.default_params(), 0.02)
         monkeypatch.setattr(kernel_derivs, "on_cuda", lambda t: True)
         monkeypatch.setattr(kernel_derivs._build, "launch",
                             lambda *a: pytest.fail("launched"))
-        with pytest.raises(NotImplementedError, match="A4"):
-            kernel_derivs.derivs_packed(bi, "rk4", ppb, torch.zeros(6, 4, 2),
+        with pytest.raises(NotImplementedError, match="bicycle"):
+            kernel_derivs.derivs_packed(other, "rk4", ppb,
+                                        torch.zeros(6, 4, 2),
                                         torch.zeros(5, 2, 2))
     else:
         from ilqr_tpu_torch import fused
@@ -261,8 +265,9 @@ def test_every_cuda_source_is_built_and_packaged():
     kernels_<model>_fd.cu and a kernels_<model>_jvp.cu of their own (the
     quadrotor's iteration kernels apart, in kernels_<model>_iteration_fd.cu
     and kernels_<model>_iteration_jvp.cu), so that they compile in
-    parallel; derivs.cu instantiates the derivative kernel for each model of
-    DERIVS_KERNEL_MODELS and backward.cu the backward kernel for each n of
+    parallel; derivs_<model>.cu instantiates the derivative kernel
+    (derivs.cuh) for each model of DERIVS_KERNEL_MODELS, one source each,
+    and backward.cu the backward kernel for each n of
     BACKWARD_KERNEL_NS."""
     import fnmatch
     import tomllib
@@ -297,9 +302,10 @@ def test_every_cuda_source_is_built_and_packaged():
                         in apart.read_text())
             else:
                 assert f"{macro}_LAUNCHERS({name}," in text
-    derivs = (csrc / "derivs.cu").read_text()
     for name in kernel_derivs.DERIVS_KERNEL_MODELS:
-        assert f"ILQR_DERIVS_LAUNCHER({name}, {name}::Model)" in derivs
+        derivs = (csrc / f"derivs_{name}.cu").read_text()
+        assert f"ILQR_DERIVS_LAUNCHER({name}, " in derivs
+        assert '#include "derivs.cuh"' in derivs
     backward = (csrc / "backward.cu").read_text()
     for n in kernel_backward.BACKWARD_KERNEL_NS:
         assert f"ILQR_BACKWARD_LAUNCHER({n})" in backward
@@ -329,24 +335,38 @@ def test_pack_params_layout():
     dict(full_ddp=True), "params_batched", "other_model",
 ])
 def test_uncarried_configs_raise_before_running(bad, monkeypatch):
-    """What the kernels do not carry raises NotImplementedError before any
-    stage runs; no plain op takes a missing kernel's place."""
+    """What the port does not carry (the assoc modes, full DDP, a model
+    without SoA functions) raises NotImplementedError before any stage
+    runs; no plain op takes a missing kernel's place. RK4, the iterative
+    and enumeration QPs, the unconstrained step, per-problem params and
+    every registered model are carried now: they reach the first stage."""
     from ilqr_tpu_torch import solver
 
-    def no_stage(*a, **k):
-        raise AssertionError("a stage ran for an uncarried configuration")
+    class Reached(Exception):
+        pass
 
-    monkeypatch.setattr(solver, "init_state", no_stage)
+    def first_stage(*a, **k):
+        raise Reached
+
+    monkeypatch.setattr(solver, "init_state", first_stage)
     model, kw, cfg = tac.MODEL, {}, SolverConfig()
+    params = tac.default_params()
+    carried = True
     if bad == "params_batched":
         kw = dict(params_batched=True)
-    elif bad == "other_model":
+        params = type(params)(*(torch.stack([leaf, leaf])
+                                for leaf in params))
+    elif bad == "other_model":   # a custom model: no SoA functions
         model = tac.MODEL.__class__(**{**tac.MODEL.__dict__,
-                                       "name": "pendulum"})
+                                       "name": "custom", "dynamics_soa":
+                                       None})
+        carried = False
     else:
         cfg = SolverConfig(**bad)
-    with pytest.raises(NotImplementedError):
-        solve_batch(model, tac.default_params(), cfg, 0.02,
+        carried = not ({"backward_mode", "full_ddp"} & set(bad))
+    assert model.has_soa == (bad != "other_model")
+    with pytest.raises(Reached if carried else NotImplementedError):
+        solve_batch(model, params, cfg, 0.02,
                     np.zeros((2, 4), np.float32),
                     np.zeros((5, 1), np.float32), device="cpu", **kw)
 
@@ -390,8 +410,8 @@ def test_ptxas_table_files_rows_under_their_own_model():
     instantiations (kernels_<model>_fd.cu, kernels_<model>_iteration_fd.cu;
     FiniteDiff in the mangled name) are filed as sweep_kernel_fd and
     iteration_kernel_fd under their model, the dual-number ones (_jvp.cu;
-    Jvp) as <kernel>_jvp. derivs.cu's rows go to the model in the mangled
-    name (its stencil mode as derivs_kernel_fd), backward.cu's n = 2 row to
+    Jvp) as <kernel>_jvp. derivs_<model>.cu's rows go to its model (the
+    stencil mode as derivs_kernel_fd), backward.cu's n = 2 row to
     pendulum and its n = 4 row to acrobot and cartpole."""
     import chip_smoke
 
@@ -407,11 +427,12 @@ def test_ptxas_table_files_rows_under_their_own_model():
         "ptxas log of backward.cu\n",
         entry("_ZN12_GLOBAL__N_115backward_kernelILi2EEEvPKf", 40, 0),
         entry("_ZN12_GLOBAL__N_115backward_kernelILi4EEEvPKf", 80, 0),
-        "ptxas log of derivs.cu\n",
+        "ptxas log of derivs_acrobot.cu\n",
         entry("_ZN12_GLOBAL__N_113derivs_kernelIN7acrobot5ModelEN5sweep3"
               "JvpEEEvPKf", 64, 0),
         entry("_ZN12_GLOBAL__N_113derivs_kernelIN7acrobot5ModelEN5sweep10"
               "FiniteDiffEEEvPKf", 65, 0),
+        "ptxas log of derivs_pendulum.cu\n",
         entry("_ZN12_GLOBAL__N_113derivs_kernelIN8pendulum5ModelEN5sweep3"
               "JvpEEEvPKf", 66, 16),
         "ptxas log of kernels.cu\n",
@@ -461,7 +482,7 @@ def test_ptxas_table_files_rows_under_their_own_model():
     assert t[("derivs_kernel_fd", "acrobot", None)]["registers"] == 65
     assert t[("derivs_kernel", "pendulum", None)] == dict(
         registers=66, stack_bytes=16, spill_stores=8, spill_loads=12,
-        source="ilqr_tpu_torch/csrc/derivs.cu")
+        source="ilqr_tpu_torch/csrc/derivs_pendulum.cu")
     assert t[("backward_kernel", "acrobot", None)]["registers"] == 80
     assert t[("backward_kernel", "cartpole", None)]["registers"] == 80
     assert t[("backward_kernel", "pendulum", None)]["registers"] == 40

@@ -4,7 +4,7 @@ for pendulum and cartpole, and RK4 in the derivative stage, against the JAX
 package on the CPU.
 
 - ``kernel_derivs.derivs_batched`` (on the CPU: the plain version of
-  csrc/derivs.cu) against ``pallas_derivs.derivs_batched`` in Pallas
+  csrc/derivs.cuh) against ``pallas_derivs.derivs_batched`` in Pallas
   interpret mode: acrobot with RK4, pendulum and cartpole with Euler and
   RK4, in jvp mode at tests/test_pallas_derivs.py's atol 1e-4 and in fd
   mode at eps = 0.05 (acrobot's Euler cases are tests/test_torch_derivs.py).
