@@ -123,7 +123,24 @@ Phases (any failure raises and the script exits non-zero):
      tests/test_mpc.py's controller against the CPU, step by step; phase
      3 holds each model's derivative kernel at these paths' shapes
      (derivs_cases);
- 15. one JSON line listing every kernel × model instantiation launched (the
+ 15. custom models (models.register; ilqr_tpu_torch/examples/
+     custom_model.py's unicycle, n = 3, m = 2, and its m = 1 companion
+     unicycle_heading), whose libraries phase 2 builds from their
+     generated device functions beside the main one: (a) the example's
+     problem through solve (analytic, clamped, T = 80) for the example's
+     goal and tests/test_custom_model.py's, each within 0.1 of its goal and
+     at the CPU's cost; (b) a fleet of B = 1024 unicycles through
+     solve_batch_fused (T = 80, max_iter 40; analytic with Euler — the
+     dual numbers, the model having no closed forms — and RK4, fd with
+     Euler, the split iteration), every lane at or below its initial cost,
+     4 lanes against the CPU; (c) tests/test_custom_model.py:41-53's
+     composable batch on the kernel routes at B = 1024; (d)
+     unicycle_heading's split sweep (the backward kernel at n = 3) against
+     its merged route, and its composable m = 1 route; (e) the unicycle
+     without SoA functions on the "xla" routes against the CPU; phase 3
+     holds every custom kernel bit for bit (custom_cases), and phase 14(a)
+     sets the card's solve_verbose rows beside the CPU's (the C1 witness);
+ 16. one JSON line listing every kernel × model instantiation launched (the
      RK4 readings as rk4_* fields of the kernel's row, the stencil mode's
      RK4 reading of the derivative kernel as rk4_fd_*, the per-lane params
      readings as lanes_*), the card's line, and the last line
@@ -142,6 +159,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -516,7 +534,8 @@ def comparison_sets():
             + [("jvp", name) for name in CLI_SPECS]
             + [("split", name) for name in SPLIT_MODELS]
             + [("lanes", name) for name in LANES_KERNELS]
-            + [("derivs", name) for name in COMP_MODELS])
+            + [("derivs", name) for name in COMP_MODELS]
+            + [("custom", name) for name in CUSTOM_MODELS])
 
 
 def build_cases(dev, which):
@@ -532,6 +551,8 @@ def build_cases(dev, which):
         return lanes_cases(dev, which[1])
     if which[0] == "derivs":
         return derivs_cases(dev, which[1])
+    if which[0] == "custom":
+        return custom_cases(dev, which[1])
     return fd_cases(dev, which[1])
 
 
@@ -1055,7 +1076,10 @@ CLI_MODELS = {"pendulum": (199, 0.02), "cartpole": (299, 0.02),
 CLI_ITERS = 100
 # the B = 8192 acrobot RK4 paths of phases 11-12 (fd and analytic) at a cut
 # depth, to keep the script inside its time limit on slow hosts
-RK4_HEADLINE_ITERS = 40
+RK4_HEADLINE_ITERS = 20
+# phase 11's m ≥ 5 fd paths and the quadrotor's fd + RK4 path at a cut
+# depth (PERF.md §7)
+FD_WIDE_ITERS = 20
 CLI_CPU_T, CLI_CPU_ITERS = 30, 5   # the short card-against-CPU solves
 
 
@@ -1529,7 +1553,7 @@ def run_wide_slice(dev, rows):
     # (b) thruster_ring, the full-width path
     t0 = time.perf_counter()
     ring, (rx0, rcost, rwalls) = run_model_path(
-        dev, "thruster_ring", "thruster_ring (m = 12, full width)", reps=3)
+        dev, "thruster_ring", "thruster_ring (m = 12, full width)", reps=1)
     split_route(ring, "thruster_ring")
     model, params, cfg, T, dt, u0, draw = workload("thruster_ring")
     ring["profile"] = profile_solve(
@@ -2013,8 +2037,9 @@ def run_fd_slice(dev, rows, rk4):
     # (c) the quadrotor's CLI problem with fd and RK4 (the split iteration)
     # and its merged route
     t0 = time.perf_counter()
-    quad, qcost = run_fd_path(dev, "quadrotor", "quadrotor fd + rk4",
-                              integrator="rk4")
+    quad, qcost = run_fd_path(
+        dev, "quadrotor", f"quadrotor fd + rk4 (max_iter {FD_WIDE_ITERS}, "
+        f"cut from {CLI_ITERS})", integrator="rk4", max_iter=FD_WIDE_ITERS)
     # the merged route at a cut depth (it runs the split route's
     # arithmetic, one launch where the split takes two)
     _s, qcost = fd_solve(dev, "quadrotor", f"quadrotor rk4 at max_iter "
@@ -2065,12 +2090,12 @@ def run_fd_slice(dev, rows, rk4):
             sweep_ms = time_ms(lambda: kernel_sweep.sweep_packed(
                 m_, "euler", pp, xs0, xT0, us0, torch.ones(B, device=dev),
                 "fd"), reps=1)
-            # at most secondary_bench.py's 40 iterations of these models
-            cap = min(WIDE_ITERS, max(SHORT_ITERS, int(
+            # at most FD_WIDE_ITERS of secondary_bench.py's 40 iterations
+            cap = min(FD_WIDE_ITERS, max(SHORT_ITERS, int(
                 FD_CAP_S * 1e3 / (1.5 * sweep_ms))))
             print(f"[fd] {name}: one stencil sweep {sweep_ms:.1f} ms "
                   f"at B={B} T={T}; max_iter {cap} (cut from {CLI_ITERS}: "
-                  f"at most {WIDE_ITERS}, and one solve under "
+                  f"at most {FD_WIDE_ITERS}, and one solve under "
                   f"{FD_CAP_S:g} s)")
             out, _cost = run_fd_path(dev, name, label, max_iter=cap)
             out["sweep_ms_per_launch"] = sweep_ms
@@ -2092,7 +2117,7 @@ def run_fd_slice(dev, rows, rk4):
         record(f"{auto_key}/{name}/fd", out["launches"])
         record(f"{other_key}/{name}/fd", out["other_route"]["launches"])
         if name in FD_FREE:
-            depth = ({} if merged_auto else dict(max_iter=WIDE_ITERS))
+            depth = ({} if merged_auto else dict(max_iter=FD_WIDE_ITERS))
             free, _c = run_fd_path(dev, name, f"{name} fd without limits",
                                    use_control_limits=False, **depth)
             record(f"{auto_key}/{name}/fd/unconstrained", free["launches"])
@@ -2876,8 +2901,9 @@ COMP_B, COMP_T, COMP_ITERS, COMP_DT = 64, 20, 3, 0.05
 COMP_EXTRA = {"double_integrator": dict(integrator="rk4"),
               "omni_thruster": dict(boxqp_mode="pn_fixed")}
 COMP_PER_LANE = ("power_mass",)
-# (b) examples/quadrotor_waypoints.py --vmap: B, T, max_iter, dt
-WP_B, WP_T, WP_ITERS, WP_DT = 256, 80, 40, 0.02
+# (b) examples/quadrotor_waypoints.py --vmap: B, T, dt, and max_iter cut
+# from the example's 40 (PERF.md §7: ~0.9 s per host iteration)
+WP_B, WP_T, WP_ITERS, WP_DT = 256, 80, 10, 0.02
 WP_FUSED_TOL = 0.02      # mean cost against the fused solver's
 WP_CPU = (4, 20, 5)      # card against the CPU: lanes, T, iterations
 # (c)'s card solves against the CPU on their first CPU_LANES lanes (each
@@ -2887,6 +2913,10 @@ CPU_LANES = 8
 # (ilqr_tpu/__main__.py:232-236): the reference converges in 14
 # iterations (golden/README.md)
 INTEG_T, INTEG_DT, REF_ITERS = 99, 0.02, 14
+# (a)'s iterations on the card against the CPU's (ROADMAP §C1): the reason
+# must match and the count lie within this band, which the witness below
+# measured (18 on the card, 15 on the CPU: PERF.md §6, ROADMAP §C1)
+C1_ITER_BAND = 3
 # (d) tests/test_mpc.py:14-31's controller
 MPC_T, MPC_DT, MPC_STEPS, MPC_REL = 40, 0.05, 20, 1e-4
 
@@ -3006,17 +3036,153 @@ def _read_golden():
     return np.asarray([r[4:6] for r in rows[:-1]])
 
 
-def run_integrator_path(dev):
-    """(a): the CLI's integrator problem through solve_verbose on the card,
-    against golden/integrator_golden.csv."""
+def _recorded_verbose(model, params, cfg, dt, x0, u0, device=None):
+    """solve_verbose with each iteration's row recorded: its input state
+    (on the CPU), cost, λ, dcost, expected, the line search's α, and
+    whether the step was taken. Returns (Solution, rows)."""
+    rows = []
+    it_fn, ls_fn = solver.ilqr_iteration, solver.line_search
+
+    def line_search(*a, **k):
+        out = ls_fn(*a, **k)
+        rows[-1]["alpha"] = float(out.alpha[0])
+        return out
+
+    def iteration(model_, pp, cfg_, state, live):
+        rows.append(dict(state=[t.cpu() for t in state]))
+        out = it_fn(model_, pp, cfg_, state, live)
+        rows[-1].update(cost=float(out.cost[0]), lam=float(out.lam[0]),
+                        dcost=float(out.dcost[0]),
+                        expected=float(out.expected[0]),
+                        taken=bool(out.step_accepted[0]))
+        return out
+
+    iteration.calls, iteration.retried = it_fn.calls, it_fn.retried
+    solver.ilqr_iteration, solver.line_search = iteration, line_search
+    try:
+        sol = solver.solve_verbose(model, params, cfg, dt, x0, u0,
+                                   device=device)
+    finally:
+        solver.ilqr_iteration, solver.line_search = it_fn, ls_fn
+        it_fn.calls, it_fn.retried = iteration.calls, iteration.retried
+    return sol, rows
+
+
+def _integrator_problem():
     model = get_model("double_integrator")
     params = double_integrator.default_params(goal=(1.0, 0.5, 0.0, 0.0))
     cfg = SolverConfig(deriv_mode="fd", clamp_forward=False)
     x0 = np.asarray([-1.0, 0.0, 0.0, -0.2], np.float32)
-    u0 = np.zeros((INTEG_T, 2), np.float32)
+    return model, params, cfg, x0, np.zeros((INTEG_T, 2), np.float32)
+
+
+def _integrator_cpu_job(_arg):
+    """In a worker process: (a)'s solve_verbose on the CPU, recorded (its
+    table printed to a buffer)."""
+    import io
+
+    torch.set_num_threads(1)
+    model, params, cfg, x0, u0 = _integrator_problem()
+    with contextlib.redirect_stdout(io.StringIO()):
+        sol, rows = _recorded_verbose(model, params, cfg, INTEG_DT, x0, u0,
+                                      device="cpu")
+    return dict(rows=rows, iterations=int(sol.iterations),
+                reason=TerminationReason(int(sol.reason)).name)
+
+
+def _stage_witness(dev, model, params, cfg, state):
+    """One iteration's stages from the same input ``state`` (the CPU's) on
+    the card and the CPU: each stage's max |a − b| / (1 + |b|) between the
+    devices, every later stage fed the CPU's outputs of the ones before."""
+    from ilqr_tpu_torch.ops import backward as bw
+    from ilqr_tpu_torch.ops import derivatives as dv
+    from ilqr_tpu_torch.ops import rollout as ro
+    from ilqr_tpu_torch.types import Derivs, SolverState
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+    sc = SolverState(*state)
+    sd = SolverState(*(t.to(dev) for t in state))
+    pc = kernel_rollout.pack_params(params, INTEG_DT)
+    pd = kernel_rollout.pack_params(params, INTEG_DT, dev)
+    out = {}
+    d_c = dv.compute_derivs(model, pc, cfg, sc.xs, sc.us)
+    d_d = dv.compute_derivs(model, pd, cfg, sd.xs, sd.us)
+    out["derivatives"] = max(rel(a, b) for a, b in zip(d_d, d_c))
+    b_c = bw.backward_pass(d_c, sc.us, sc.lam, *solver.limits(pc), cfg,
+                           prev_k_last=sc.k[:, -1])
+    b_d = bw.backward_pass(Derivs(*(a.to(dev) for a in d_c)), sd.us, sd.lam,
+                           *solver.limits(pd), cfg, prev_k_last=sd.k[:, -1])
+    out["backward pass"] = max(rel(getattr(b_d, f), getattr(b_c, f))
+                               for f in ("k", "K", "dV"))
+    l_c = ro.line_search(model, pc, cfg, sc.xs[:, 0], sc.xs, sc.us, b_c.k,
+                         b_c.K, b_c.dV, sc.cost)
+    l_d = ro.line_search(model, pd, cfg, sd.xs[:, 0], sd.xs, sd.us,
+                         b_c.k.to(dev), b_c.K.to(dev), b_c.dV.to(dev),
+                         sd.cost)
+    out["line search"] = max(rel(getattr(l_d, f), getattr(l_c, f))
+                             for f in ("cost", "dcost", "expected", "alpha"))
+    return out
+
+
+def c1_witness(dev, card_rows, cpu):
+    """ROADMAP §C1: the card's and the CPU's (a) rows side by side up to the
+    first iteration where they part (a step taken on one side only, or λ or
+    the cost apart by more than 1e-6 relative), and the stages of the first
+    iteration whose row differs at all, run from the CPU's input state on
+    both devices."""
+    model, params, cfg, _x0, _u0 = _integrator_problem()
+    keys = ("cost", "lam", "dcost", "expected", "alpha", "taken")
+    first_diff = parted = None
+    print("[composable] (a) C1 witness: iteration | card: cost λ dcost "
+          "expected α taken | CPU: the same")
+    for i, (rc, rh) in enumerate(zip(card_rows, cpu["rows"])):
+        print(f"[composable] (a)   {i:3d} | "
+              + " ".join(f"{rc.get(k)!r}" for k in keys) + " | "
+              + " ".join(f"{rh.get(k)!r}" for k in keys))
+        if first_diff is None and any(rc.get(k) != rh.get(k) for k in keys):
+            first_diff = i
+        close = lambda a, b: abs(a - b) <= 1e-6 * max(abs(a), abs(b), 1e-30)
+        if parted is None and (rc["taken"] != rh["taken"]
+                               or not close(rc["lam"], rh["lam"])
+                               or not close(rc["cost"], rh["cost"])):
+            parted = i
+            break
+    out = dict(card_iterations=len(card_rows),
+               cpu_iterations=cpu["iterations"], cpu_reason=cpu["reason"],
+               first_differing_iteration=first_diff,
+               parting_iteration=parted)
+    if first_diff is not None:
+        stages = _stage_witness(dev, model, params, cfg,
+                                cpu["rows"][first_diff]["state"])
+        first = next((k for k, v in stages.items() if v > 0.0), None)
+        cost = cpu["rows"][first_diff]["cost"]
+        eps = cfg.fd_eps
+        noise = float(np.spacing(np.float32(cost))) / (4.0 * eps * eps)
+        out.update(stages=stages, first_stage=first,
+                   stencil_noise=noise)
+        print(f"[composable] (a) C1 witness: rows first differ at iteration "
+              f"{first_diff}, part at {parted}; from the CPU's input state "
+              f"of iteration {first_diff}, card against CPU, max |a−b|/"
+              f"(1+|b|) by stage: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in stages.items())
+              + f"; first stage apart: {first}; the stencils' f32 noise "
+              f"ulp(cost)/(4·eps²) = {noise:.3g} (cost {cost:.6g}, eps "
+              f"{eps:g})")
+    return out
+
+
+def run_integrator_path(dev, cpu_job):
+    """(a): the CLI's integrator problem through solve_verbose on the card,
+    against golden/integrator_golden.csv, and against the same solve on
+    the CPU (``cpu_job``, an async result of _integrator_cpu_job) by the
+    C1 witness: the reason equal, the iterations within C1_ITER_BAND."""
+    model, params, cfg, x0, u0 = _integrator_problem()
     _comp_counters()
     t0 = time.perf_counter()
-    sol = solver.solve_verbose(model, params, cfg, INTEG_DT, x0, u0)
+    sol, card_rows = _recorded_verbose(model, params, cfg, INTEG_DT, x0, u0)
     cost, us = float(sol.cost.item()), sol.us.cpu().numpy()
     wall = time.perf_counter() - t0
     out = _comp_stats(wall)
@@ -3039,6 +3205,15 @@ def run_integrator_path(dev):
         raise AssertionError("the integrator left the reference's solution")
     if out["launches"]["derivs_packed"] < 1:
         raise AssertionError("(a) never launched derivs_packed")
+    cpu = cpu_job.get()[0]
+    out["c1"] = c1_witness(dev, card_rows, cpu)
+    print(f"[composable] (a) iterations: card {out['iterations']} "
+          f"({reason}), CPU {cpu['iterations']} ({cpu['reason']}); band "
+          f"±{C1_ITER_BAND}")
+    if (reason != cpu["reason"] or abs(out["iterations"] - cpu["iterations"])
+            > C1_ITER_BAND):
+        raise AssertionError("(a) the card's iterations or reason left the "
+                             "CPU's band")
     return out
 
 
@@ -3188,7 +3363,11 @@ def run_composable_slice(dev, rows, readings):
         launches[name][group] = launches[name].get(group, 0) + n
 
     t0 = time.perf_counter()
-    res["integrator"] = run_integrator_path(dev)
+    cpu_pool = multiprocessing.get_context("spawn").Pool(1)
+    cpu_job = cpu_pool.map_async(_integrator_cpu_job, [None])
+    res["integrator"] = run_integrator_path(dev, cpu_job)
+    cpu_pool.close()
+    cpu_pool.join()
     note("double_integrator", "fd_of",
          res["integrator"]["launches"]["derivs_packed"])
     print(f"[time] phase 14a (integrator) {time.perf_counter() - t0:.1f} s",
@@ -3254,6 +3433,520 @@ def run_composable_slice(dev, rows, readings):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: custom models (models.register): the user's torch SoA functions
+# recorded, emitted as device functions (ops/codegen.py) and built with the
+# hand-written kernel templates into a library of the model's own
+# (_build.build_model), on ilqr_tpu_torch/examples/custom_model.py's
+# unicycle (n = 3, m = 2) and its m = 1 companion unicycle_heading.
+
+CUSTOM_MODELS = ("unicycle", "unicycle_heading")
+# the fleet (b), the composable batch (c) and the companion's paths (d):
+# B lanes, T steps of dt, x0 = 0.2·normal(B, 3) from default_rng(0), u0 0
+CUSTOM_B, CUSTOM_T, CUSTOM_DT, CUSTOM_ITERS = 1024, 80, 0.05, 40
+CUSTOM_COMP_ITERS = 5          # (c) and (d)'s composable batch
+CUSTOM_GOALS = ((2.0, 1.0, 0.0), (1.5, -0.5, 0.0))   # (a): the example's,
+#                                  tests/test_custom_model.py:32-38's
+CUSTOM_GOAL_TOL, CUSTOM_SOLVE_RTOL = 0.1, 1e-3
+CUSTOM_CPU = (4, 8)            # (b) card against the CPU: lanes, iterations
+CUSTOM_XLA = (20, 5)           # (e) the model without SoA functions: T, iters
+CUSTOM_VARIANTS = {            # (b)'s four fused solves
+    "analytic_euler": dict(),
+    "analytic_rk4": dict(integrator="rk4"),
+    "fd_euler": dict(deriv_mode="fd", fd_eps=0.05),
+    "analytic_euler_split": dict(iter_kernel="split")}
+HEADING_VARIANTS = {"split": dict(sweep_kernel="split"), "merged": dict()}
+CUSTOM_SOURCES = {"derivs": "ilqr_tpu_torch/csrc/derivs.cuh",
+                  "backward": "ilqr_tpu_torch/csrc/backward.cuh"}
+
+
+def custom_models():
+    """The example's two models, registered (idempotent)."""
+    from ilqr_tpu_torch.examples import custom_model as tcm
+
+    return dict(zip(CUSTOM_MODELS, tcm.register_models()))
+
+
+def custom_problem(name, B=CUSTOM_B):
+    """(model, params, cfg, T, dt, u0 (T, m), x0 (B, 3)) of (b)/(d)."""
+    model = custom_models()[name]
+    rng = np.random.default_rng(0)
+    x0 = (0.2 * rng.normal(size=(B, 3))).astype(np.float32)
+    u0 = np.zeros((CUSTOM_T, model.m), np.float32)
+    cfg = SolverConfig(deriv_mode="analytic", clamp_forward=True,
+                       max_iter=CUSTOM_ITERS)
+    return (model, model.default_params(), cfg, CUSTOM_T, CUSTOM_DT, u0, x0)
+
+
+def custom_cases(dev, name):
+    """``name``'s kernels at phase 15's shapes (B = 1024, T = 80, A = 11),
+    on (b)'s x0, its open-loop rollout and first gains; masks mixed. The
+    unicycle: the rollout and line search with the Euler step (rows) and
+    RK4 (readings); the sweep and iteration with the dual numbers and Euler
+    (rows: the closed forms do not exist for a custom model), RK4
+    (readings) and the stencils (fd_* fields); the derivative kernel in jvp
+    mode (row) and fd mode. unicycle_heading: its rollout, line search,
+    iteration and derivative kernels and the backward kernel at n = 3 (the
+    split sweep's)."""
+    model, params, cfg, T, dt, u0, x0_np = custom_problem(name)
+    B, A, n, m = CUSTOM_B, len(cfg.alphas), model.n, model.m
+    rng = np.random.default_rng(7)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(params, dt, dev)
+    x0 = f(x0_np).t().contiguous()
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    xs0, us0, xT0, c0 = kernel_rollout.rollout_packed(
+        model, "euler", True, pp, x0, f(u0)[:, :, None].expand(
+            T, m, B).contiguous(), zeros(T, n, B), zeros(T, m, n, B))
+    lam = torch.ones(B, device=dev)
+    k1, K1, dv1, _d, _g = kernel_sweep.sweep_packed(model, "euler", pp, xs0,
+                                                    xT0, us0, lam)
+    live, gate, keep = (f(rng.uniform(size=B) > 0.5) for _ in range(3))
+    alphas = f(cfg.alphas)
+    xsr = xs0 + f(0.01 * rng.normal(size=(T, n, B)))
+    Kr = f(0.05 * rng.normal(size=(T, m, n, B)))
+    uff = us0 + f(0.2 * rng.normal(size=(T, m, B)))
+    kold, Kold = f(rng.normal(size=(T, m, B))), f(rng.normal(size=(T, m, n,
+                                                                   B)))
+    old = nbytes(kold, Kold)
+    xs_full = torch.cat([xs0, xT0[None]]).contiguous()
+    cases = {}   # key → (op, plain, args, kind, mode, integrator, group)
+    integrators = ("euler", "rk4") if name == "unicycle" else ("euler",)
+    for integ in integrators:
+        group = "row" if integ == "euler" else "rk4"
+        cases[f"rollout_packed/{name} ({integ})"] = (
+            kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
+            (model, integ, True, pp, x0, uff, xsr, Kr), "rollout", "jvp",
+            integ, group, None)
+        cases[f"linesearch_packed/{name} ({integ})"] = (
+            kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+            (model, integ, True, pp, x0, us0, xs0, xT0, K1, k1, Kold, kold,
+             alphas, dv1, c0, gate, keep, cfg.z_min), "linesearch", "jvp",
+            integ, group,
+            lambda got: old * (keep > 0.5).float().mean().item())
+    derivs = [("jvp", "euler", "row"), ("jvp", "rk4", "rk4"),
+              ("fd", "euler", "fd_of")]
+    if name != "unicycle":
+        derivs = derivs[:1]
+    for mode, integ, group in derivs:
+        if name == "unicycle":
+            cases[f"sweep_packed/{name} ({mode}, {integ})"] = (
+                kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+                (model, integ, pp, xs0, xT0, us0, lam, mode, True, 0.05),
+                "sweep", mode, integ, group, None)
+        cases[f"iteration_packed/{name} ({mode}, {integ})"] = (
+            kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+            (model, integ, True, pp, x0, xs0, xT0, us0, kold, Kold, lam, c0,
+             live, alphas, mode, True, cfg.z_min, cfg.tol_grad,
+             cfg.lambda_grad_term, 0.05), "iteration", mode, integ, group,
+            lambda got: old * ((got[10] < 0.5) & (live > 0.5)).float()
+            .mean().item())
+    for mode, group in (("jvp", "row"), ("fd", "fd_of"))[
+            :2 if name == "unicycle" else 1]:
+        cases[f"derivs_packed/{name} ({mode})"] = (
+            kernel_derivs.derivs_packed, kernel_derivs.derivs_plain,
+            (model, "euler", pp, xs_full, us0, mode, 0.05), "derivs", mode,
+            "euler", group, None)
+    out = {}
+    for label, (op, plain, args, kind, mode, integ, group,
+                unread) in cases.items():
+        row = label.split(" ")[0]
+
+        def ops(kind=kind, mode=mode, integ=integ):
+            if kind == "derivs":
+                step, rest = ops_per_step(lambda t: _custom_derivs_at(
+                    model, params, dt, t, mode))
+            else:
+                step, rest = lane_ops(model, params, kind, True, A, dt, mode,
+                                      integ)
+            return step * T * B + rest * B
+
+        suffix = "_jvp" if kind in ("sweep", "iteration") else ""
+        out[label] = Case(op, plain, args, ops, f"at B={B} T={T} A={A}",
+                          unread, dict(
+                              row=row, group=group,
+                              kernel=f"{kind}_kernel{suffix}", model=name,
+                              limits=True, T=T,
+                              effort=effort(kind, T, n, m)
+                              * (8 if mode == "jvp" and kind in (
+                                  "sweep", "iteration") else 1),
+                              source=CUSTOM_SOURCES.get(
+                                  kind, "ilqr_tpu_torch/csrc/kernels.cuh")))
+    if name == "unicycle_heading":
+        fx, fu, cx, cu, cxx, cxu, cuu = kernel_derivs.derivs_packed(
+            model, "euler", pp, xs_full, us0)
+        p, _dt = kernel_rollout.unpack_params(pp)
+        args = tuple(a.contiguous() for a in (
+            fx, fu[:, :, 0], cx[:-1], cu[:, 0], cxx[:-1], cxu[:, :, 0],
+            cuu[:, 0, 0], p.u_min[0] - us0[:, 0], p.u_max[0] - us0[:, 0],
+            torch.ones(B, device=dev), cx[-1], cxx[-1]))
+        out[f"backward_sweep_packed/{name}"] = Case(
+            kernel_backward.backward_sweep_packed,
+            kernel_backward.backward_plain, args,
+            lambda: _custom_backward_ops(model, params, dt) * B,
+            f"at B={B} T={T} n={n}", None,
+            dict(row=f"backward_sweep_packed/{name}", group="row",
+                 kernel="backward_kernel", model=name, limits=True, T=T,
+                 effort=effort("backward", T, n, m),
+                 source=CUSTOM_SOURCES["backward"]))
+    return out
+
+
+def _custom_lane(model, t, seed=3):
+    rng = np.random.default_rng(seed)
+    xs = torch.as_tensor(0.3 * rng.normal(size=(t + 1, model.n, 1)),
+                         dtype=torch.float32)
+    us = torch.as_tensor(rng.normal(size=(t, model.m, 1)),
+                         dtype=torch.float32)
+    return xs, us
+
+
+def _custom_derivs_at(model, params, dt, t, mode):
+    return kernel_derivs.derivs_plain(
+        model, "euler", kernel_rollout.pack_params(params, dt),
+        *_custom_lane(model, t), mode=mode, eps=0.05)
+
+
+def _custom_backward_ops(model, params, dt):
+    """The backward recursion's operations per lane over T = CUSTOM_T:
+    its count minus the derivative op that builds its inputs."""
+    lo, hi = float(params.u_min[0]), float(params.u_max[0])
+
+    def at(t):
+        xs, us = _custom_lane(model, t)
+        d = _custom_derivs_at(model, params, dt, t, "jvp")
+        return kernel_backward.backward_plain(
+            d[0], d[1][:, :, 0], d[2][:-1], d[3][:, 0], d[4][:-1],
+            d[5][:, :, 0], d[6][:, 0, 0], lo - us[:, 0], hi - us[:, 0],
+            torch.ones(1), d[2][-1], d[4][-1])
+
+    step_all, rest_all = ops_per_step(at)
+    step_d, rest_d = ops_per_step(
+        lambda t: _custom_derivs_at(model, params, dt, t, "jvp"))
+    return (step_all - step_d) * CUSTOM_T + (rest_all - rest_d)
+
+
+def custom_ptxas():
+    """ptxas's report of the custom libraries, keyed as ptxas_table keys
+    the main library's (the kernel, the model, the limits flag); without
+    the source file, which is the generated one under build/."""
+    table = {}
+    for name, model in custom_models().items():
+        for (kernel, _m, limits), e in ptxas_table(
+                _build.model_build_log(model)).items():
+            table[(kernel, name, limits)] = {k: v for k, v in e.items()
+                                             if k != "source"}
+    return table
+
+
+def _cpu_custom_job(job):
+    """In a worker process: one of phase 15's CPU references, the plain
+    versions on the CPU. ``job`` = (kind, args); returns (job, result)."""
+    torch.set_num_threads(1)
+    kind, args = job
+    models = custom_models()
+    if kind == "goal":     # (a): the example's problem for one goal
+        from ilqr_tpu_torch.examples import custom_model as tcm
+
+        sol = solver.solve(models["unicycle"], tcm.default_params(args),
+                           _custom_goal_cfg(), CUSTOM_DT,
+                           np.zeros(3, np.float32),
+                           np.zeros((CUSTOM_T, 2), np.float32), device="cpu")
+        return job, dict(cost=float(sol.cost), iterations=int(
+            sol.iterations), reason=int(sol.reason),
+            xf=sol.xs[-1].numpy().tolist())
+    if kind == "fleet":    # (b): the first lanes of one variant
+        model, params, cfg, T, dt, u0, x0 = custom_problem("unicycle")
+        lanes, iters = CUSTOM_CPU
+        cfg = cfg.replace(max_iter=iters, **CUSTOM_VARIANTS[args])
+        sol = solve_batch_fused(model, params, cfg, dt, x0[:lanes], u0,
+                                device="cpu")
+        return job, sol.cost.numpy().tolist()
+    # (e): the unicycle without SoA functions on the "xla" routes
+    model, params, cfg, x0, u0 = _custom_no_soa()
+    sol = solver.solve(model, params, cfg, CUSTOM_DT, x0, u0, device="cpu")
+    return job, float(sol.cost)
+
+
+def _custom_goal_cfg():
+    return SolverConfig(deriv_mode="analytic", clamp_forward=True)
+
+
+def _custom_no_soa():
+    """(model, params, cfg, x0, u0) of (e): the unicycle with its *_soa
+    fields None, solved from 0.1·normal(3) (default_rng(4)) for a short
+    horizon."""
+    import dataclasses
+
+    from ilqr_tpu_torch.examples import custom_model as tcm
+
+    model = dataclasses.replace(tcm.UNICYCLE, name="unicycle_aos",
+                                dynamics_soa=None, cost_soa=None,
+                                final_cost_soa=None)
+    T_x, iters = CUSTOM_XLA
+    x0 = (0.1 * np.random.default_rng(4).normal(size=3)).astype(np.float32)
+    return (model, tcm.default_params(), _custom_goal_cfg().replace(
+        max_iter=iters), x0, np.zeros((T_x, 2), np.float32))
+
+
+def _custom_fleet(dev, name, variant, x0, u0, init):
+    """One timed fused solve of (b) or (d) (after a warm-up solve), with
+    its launches (counts set to 0 just before, read just after)."""
+    model, params, cfg, T, dt, _u0, _x0 = custom_problem(name)
+    cfg = cfg.replace(**(CUSTOM_VARIANTS if name == "unicycle"
+                         else HEADING_VARIANTS)[variant])
+    solve_batch_fused(model, params, cfg, dt, x0, u0).cost.cpu()
+    reset_launch_counts()
+    fused._iteration.calls = 0
+    t0 = time.perf_counter()
+    sol = solve_batch_fused(model, params, cfg, dt, x0, u0)
+    host = {k: v.cpu() for k, v in sol._asdict().items()}   # full D2H
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    cost = host["cost"].numpy()
+    its = max(1, fused._iteration.calls)
+    worse = int((cost > init * (1.0 + 1e-6)).sum())
+    out = dict(B=len(x0), T=T, max_iter=cfg.max_iter, solves_per_s=len(x0)
+               / wall, wall_s=wall, ms_per_iteration=wall * 1e3 / its,
+               host_iterations=its, launches=counts,
+               mean_cost=float(cost.mean()), init_mean_cost=float(
+                   init.mean()), mean_iters=float(
+                       host["iterations"].float().mean()),
+               worse_than_initial=worse)
+    print(f"[custom] (b) {name} {variant}: B={len(x0)} T={T} max_iter="
+          f"{cfg.max_iter}: {out['solves_per_s']:.1f} solves/s ({wall:.3f} "
+          f"s; {nvidia_smi()}), {out['ms_per_iteration']:.3f} ms/iteration "
+          f"({its} host iterations), mean cost {out['mean_cost']:.4f} "
+          f"(initial {out['init_mean_cost']:.4f}), mean iterations "
+          f"{out['mean_iters']:.2f}, lanes above their initial cost {worse}, "
+          f"launches {counts}")
+    if not np.isfinite(cost).all() or worse:
+        raise AssertionError(f"(b) {variant}: a lane is non-finite or above "
+                             "its initial rollout's cost")
+    return out, cost
+
+
+def run_custom_slice(dev, rows, readings):
+    """Phase 15; fills in the launches of phase 3's custom-model rows and
+    readings from the paths that launched them. The CPU references run in
+    worker processes while the card runs the paths."""
+    from ilqr_tpu_torch.examples import custom_model as tcm
+
+    models = custom_models()
+    uni, head = models["unicycle"], models["unicycle_heading"]
+    jobs = ([("goal", g) for g in CUSTOM_GOALS]
+            + [("fleet", v) for v in ("analytic_euler", "analytic_rk4",
+                                      "fd_euler")] + [("no_soa", None)])
+    ctx = multiprocessing.get_context("spawn")
+    pool = ctx.Pool(len(jobs))
+    pending = pool.map_async(_cpu_custom_job, jobs)
+    res = {}
+    launches = {}
+
+    def note(key, n):
+        launches[key] = launches.get(key, 0) + n
+
+    # (a) the example's problem through solve, for both goals
+    t0 = time.perf_counter()
+    res["goals"] = []
+    for goal in CUSTOM_GOALS:
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        sol = solver.solve(uni, tcm.default_params(goal), _custom_goal_cfg(),
+                           CUSTOM_DT, np.zeros(3, np.float32),
+                           np.zeros((CUSTOM_T, 2), np.float32))
+        xf = sol.xs[-1].cpu().numpy()
+        wall = time.perf_counter() - t1
+        c = launch_counts()
+        note("derivs_packed/unicycle", c["derivs_packed"])
+        reason = TerminationReason(int(sol.reason.item())).name
+        res["goals"].append(dict(goal=goal, cost=float(sol.cost.item()),
+                                 iterations=int(sol.iterations.item()),
+                                 reason=reason, final_pose=xf.tolist(),
+                                 wall_s=wall, launches=c))
+        print(f"[custom] (a) unicycle solve to {goal} (analytic, clamped, "
+              f"T={CUSTOM_T}): cost {float(sol.cost.item()):.4f}, "
+              f"{int(sol.iterations.item())} iterations, reason {reason}, "
+              f"final pose ({xf[0]:.3f}, {xf[1]:.3f}, {xf[2]:.3f}); "
+              f"{wall:.2f} s, launches {c}")
+        if not (abs(xf[0] - goal[0]) < CUSTOM_GOAL_TOL
+                and abs(xf[1] - goal[1]) < CUSTOM_GOAL_TOL):
+            raise AssertionError(f"(a) the unicycle missed the goal {goal}")
+    print(f"[time] phase 15a (the example's problem) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) the fleet, four fused variants
+    t0 = time.perf_counter()
+    model, params, cfg, T, dt, u0, x0 = custom_problem("unicycle")
+    init = _initial_costs(dev, uni, kernel_rollout.pack_params(
+        params, dt, dev), T, u0, x0)
+    res["fleet"] = {}
+    for variant in CUSTOM_VARIANTS:
+        out, _cost = _custom_fleet(dev, "unicycle", variant, x0, u0, init)
+        res["fleet"][variant] = out
+        c = out["launches"]
+        if variant == "analytic_euler":
+            note("rollout_packed/unicycle", c["rollout_packed"])
+            note("iteration_packed/unicycle", c["iteration_packed"])
+        elif variant == "analytic_rk4":
+            note("rollout_packed/unicycle#rk4", c["rollout_packed"])
+            note("iteration_packed/unicycle#rk4", c["iteration_packed"])
+        elif variant == "fd_euler":
+            note("iteration_packed/unicycle#fd", c["iteration_packed"])
+        else:
+            note("sweep_packed/unicycle", c["sweep_packed"])
+            note("linesearch_packed/unicycle", c["linesearch_packed"])
+        if (c["rollout_packed"] != 1 or c["iteration_packed"]
+                + c["sweep_packed"] < 1):
+            raise AssertionError(f"(b) {variant} launched {c}")
+    print(f"[time] phase 15b (the fleet) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (c) tests/test_custom_model.py:41-53's configuration at full width
+    t0 = time.perf_counter()
+    ccfg = cfg.replace(max_iter=CUSTOM_COMP_ITERS, rollout_kernel="pallas",
+                       deriv_kernel="pallas")
+    _comp_counters()
+    t1 = time.perf_counter()
+    sol = solve_batch(uni, params, ccfg, dt, x0, u0)
+    cost = sol.cost.cpu().numpy()
+    out = _comp_stats(time.perf_counter() - t1)
+    out.update(B=len(x0), T=T, mean_cost=float(cost.mean()),
+               worse_than_initial=int((cost > init * (1.0 + 1e-6)).sum()))
+    res["composable"] = out
+    c = out["launches"]
+    note("derivs_packed/unicycle", c["derivs_packed"])
+    print(f"[custom] (c) unicycle composable solve_batch (kernel routes "
+          f"forced) B={len(x0)} T={T} max_iter={CUSTOM_COMP_ITERS}: "
+          f"{out['wall_s']:.2f} s, {out['ms_per_iteration']:.1f} "
+          f"ms/iteration, {out['syncs_per_iteration']:.1f} host "
+          f"syncs/iteration, mean cost {out['mean_cost']:.4f}, lanes above "
+          f"their initial cost {out['worse_than_initial']}, launches {c}")
+    if (not np.isfinite(cost).all() or c["rollout_packed"] < 1
+            or c["derivs_packed"] < 1 or out["worse_than_initial"]):
+        raise AssertionError("(c) the composable batch failed its checks")
+    print(f"[time] phase 15c (the composable batch) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) unicycle_heading: the split sweep (derivs + backward at n = 3)
+    # against the merged route, and the composable m = 1 route
+    t0 = time.perf_counter()
+    hmodel, hparams, hcfg, T, dt, hu0, hx0 = custom_problem(
+        "unicycle_heading")
+    hinit = _initial_costs(dev, head, kernel_rollout.pack_params(
+        hparams, dt, dev), T, hu0, hx0)
+    split, split_cost = _custom_fleet(dev, "unicycle_heading", "split",
+                                      hx0, hu0, hinit)
+    c = split["launches"]
+    for kind in ("rollout", "linesearch", "derivs", "backward_sweep"):
+        note(f"{kind}_packed/unicycle_heading", c[f"{kind}_packed"])
+    if c["derivs_packed"] < 1 or c["backward_sweep_packed"] < 1:
+        raise AssertionError(f"(d) the split sweep launched {c}")
+    merged, merged_cost = _custom_fleet(dev, "unicycle_heading", "merged",
+                                        hx0, hu0, hinit)
+    note("iteration_packed/unicycle_heading",
+         merged["launches"]["iteration_packed"])
+    p99, mx = gauge(split_cost, merged_cost)
+    res["heading"] = dict(split=split, merged=merged, gauge_p99=p99,
+                          gauge_max=mx)
+    print(f"[custom] (d) unicycle_heading split sweep against the merged "
+          f"route, B={len(hx0)} T={T} max_iter={hcfg.max_iter}: per-lane "
+          f"|c1-c2|/(1+|c2|) p99 {p99:.3e} (≤ {GAUGE_P99:g}), max {mx:.3e} "
+          f"(≤ {GAUGE_MAX:g})")
+    if not (p99 <= GAUGE_P99 and mx <= GAUGE_MAX):
+        raise AssertionError("(d) the split sweep left the gauge")
+    hc = hcfg.replace(max_iter=CUSTOM_COMP_ITERS)
+    _comp_counters()
+    t1 = time.perf_counter()
+    comp = solve_batch(head, hparams, hc, dt, hx0, hu0).cost.cpu().numpy()
+    cstats = _comp_stats(time.perf_counter() - t1)
+    c = cstats["launches"]
+    note("backward_sweep_packed/unicycle_heading", c["backward_sweep_packed"])
+    note("derivs_packed/unicycle_heading", c["derivs_packed"])
+    fz = solve_batch_fused(head, hparams, hc, dt, hx0, hu0).cost.cpu().numpy()
+    p99c, mxc = gauge(comp, fz)
+    cstats.update(gauge_p99=p99c, gauge_max=mxc)
+    res["heading"]["composable"] = cstats
+    print(f"[custom] (d) unicycle_heading composable m = 1 route (derivative "
+          f"and backward kernels) B={len(hx0)} max_iter={CUSTOM_COMP_ITERS}: "
+          f"{cstats['wall_s']:.2f} s, {cstats['ms_per_iteration']:.1f} "
+          f"ms/iteration, launches {c}; against the fused merged route: "
+          f"p99 {p99c:.3e}, max {mxc:.3e}")
+    if (c["backward_sweep_packed"] < 1 or not (p99c <= GAUGE_P99
+                                               and mxc <= GAUGE_MAX)):
+        raise AssertionError("(d) the composable m = 1 route failed")
+    print(f"[time] phase 15d (unicycle_heading) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) the unicycle without SoA functions: the "xla" routes on the card
+    t0 = time.perf_counter()
+    nmodel, nparams, ncfg, nx0, nu0 = _custom_no_soa()
+    reset_launch_counts()
+    nsol = solver.solve(nmodel, nparams, ncfg, CUSTOM_DT, nx0, nu0)
+    ncost = float(nsol.cost.item())
+    nc = launch_counts()
+    if any(nc.values()):
+        raise AssertionError(f"(e) the xla routes launched {nc}")
+
+    # the CPU references
+    cpu = dict(pending.get())
+    pool.close()
+    pool.join()
+    for g, r in zip(CUSTOM_GOALS, res["goals"]):
+        ref = cpu[("goal", g)]
+        rel = abs(r["cost"] - ref["cost"]) / abs(ref["cost"])
+        r.update(cpu_cost=ref["cost"], cpu_iterations=ref["iterations"],
+                 rel_to_cpu=rel)
+        print(f"[custom] (a) goal {g}: card cost {r['cost']:.6f} "
+              f"({r['iterations']} iterations), CPU {ref['cost']:.6f} "
+              f"({ref['iterations']} iterations): rel {rel:.2e} (≤ "
+              f"{CUSTOM_SOLVE_RTOL:g})")
+        if not rel <= CUSTOM_SOLVE_RTOL:
+            raise AssertionError(f"(a) goal {g}: the card left the CPU")
+    lanes, iters = CUSTOM_CPU
+    for variant in ("analytic_euler", "analytic_rk4", "fd_euler"):
+        ref = np.asarray(cpu[("fleet", variant)])
+        vcfg = cfg.replace(max_iter=iters, **CUSTOM_VARIANTS[variant])
+        card = solve_batch_fused(uni, params, vcfg, dt, x0[:lanes],
+                                 u0).cost.cpu().numpy()
+        rel = float(np.max(np.abs(card - ref) / np.abs(ref)))
+        res["fleet"][variant]["card_vs_cpu"] = dict(
+            lanes=lanes, max_iter=iters, max_rel_cost_diff=rel)
+        print(f"[custom] (b) {variant}, {lanes} lanes, max_iter={iters}: "
+              f"card vs the plain path on the CPU, max relative cost "
+              f"difference {rel:.2e} (≤ {CUSTOM_SOLVE_RTOL:g})")
+        if not rel <= CUSTOM_SOLVE_RTOL:
+            raise AssertionError(f"(b) {variant}: the card left the CPU")
+    nref = cpu[("no_soa", None)]
+    nrel = abs(ncost - nref) / abs(nref)
+    res["no_soa"] = dict(cost=ncost, cpu_cost=nref, rel_to_cpu=nrel,
+                         iterations=int(nsol.iterations.item()),
+                         wall_s=time.perf_counter() - t0)
+    print(f"[custom] (e) the unicycle without SoA functions on the 'xla' "
+          f"routes (T={len(nu0)}, max_iter={ncfg.max_iter}): card cost "
+          f"{ncost:.6f}, CPU {nref:.6f}, rel {nrel:.2e} (≤ "
+          f"{CUSTOM_SOLVE_RTOL:g}); no kernel launched")
+    if not nrel <= CUSTOM_SOLVE_RTOL:
+        raise AssertionError("(e) the xla routes left the CPU")
+    print(f"[time] phase 15e (no SoA functions) and the CPU references "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    for key, n in launches.items():
+        row, _sep, mode = key.partition("#")
+        if mode == "rk4":
+            readings[row]["launches"] = n
+        elif mode == "fd":
+            rows[row]["fd_launches"] = n
+        else:
+            rows[row]["launches"] = n
+    for key, r in list(rows.items()) + list(readings.items()):
+        if r.get("model") in CUSTOM_MODELS and not (
+                r["bitwise_equal"] and r.get("fd_bitwise_equal", True)):
+            raise AssertionError(f"{key} is not bitwise equal to its plain "
+                                 "version")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3267,13 +3960,36 @@ def main() -> int:
           f"runs one nvcc per source, all at once)")
 
     t0 = time.perf_counter()
-    lib = _build.build()
+    # the main library and the custom models' libraries, all their nvcc
+    # processes started together: the custom ones fill the cores the main
+    # build leaves idle in its tail
+    customs = custom_models()
+
+    def timed(fn, *args):
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1 + len(customs)) as pool:
+        main_build = pool.submit(timed, _build.build)
+        custom_builds = {name: pool.submit(timed, _build.build_model, model)
+                         for name, model in customs.items()}
+        lib, main_s = main_build.result()
+        custom_s = {name: f.result()[1] for name, f in custom_builds.items()}
     _build.library()
+    for model in customs.values():
+        _build.model_library(model)
     print(f"[build] {lib.name} from {len(_build.sources())} sources in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          f"{main_s:.1f} s (nvcc "
           f"{' '.join(_build.NVCC_FLAGS)}, one process per .cu); seconds "
           f"per source {json.dumps(_build.compile_seconds())}")
+    for name, model in customs.items():
+        print(f"[build] lib{name}.so (the custom model {name}: "
+              f"{_build.model_dir(model)}) done {custom_s[name]:.1f} s after "
+              f"the start; seconds per source "
+              f"{json.dumps(_build.model_compile_seconds(model))}")
+    print(f"[build] all libraries in {time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_table(_build.build_log())
+    ptxas.update(custom_ptxas())
     for (kernel, model_name, limits), e in sorted(
             ptxas.items(), key=lambda kv: str(kv[0])):
         print(f"[build] {kernel}<{model_name}"
@@ -3326,7 +4042,9 @@ def main() -> int:
     tick("phase 13 (per-problem params, the fleet warm start and MPC)")
     slice14_out = run_composable_slice(dev, rows, readings)
     tick("phase 14 (the composable solver at m ≥ 2, the single MPC)")
-    print(f"[time] phases 2-14 {time.perf_counter() - t0:.1f} s", flush=True)
+    custom_out = run_custom_slice(dev, rows, readings)
+    tick("phase 15 (custom models: the unicycle and unicycle_heading)")
+    print(f"[time] phases 2-15 {time.perf_counter() - t0:.1f} s", flush=True)
     for key, r in readings.items():   # a mode of a row's kernel
         row, _sep, mode = key.partition("#")
         rows[row].update({f"{READING_PREFIX[mode]}{k}": v
@@ -3357,7 +4075,8 @@ def main() -> int:
                       "slice": slice_out, "wide_slice": wide_out,
                       "cli_slice": cli_out, "fd_slice": fd_out,
                       "jvp_slice": jvp_out, "lanes_slice": lanes_out,
-                      "composable_slice": slice14_out}))
+                      "composable_slice": slice14_out,
+                      "custom_slice": custom_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,12 @@ It carries the fused batch solver (``solve_batch_fused``, fused.py, with
 shared or per-problem params, and its warm start
 ``solve_batch_fused_warm``) and the composable solver (``solve``,
 ``solve_verbose``, ``solve_warm``, solver.py; ``solve_batch``, batch.py,
-with shared or per-problem params) for the package's 14 models, the box
-QPs of the composable backward pass (ops/boxqp.py), the MPC on both
-(mpc.py: one controller on the composable solver, fleets on the fused
-one), and the six CUDA kernels they run (ops/, csrc/). It imports neither
-JAX nor ilqr_tpu.
+with shared or per-problem params) for the package's 14 models and for
+custom models registered with ``models.register`` (their kernels built
+from their torch SoA functions, ops/codegen.py), the box QPs of the
+composable backward pass (ops/boxqp.py), the MPC on both (mpc.py: one
+controller on the composable solver, fleets on the fused one), and the six
+CUDA kernels they run (ops/, csrc/). It imports neither JAX nor ilqr_tpu.
 """
 
 from ilqr_tpu_torch.config import (

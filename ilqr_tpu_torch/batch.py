@@ -7,7 +7,7 @@ kernel launch over the whole batch (the line search over B·A lanes).
 
 The JAX package's containment of an XLA:TPU worker fault
 (``solve_batch_wide``, its lane-iteration ledger, ``solve_batch_chunked``)
-has no counterpart yet; ROADMAP A4 holds its routing and API.
+has no counterpart yet; ROADMAP A5 holds its routing and API.
 """
 
 from __future__ import annotations

@@ -398,6 +398,9 @@ inline int launch_iteration(
 // whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
 // ILQR_ITERATION_LAUNCHER in two sources, which compile in parallel.
+// ILQR_ROLLOUT_LAUNCHERS instantiates the rollout and the line search
+// alone: a custom model (ops/codegen.py) has no closed-form derivatives,
+// so its sweep and iteration come from the dense policies only.
 // ILQR_FD_LAUNCHERS instantiates the stencil sweep and iteration kernels,
 // ilqr_<NAME>_sweep_fd and ilqr_<NAME>_iteration_fd, in a source of their
 // own (ILQR_FD_SWEEP_LAUNCHER and ILQR_FD_ITERATION_LAUNCHER apart for the
@@ -438,7 +441,7 @@ inline int launch_iteration(
       dcost, expected, div, gnorm, gains, z_min, tol_grad, lam_grad_term, T, \
       B, clamp, use_limits
 
-#define ILQR_SPLIT_LAUNCHERS(NAME, MODEL)                                      \
+#define ILQR_ROLLOUT_LAUNCHERS(NAME, MODEL)                                    \
   extern "C" {                                                                 \
   int ilqr_##NAME##_rollout(const void* params, int pstride, const void* x0,   \
                             const void* uff, const void* xsr, const void* K,   \
@@ -469,10 +472,13 @@ inline int launch_iteration(
         (float*)acc, (float*)dcost, (float*)expected, z_min, T, B, clamp,      \
         scheme);                                                               \
   }                                                                            \
-  int ilqr_##NAME##_sweep(ILQR_SWEEP_PARAMS, void* stream) {                   \
+  }
+
+#define ILQR_SPLIT_LAUNCHERS(NAME, MODEL)                                      \
+  ILQR_ROLLOUT_LAUNCHERS(NAME, MODEL)                                          \
+  extern "C" int ilqr_##NAME##_sweep(ILQR_SWEEP_PARAMS, void* stream) {        \
     return fused::launch_sweep<MODEL>(ILQR_SWEEP_ARGS, sweep::Analytic{},      \
                                       stream);                                 \
-  }                                                                            \
   }
 
 #define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                \

@@ -45,7 +45,7 @@ from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model
 from ilqr_tpu_torch.ops import qp
 from ilqr_tpu_torch.ops.kernel_backward import (
-    BACKWARD_KERNEL_NS,
+    backward_ns,
     backward_sweep_packed,
 )
 from ilqr_tpu_torch.ops.kernel_derivs import (
@@ -54,6 +54,7 @@ from ilqr_tpu_torch.ops.kernel_derivs import (
 )
 from ilqr_tpu_torch.ops.kernel_iter import iteration_packed
 from ilqr_tpu_torch.ops.kernel_rollout import (
+    has_kernels,
     linesearch_packed,
     pack_params,
     pack_params_batched,
@@ -323,17 +324,13 @@ MAX_FUSED_M = qp.MAX_FUSED_M
 
 def _derivs_carried(model: Model, cfg: SolverConfig) -> bool:
     """Whether the sweep's derivatives are ported for (model, cfg), on the
-    merged and the split sweep alike: ``deriv_mode="analytic"`` for a model
-    with ``jac_soa`` (the closed forms with the Euler step, the JAX kernels'
-    use_analytic; dual numbers through the RK4 step, their in-kernel JVPs)
+    merged and the split sweep alike: ``deriv_mode="analytic"`` (the closed
+    forms with the Euler step for a model with ``jac_soa``, the JAX
+    kernels' use_analytic; dual numbers otherwise, their in-kernel JVPs)
     or ``deriv_mode="fd"`` (the reference's stencils), each with the Euler
-    or the RK4 step. The JVP route of a model without ``jac_soa`` (a
-    custom model) is not ported."""
-    if cfg.integrator not in ("euler", "rk4"):
-        return False
-    if cfg.deriv_mode == "analytic":
-        return model.has_analytic_soa
-    return cfg.deriv_mode == "fd"
+    or the RK4 step."""
+    return (cfg.integrator in ("euler", "rk4")
+            and cfg.deriv_mode in ("analytic", "fd"))
 
 
 def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
@@ -344,11 +341,12 @@ def fused_applicable(model: Model, cfg: SolverConfig) -> bool:
     derivatives of ``_derivs_carried``: analytic (closed forms with the
     Euler step, dual numbers with RK4) or the reference's stencils
     (``deriv_mode="fd"``, eps ``cfg.fd_eps``) with the Euler or RK4 step,
-    in the whole-iteration and the split-iteration kernels; ``sweep_kernel="split"`` needs m = 1 and
-    control limits (the backward kernel's closed-form QP). The rollout and
-    line search take the configured integrator. On the card the kernels
-    exist for the models of ``ops.kernel_rollout.FUSED_KERNEL_MODELS``
-    (the split sweep's for those of ``DERIVS_KERNEL_MODELS``); any other
+    in the whole-iteration and the split-iteration kernels;
+    ``sweep_kernel="split"`` needs m = 1 and control limits (the backward
+    kernel's closed-form QP). The rollout and line search take the
+    configured integrator. On the card the kernels exist for the models of
+    ``ops.kernel_rollout.FUSED_KERNEL_MODELS`` and the custom models
+    registered with ``models.register`` (their own libraries); any other
     raises there."""
     split = cfg.sweep_kernel == "split"
     return (model.m <= MAX_FUSED_M and model.has_soa
@@ -387,13 +385,6 @@ def _check_config(model: Model, cfg: SolverConfig):
     _use_iter_kernel(model, cfg)
     if not model.has_soa:
         raise ValueError("solve_batch_fused requires SoA model functions")
-    if (cfg.deriv_mode == "analytic" and cfg.integrator in ("euler", "rk4")
-            and not model.has_analytic_soa):
-        raise NotImplementedError(
-            f"deriv_mode='analytic' on model {model.name!r} without jac_soa "
-            "(a custom model) is the sweep's in-kernel JVP route of a model "
-            "whose device functions the port cannot take yet (ROADMAP.md "
-            "§B2, custom models); deriv_mode='fd' carries it")
     if not fused_applicable(model, cfg):
         raise NotImplementedError(
             f"solve_batch_fused does not carry model {model.name!r} with "
@@ -402,18 +393,20 @@ def _check_config(model: Model, cfg: SolverConfig):
 
 def _check_kernels(model: Model, cfg: SolverConfig, dev: torch.device):
     """On the card every op of the route must have its kernel. The split
-    sweep's derivative kernel (csrc/derivs_<model>.cu) is instantiated for
-    every registered model and the backward kernel (csrc/backward.cu) for
-    n = 2 and 4, so any other model raises there before anything runs."""
+    sweep's derivative kernel is instantiated for every model of the
+    package (csrc/derivs_<model>.cu) and every registered custom model (its
+    own library), the backward kernel for n = 2 and 4 (csrc/backward.cu)
+    and each registered m = 1 custom model's n, so any other model raises
+    there before anything runs (the registry is read at the call)."""
     if (dev.type == "cuda" and cfg.sweep_kernel == "split"
-            and (model.name not in DERIVS_KERNEL_MODELS
-                 or model.n not in BACKWARD_KERNEL_NS)):
+            and (not has_kernels(model, DERIVS_KERNEL_MODELS)
+                 or model.n not in backward_ns())):
         raise NotImplementedError(
             f"sweep_kernel='split' on the card runs "
-            f"{', '.join(DERIVS_KERNEL_MODELS)}; derivs_packed and "
-            f"backward_sweep_packed for {model.name!r} (n = {model.n}) are "
-            "not instantiated (ROADMAP.md §B5); sweep_kernel='merged' runs "
-            "this model")
+            f"{', '.join(DERIVS_KERNEL_MODELS)} and the registered custom "
+            f"m = 1 models (backward kernel at n in {backward_ns()}); not "
+            f"{model.name!r} (n = {model.n}), which sweep_kernel='merged' "
+            "runs")
 
 
 def solve_batch_fused(model: Model, params, cfg: SolverConfig, dt, x0, u0,

@@ -1,6 +1,10 @@
 """Model registry (counterpart of ``ilqr_tpu/models/__init__.py``).
 
-Every model of the JAX package is ported; another name raises
+Every model of the JAX package is ported. :func:`register` adds a user's
+model (the extension point, ref include/model.h:8-10): with SoA functions
+its kernels are generated from them and built into a library of its own at
+first use on the card (ops/codegen.py, ``ops._build.build_model``); without
+them it runs the "xla" routes. An unknown name raises
 ``NotImplementedError``.
 """
 
@@ -30,8 +34,45 @@ _REGISTRY: Dict[str, Model] = {
                   *thruster_ring.MODELS, pendulum.MODEL, cartpole.MODEL,
                   bicycle.MODEL, power_mass.MODEL)}
 
+# The package's own models, whose kernels are the hand-written ones of
+# csrc/ in the main library.
+_BUILTIN = dict(_REGISTRY)
+
 # Models of the JAX package that this package does not carry yet.
 _NOT_YET_PORTED = ()
+
+
+def register(model: Model) -> Model:
+    """Adds ``model`` under its name (``get_model`` then finds it). Its
+    kernels' launchers are named ``ilqr_<name>_<kernel>``, so the name must
+    be a C identifier; a duplicate or another name raises ValueError."""
+    name = model.name
+    if not (isinstance(name, str) and name.isidentifier()
+            and name.isascii()):
+        raise ValueError(f"model name {name!r} is not a C identifier (the "
+                         "kernels' launchers are named ilqr_<name>_<kernel>)")
+    if name in _REGISTRY:
+        raise ValueError(f"model {name!r} already registered")
+    _REGISTRY[name] = model
+    return model
+
+
+def is_builtin(model: Model) -> bool:
+    """Whether ``model`` is one of the package's own 14 models."""
+    return _BUILTIN.get(model.name) is model
+
+
+def custom_model(model: Model):
+    """``model`` if it is a registered custom model (its kernels come from
+    its own library), else None."""
+    if is_builtin(model) or _REGISTRY.get(model.name) is not model:
+        return None
+    return model
+
+
+def custom_models():
+    """The registered custom models, in registration order."""
+    return [m for m in _REGISTRY.values() if not is_builtin(m)]
 
 
 def get_model(name: str) -> Model:
@@ -56,6 +97,10 @@ __all__ = [
     "euler_step",
     "rk4_step",
     "get_integrator",
+    "custom_model",
+    "custom_models",
     "get_model",
+    "is_builtin",
     "list_models",
+    "register",
 ]

@@ -9,6 +9,12 @@ has a plain C interface (no PyTorch headers). Each source's nvcc seconds
 are kept beside the library (``compile_seconds()``), with ptxas's report
 (``build_log()``).
 
+A registered custom model (``models.register``) has a library of its own,
+built on first use by :func:`build_model` into
+``build/ilqr_tpu_torch/custom/<hash>/``: its generated traits header
+(ops/codegen.py) and one instantiation source per kernel group of the
+hand-written templates, compiled with the same flags.
+
 Every launcher takes its pointers as ``c_void_p`` and PyTorch's current
 stream, launches asynchronously and returns ``cudaGetLastError()``;
 :func:`launch` raises on a nonzero code.
@@ -73,13 +79,13 @@ _FUSED_SIGNATURES = {
     "derivs": _PARAMS + [_P] * 9 + [_I, _I, _F, _F, _F, _I, _I, _P],
 }
 _BACKWARD = [_P] * 16 + [_I, _I, _P]
-_SIGNATURES = {"ilqr_backward_n2": _BACKWARD, "ilqr_backward_n4": _BACKWARD}
 
 
 def signature(name: str):
     """The ctypes argument types of launcher ``name``."""
-    if name in _SIGNATURES:
-        return _SIGNATURES[name]
+    if (name.startswith("ilqr_backward_n")
+            and name.removeprefix("ilqr_backward_n").isdigit()):
+        return _BACKWARD
     for suffix in ("_fd", "_jvp", ""):
         if name.endswith(suffix):
             kernel = name.removesuffix(suffix).rsplit("_", 1)[-1] + suffix
@@ -119,15 +125,21 @@ def build() -> Path:
     the library is already there; returns its path. The sources compile in
     parallel, one nvcc each; the compiler's register/spill report is kept
     beside the library in ``ptxas.log``."""
-    out_dir = BUILD_ROOT / source_hash()
-    lib = out_dir / LIB_NAME
+    return _build_library(BUILD_ROOT / source_hash(),
+                          sorted(CSRC.glob("*.cu")), LIB_NAME)
+
+
+def _build_library(out_dir: Path, units, lib_name: str, extra=()) -> Path:
+    """Compiles ``units`` (one nvcc each, all at once, with ``extra``
+    flags) and links them into ``out_dir / lib_name`` unless it is there;
+    the ptxas report and each source's seconds are kept beside it."""
+    lib = out_dir / lib_name
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    units = sorted(CSRC.glob("*.cu"))
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o",
+        cmds = [[nvcc, *NVCC_FLAGS, *extra, "-c", "-o",
                  str(Path(tmp) / (src.stem + ".o")), str(src)]
                 for src in units]
         # one thread per nvcc, so that each source's own seconds are known
@@ -177,10 +189,7 @@ def compile_seconds() -> dict:
     return json.loads(rec.read_text()) if rec.exists() else {}
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The kernel library, built if needed and loaded once per process."""
-    lib = ctypes.CDLL(str(build()))
+def _bind_shared(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ilqr_error_string.argtypes = [ctypes.c_int]
     lib.ilqr_error_string.restype = ctypes.c_char_p
     lib.ilqr_max_alphas.argtypes = []
@@ -189,12 +198,141 @@ def library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str):
-    """Launcher ``name`` of the library, its argument types bound."""
-    fn = getattr(library(), name)
-    fn.argtypes = signature(name)
-    fn.restype = ctypes.c_int
-    return fn
+def library() -> ctypes.CDLL:
+    """The kernel library, built if needed and loaded once per process."""
+    return _bind_shared(ctypes.CDLL(str(build())))
+
+
+# ---------------------------------------------------------------------------
+# A custom model's own library
+# ---------------------------------------------------------------------------
+
+CUSTOM_ROOT = BUILD_ROOT / "custom"
+_SHARED_ENTRY_POINTS = """
+extern "C" {
+
+int ilqr_max_alphas() { return fused::kMaxA; }
+
+const char* ilqr_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
+"""
+
+
+def model_sources(model) -> dict:
+    """The files of ``model``'s library, by name: the generated traits
+    header (``model.cuh``) and its instantiation sources — the rollout and
+    the line search (with the library's shared entry points), the
+    dual-number and the stencil sweep and iteration kernels, the
+    derivative kernel, and for m = 1 the backward kernel at the model's
+    n (launcher ``ilqr_backward_n<n>``). Raises ``NotImplementedError``
+    where the recorder refuses an operation of its SoA functions."""
+    from ilqr_tpu_torch.ops import codegen
+
+    name = model.name
+    inc = '#include "model.cuh"\n'
+    files = {
+        "model.cuh": codegen.model_header(model),
+        "rollout.cu": inc + '#include "kernels.cuh"\n\n'
+        f"ILQR_ROLLOUT_LAUNCHERS({name}, custom_model::Model)\n"
+        + _SHARED_ENTRY_POINTS,
+        "jvp.cu": inc + '#include "kernels.cuh"\n\n'
+        f"ILQR_JVP_LAUNCHERS({name}, custom_model::Model)\n",
+        "fd.cu": inc + '#include "kernels.cuh"\n\n'
+        f"ILQR_FD_LAUNCHERS({name}, custom_model::Model)\n",
+        "derivs.cu": inc + '#include "derivs.cuh"\n\n'
+        f"ILQR_DERIVS_LAUNCHER({name}, custom_model::Model)\n",
+    }
+    if model.m == 1:
+        files["backward.cu"] = (
+            f'#include "backward.cuh"\n\nILQR_BACKWARD_LAUNCHER({model.n})\n')
+    return files
+
+
+def model_hash(model) -> str:
+    """The hash of ``model``'s library: its generated files, every
+    ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname, text in sorted(model_sources(model).items()):
+        h.update(fname.encode())
+        h.update(text.encode())
+    for f in sorted(CSRC.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def model_dir(model) -> Path:
+    return CUSTOM_ROOT / model_hash(model)
+
+
+def build_model(model) -> Path:
+    """Writes ``model``'s generated files into its hashed directory under
+    ``build/ilqr_tpu_torch/custom/`` and builds ``lib<name>.so`` from them
+    unless it is there (one nvcc per source, all at once, with ``-I
+    csrc``); returns its path."""
+    out_dir = model_dir(model)
+    lib = out_dir / f"lib{model.name}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    units = []
+    for fname, text in model_sources(model).items():
+        path = out_dir / fname
+        if not path.exists() or path.read_text() != text:
+            path.write_text(text)
+        if fname.endswith(".cu"):
+            units.append(path)
+    return _build_library(out_dir, sorted(units), lib.name,
+                          extra=("-I", str(CSRC)))
+
+
+_MODEL_LIBS = {}
+
+
+def model_library(model) -> ctypes.CDLL:
+    """``model``'s own library, built if needed and loaded once per
+    process (per model object)."""
+    key = (model.name, id(model))
+    if key not in _MODEL_LIBS:
+        _MODEL_LIBS[key] = (model, _bind_shared(
+            ctypes.CDLL(str(build_model(model)))))
+    return _MODEL_LIBS[key][1]
+
+
+def model_build_log(model) -> str:
+    """What ptxas reported for ``model``'s library."""
+    log = model_dir(model) / "ptxas.log"
+    return log.read_text() if log.exists() else ""
+
+
+def model_compile_seconds(model) -> dict:
+    """Each source's nvcc seconds in the build of ``model``'s library."""
+    rec = model_dir(model) / "compile_seconds.json"
+    return json.loads(rec.read_text()) if rec.exists() else {}
+
+
+def lib_for(model=None) -> ctypes.CDLL:
+    """The library that holds a model's launchers: the custom ``model``'s
+    own, or the main library when ``model`` is None."""
+    return library() if model is None else model_library(model)
+
+
+_LAUNCHERS = {}
+
+
+def _launcher(name: str, model=None):
+    """Launcher ``name`` of ``lib_for(model)``, its argument types
+    bound."""
+    key = (name, None if model is None else (model.name, id(model)))
+    if key not in _LAUNCHERS:
+        fn = getattr(lib_for(model), name)
+        fn.argtypes = signature(name)
+        fn.restype = ctypes.c_int
+        _LAUNCHERS[key] = fn
+    return _LAUNCHERS[key]
 
 
 def require(t: torch.Tensor, shape, name: str, device: torch.device):
@@ -213,10 +351,11 @@ def require(t: torch.Tensor, shape, name: str, device: torch.device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Calls launcher ``name`` on ``device``'s current stream with ``args``
-    (tensors become their data pointers); raises if the launch failed."""
-    fn = _launcher(name)
+def launch(name: str, device: torch.device, *args, model=None) -> None:
+    """Calls launcher ``name`` of ``lib_for(model)`` on ``device``'s current
+    stream with ``args`` (tensors become their data pointers); raises if
+    the launch failed."""
+    fn = _launcher(name, model)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -224,4 +363,4 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(
             f"{name}: CUDA error {err}: "
-            f"{library().ilqr_error_string(err).decode()}")
+            f"{lib_for(model).ilqr_error_string(err).decode()}")

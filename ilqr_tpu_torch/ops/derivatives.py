@@ -4,7 +4,9 @@
 
 :func:`compute_derivs` dispatches by ``cfg.deriv_kernel``: ``"auto"`` and
 ``"pallas"`` run the derivative op (ops/kernel_derivs.py) — its CUDA kernel
-on the card, its plain version on the CPU — for every model, with the
+on the card, its plain version on the CPU — for every model with SoA
+functions (a model without them takes ``"xla"`` on ``"auto"``, as the JAX
+package's ``_use_fused_derivs`` does, and raises on ``"pallas"``), with the
 Euler or RK4 step and shared or per-lane params, in ``"jvp"`` mode for
 ``deriv_mode="analytic"`` and in ``"fd"`` mode with ``cfg.fd_eps`` for
 ``"fd"``. The JAX package's ``"auto"`` takes its XLA route above
@@ -180,13 +182,28 @@ def fd_derivs(model: Model, pp: PackedParams, cfg: SolverConfig, xs,
         cxu=shape(cxu), cuu=shape(cuu))
 
 
+def stage_route(model: Model, route: str, field: str) -> str:
+    """The route a stage takes by its config ``field`` = ``route``: "xla"
+    when asked, or on "auto" for a model without SoA functions; the kernel
+    op ("pallas") otherwise. "pallas" on a model without SoA functions
+    raises ValueError naming the missing ones."""
+    missing = [f for f in ("dynamics_soa", "cost_soa", "final_cost_soa")
+               if getattr(model, f) is None]
+    if route == "pallas" and missing:
+        raise ValueError(
+            f"{field}='pallas' runs the kernels, which take a model's SoA "
+            f"functions; model {model.name!r} lacks {', '.join(missing)} "
+            f"(use {field}='auto' or 'xla')")
+    return "xla" if route == "xla" or missing else "pallas"
+
+
 def compute_derivs(model: Model, pp: PackedParams, cfg: SolverConfig, xs,
                    us) -> Derivs:
     """Derivatives along (xs, us), dispatched by ``cfg.deriv_kernel`` (see
     the module docstring)."""
     if cfg.deriv_mode not in ("analytic", "fd"):
         raise ValueError(f"unknown deriv_mode {cfg.deriv_mode!r}")
-    if cfg.deriv_kernel == "xla":
+    if stage_route(model, cfg.deriv_kernel, "deriv_kernel") == "xla":
         impl = analytic_derivs if cfg.deriv_mode == "analytic" else fd_derivs
         return impl(model, pp, cfg, xs, us)
     mode = "jvp" if cfg.deriv_mode == "analytic" else "fd"

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ilqr_tpu_torch import models
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
@@ -105,8 +106,31 @@ def backward_plain(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT, cxxT):
 
 
 # The state dimensions csrc/backward.cu is instantiated for: pendulum's 2,
-# and acrobot's and cartpole's 4.
+# and acrobot's and cartpole's 4. A registered custom model with m = 1 has
+# the kernel at its own n in its own library (backward_owner).
 BACKWARD_KERNEL_NS = (2, 4)
+
+
+def backward_owner(n: int):
+    """The model whose library holds the backward kernel at ``n``: None
+    for the main library's n (BACKWARD_KERNEL_NS), else the first
+    registered custom model with m = 1 and that n; raises
+    NotImplementedError when there is none."""
+    if n in BACKWARD_KERNEL_NS:
+        return None
+    for model in models.custom_models():
+        if model.m == 1 and model.n == n and model.has_soa:
+            return model
+    raise NotImplementedError(
+        f"the backward kernel is compiled for n in {BACKWARD_KERNEL_NS} "
+        "(csrc/backward.cu) and for the n of each registered custom model "
+        f"with m = 1, not n = {n}")
+
+
+def backward_ns():
+    """Every state dimension the backward kernel has on the card."""
+    return tuple(sorted({*BACKWARD_KERNEL_NS, *(
+        m.n for m in models.custom_models() if m.m == 1 and m.has_soa)}))
 
 
 def backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT,
@@ -120,10 +144,7 @@ def backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT,
                               cxT, cxxT)
     dev = fu.device
     T, n, B = fu.shape
-    if n not in BACKWARD_KERNEL_NS:
-        raise NotImplementedError(
-            f"the backward kernel is compiled for n in {BACKWARD_KERNEL_NS} "
-            f"(csrc/backward.cu), got n = {n}")
+    owner = backward_owner(n)
     for t, shape, name in (
             (fx, (T, n, n, B), "fx"), (fu, (T, n, B), "fu"),
             (cx, (T, n, B), "cx"), (cu, (T, B), "cu"),
@@ -137,7 +158,7 @@ def backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT,
     dv = torch.empty((2, B), dtype=F32, device=dev)
     div = torch.empty((B,), dtype=F32, device=dev)
     _build.launch(f"ilqr_backward_n{n}", dev, fx, fu, cx, cu, cxx, cxu, cuu,
-                  lo, hi, lam, cxT, cxxT, k, K, dv, div, T, B)
+                  lo, hi, lam, cxT, cxxT, k, K, dv, div, T, B, model=owner)
     backward_sweep_packed.launches += 1
     return k, K, dv, div
 

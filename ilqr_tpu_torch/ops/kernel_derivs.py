@@ -19,8 +19,9 @@ The helpers of both modes (:func:`jvp_running`, :func:`jvp_terminal`,
 :func:`fd_running`, :func:`fd_terminal`) are model-generic and take the
 integrator; the merged sweep's plain version (ops/kernel_sweep.py) takes
 its dense derivatives from them. The CUDA kernel (csrc/derivs.cuh) is
-instantiated for every registered model, one csrc/derivs_<model>.cu each
-(:data:`DERIVS_KERNEL_MODELS`); the plain version takes any model.
+instantiated for every model of the package, one csrc/derivs_<model>.cu
+each (:data:`DERIVS_KERNEL_MODELS`), and for a registered custom model in
+its own library; the plain version takes any model.
 
 Layout (lane last) and dispatch as in ops/kernel_rollout.py.
 """
@@ -36,9 +37,11 @@ from ilqr_tpu_torch.ops.kernel_rollout import (
     PackedParams,
     batch_first,
     integrate,
+    kernel_owner,
     lane_last,
     on_cuda,
     param_stride,
+    plain_model,
     require_kernel_model,
     scheme,
     unpack_params,
@@ -314,6 +317,7 @@ def derivs_plain(model, integrator, pp: PackedParams, xs, us, mode="jvp",
                  eps=1e-3):
     """Plain version of :func:`derivs_packed`."""
     _check(mode, integrator)
+    model = plain_model(model, pp.shapes)
     p, dt = unpack_params(pp)
     T, m, B = us.shape
     n = xs.shape[1]
@@ -339,9 +343,10 @@ def derivs_plain(model, integrator, pp: PackedParams, xs, us, mode="jvp",
             cxu.contiguous(), cuu.contiguous())
 
 
-# The models csrc/derivs.cuh is compiled for (one csrc/derivs_<model>.cu
-# each), with their params types: every model the fused kernels carry. The
-# split sweep runs the m = 1 ones, the composable path all of them.
+# The package's models csrc/derivs.cuh is compiled for (one
+# csrc/derivs_<model>.cu each), with their params types: every model the
+# fused kernels carry (a registered custom model's is in its own library).
+# The split sweep runs the m = 1 ones, the composable path all of them.
 DERIVS_KERNEL_MODELS = dict(FUSED_KERNEL_MODELS)
 
 
@@ -371,7 +376,8 @@ def derivs_packed(model, integrator: str, pp: PackedParams, xs, us,
     # 4·eps² taken in double, then to f32
     _build.launch(f"{prefix}_derivs", dev, pp.vec, param_stride(pp), xs, us,
                   *outs, int(mode == "fd"), scheme(integrator), float(eps),
-                  float(2.0 * eps), float(4.0 * eps * eps), T, B)
+                  float(2.0 * eps), float(4.0 * eps * eps), T, B,
+                  model=kernel_owner(model))
     derivs_packed.launches += 1
     return outs
 

@@ -17,6 +17,7 @@ from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
+    kernel_owner,
     linesearch_plain,
     on_cuda,
     param_stride,
@@ -75,9 +76,10 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     dev = us.device
     T, m, B = us.shape
     n = model.n
-    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B)
+    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B,
+                                  limits=clamp or use_limits)
     A = alphas.shape[0]
-    max_a = _build.library().ilqr_max_alphas()
+    max_a = _build.lib_for(kernel_owner(model)).ilqr_max_alphas()
     if not 1 <= A <= max_a:
         raise ValueError(f"iteration kernel takes 1..{max_a} alphas, got {A}")
     for t, shape, name in (
@@ -94,13 +96,13 @@ def iteration_packed(model, integrator: str, clamp: bool, pp: PackedParams,
             torch.empty((T, m, n, B), dtype=F32, device=dev),
             *(torch.empty((B,), dtype=F32, device=dev) for _ in range(7)))
     gains = torch.empty((T, m * (n + 1), B), dtype=F32, device=dev)
-    suffix, extra = kernel_args(mode, integrator, eps)
+    suffix, extra = kernel_args(mode, integrator, eps, model)
     _build.launch(f"{prefix}_iteration{suffix}", dev, pp.vec,
                   param_stride(pp), x0, xs_body, xterm, us, Kold, kold,
                   alphas, A, lam, cost_prev, live, *outs, gains,
                   float(z_min), float(tol_grad),
                   float(lambda_grad_term), T, B, int(bool(clamp)),
-                  int(bool(use_limits)), *extra)
+                  int(bool(use_limits)), *extra, model=kernel_owner(model))
     iteration_packed.launches += 1
     return outs
 

@@ -15,6 +15,7 @@ ops take the Euler or the RK4 step (``integrator``), as the JAX kernels do.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import NamedTuple
@@ -22,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ilqr_tpu_torch import models
 from ilqr_tpu_torch.models.acrobot import AcrobotParams
 from ilqr_tpu_torch.models.bicycle import BicycleParams
 from ilqr_tpu_torch.models.cartpole import CartPoleParams
@@ -136,8 +138,10 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-# The models the fused solver's four kernels are compiled for (one
-# csrc/kernels*.cu each), with their params types.
+# The package's models the fused solver's four kernels are compiled for
+# (one csrc/kernels*.cu each), with their params types. A registered
+# custom model (models.register) has every kernel in a library of its own
+# (ops/_build.py build_model).
 FUSED_KERNEL_MODELS = {
     "acrobot": AcrobotParams,
     "double_integrator": DoubleIntegratorParams,
@@ -175,19 +179,54 @@ def scheme(integrator: str) -> int:
     return SCHEMES[integrator]
 
 
+def kernel_owner(model):
+    """The model whose own library holds ``model``'s launchers: ``model``
+    itself when it is a registered custom model, None for the package's
+    models (the main library)."""
+    return models.custom_model(model)
+
+
+def has_kernels(model, have=None) -> bool:
+    """Whether the card has ``model``'s kernels: one of the package's
+    models (among ``have``), or a registered custom model with SoA
+    functions."""
+    if models.is_builtin(model):
+        return model.name in (FUSED_KERNEL_MODELS if have is None else have)
+    return kernel_owner(model) is not None and model.has_soa
+
+
 def require_kernel_model(model, integrator: str, pp: PackedParams, device,
-                         have=None, lanes=None) -> str:
-    """Checks that CUDA kernels are compiled for ``model`` (with params of
-    its type) among ``have`` (name → params type; default the fused
-    kernels' models), that ``integrator`` is one they take (Euler or RK4),
-    and that the packed params are one (P,) vector or one row per lane,
-    (``lanes``, P). Returns the prefix of the model's launchers,
-    ``ilqr_<model>``."""
+                         have=None, lanes=None, limits=False) -> str:
+    """Checks that CUDA kernels exist for ``model`` (with params of its
+    type): one of the package's models among ``have`` (name → params type;
+    default the fused kernels' models), or a model registered with
+    ``models.register`` whose SoA functions the recorder takes (its own
+    library, built at first use); that ``integrator`` is one they take
+    (Euler or RK4); that a custom model has ``u_min``/``u_max`` when
+    ``limits`` (a clamp or the box QP) reads them; and that the packed
+    params are one (P,) vector or one row per lane, (``lanes``, P).
+    Returns the prefix of the model's launchers, ``ilqr_<model>``."""
     have = FUSED_KERNEL_MODELS if have is None else have
-    if have.get(model.name) is not pp.cls:
+    if kernel_owner(model) is not None:
+        expected = type(model.default_params())
+        if pp.cls is not expected:
+            raise NotImplementedError(
+                f"custom model {model.name!r} takes {expected.__name__}, "
+                f"not {pp.cls.__name__}")
+        if not model.has_soa:
+            raise NotImplementedError(
+                f"custom model {model.name!r} has no SoA functions "
+                "(dynamics_soa, cost_soa, final_cost_soa), from which its "
+                "kernels are generated")
+        if limits and not {"u_min", "u_max"} <= set(pp.cls._fields):
+            raise ValueError(
+                f"custom model {model.name!r}: control limits read the "
+                "params fields u_min and u_max, which it lacks")
+    elif not models.is_builtin(model) or have.get(model.name) is not pp.cls:
         raise NotImplementedError(
-            f"CUDA kernels exist for {', '.join(have)}, not {model.name!r} "
-            f"with {pp.cls.__name__}")
+            f"CUDA kernels exist for {', '.join(have)} and the models "
+            "registered with ilqr_tpu_torch.models.register, not "
+            f"{model.name!r} with {pp.cls.__name__}")
     # the loader reads a fixed layout (the rings share one params type)
     if pp.shapes != _param_shapes(model):
         raise ValueError(
@@ -200,6 +239,69 @@ def require_kernel_model(model, integrator: str, pp: PackedParams, device,
     _build.require(pp.vec, (lanes, P) if is_batched(pp) else (P,),
                    "packed params", device)
     return f"ilqr_{model.name}"
+
+
+# ---------------------------------------------------------------------------
+# A custom model's SoA functions in the plain versions
+# ---------------------------------------------------------------------------
+
+_ADAPTED = {}
+
+
+def plain_model(model, shapes):
+    """``model`` as the plain versions call it, with params of leaf shapes
+    ``shapes`` (``PackedParams.shapes``). A custom model's SoA functions
+    are written against arrays whose params leaves arrive lane-broadcast
+    (the JAX kernels' (*shape, S, L) leaves), so that ``p.goal - x``
+    broadcasts; here they get x and u as arrays (a list of components
+    stacked) and every params leaf viewed with a singleton axis per batch
+    axis of x, (*shape, 1, …) shared or (*shape, 1, …, B) per lane. Views
+    only: every value and operation is the one the function computed on
+    components. The package's models are returned as they are."""
+    if models.is_builtin(model) or not model.has_soa or getattr(
+            model.dynamics_soa, "lane_broadcast", False):
+        return model
+    key = (id(model), shapes)
+    hit = _ADAPTED.get(key)
+    if hit is None or hit[0] is not model:
+        hit = _ADAPTED[key] = (model, dataclasses.replace(
+            model, dynamics_soa=_broadcasting(model.dynamics_soa, shapes),
+            cost_soa=_broadcasting(model.cost_soa, shapes),
+            final_cost_soa=_broadcasting(model.final_cost_soa, shapes)))
+    return hit[1]
+
+
+def _as_array(a):
+    """A list of components (tensors or dual numbers) stacked, or ``a``."""
+    if not isinstance(a, (list, tuple)):
+        return a
+    if isinstance(a[0], torch.Tensor):
+        return torch.stack(torch.broadcast_tensors(*a))
+    from ilqr_tpu_torch.ops.kernel_derivs import _stack
+
+    return _stack(a)
+
+
+def _primal_ndim(a) -> int:
+    while not isinstance(a, torch.Tensor):
+        a = a.v
+    return a.ndim
+
+
+def _broadcasting(fn, shapes):
+    def call(p, x, *rest):
+        x = _as_array(x)
+        nb = _primal_ndim(x) - 1
+        leaves = []
+        for leaf, shape in zip(p, shapes):
+            if leaf.ndim == len(shape):      # shared
+                leaves.append(leaf.reshape(shape + (1,) * nb))
+            else:                            # per lane, (*shape, B)
+                leaves.append(leaf.reshape(
+                    shape + (1,) * (nb - 1) + (leaf.shape[-1],)))
+        return fn(type(p)(*leaves), x, *(_as_array(r) for r in rest))
+    call.lane_broadcast = True
+    return call
 
 
 def lane_last(a):
@@ -261,6 +363,7 @@ def closed_loop_step(model, p, dt, integrator, clamp, x, u_ff, xsr, K):
 def rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K):
     """Plain version of :func:`rollout_packed`."""
     scheme(integrator)
+    model = plain_model(model, pp.shapes)
     p, dt = unpack_params(pp)
     T, m, n, B = K.shape
     xs = torch.empty((T, n, B), dtype=F32, device=x0.device)
@@ -290,7 +393,8 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
         return rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K)
     dev = x0.device
     T, m, n, B = K.shape
-    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B)
+    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B,
+                                  limits=clamp)
     for t, shape, name in ((x0, (n, B), "x0"), (uff, (T, m, B), "uff"),
                            (xsr, (T, n, B), "xsr"), (K, (T, m, n, B), "K")):
         _build.require(t, shape, name, dev)
@@ -300,7 +404,7 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     cost = torch.empty((B,), dtype=F32, device=dev)
     _build.launch(f"{prefix}_rollout", dev, pp.vec, param_stride(pp), x0,
                   uff, xsr, K, xs, us, xfin, cost, T, B, int(bool(clamp)),
-                  scheme(integrator))
+                  scheme(integrator), model=kernel_owner(model))
     rollout_packed.launches += 1
     return xs, us, xfin, cost
 
@@ -361,6 +465,7 @@ def linesearch_plain(model, integrator, clamp, pp, x0, us, xsr, xterm, K, k,
                      Kold, kold, alphas, dv, cost_prev, gate, keep, z_min):
     """Plain version of :func:`linesearch_packed`."""
     scheme(integrator)
+    model = plain_model(model, pp.shapes)
     p, dt = unpack_params(pp)
     T, m, n, B = K.shape
     dev = x0.device
@@ -419,9 +524,10 @@ def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
                                 cost_prev, gate, keep, z_min)
     dev = x0.device
     T, m, n, B = K.shape
-    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B)
+    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B,
+                                  limits=clamp)
     A = alphas.shape[0]
-    max_a = _build.library().ilqr_max_alphas()
+    max_a = _build.lib_for(kernel_owner(model)).ilqr_max_alphas()
     if not 1 <= A <= max_a:
         raise ValueError(f"linesearch kernel takes 1..{max_a} alphas, got {A}")
     for t, shape, name in (
@@ -441,7 +547,7 @@ def linesearch_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     _build.launch(f"{prefix}_linesearch", dev, pp.vec, param_stride(pp), x0,
                   us, xsr, xterm, K, k, Kold, kold, alphas, A, dv, cost_prev,
                   gate, keep, *outs, float(z_min), T, B, int(bool(clamp)),
-                  scheme(integrator))
+                  scheme(integrator), model=kernel_owner(model))
     linesearch_packed.launches += 1
     return outs
 

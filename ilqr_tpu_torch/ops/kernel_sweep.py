@@ -15,18 +15,17 @@ The derivatives come, as in the JAX kernel, from one of three sources:
   ``jac_soa`` and the Euler step, the JAX kernel's use_analytic: fx = I +
   dt·A, fu = dt·B, the cost's analytic derivatives; structural constants
   fold);
-- exact forward-mode derivatives of the discrete RK4 step and of the costs
-  (``mode="jvp"`` with the RK4 step: dual numbers through every stage, the
-  JAX kernel's in-kernel JVPs);
+- exact forward-mode derivatives of the discrete step and of the costs
+  (``mode="jvp"`` otherwise: the RK4 step, or a model without ``jac_soa``
+  such as a custom model with either step; dual numbers through every
+  stage, the JAX kernel's in-kernel JVPs);
 - the reference's central stencils (``mode="fd"``, eps = ``eps``) of the
   discrete Euler or RK4 step and of the costs.
 
 The last two give dense fx, fu, cx, cu, cxx, cxu, cuu and a dense V_T
 Hessian, every sum starting at its first term; the plain version evaluates
 them at all T steps at once (ops/kernel_derivs.py) and runs the recursion
-over them. m ≤ 24 (past it ``ValueError``, as in the JAX package). A model
-without ``jac_soa`` under ``mode="jvp"`` (a custom model, whose device
-functions the port cannot take yet) raises ``NotImplementedError``.
+over them. m ≤ 24 (past it ``ValueError``, as in the JAX package).
 
 Layout and dispatch as in ops/kernel_rollout.py.
 """
@@ -47,8 +46,10 @@ from ilqr_tpu_torch.ops.kernel_derivs import (
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
+    kernel_owner,
     on_cuda,
     param_stride,
+    plain_model,
     require_kernel_model,
     scheme,
     unpack_params,
@@ -102,27 +103,23 @@ def _lane(v, like):
 
 
 def check_supported(model, integrator: str, mode: str):
-    """Raises for what this slice of the port does not carry: ``mode="fd"``
-    and ``mode="jvp"`` run with the Euler or the RK4 step; ``mode="jvp"``
-    needs a model with ``jac_soa`` (the package's models), whose device
-    functions the kernels have."""
+    """Raises for what the sweep does not take: m > 24, an unknown
+    integrator or derivative mode. ``mode="fd"`` and ``mode="jvp"`` run
+    with the Euler or the RK4 step for every model with SoA functions."""
     if model.m > qp.MAX_FUSED_M:
         raise ValueError(
             f"merged sweep kernel supports m <= {qp.MAX_FUSED_M}")
     scheme(integrator)
     if mode not in ("jvp", "fd"):
         raise ValueError(f"unknown derivative mode {mode!r}")
-    if mode == "jvp" and not model.has_analytic_soa:
-        raise NotImplementedError(
-            f"the sweep's in-kernel JVP route for model {model.name!r} "
-            "without jac_soa (a custom model: its device functions cannot "
-            "be supplied to the kernels yet) is not ported (ROADMAP.md §B2, "
-            "custom models); mode='fd' takes it")
 
 
-def _analytic(mode: str, integrator: str) -> bool:
-    """Whether the closed forms apply (the JAX kernel's use_analytic)."""
-    return mode == "jvp" and integrator == "euler"
+def _analytic(mode: str, integrator: str, model=None) -> bool:
+    """Whether the closed forms apply (the JAX kernel's use_analytic: jvp
+    mode, the Euler step and a model with ``jac_soa``; ``model`` None
+    stands for one that has it)."""
+    return (mode == "jvp" and integrator == "euler"
+            and (model is None or model.has_analytic_soa))
 
 
 @dataclasses.dataclass
@@ -334,12 +331,13 @@ def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
                 use_limits=True, eps=1e-3):
     """Plain version of :func:`sweep_packed`."""
     check_supported(model, integrator, mode)
+    model = plain_model(model, pp.shapes)
     p, dt = unpack_params(pp)
     T, m, B = us.shape
     n = xs_body.shape[1]
     k = torch.empty((T, m, B), dtype=F32, device=us.device)
     K = torch.empty((T, m, n, B), dtype=F32, device=us.device)
-    if _analytic(mode, integrator):
+    if _analytic(mode, integrator, model):
         c = _terminal_init(model, p, xterm)
         derivs_at = lambda t: _analytic_derivs(model, p, dt, xs_body[t],
                                                us[t])
@@ -356,14 +354,15 @@ def sweep_plain(model, integrator, pp, xs_body, xterm, us, lam, mode="jvp",
     return k, K, dv, c.div, c.gacc * (1.0 / T)
 
 
-def kernel_args(mode: str, integrator: str, eps: float):
+def kernel_args(mode: str, integrator: str, eps: float, model=None):
     """The launcher suffix and the trailing arguments of the sweep and
-    iteration launchers: none for the analytic kernels (Euler only); the
-    integrator for the dual-number ones (_jvp); for the stencil ones (_fd)
-    the integrator, eps and the denominators 2·eps and 4·eps², each taken
-    in double and rounded once to f32 by ctypes, as the JAX kernel rounds
-    its Python floats."""
-    if _analytic(mode, integrator):
+    iteration launchers: none for the analytic kernels (Euler, a model with
+    ``jac_soa``; ``model`` None stands for one); the integrator for the
+    dual-number ones (_jvp); for the stencil ones (_fd) the integrator, eps
+    and the denominators 2·eps and 4·eps², each taken in double and
+    rounded once to f32 by ctypes, as the JAX kernel rounds its Python
+    floats."""
+    if _analytic(mode, integrator, model):
         return "", ()
     if mode == "jvp":
         return "_jvp", (scheme(integrator),)
@@ -392,7 +391,8 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     dev = us.device
     T, m, B = us.shape
     n = model.n
-    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B)
+    prefix = require_kernel_model(model, integrator, pp, dev, lanes=B,
+                                  limits=use_limits)
     for t, shape, name in ((xs_body, (T, n, B), "xs_body"),
                            (xterm, (n, B), "xterm"), (us, (T, m, B), "us"),
                            (lam, (B,), "lam")):
@@ -402,10 +402,10 @@ def sweep_packed(model, integrator: str, pp: PackedParams, xs_body, xterm,
     dv = torch.empty((2, B), dtype=F32, device=dev)
     div = torch.empty((B,), dtype=F32, device=dev)
     gnorm = torch.empty((B,), dtype=F32, device=dev)
-    suffix, extra = kernel_args(mode, integrator, eps)
+    suffix, extra = kernel_args(mode, integrator, eps, model)
     _build.launch(f"{prefix}_sweep{suffix}", dev, pp.vec, param_stride(pp),
                   xs_body, xterm, us, lam, k, K, dv, div, gnorm, T, B,
-                  int(bool(use_limits)), *extra)
+                  int(bool(use_limits)), *extra, model=kernel_owner(model))
     sweep_packed.launches += 1
     return k, K, dv, div, gnorm
 

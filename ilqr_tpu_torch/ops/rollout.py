@@ -5,11 +5,12 @@
 ``cfg.rollout_kernel`` picks the route: ``"auto"``/``"pallas"`` run the
 rollout op (ops/kernel_rollout.py ``rollout_batched`` — its CUDA kernel on
 the card, its plain version on the CPU); ``"xla"`` runs the JAX package's
-scan with the per-problem model functions. The line search evaluates all
-α-candidates as one rollout with the α axis folded into the lanes —
-candidate (b, a) at lane b·A + a, per-problem params row b tiled A
-times — and picks the first accepted α per problem, exactly like the
-reference's serial backtracking order.
+scan with the per-problem model functions, which a model without SoA
+functions takes on ``"auto"`` (``"pallas"`` raises for it). The line
+search evaluates all α-candidates as one rollout with the α axis folded
+into the lanes — candidate (b, a) at lane b·A + a, per-problem params row
+b tiled A times — and picks the first accepted α per problem, exactly like
+the reference's serial backtracking order.
 
 ``clamp_forward=False`` reproduces the reference's unclamped rollout
 (ilqr_core.cpp:322-329); ``True`` clamps the controls to the box.
@@ -22,6 +23,7 @@ from torch.func import vmap
 
 from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model, get_integrator
+from ilqr_tpu_torch.ops.derivatives import stage_route
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
@@ -60,7 +62,7 @@ def rollout(model: Model, pp: PackedParams, cfg: SolverConfig, x0, u_ff,
     """Closed-loop rollout u_t = u_ff,t + K_t (x_t − x̄_t) (ref :314-332):
     x0 (B, n), u_ff (B, T, m), xs_ref (B, T+1, n), K (B, T, m, n) →
     (xs (B, T+1, n), us (B, T, m) as applied, total cost (B,))."""
-    if cfg.rollout_kernel == "xla":
+    if stage_route(model, cfg.rollout_kernel, "rollout_kernel") == "xla":
         return _rollout_scan(model, pp, cfg, x0, u_ff, xs_ref, K)
     return rollout_batched(model, cfg.integrator, cfg.clamp_forward, pp, x0,
                            u_ff, xs_ref, K)

@@ -42,7 +42,7 @@ from ilqr_tpu_torch.models.base import Model
 from ilqr_tpu_torch.ops.backward import backward_pass, gradient_norm
 from ilqr_tpu_torch.ops.backward import check_supported as _check_backward
 from ilqr_tpu_torch.ops.boxqp import host_any as _host_any
-from ilqr_tpu_torch.ops.derivatives import compute_derivs
+from ilqr_tpu_torch.ops.derivatives import compute_derivs, stage_route
 from ilqr_tpu_torch.ops.kernel_rollout import (
     F32,
     PackedParams,
@@ -80,23 +80,23 @@ def as_f32(a, dev) -> torch.Tensor:
 def check_supported(model: Model, cfg: SolverConfig,
                     params_batched: bool = False):
     """Raises for what the composable path does not carry yet; it never
-    runs plain ops in place of a kernel it lacks."""
+    runs plain ops in place of a kernel it lacks. A model without SoA
+    functions takes the "xla" derivative and rollout routes on "auto" (as
+    the JAX package's ``_use_fused*`` do); "pallas" raises for it."""
     if cfg.deriv_mode not in ("analytic", "fd"):
         raise ValueError(f"unknown deriv_mode {cfg.deriv_mode!r}")
     for field in ("deriv_kernel", "backward_kernel", "rollout_kernel"):
         if getattr(cfg, field) not in KERNEL_ROUTES:
             raise ValueError(f"unknown {field} {getattr(cfg, field)!r}; "
                              f"have {KERNEL_ROUTES}")
-    if not model.has_soa:
-        raise NotImplementedError(
-            f"model {model.name!r} has no SoA functions (a custom model): "
-            "the kernels cannot take its device functions yet (ROADMAP.md "
-            "§B2, custom models)")
+    routes = [stage_route(model, getattr(cfg, field), field)
+              for field in ("deriv_kernel", "rollout_kernel")]
     scheme(cfg.integrator)
-    if params_batched and "xla" in (cfg.deriv_kernel, cfg.rollout_kernel):
+    if params_batched and "xla" in routes:
         raise NotImplementedError(
             "params_batched=True runs the kernel routes; the 'xla' "
-            "derivative and rollout routes take shared params")
+            "derivative and rollout routes (and a model without SoA "
+            "functions) take shared params")
     _check_backward(cfg, model.m)
 
 

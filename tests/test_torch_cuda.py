@@ -763,3 +763,113 @@ def test_composable_solve_on_card_matches_cpu(dev, name):
     assert counts["derivs_packed"] >= 1 and counts["rollout_packed"] >= 2
     np.testing.assert_allclose(card.cost.cpu().numpy(), cpu.cost.numpy(),
                                rtol=1e-3)
+
+
+def _bitwise(got, want, what):
+    """Equal bits, NaNs in the same places."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape, what
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    assert bool(same.all()), (what, float((got - want).abs().nan_to_num()
+                                          .max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unicycle", "unicycle_heading"])
+@pytest.mark.parametrize("integrator", ["euler", "rk4"])
+def test_custom_model_kernels_match_plain(dev, name, integrator):
+    """A registered custom model (ilqr_tpu_torch/examples/custom_model.py):
+    its library is generated and built at first use, and one launch of
+    each of its kernels — the rollout and line search, the dual-number and
+    stencil sweep and iteration, the derivative kernel in both modes and,
+    at m = 1, the backward kernel at n = 3 — equals its plain version on
+    the same card bit for bit."""
+    from ilqr_tpu_torch.examples import custom_model as tcm
+
+    uni, head = tcm.register_models()
+    m = uni if name == "unicycle" else head
+    n, mm, b, t = m.n, m.m, 200, 6
+    rng = np.random.default_rng(23)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(m.default_params(), 0.05, dev)
+    x0 = f(0.5 * rng.normal(size=(n, b)))
+    us = f(1.5 * rng.normal(size=(t, mm, b)))
+    xs = f(0.5 * rng.normal(size=(t, n, b)))
+    xT = f(0.5 * rng.normal(size=(n, b)))
+    K = f(0.1 * rng.normal(size=(t, mm, n, b)))
+    k = f(0.2 * rng.normal(size=(t, mm, b)))
+    lam = f(np.where(rng.uniform(size=b) < 0.1, -100.0, 1.0))
+    live = f(rng.uniform(size=b) > 0.5)
+    cprev = f(100.0 + rng.normal(size=b))
+    al = f(ALPHAS)
+    dv = torch.stack([-torch.ones(b, device=dev),
+                      0.1 * torch.ones(b, device=dev)])
+    xs_full = torch.cat([xs, xT[None]]).contiguous()
+    cases = [
+        (kernel_rollout.rollout_packed, kernel_rollout.rollout_plain,
+         (m, integrator, True, pp, x0, us, xs, K)),
+        (kernel_rollout.linesearch_packed, kernel_rollout.linesearch_plain,
+         (m, integrator, True, pp, x0, us, xs, xT, K, k, K, k, al, dv, cprev,
+          live, live, 0.0))]
+    for mode in ("jvp", "fd"):
+        cases += [
+            (kernel_sweep.sweep_packed, kernel_sweep.sweep_plain,
+             (m, integrator, pp, xs, xT, us, lam, mode, True, 0.05)),
+            (kernel_iter.iteration_packed, kernel_iter.iteration_plain,
+             (m, integrator, True, pp, x0, xs, xT, us, k, K, lam, cprev,
+              live, al, mode, True, 0.0, 1e-6, 1e-5, 0.05)),
+            (kernel_derivs.derivs_packed, kernel_derivs.derivs_plain,
+             (m, integrator, pp, xs_full, us, mode, 0.05))]
+    reset_launch_counts()
+    for op, plain, args in cases:
+        got = op(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _bitwise(g, w, f"{name} {integrator} {op.__name__}[{i}]")
+    counts = launch_counts()
+    assert counts["rollout_packed"] == counts["linesearch_packed"] == 1
+    assert counts["sweep_packed"] == counts["iteration_packed"] == 2
+    assert counts["derivs_packed"] == 2
+    if mm == 1:
+        fx, fu, cx, cu, cxx, cxu, cuu = kernel_derivs.derivs_packed(
+            m, integrator, pp, xs_full, us)
+        p, _dt = kernel_rollout.unpack_params(pp)
+        bargs = tuple(a.contiguous() for a in (
+            fx, fu[:, :, 0], cx[:-1], cu[:, 0], cxx[:-1], cxu[:, :, 0],
+            cuu[:, 0, 0], p.u_min[0] - us[:, 0], p.u_max[0] - us[:, 0], lam,
+            cx[-1], cxx[-1]))
+        got = kernel_backward.backward_sweep_packed(*bargs)
+        torch.cuda.synchronize()
+        want = kernel_backward.backward_plain(*bargs)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _bitwise(g, w, f"{name} {integrator} backward[{i}]")
+        assert launch_counts()["backward_sweep_packed"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    dict(), dict(integrator="rk4"), dict(deriv_mode="fd", fd_eps=0.05),
+    dict(iter_kernel="split")])
+def test_custom_model_solves_on_card_match_plain(dev, extra):
+    """The unicycle fleet through solve_batch_fused on the card (its
+    library's kernels) against the same solve through the plain versions on
+    the CPU: costs to rtol 1e-3 (the trig libraries' ulps)."""
+    from ilqr_tpu_torch.examples import custom_model as tcm
+
+    uni, _head = tcm.register_models()
+    rng = np.random.default_rng(0)
+    x0 = (0.2 * rng.normal(size=(64, 3))).astype(np.float32)
+    u0 = np.zeros((20, 2), np.float32)
+    cfg = SolverConfig(**{**dict(deriv_mode="analytic", clamp_forward=True,
+                                 max_iter=6, alphas=(1.0, 0.3, 0.03)),
+                          **extra})
+    reset_launch_counts()
+    card = solve_batch_fused(uni, tcm.default_params(), cfg, 0.05, x0, u0)
+    counts = launch_counts()
+    assert counts["rollout_packed"] == 1
+    assert counts["iteration_packed"] + counts["sweep_packed"] >= 6
+    cpu = solve_batch_fused(uni, tcm.default_params(), cfg, 0.05, x0, u0,
+                            device="cpu")
+    np.testing.assert_allclose(card.cost.cpu().numpy(), cpu.cost.numpy(),
+                               rtol=1e-3)

@@ -65,6 +65,10 @@ def _run(code, cwd=REPO, extra_env=None):
     "import chip_smoke",
     "import ilqr_tpu_torch.ops.boxqp, ilqr_tpu_torch.mpc\n"
     "import ilqr_tpu_torch.models.bicycle, ilqr_tpu_torch.models.power_mass",
+    "import ilqr_tpu_torch.ops.codegen, ilqr_tpu_torch.examples\n"
+    "import ilqr_tpu_torch.examples.custom_model as cm\n"
+    "cm.register_models()\n"
+    "ilqr_tpu_torch.ops._build.model_sources(cm.UNICYCLE_HEADING)",
 ])
 def test_imports_no_jax_nor_ilqr_tpu(imports):
     out = _run(_NO_JAX.format(imports=imports))
@@ -166,14 +170,14 @@ def test_kernel_path_rejects_other_models_and_integrators(case, monkeypatch):
     """The CUDA kernels are compiled for the registered models and take the
     Euler or the RK4 step: the rollout, line-search, sweep and iteration
     guards accept rk4 in both derivative modes, and derivs_packed takes it
-    (its kernel instantiated for every registered model, any other raising
-    NotImplementedError before a launch).
+    (its kernel instantiated for every model of the package, an unregistered
+    other raising NotImplementedError before a launch).
     solve_batch_fused carries analytic + RK4 (the in-kernel JVP route) and
     RK4 on the split sweep: each reaches its first stage with the RK4 step
     (every stage a tripwire that records its integrator). A jvp request
-    without jac_soa (a custom model) raises NotImplementedError naming §B2
-    before any stage runs. Checked without a card through the guards the
-    wrappers call first."""
+    without jac_soa (a custom model) takes the dual numbers with the Euler
+    step: it reaches its first stage too. Checked without a card through
+    the guards the wrappers call first."""
     pp = kernel_rollout.pack_params(tac.default_params(), 0.02)
     dev = pp.vec.device
     if case == "other_model":
@@ -246,9 +250,12 @@ def test_kernel_path_rejects_other_models_and_integrators(case, monkeypatch):
         if case == "jvp_without_jac_soa":
             model = tac.MODEL.__class__(**{**tac.MODEL.__dict__,
                                            "jac_soa": None})
-            with pytest.raises(NotImplementedError, match="B2"):
+            assert fused.fused_applicable(model, cfg)
+            with pytest.raises(Reached, match="euler"):
                 solve_batch_fused(model, *args, device="cpu")
-            assert not fused.fused_applicable(model, cfg)
+            # the sweep launches its dual-number kernel for such a model
+            assert kernel_sweep.kernel_args("jvp", "euler", 1e-3,
+                                            model) == ("_jvp", (0,))
         else:
             assert fused.fused_applicable(model, cfg)
             with pytest.raises(Reached, match="rk4"):
@@ -335,11 +342,12 @@ def test_pack_params_layout():
     dict(full_ddp=True), "params_batched", "other_model",
 ])
 def test_uncarried_configs_raise_before_running(bad, monkeypatch):
-    """What the port does not carry (the assoc modes, full DDP, a model
-    without SoA functions) raises NotImplementedError before any stage
-    runs; no plain op takes a missing kernel's place. RK4, the iterative
-    and enumeration QPs, the unconstrained step, per-problem params and
-    every registered model are carried now: they reach the first stage."""
+    """What the port does not carry (the assoc modes, full DDP) raises
+    NotImplementedError before any stage runs; no plain op takes a missing
+    kernel's place. RK4, the iterative and enumeration QPs, the
+    unconstrained step, per-problem params, every registered model and a
+    model without SoA functions (on the "xla" routes) are carried now:
+    they reach the first stage."""
     from ilqr_tpu_torch import solver
 
     class Reached(Exception):
@@ -360,7 +368,6 @@ def test_uncarried_configs_raise_before_running(bad, monkeypatch):
         model = tac.MODEL.__class__(**{**tac.MODEL.__dict__,
                                        "name": "custom", "dynamics_soa":
                                        None})
-        carried = False
     else:
         cfg = SolverConfig(**bad)
         carried = not ({"backward_mode", "full_ddp"} & set(bad))
