@@ -18,7 +18,13 @@ Phases (any failure raises and the script exits non-zero):
      all 14 models and the split sweep's derivative and backward kernels
      of acrobot, pendulum and cartpole at phase 12's shapes
      (thruster_ring16/20/24's sweep and iteration on their first 4
-     steps). This process times each kernel
+     steps); rollout_packed's second kernel, its other modes (costs_only,
+     A = 11 candidates materialized or with the step α formed in the
+     kernel, one α per lane), at the line search's shapes of acrobot
+     (B = 8192, T = 499, Euler and RK4), the quadrotor and thruster_ring
+     (B = 1024, T = 80), pendulum with per-lane params (B = 1024, T = 199)
+     and the custom unicycle (modes_cases), held bit for bit. This process
+     times each kernel
      alone on the card (CUDA events); then worker processes run the plain
      versions, which are host-bound, longest first; each case prints its
      errors, times and bound;
@@ -140,11 +146,28 @@ Phases (any failure raises and the script exits non-zero):
      without SoA functions on the "xla" routes against the CPU; phase 3
      holds every custom kernel bit for bit (custom_cases), and phase 14(a)
      sets the card's solve_verbose rows beside the CPU's (the C1 witness);
- 16. one JSON line listing every kernel × model instantiation launched (the
+ 16. the CLI and the examples: (a) python -m ilqr_tpu_torch acrobot
+     --batch 8192 --max-iter 20 in a process of its own (the fused fd
+     route), its printed mean cost and iterations and its CSV against an
+     in-process solve_batch_fused on the same draw, written by the native
+     trajio; (b) the pendulum through the CLI's single solve (the
+     composable route) with its TIMESTUFF report, and its plot where
+     matplotlib is installed; (c) the
+     quadrotor batch from hover on the fused JVP route (analytic + RK4),
+     its Solution checkpointed and restored bit for bit; (d) the three
+     examples (quadrotor_waypoints, free_flyer_docking, mpc_fleet) at
+     their default sizes; (e) --x64, --full-ddp and the assoc backward
+     raise before any launch; (f) the rollout modes' path: the JAX
+     kernel's two-pass line search (pass 1 the candidates' costs, pass 2
+     the chosen α per lane) on phase 3's inputs, bit for bit against
+     linesearch_packed, which gives the modes' launches;
+ 17. one JSON line listing every kernel × model instantiation launched (the
      RK4 readings as rk4_* fields of the kernel's row, the stencil mode's
      RK4 reading of the derivative kernel as rk4_fd_*, the per-lane params
-     readings as lanes_*), the card's line, and the last line
-     {"ok": true, "device": {...}}. Each phase prints its seconds.
+     readings as lanes_*, the rollout modes as costs_only_*, candidates_*,
+     alphas_*, alpha_lanes_* and alphas_rk4_*), the card's line, and the
+     last line {"ok": true, "device": {...}}. Each phase prints its
+     seconds.
 
 It needs one CUDA device and the ilqr_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -158,6 +181,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple
@@ -168,6 +192,7 @@ import torch
 from ilqr_tpu_torch import (
     SolverConfig,
     TerminationReason,
+    convergence_stats,
     fused,
     get_model,
     mpc,
@@ -234,7 +259,8 @@ SOURCES = {
     "backward_sweep_packed": "ilqr_tpu_torch/csrc/backward.cu",
 }
 KERNEL_NAMES = ("iteration_kernel", "rollout_kernel", "sweep_kernel",
-                "linesearch_kernel", "derivs_kernel", "backward_kernel")
+                "linesearch_kernel", "derivs_kernel", "backward_kernel",
+                "rollout_modes_kernel")
 
 
 def nvidia_smi() -> str:
@@ -535,7 +561,8 @@ def comparison_sets():
             + [("split", name) for name in SPLIT_MODELS]
             + [("lanes", name) for name in LANES_KERNELS]
             + [("derivs", name) for name in COMP_MODELS]
-            + [("custom", name) for name in CUSTOM_MODELS])
+            + [("custom", name) for name in CUSTOM_MODELS]
+            + [("modes", name) for name in MODES_MODELS])
 
 
 def build_cases(dev, which):
@@ -553,6 +580,8 @@ def build_cases(dev, which):
         return derivs_cases(dev, which[1])
     if which[0] == "custom":
         return custom_cases(dev, which[1])
+    if which[0] == "modes":
+        return modes_cases(dev, which[1])
     return fd_cases(dev, which[1])
 
 
@@ -621,9 +650,17 @@ def run_comparisons(dev, tick):
               f"{r['plain_ms']:.1f} ms bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {r['bound_bytes']:.0f} B, "
               f"{r['bound_ops']} ops) {wheres[key]}; {job_s:.1f} s")
-        if not r["max_err"] <= KERNEL_TOL:
-            failed.append(key[1])
         meta = metas[key]
+        if meta["group"] in MODE_GROUPS:
+            d = meta["design_bytes"]
+            print(f"[kernel] {key[1]}: one thread per (candidate, lane) "
+                  f"moves ~{d / 1e6:.1f} MB (~{d / PEAK_BYTES * 1e3:.4f} ms "
+                  f"at the peak rate); the bound counts "
+                  f"{r['bound_bytes'] / 1e6:.1f} MB")
+        # the rollout modes are held bit for bit, the rest to KERNEL_TOL
+        if not (r["max_err"] <= KERNEL_TOL and (
+                r["bitwise_equal"] or meta["group"] not in MODE_GROUPS)):
+            failed.append(key[1])
         if meta["group"] == "fd_of":
             rows[meta["row"]].update({f"fd_{k}": v for k, v in r.items()})
             continue
@@ -642,7 +679,8 @@ def run_comparisons(dev, tick):
           f"and the host's {os.cpu_count()} cores)")
     if failed:
         raise AssertionError(f"disagree with their plain versions beyond "
-                             f"{KERNEL_TOL}: {failed}")
+                             f"{KERNEL_TOL} (the rollout modes: not bit for "
+                             f"bit): {failed}")
     return rows, rk4
 
 
@@ -1077,9 +1115,12 @@ CLI_ITERS = 100
 # the B = 8192 acrobot RK4 paths of phases 11-12 (fd and analytic) at a cut
 # depth, to keep the script inside its time limit on slow hosts
 RK4_HEADLINE_ITERS = 20
-# phase 11's m ≥ 5 fd paths and the quadrotor's fd + RK4 path at a cut
-# depth (PERF.md §7)
+# the quadrotor's fd + RK4 path at a cut depth (PERF.md §7)
 FD_WIDE_ITERS = 20
+# phase 11d's m ≥ 5 fd paths and phase 12c's m ≥ 5 analytic + RK4 paths
+# (omni_thruster, free_flyer, thruster_ring; with and without limits) at a
+# cut depth, to keep the script inside its time limit on slow hosts
+M5_FD_ITERS, M5_JVP_ITERS = 10, 20
 CLI_CPU_T, CLI_CPU_ITERS = 30, 5   # the short card-against-CPU solves
 
 
@@ -2090,12 +2131,12 @@ def run_fd_slice(dev, rows, rk4):
             sweep_ms = time_ms(lambda: kernel_sweep.sweep_packed(
                 m_, "euler", pp, xs0, xT0, us0, torch.ones(B, device=dev),
                 "fd"), reps=1)
-            # at most FD_WIDE_ITERS of secondary_bench.py's 40 iterations
-            cap = min(FD_WIDE_ITERS, max(SHORT_ITERS, int(
+            # at most M5_FD_ITERS of secondary_bench.py's 40 iterations
+            cap = min(M5_FD_ITERS, max(SHORT_ITERS, int(
                 FD_CAP_S * 1e3 / (1.5 * sweep_ms))))
             print(f"[fd] {name}: one stencil sweep {sweep_ms:.1f} ms "
                   f"at B={B} T={T}; max_iter {cap} (cut from {CLI_ITERS}: "
-                  f"at most {FD_WIDE_ITERS}, and one solve under "
+                  f"at most {M5_FD_ITERS}, and one solve under "
                   f"{FD_CAP_S:g} s)")
             out, _cost = run_fd_path(dev, name, label, max_iter=cap)
             out["sweep_ms_per_launch"] = sweep_ms
@@ -2117,7 +2158,7 @@ def run_fd_slice(dev, rows, rk4):
         record(f"{auto_key}/{name}/fd", out["launches"])
         record(f"{other_key}/{name}/fd", out["other_route"]["launches"])
         if name in FD_FREE:
-            depth = ({} if merged_auto else dict(max_iter=FD_WIDE_ITERS))
+            depth = ({} if merged_auto else dict(max_iter=M5_FD_ITERS))
             free, _c = run_fd_path(dev, name, f"{name} fd without limits",
                                    use_control_limits=False, **depth)
             record(f"{auto_key}/{name}/fd/unconstrained", free["launches"])
@@ -2375,7 +2416,7 @@ def run_jvp_slice(dev, rows, rk4):
                 dev, name, f"{name} merged route vs split", cost,
                 max_iter=SHORT_ITERS, **other, **jvp)
         else:
-            cap = CLI_ITERS
+            cap = CLI_ITERS if merged_auto else M5_JVP_ITERS
             if name == "thruster_ring":
                 m_, p_, cfg, T, dt, u0, x0 = cli_workload(name)
                 pp = kernel_rollout.pack_params(p_, dt, dev)
@@ -2391,13 +2432,12 @@ def run_jvp_slice(dev, rows, rk4):
                 sweep_ms = time_ms(lambda: kernel_sweep.sweep_packed(
                     m_, "rk4", pp, xs0, xT0, us0, torch.ones(B, device=dev),
                     "jvp"), reps=1)
-                cap = min(CLI_ITERS, max(SHORT_ITERS, int(
+                cap = min(cap, max(SHORT_ITERS, int(
                     FD_CAP_S * 1e3 / (1.5 * sweep_ms))))
                 print(f"[jvp] {name}: one JVP sweep {sweep_ms:.1f} ms at "
-                      f"B={B} T={T}; max_iter {cap}"
-                      + ("" if cap == CLI_ITERS else
-                         f" (cut from {CLI_ITERS} to keep one solve under "
-                         f"{FD_CAP_S:g} s)"))
+                      f"B={B} T={T}; max_iter {cap} (cut from {CLI_ITERS}: "
+                      f"at most {M5_JVP_ITERS}, and one solve under "
+                      f"{FD_CAP_S:g} s)")
             out, cost = run_fd_path(dev, name, label, max_iter=cap, **jvp)
             # the m·n ≥ 32 models' merged route at a cut depth: it runs the
             # split route's arithmetic, one launch where the split takes two
@@ -2414,7 +2454,7 @@ def run_jvp_slice(dev, rows, rk4):
         record(f"{other_key}/{name}/jvp", out["other_route"]["launches"])
         if name in FD_FREE:
             free, _c = run_fd_path(dev, name, f"{name} analytic + rk4 "
-                                   "without limits",
+                                   "without limits", max_iter=cap,
                                    use_control_limits=False, **jvp)
             record(f"{auto_key}/{name}/jvp/unconstrained", free["launches"])
             out["unconstrained"] = free
@@ -3947,6 +3987,493 @@ def run_custom_slice(dev, rows, readings):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The other modes of rollout_packed (its second kernel,
+# ilqr_<model>_rollout_modes: costs_only, materialized candidates, the step
+# α per candidate or per lane): phase 3's readings of the rollout_packed
+# rows, and phase 16(f)'s path, the JAX kernel's two-pass line search
+# (experiments/kernel_probe.py's pass-1 sweep shape) built from them.
+
+MODES_MODELS = ("acrobot", "quadrotor", "thruster_ring", "pendulum",
+                "unicycle")
+MODE_GROUPS = ("costs_only", "candidates", "alphas", "alpha_lanes",
+               "alphas_rk4")
+MODE_READINGS = {   # the readings of each model's row
+    "acrobot": MODE_GROUPS,
+    "quadrotor": ("alphas", "alpha_lanes"),
+    "thruster_ring": ("alphas", "alpha_lanes"),
+    "pendulum": ("alphas",),     # with per-lane params
+    "unicycle": ("alphas",),     # a custom model's own library
+}
+READING_SUFFIX.update({g: f"#{g}" for g in MODE_GROUPS})
+READING_PREFIX.update({f"{g}": f"{g}_" for g in MODE_GROUPS})
+
+
+def _outputs(r):
+    """An op's outputs as a tuple (costs_only returns one tensor)."""
+    return r if isinstance(r, tuple) else (r,)
+
+
+def modes_problem(dev, name):
+    """``name``'s line search at its path's shapes, as the rollout modes
+    take it: the path's x0, its clamped open-loop rollout (the current
+    trajectory x̄, controls and cost) and that rollout's first gains
+    (k, K, dV). acrobot: the flagship (B = 8192, T = 499); the quadrotor
+    and thruster_ring: phases 8-9's workloads (B = 1024, T = 80);
+    pendulum: phase 13(b)'s per-lane goals and limits (B = 1024, T = 199,
+    one params row per lane); unicycle: phase 15's fleet (B = 1024,
+    T = 80)."""
+    if name == "acrobot":
+        model, params, cfg = flagship()
+        Tm, dt = T, DT
+        x0_np = (0.05 * np.random.default_rng(0).normal(size=(B_MAIN, N))
+                 ).astype(np.float32)
+        u0 = np.zeros((T, M), np.float32)
+        pp = kernel_rollout.pack_params(params, dt, dev)
+    elif name == "pendulum":
+        model, lanes, cfg, Tm, dt, u0, x0_np = pendulum_goals_workload()
+        params = model.default_params()
+        pp = kernel_rollout.pack_params_batched(lanes, dt, dev)
+    elif name == "unicycle":
+        model, params, cfg, Tm, dt, u0, x0_np = custom_problem(name)
+        pp = kernel_rollout.pack_params(params, dt, dev)
+    else:
+        model, params, cfg, Tm, dt, u0, draw = workload(name)
+        x0_np = draw(np.random.default_rng(0))
+        pp = kernel_rollout.pack_params(params, dt, dev)
+    B, n, m = len(x0_np), model.n, model.m
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    x0 = f(x0_np).t().contiguous()
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    xs0, us0, xT0, c0 = kernel_rollout.rollout_packed(
+        model, "euler", True, pp, x0,
+        f(u0)[:, :, None].expand(Tm, m, B).contiguous(), zeros(Tm, n, B),
+        zeros(Tm, m, n, B))
+    k1, K1, dv1, _d, _g = kernel_sweep.sweep_packed(
+        model, "euler", pp, xs0, xT0, us0, torch.ones(B, device=dev))
+    return dict(model=model, params=params, cfg=cfg, T=Tm, dt=dt, B=B,
+                pp=pp, x0=x0, us=us0, xs=xs0, xT=xT0, cost=c0, k=k1, K=K1,
+                dv=dv1, alphas=f(cfg.alphas))
+
+
+def mode_args(P, group):
+    """rollout_packed's arguments, positional, for reading ``group`` on
+    problem ``P``: the line search's pass 1 (the A candidates' costs: the
+    step formed in the kernel, or u + α_a·k materialized per candidate),
+    its pass 2 (a mix of the candidates' steps, one per lane, with full
+    outputs), and a cost-only rollout of the current controls around the
+    current trajectory with the new gains."""
+    A, B = len(P["alphas"]), P["B"]
+    integ = "rk4" if group == "alphas_rk4" else "euler"
+    head = (P["model"], integ, True, P["pp"], P["x0"])
+    ref = (P["xs"], P["K"])
+    if group == "costs_only":
+        return head + (P["us"],) + ref + (True, 1, None, None, None)
+    if group == "candidates":
+        al = P["alphas"][None, None, :, None]
+        wide = (P["us"][:, :, None] + al * P["k"][:, :, None]).reshape(
+            P["T"], P["model"].m, A * B)
+        return head + (wide,) + ref + (True, A, None, None, None)
+    if group == "alpha_lanes":
+        pick = np.random.default_rng(8).integers(0, A, size=B)
+        lanes = P["alphas"][torch.as_tensor(pick, device=P["x0"].device)]
+        return head + (P["us"],) + ref + (False, 1, P["k"], None,
+                                           lanes.contiguous())
+    return head + (P["us"],) + ref + (True, A, P["k"], P["alphas"], None)
+
+
+def mode_ops(model, params, dt, group, A, T_, B):
+    """f32 operations of reading ``group`` (A candidates per lane), from
+    the plain version on one CPU lane with T = 1 and 2."""
+    pp = kernel_rollout.pack_params(params, dt)
+    rng = np.random.default_rng(6)
+    n, m = model.n, model.m
+    f = lambda *s: torch.as_tensor(0.1 * rng.normal(size=s),
+                                   dtype=torch.float32)
+    al = torch.linspace(1.0, 0.001, A)
+
+    def at(t):
+        x0, xs, K, k = f(n, 1), f(t, n, 1), f(t, m, n, 1), f(t, m, 1)
+        us = 1.0 + f(t, m, 1)
+        integ = "rk4" if group == "alphas_rk4" else "euler"
+        kw = {"costs_only": dict(costs_only=True),
+              "candidates": dict(costs_only=True, candidates=A),
+              "alpha_lanes": dict(k=k, alpha_lanes=al[:1])}.get(
+            group, dict(costs_only=True, candidates=A, k=k, alphas=al))
+        if group == "candidates":
+            us = 1.0 + f(t, m, A)
+        return kernel_rollout.rollout_plain(model, integ, True, pp, x0, us,
+                                            xs, K, **kw)
+    step, rest = ops_per_step(at)
+    return step * T_ * B + rest * B
+
+
+def design_bytes(P, group, A):
+    """What the one-thread-per-(candidate, lane) design reads and writes:
+    each thread reads x̄ (n), K (m·n), u_ff (m) and, with an α, k (m) at
+    every step, its x0 and params row once, and writes its cost (and, with
+    full outputs, x and u at every step and x_T)."""
+    n, m, T_, B = P["model"].n, P["model"].m, P["T"], P["B"]
+    alpha = group in ("alphas", "alphas_rk4", "alpha_lanes")
+    per_step = n + m * n + m + (m if alpha else 0)
+    full = group == "alpha_lanes"
+    per_thread = (T_ * (per_step + (n + m if full else 0)) + n + 1
+                  + (n if full else 0) + kernel_rollout.param_stride(P["pp"]))
+    return 4 * A * B * per_thread
+
+
+def modes_cases(dev, name):
+    """Phase 3's readings of rollout_packed/<name>'s second kernel (see
+    MODE_READINGS), each held bit for bit against its plain version."""
+    P = modes_problem(dev, name)
+    model, n, m = P["model"], P["model"].n, P["model"].m
+    out = {}
+    for group in MODE_READINGS[name]:
+        A = 1 if group in ("costs_only", "alpha_lanes") else len(P["alphas"])
+        row = f"rollout_packed/{name}"
+        meta = dict(row=row, group=group, kernel="rollout_modes_kernel",
+                    model=name, limits=True, T=P["T"],
+                    effort=effort("rollout", P["T"], n, m) * A,
+                    design_bytes=design_bytes(P, group, A))
+        if name == "unicycle":
+            meta["source"] = "ilqr_tpu_torch/csrc/kernels.cuh"
+        out[f"{row} ({group})"] = Case(
+            lambda *a: _outputs(kernel_rollout.rollout_packed(*a)),
+            lambda *a: _outputs(kernel_rollout.rollout_plain(*a)),
+            mode_args(P, group),
+            lambda group=group, A=A: mode_ops(model, P["params"], P["dt"],
+                                              group, A, P["T"], P["B"]),
+            f"at B={P['B']} T={P['T']} A={A}"
+            + (", one params row per lane" if name == "pendulum" else ""),
+            None, meta)
+    return out
+
+
+def _two_pass(P, integ):
+    """The two-pass line search on the rollout modes: pass 1 the A
+    candidates' costs (the step formed in the kernel), the first accepted
+    α per lane by the line search's own rule, pass 2 that α per lane with
+    full outputs. Returns (costs (A, B), the selection, pass 2's
+    outputs)."""
+    model, pp, A = P["model"], P["pp"], len(P["alphas"])
+    cand = kernel_rollout.rollout_packed(
+        model, integ, True, pp, P["x0"], P["us"], P["xs"], P["K"],
+        costs_only=True, candidates=A, k=P["k"],
+        alphas=P["alphas"]).view(A, P["B"])
+    sel = kernel_rollout.select_alpha(cand, P["alphas"], P["cost"],
+                                      P["dv"][0], P["dv"][1], P["cfg"].z_min)
+    full = kernel_rollout.rollout_packed(
+        model, integ, True, pp, P["x0"], P["us"], P["xs"], P["K"],
+        k=P["k"], alpha_lanes=sel[0].contiguous())
+    return cand, sel, full
+
+
+def _passes(P, integ, asel):
+    """The two launches of :func:`_two_pass` alone, at a given α per
+    lane."""
+    model, pp, A = P["model"], P["pp"], len(P["alphas"])
+    kernel_rollout.rollout_packed(
+        model, integ, True, pp, P["x0"], P["us"], P["xs"], P["K"],
+        costs_only=True, candidates=A, k=P["k"], alphas=P["alphas"])
+    return kernel_rollout.rollout_packed(
+        model, integ, True, pp, P["x0"], P["us"], P["xs"], P["K"],
+        k=P["k"], alpha_lanes=asel.contiguous())
+
+
+def _linesearch(P, integ):
+    """linesearch_packed on ``P`` with gate and keep on every lane."""
+    ones = torch.ones(P["B"], device=P["x0"].device)
+    return kernel_rollout.linesearch_packed(
+        P["model"], integ, True, P["pp"], P["x0"], P["us"], P["xs"],
+        P["xT"], P["K"], P["k"], P["K"], P["k"], P["alphas"], P["dv"],
+        P["cost"], ones, ones, P["cfg"].z_min)
+
+
+def _check_two_pass(P, integ, sel, full):
+    """The two passes against linesearch_packed (gate and keep on every
+    lane), bit for bit: the selected α, its cost and the acceptance on
+    every lane, the emitted trajectory on the accepted ones."""
+    ls = _linesearch(P, integ)
+    asel, lsc, _ldc, _lexp, accepted = sel
+    take = accepted > 0.5
+    same = (torch.equal(asel, ls[6]) and torch.equal(lsc, ls[5])
+            and torch.equal(accepted, ls[7])
+            and all(torch.equal(a[..., take], b[..., take])
+                    for a, b in zip(full[:3], ls[:3])))
+    return same, float(take.float().mean())
+
+
+def run_modes_path(dev, readings):
+    """Phase 16(f): for each model of MODES_MODELS, the two-pass line
+    search on the rollout modes at phase 3's shapes, its counts set to 0
+    just before and read just after (the launches of its readings), and
+    held bit for bit against the one-kernel line search; acrobot also
+    materializes the candidates (their costs equal pass 1's), rolls out
+    the chosen controls around the chosen trajectory costs-only (the cost
+    equals pass 2's), and runs the two passes with RK4. Then both line
+    searches are timed (CUDA events, median of 3; the two passes with
+    the α selection between them, and the selection and the two launches
+    apart)."""
+    out = {}
+    for name in MODES_MODELS:
+        P = modes_problem(dev, name)
+        A = len(P["alphas"])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cand, sel, full = _two_pass(P, "euler")
+        extra = {}
+        if name == "acrobot":
+            wide = mode_args(P, "candidates")
+            cand_m = kernel_rollout.rollout_packed(*wide).view(A, P["B"])
+            c_only = kernel_rollout.rollout_packed(
+                P["model"], "euler", True, P["pp"], P["x0"], full[1],
+                full[0], P["K"], costs_only=True)
+            extra = dict(materialized_equal=torch.equal(cand_m, cand),
+                         costs_only_equal=torch.equal(c_only, full[3]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernel_rollout.rollout_packed.mode_launches)
+        same, accepted = _check_two_pass(P, "euler", sel, full)
+        r = dict(wall_ms=wall * 1e3, launches=counts, equal_to_linesearch=same,
+                 accepted_share=accepted, **extra)
+        if name == "acrobot":
+            reset_launch_counts()
+            _c, sel_rk4, full_rk4 = _two_pass(P, "rk4")
+            torch.cuda.synchronize()
+            counts_rk4 = dict(kernel_rollout.rollout_packed.mode_launches)
+            r["rk4_equal_to_linesearch"] = _check_two_pass(
+                P, "rk4", sel_rk4, full_rk4)[0]
+            readings[f"rollout_packed/{name}#alphas_rk4"]["launches"] = (
+                counts_rk4["alphas"])
+        for integ in ("euler", "rk4") if name == "acrobot" else ("euler",):
+            r[f"{integ}_two_pass_ms"] = time_ms(
+                lambda: _two_pass(P, integ), reps=3)
+            r[f"{integ}_linesearch_ms"] = time_ms(
+                lambda: _linesearch(P, integ), reps=3)
+        # the two passes' parts: the selection between them is ~130 small
+        # PyTorch ops, each dispatched by the host, during which the card
+        # waits; the two launches alone with the selection made before
+        r["select_ms"] = time_ms(lambda: kernel_rollout.select_alpha(
+            cand, P["alphas"], P["cost"], P["dv"][0], P["dv"][1],
+            P["cfg"].z_min), reps=3)
+        r["passes_ms"] = time_ms(lambda: _passes(P, "euler", sel[0]), reps=3)
+        for group in MODE_READINGS[name]:
+            if group != "alphas_rk4":
+                readings[f"rollout_packed/{name}#{group}"]["launches"] = (
+                    counts[group])
+        print(f"[modes] (f) {name}: the two-pass line search on the rollout "
+              f"modes (B={P['B']} T={P['T']} A={A}): {wall * 1e3:.3f} ms on "
+              f"the host's clock, launches {counts}, bit for bit against "
+              f"linesearch_packed {same}, accepted on "
+              f"{accepted:.3f} of the lanes"
+              + "".join(f", {k} {v}" for k, v in r.items()
+                        if k.endswith("_equal") or k.startswith("rk4_e"))
+              + "".join(f"; {integ}: the two passes {r[f'{integ}_two_pass_ms']:.3f}"
+                        f" ms, linesearch_packed "
+                        f"{r[f'{integ}_linesearch_ms']:.3f} ms"
+                        for integ in ("euler", "rk4")
+                        if f"{integ}_two_pass_ms" in r)
+              + f"; euler's parts: the selection {r['select_ms']:.3f} ms, "
+              f"the two launches alone {r['passes_ms']:.3f} ms")
+        if not (same and all(v for k, v in r.items() if k.endswith("equal")
+                             or k.endswith("_linesearch"))):
+            raise AssertionError(f"(f) {name}: the rollout modes' line search "
+                                 f"left the one-kernel line search: {r}")
+        out[name] = r
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the CLI (python -m ilqr_tpu_torch) and the examples on the card
+
+CLI_BATCH_ARGV = ["acrobot", "--batch", "8192", "--max-iter", "20"]
+CLI_SINGLE_ARGV = ["pendulum", "--quiet", "-T", "60", "--max-iter", "15",
+                   "--deriv-mode", "analytic", "--profile"]
+CLI_QUAD_ARGV = ["quadrotor", "--batch", "1024", "--deriv-mode", "analytic",
+                 "--integrator-scheme", "rk4", "--max-iter", "20"]
+# (d): each example's arguments (its defaults) and the lines that its JAX
+# counterpart prints and that it must print
+EXAMPLES = {
+    "quadrotor_waypoints": ([], ("solves/s (fused path)",
+                                 "median final position error")),
+    "free_flyer_docking": ([], ("solves/s (fused path)",
+                                "per-craft peak thrust within own ceiling: "
+                                "100%")),
+    "mpc_fleet": ([], ("replans/s",)),
+}
+
+
+def _captured(fn, *args):
+    """fn(*args) with its standard output captured, then printed."""
+    import io as _io
+
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    text = buf.getvalue()
+    print(text, end="" if text.endswith("\n") else "\n")
+    return result, text
+
+
+def _stat(text, key):
+    return next(line.split()[1] for line in text.splitlines()
+                if line.strip().startswith(key))
+
+
+def cli_batch(tmp):
+    """(a): the acrobot batch through the CLI in a process of its own (fd,
+    Euler, limits, the reference's unclamped rollout: the CLI's
+    defaults), against an in-process solve_batch_fused on the same draw
+    and config: the printed mean cost and iterations as printed, the CSV's
+    best lane to its six decimals, written by the native writer."""
+    import ilqr_tpu_torch.__main__ as cli
+    from ilqr_tpu_torch.utils import io
+
+    t0 = time.perf_counter()
+    csv = os.path.join(tmp, "acrobot.csv")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ilqr_tpu_torch", *CLI_BATCH_ARGV,
+         "--output", csv], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    print(proc.stdout, end="")
+    if proc.returncode != 0:
+        raise AssertionError(f"(a) the CLI failed:\n{proc.stderr[-4000:]}")
+    args = cli.build_parser().parse_args(CLI_BATCH_ARGV)
+    model, params, _T, dt, x0, u0 = cli.problem(args.problem, args.horizon)
+    sol = solve_batch_fused(model, params, cli.config(args), dt,
+                            cli.batch_x0(x0, args.batch), u0)
+    stats = {k: f"{float(v):.6g}" for k, v in
+             convergence_stats(sol).items()}
+    best = int(torch.argmin(sol.cost))
+    xs, us = io.read_trajectory_csv(csv, model.n, model.m)
+    six = lambda a: np.asarray([[float(f"{v:f}") for v in row]
+                                for row in a.cpu().numpy()])
+    ok = (stats["mean_cost"] == _stat(proc.stdout, "mean_cost")
+          and stats["mean_iterations"] == _stat(proc.stdout,
+                                                "mean_iterations")
+          and np.array_equal(xs, six(sol.xs[best]))
+          and np.array_equal(us, six(sol.us[best]))
+          and "native CSV writer" in proc.stderr)
+    out = dict(stats=stats, best=best, s=time.perf_counter() - t0, ok=ok)
+    print(f"[cli] (a) python -m ilqr_tpu_torch {' '.join(CLI_BATCH_ARGV)}: "
+          f"mean_cost {stats['mean_cost']}, mean_iterations "
+          f"{stats['mean_iterations']} as printed, CSV (best lane {best}) "
+          f"and stats equal to an in-process solve_batch_fused: {ok} "
+          f"({proc.stderr.strip().splitlines()[-1]}); {out['s']:.1f} s")
+    if not ok:
+        raise AssertionError("(a) the CLI's batch left solve_batch_fused's")
+    return out
+
+
+def cli_single(tmp):
+    """(b): a single problem through the CLI's composable route (solve),
+    its TIMESTUFF report (profile_phases) and, where matplotlib is
+    installed, its plot (a plot needs matplotlib, as in the JAX package)."""
+    import importlib.util
+
+    import ilqr_tpu_torch.__main__ as cli
+
+    t0 = time.perf_counter()
+    png = os.path.join(tmp, "single.png")
+    plot = importlib.util.find_spec("matplotlib") is not None
+    reset_launch_counts()
+    _rc, text = _captured(cli.main, [*CLI_SINGLE_ARGV,
+                                     *(["--plot", png] if plot else []),
+                                     "--output",
+                                     os.path.join(tmp, "single.csv")])
+    counts = launch_counts()
+    ok = (all(p in text for p in ("phase breakdown", "derivatives",
+                                  "backward_pass", "forward_pass", "other"))
+          and (not plot or open(png, "rb").read(8) == b"\x89PNG\r\n\x1a\n")
+          and counts["derivs_packed"] > 0 and counts["rollout_packed"] > 0)
+    out = dict(launches=counts, s=time.perf_counter() - t0, ok=ok)
+    shown = "and the PNG" if plot else "(no matplotlib: no --plot)"
+    print(f"[cli] (b) {' '.join(CLI_SINGLE_ARGV)}: launches {counts},"
+          f" the TIMESTUFF phases {shown} {ok}; {out['s']:.1f} s")
+    if not ok:
+        raise AssertionError("(b) the single solve, its report or its plot")
+    return out
+
+
+def cli_quadrotor(tmp):
+    """(c): the quadrotor batch from its hover u0 on the fused solver's
+    JVP route (analytic + RK4; the split iteration at m·n = 48), its
+    Solution checkpointed and restored onto the card bit for bit."""
+    import ilqr_tpu_torch.__main__ as cli
+    from ilqr_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    sol, _text = _captured(cli.run, cli.build_parser().parse_args(
+        [*CLI_QUAD_ARGV, "--output", os.path.join(tmp, "quadrotor.csv")]))
+    counts = launch_counts()
+    path = os.path.join(tmp, "quadrotor_solution.npz")
+    checkpoint.save(path, sol)
+    back = checkpoint.restore(path, sol)
+    ok = (all(a.device == b.device and a.dtype == b.dtype
+              and torch.equal(a, b) for a, b in zip(back, sol))
+          and bool(torch.isfinite(sol.cost).all())
+          and counts["sweep_packed"] > 0 and counts["linesearch_packed"] > 0)
+    out = dict(launches=counts, mean_cost=float(sol.cost.mean()),
+               s=time.perf_counter() - t0, ok=ok)
+    print(f"[cli] (c) {' '.join(CLI_QUAD_ARGV)}: mean cost "
+          f"{out['mean_cost']:.6g}, launches {counts}, the checkpoint "
+          f"restored bit for bit on {back.cost.device}: {ok}; "
+          f"{out['s']:.1f} s")
+    if not ok:
+        raise AssertionError("(c) the quadrotor batch or its checkpoint")
+    return out
+
+
+def cli_examples():
+    """(d): the three examples at their default sizes: the lines they must
+    print, and every cost finite."""
+    import importlib
+
+    t0 = time.perf_counter()
+    for name, (argv, wanted) in EXAMPLES.items():
+        mod = importlib.import_module(f"ilqr_tpu_torch.examples.{name}")
+        result, text = _captured(mod.main, argv)
+        cost = result.plan.cost if name == "mpc_fleet" else result.cost
+        if not (all(w in text for w in wanted) and "nan" not in text
+                and bool(torch.isfinite(cost).all())):
+            raise AssertionError(f"(d) {name}: {text}")
+    s = time.perf_counter() - t0
+    print(f"[cli] (d) the three examples at their default sizes: their "
+          f"checks hold, every cost finite; {s:.1f} s")
+    return dict(s=s)
+
+
+def cli_unported(tmp):
+    """(e): the options the port does not carry raise before anything
+    runs: no kernel launched, no CSV written."""
+    import ilqr_tpu_torch.__main__ as cli
+
+    reset_launch_counts()
+    out = os.path.join(tmp, "none.csv")
+    for flags in (["--x64"], ["--full-ddp"],
+                  ["--backward-mode", "assoc", "--no-control-limits"]):
+        try:
+            cli.main(["integrator", *flags, "--output", out])
+        except NotImplementedError as e:
+            print(f"[cli] (e) {' '.join(flags)}: NotImplementedError: {e}")
+        else:
+            raise AssertionError(f"(e) {flags} did not raise")
+    if (any(launch_counts().values())
+            or any(kernel_rollout.rollout_packed.mode_launches.values())
+            or os.path.exists(out)):
+        raise AssertionError("(e) an unported option launched a kernel")
+    return dict(ok=True)
+
+
+def run_cli_phase(tmp):
+    """Phase 16 (a)-(e): the CLI and the examples on the card, writing
+    into ``tmp``."""
+    return dict(a=cli_batch(tmp), b=cli_single(tmp), c=cli_quadrotor(tmp),
+                d=cli_examples(), e=cli_unported(tmp))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4044,8 +4571,20 @@ def main() -> int:
     tick("phase 14 (the composable solver at m ≥ 2, the single MPC)")
     custom_out = run_custom_slice(dev, rows, readings)
     tick("phase 15 (custom models: the unicycle and unicycle_heading)")
-    print(f"[time] phases 2-15 {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        entry_out = run_cli_phase(tmp)
+    entry_out["f"] = run_modes_path(dev, readings)
+    tick("phase 16 (the CLI, the examples, the rollout modes' line search)")
+    print(f"[time] phases 2-16 {time.perf_counter() - t0:.1f} s", flush=True)
+    missing = [key for key, r in readings.items()
+               if r["kernel"] == "rollout_modes_kernel"
+               and not r.get("launches")]
+    if missing:
+        raise AssertionError(f"a rollout mode was never launched on its "
+                             f"path: {missing}")
     for key, r in readings.items():   # a mode of a row's kernel
+        if r["kernel"] == "rollout_modes_kernel":
+            r.update(ptxas.get((r["kernel"], r["model"], None), {}))
         row, _sep, mode = key.partition("#")
         rows[row].update({f"{READING_PREFIX[mode]}{k}": v
                           for k, v in r.items()
@@ -4076,7 +4615,8 @@ def main() -> int:
                       "cli_slice": cli_out, "fd_slice": fd_out,
                       "jvp_slice": jvp_out, "lanes_slice": lanes_out,
                       "composable_slice": slice14_out,
-                      "custom_slice": custom_out}))
+                      "custom_slice": custom_out,
+                      "entry_point": entry_out}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

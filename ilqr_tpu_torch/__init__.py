@@ -9,7 +9,12 @@ custom models registered with ``models.register`` (their kernels built
 from their torch SoA functions, ops/codegen.py), the box QPs of the
 composable backward pass (ops/boxqp.py), the MPC on both (mpc.py: one
 controller on the composable solver, fleets on the fused one), and the six
-CUDA kernels they run (ops/, csrc/). It imports neither JAX nor ilqr_tpu.
+CUDA kernels they run (ops/, csrc/; ``rollout_packed`` with the JAX
+kernel's candidate-sweep modes too). Around them: the CLI
+(``python -m ilqr_tpu_torch``, __main__.py), the reference-format I/O,
+checkpoints, phase timing, plots and math helpers (utils/), the native
+trajectory writer (runtime/) and the examples (examples/). It imports
+neither JAX nor ilqr_tpu.
 """
 
 from ilqr_tpu_torch.config import (

@@ -122,6 +122,107 @@ rollout_kernel(const float* __restrict__ params, int pstride,
                                            cost, T, B_, lane, clamp != 0);
 }
 
+// ---------------------------------------------------------------------------
+// rollout_packed, its other modes: costs_only, candidates, alpha_lanes
+//
+// Replaces: ilqr_tpu/ops/pallas_rollout.py rollout_packed (_kernel with
+// costs_only, candidates > 1 and alpha_mode "scalar" / "lane").
+// Bound on this card: device-memory bytes for most models; the
+// operations for acrobot's A-fold sweeps (sincosf per candidate step).
+// The least traffic reads the shared x̄, K and k once for all A
+// candidates (JAX's grid indexes them modulo NB); this design reads them
+// once per candidate, A times, mostly from L2. Like the full-output mode
+// the launch is latency-bound at the solver's batch sizes (the serial
+// time loop), so the A-fold grid costs about what one rollout does.
+// Design: one thread per (candidate a, lane b), thread g = a·B + b, so the
+// output (cost (A·B,), candidate-major) is written contiguously; every
+// input but a materialized u_ff is read at lane b = g mod B, the params row
+// too. The mode is a runtime argument, uniform over the launch:
+//   uff_wide    u_ff is (T, m, A·B), one column per candidate (else
+//               (T, m, B), shared by the candidates);
+//   alpha_mode  0 none, 1 α = alpha[a] (the candidates' steps), 2 α =
+//               alpha[b] (one α per lane); with an α the thread forms
+//               u_ff + α·k before the feedback, as the JAX kernel does;
+//   costs_only  the cost alone; otherwise (A = 1) xs, us and x_T too.
+// ---------------------------------------------------------------------------
+template <class Model, int kScheme>
+__device__ __forceinline__ void rollout_modes_lane(
+    const typename Model::Params& p, const float* __restrict__ x0,
+    const float* __restrict__ uff, const float* __restrict__ xsr,
+    const float* __restrict__ K, const float* __restrict__ k, float alpha,
+    bool has_alpha, float* __restrict__ xs, float* __restrict__ us,
+    float* __restrict__ xfin, float* __restrict__ cost, int T, size_t B,
+    size_t lane, size_t g, size_t uff_stride, size_t uff_col,
+    bool costs_only, bool clamp) {
+  constexpr int N = Model::N, M = Model::M;
+  float x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = x0[i * B + lane];
+  float c = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    const size_t tn = static_cast<size_t>(t) * N;
+    const size_t tm = static_cast<size_t>(t) * M;
+    float xr[N], Kr[M][N], ur[M], u[M];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      xr[i] = xsr[(tn + i) * B + lane];
+      if (!costs_only) xs[(tn + i) * B + lane] = x[i];
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      float uf = uff[(tm + j) * uff_stride + uff_col];
+      if (has_alpha) uf = uf + alpha * k[(tm + j) * B + lane];
+      ur[j] = uf;
+#pragma unroll
+      for (int i = 0; i < N; ++i) Kr[j][i] = K[((tm + j) * N + i) * B + lane];
+    }
+    const float ci = rollout::step<Model, kScheme>(p, x, ur, xr, Kr, clamp, u);
+    if (!costs_only) {
+#pragma unroll
+      for (int j = 0; j < M; ++j) us[(tm + j) * B + lane] = u[j];
+    }
+    c = c + ci;
+  }
+  if (!costs_only) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) xfin[i * B + lane] = x[i];
+  }
+  cost[g] = c + Model::final_cost(p, x);
+}
+
+template <class Model>
+__global__ void __launch_bounds__(kBlock)
+rollout_modes_kernel(const float* __restrict__ params, int pstride,
+                     const float* __restrict__ x0,
+                     const float* __restrict__ uff,
+                     const float* __restrict__ xsr,
+                     const float* __restrict__ K,
+                     const float* __restrict__ k,
+                     const float* __restrict__ alpha, float* __restrict__ xs,
+                     float* __restrict__ us, float* __restrict__ xfin,
+                     float* __restrict__ cost, int T, int B_, int A,
+                     int uff_wide, int alpha_mode, int costs_only, int clamp,
+                     int scheme) {
+  const size_t g = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t B = static_cast<size_t>(B_);
+  if (g >= static_cast<size_t>(A) * B) return;
+  const size_t a = g / B, lane = g % B;
+  const typename Model::Params p = load_lane<Model>(params, pstride,
+                                                    static_cast<int>(lane));
+  const float al = alpha_mode == 1 ? alpha[a]
+                   : alpha_mode == 2 ? alpha[lane] : 0.0f;
+  const size_t uff_stride = uff_wide ? static_cast<size_t>(A) * B : B;
+  const size_t uff_col = uff_wide ? g : lane;
+  if (scheme == integrate::kRK4)
+    rollout_modes_lane<Model, integrate::kRK4>(
+        p, x0, uff, xsr, K, k, al, alpha_mode != 0, xs, us, xfin, cost, T, B,
+        lane, g, uff_stride, uff_col, costs_only != 0, clamp != 0);
+  else
+    rollout_modes_lane<Model, integrate::kEuler>(
+        p, x0, uff, xsr, K, k, al, alpha_mode != 0, xs, us, xfin, cost, T, B,
+        lane, g, uff_stride, uff_col, costs_only != 0, clamp != 0);
+}
+
 // Backward phase shared by the sweep and the whole-iteration kernels:
 // reverse time from V_T, gains stored through (k_ptr, K_ptr) with the given
 // per-timestep strides (rows B apart). Returns the carry's accumulators.
@@ -398,8 +499,9 @@ inline int launch_iteration(
 // whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
 // ILQR_ITERATION_LAUNCHER in two sources, which compile in parallel.
-// ILQR_ROLLOUT_LAUNCHERS instantiates the rollout and the line search
-// alone: a custom model (ops/codegen.py) has no closed-form derivatives,
+// ILQR_ROLLOUT_LAUNCHERS instantiates the rollout (both kernels: the full
+// output, ilqr_<NAME>_rollout, and the other modes,
+// ilqr_<NAME>_rollout_modes) and the line search alone: a custom model (ops/codegen.py) has no closed-form derivatives,
 // so its sweep and iteration come from the dense policies only.
 // ILQR_FD_LAUNCHERS instantiates the stencil sweep and iteration kernels,
 // ilqr_<NAME>_sweep_fd and ilqr_<NAME>_iteration_fd, in a source of their
@@ -452,6 +554,20 @@ inline int launch_iteration(
         pstride, (const float*)x0, (const float*)uff, (const float*)xsr,       \
         (const float*)K, (float*)xs, (float*)us, (float*)xfin, (float*)cost,   \
         T, B, clamp, scheme);                                                  \
+  }                                                                            \
+  int ilqr_##NAME##_rollout_modes(                                             \
+      const void* params, int pstride, const void* x0, const void* uff,        \
+      const void* xsr, const void* K, const void* k, const void* alpha,        \
+      void* xs, void* us, void* xfin, void* cost, int T, int B, int A,         \
+      int uff_wide, int alpha_mode, int costs_only, int clamp, int scheme,     \
+      void* stream) {                                                          \
+    return fused::launch(                                                      \
+        fused::rollout_modes_kernel<MODEL>, A * B, stream,                     \
+        (const float*)params, pstride, (const float*)x0, (const float*)uff,    \
+        (const float*)xsr, (const float*)K, (const float*)k,                   \
+        (const float*)alpha, (float*)xs, (float*)us, (float*)xfin,             \
+        (float*)cost, T, B, A, uff_wide, alpha_mode, costs_only, clamp,        \
+        scheme);                                                               \
   }                                                                            \
   int ilqr_##NAME##_linesearch(                                                \
       const void* params, int pstride, const void* x0, const void* us,         \

@@ -107,8 +107,8 @@ def _merged_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
                       factor):
     """STEPs 1-4 as ONE kernel per backward attempt (ops/kernel_iter.py).
     λ-escalation retries re-run the kernel with ``live`` restricted to the
-    failed lanes; passthrough lanes re-emit their state unchanged, so the
-    retry loop is exact."""
+    failed lanes still at λ ≤ λmax; passthrough lanes re-emit their state
+    unchanged, so the retry loop is exact."""
 
     def run_iter(lam, live_f, xs_body, x_term, us, k_old, K_old):
         # cost_prev is per-lane invariant across retries (a retrying lane
@@ -123,13 +123,13 @@ def _merged_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
     (xs, us, xf, k, K, lsc, _asel, accf, dc, ex, div,
      g) = run_iter(state.lam, live.to(F32), state.xs_body, state.x_term,
                    state.us, state.k, state.K)
-    ok = frozen | (div < 0.5)
+    ok = frozen | (live & (div < 0.5))
     lam, dlam = _escalate(live & ~ok, state.lam, state.dlam, factor, cfg)
 
     retried = False
-    while _host_any(~ok & (lam <= cfg.lambda_max)):
+    retry = ~ok & (lam <= cfg.lambda_max)
+    while _host_any(retry):
         retried = True
-        retry = ~ok
         (xs, us, xf, k, K, lsc_n, _asel, acc_n, dc_n, ex_n, div_n,
          g_n) = run_iter(lam, retry.to(F32), xs, xf, us, k, K)
         lsc = torch.where(retry, lsc_n, lsc)
@@ -140,6 +140,7 @@ def _merged_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
         new_ok = div_n < 0.5
         lam, dlam = _escalate(retry & ~new_ok, lam, dlam, factor, cfg)
         ok = ok | (retry & new_ok)
+        retry = ~ok & (lam <= cfg.lambda_max)
     _iteration.retried += retried
     return lam, dlam, ok, g, xs, us, xf, k, K, lsc, accf, dc, ex
 
@@ -185,13 +186,13 @@ def _split_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
     run_backward = make(model, cfg, pp, state)
 
     k, K, dV, div, gnorm = run_backward(state.lam)
-    ok = frozen | (div < 0.5)
+    ok = frozen | (live & (div < 0.5))
     lam, dlam = _escalate(live & ~ok, state.lam, state.dlam, factor, cfg)
     retried = False
-    while _host_any(~ok & (lam <= cfg.lambda_max)):
+    retry = ~ok & (lam <= cfg.lambda_max)
+    while _host_any(retry):
         retried = True
         k_n, K_n, dV_n, div_n, g_n = run_backward(lam)
-        retry = ~ok
         new_ok = div_n < 0.5
         k = torch.where(retry, k_n, k)
         K = torch.where(retry, K_n, K)
@@ -199,6 +200,7 @@ def _split_iteration(model, cfg, pp, x0, state, frozen, live, alphas,
         gnorm = torch.where(retry, g_n, gnorm)
         lam, dlam = _escalate(retry & ~new_ok, lam, dlam, factor, cfg)
         ok = ok | (retry & new_ok)
+        retry = ~ok & (lam <= cfg.lambda_max)
     _iteration.retried += retried
 
     grad_term = _grad_term(cfg, ok, gnorm, lam)
@@ -251,11 +253,23 @@ def _iteration(model: Model, cfg: SolverConfig, pp, x0, alphas, factor,
     # loop runs in chunks of cfg.fused_unroll iterations (ref :285).
     frozen = state.done | (state.iteration >= cfg.max_iter)
     live = ~frozen
+    # A lane makes backward attempts only while λ ≤ λmax, as in the
+    # composable solver (ilqr_tpu/solver.py:151). The JAX fused solver
+    # makes its first attempt unconditionally, which differs only for a
+    # warm start that carries λ > λmax in: a fleet whose replans keep
+    # ending LAMBDA_MAX multiplies λ by a growing dλ at each, and from
+    # λ ≈ 1e37 the f32 sweep gives NaN gains without a divergence flag,
+    # which the next warm rollout spreads. Such a lane ends LAMBDA_MAX
+    # with its trajectory (ROADMAP.md §C3). The retries likewise re-run
+    # only the lanes still at λ ≤ λmax, where the JAX fused solver re-runs
+    # every failed lane while any lane retries.
+    attempt = live & (state.lam <= cfg.lambda_max)
     run = (_merged_iteration if _use_iter_kernel(model, cfg)
            else _split_iteration)
     (lam, dlam, back_ok, gnorm, xs_body, us, x_term, k, K, ls_cost, acc_f,
-     ls_dcost, ls_expected) = run(model, cfg, pp, x0, state, frozen, live,
-                                  alphas, factor)
+     ls_dcost, ls_expected) = run(model, cfg, pp, x0, state, frozen,
+                                  attempt, alphas, factor)
+    gnorm = torch.where(attempt, gnorm, state.gnorm)
     grad_term = _grad_term(cfg, back_ok, gnorm, lam)
     accepted = back_ok & (acc_f > 0.5)
     take_step = accepted & ~grad_term & live

@@ -68,6 +68,9 @@ _ITERATION = (_PARAMS + [_P] * 7 + [_I] + [_P] * 16
 _STENCIL = [_I, _F, _F, _F]
 _FUSED_SIGNATURES = {
     "rollout": _PARAMS + [_P] * 8 + [_I, _I, _I, _I, _P],
+    # ilqr_<model>_rollout_modes: x0, u_ff, x̄, K, k, α, xs, us, x_T, cost;
+    # T, B, A, u_ff wide, α mode, costs only, clamp, integrator
+    "modes": _PARAMS + [_P] * 10 + [_I] * 8 + [_P],
     "sweep": _SWEEP + [_P],
     "linesearch": (_PARAMS + [_P] * 9 + [_I] + [_P] * 14
                    + [_F, _I, _I, _I, _I, _P]),

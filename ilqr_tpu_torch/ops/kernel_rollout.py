@@ -357,30 +357,86 @@ def closed_loop_step(model, p, dt, integrator, clamp, x, u_ff, xsr, K):
 
 
 # ---------------------------------------------------------------------------
-# rollout_packed (full-output mode)
+# rollout_packed: the full output, and the modes of the JAX kernel's
+# candidate sweeps (costs_only, candidates, alphas, alpha_lanes)
 # ---------------------------------------------------------------------------
 
-def rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K):
-    """Plain version of :func:`rollout_packed`."""
+# The modes of the second kernel, ilqr_<model>_rollout_modes, by the launch
+# counter they add to (rollout_packed.mode_launches): a cost-only rollout,
+# A candidates with u_ff materialized per candidate, A candidates with the
+# step α_a formed in the kernel, one α per lane.
+ROLLOUT_MODES = ("costs_only", "candidates", "alphas", "alpha_lanes")
+
+
+def rollout_mode(costs_only=False, candidates=1, k=None, alphas=None,
+                 alpha_lanes=None):
+    """The mode of a :func:`rollout_packed` call: None for the full output
+    (the first kernel), else one of ROLLOUT_MODES. Raises ValueError for
+    the combinations the JAX kernel asserts against: full outputs need
+    ``candidates == 1``, ``alphas`` excludes ``alpha_lanes``, and either α
+    needs ``k``."""
+    if candidates < 1:
+        raise ValueError(f"candidates must be >= 1, got {candidates}")
+    if not costs_only and candidates != 1:
+        raise ValueError("full outputs require candidates == 1")
+    if alphas is not None and alpha_lanes is not None:
+        raise ValueError("alphas and alpha_lanes exclude each other")
+    if (alphas is not None or alpha_lanes is not None) and k is None:
+        raise ValueError("an in-kernel alpha (alphas or alpha_lanes) needs k")
+    if alphas is not None:
+        return "alphas"
+    if alpha_lanes is not None:
+        return "alpha_lanes"
+    if candidates > 1:
+        return "candidates"
+    return "costs_only" if costs_only else None
+
+
+def rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K,
+                  costs_only=False, candidates=1, k=None, alphas=None,
+                  alpha_lanes=None):
+    """Plain version of :func:`rollout_packed`, every mode: the A·B
+    candidate lanes (candidate-major, lane a·B + b) advance together, each
+    reading lane b's x0, x̄, K, k and params."""
+    mode = rollout_mode(costs_only, candidates, k, alphas, alpha_lanes)
     scheme(integrator)
     model = plain_model(model, pp.shapes)
+    A = candidates
+    if is_batched(pp) and A > 1:
+        pp = pp._replace(vec=pp.vec.repeat(A, 1))
     p, dt = unpack_params(pp)
     T, m, n, B = K.shape
-    xs = torch.empty((T, n, B), dtype=F32, device=x0.device)
-    us = torch.empty((T, m, B), dtype=F32, device=x0.device)
-    x = x0
-    cost = torch.zeros((B,), dtype=F32, device=x0.device)
+    dev = x0.device
+    # (…, B) → (…, A·B), candidate-major; a copy-free view when A = 1
+    wide = (lambda a: a) if A == 1 else (
+        lambda a: a.repeat(*(1,) * (a.ndim - 1), A))
+    al = (alphas.repeat_interleave(B) if mode == "alphas"
+          else wide(alpha_lanes) if mode == "alpha_lanes" else None)
+    uff_wide = mode == "candidates"
+    if not costs_only:
+        xs = torch.empty((T, n, B), dtype=F32, device=dev)
+        us = torch.empty((T, m, B), dtype=F32, device=dev)
+    x = wide(x0)
+    cost = torch.zeros((A * B,), dtype=F32, device=dev)
     for t in range(T):
-        xs[t] = x
-        u, c, x = closed_loop_step(model, p, dt, integrator, clamp, x,
-                                   uff[t], xsr[t], K[t])
-        us[t] = u
+        u_ff = uff[t] if uff_wide else wide(uff[t])
+        if al is not None:
+            u_ff = u_ff + al * wide(k[t])
+        if not costs_only:
+            xs[t] = x
+        u, c, x = closed_loop_step(model, p, dt, integrator, clamp, x, u_ff,
+                                   wide(xsr[t]), wide(K[t]))
+        if not costs_only:
+            us[t] = u
         cost = cost + c
-    return xs, us, x, cost + model.final_cost_soa(p, x)
+    cost = cost + model.final_cost_soa(p, x)
+    return cost if costs_only else (xs, us, x, cost)
 
 
 def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
-                   x0, uff, xsr, K):
+                   x0, uff, xsr, K, costs_only: bool = False,
+                   candidates: int = 1, k=None, alphas=None,
+                   alpha_lanes=None):
     """Closed-loop rollout u_t = u_ff,t + K_t (x_t − x̄_t) (clamped to the
     box when ``clamp``), Euler or RK4 steps, Σ running cost + final cost
     (ref src/ilqr_core.cpp:305-337).
@@ -388,28 +444,66 @@ def rollout_packed(model, integrator: str, clamp: bool, pp: PackedParams,
     Shapes: x0 (n, B), uff (T, m, B), xsr (T, n, B), K (T, m, n, B).
     Returns (xs (T, n, B) — rows 0..T-1, us (T, m, B), x_final (n, B),
     cost (B,)).
+
+    The modes of the JAX kernel's candidate sweeps (its names, the lanes
+    last): ``costs_only`` returns the cost alone, (A·B,) candidate-major;
+    ``candidates`` = A > 1 rolls out A candidates per lane (costs only),
+    reading x0, x̄, K, k and the params at lane b for candidate lane
+    a·B + b — with ``alphas`` (A,) the candidate's u_ff = uff + α_a·k is
+    formed in the kernel from the shared uff (T, m, B) and ``k``
+    (T, m, B), without it uff is materialized per candidate,
+    (T, m, A·B); ``alpha_lanes`` (B,) takes one α per lane, with full
+    outputs. These run a second kernel, ilqr_<model>_rollout_modes, and
+    count in ``rollout_packed.mode_launches[mode]`` (ROLLOUT_MODES);
+    the full output counts in ``rollout_packed.launches``. Invalid
+    combinations raise ValueError before anything runs.
     """
+    mode = rollout_mode(costs_only, candidates, k, alphas, alpha_lanes)
     if not on_cuda(x0):
-        return rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K)
+        return rollout_plain(model, integrator, clamp, pp, x0, uff, xsr, K,
+                             costs_only, candidates, k, alphas, alpha_lanes)
     dev = x0.device
     T, m, n, B = K.shape
     prefix = require_kernel_model(model, integrator, pp, dev, lanes=B,
                                   limits=clamp)
-    for t, shape, name in ((x0, (n, B), "x0"), (uff, (T, m, B), "uff"),
-                           (xsr, (T, n, B), "xsr"), (K, (T, m, n, B), "K")):
+    A = candidates
+    for t, shape, name in (
+            (x0, (n, B), "x0"),
+            (uff, (T, m, A * B if mode == "candidates" else B), "uff"),
+            (xsr, (T, n, B), "xsr"), (K, (T, m, n, B), "K")):
         _build.require(t, shape, name, dev)
-    xs = torch.empty((T, n, B), dtype=F32, device=dev)
-    us = torch.empty((T, m, B), dtype=F32, device=dev)
-    xfin = torch.empty((n, B), dtype=F32, device=dev)
-    cost = torch.empty((B,), dtype=F32, device=dev)
-    _build.launch(f"{prefix}_rollout", dev, pp.vec, param_stride(pp), x0,
-                  uff, xsr, K, xs, us, xfin, cost, T, B, int(bool(clamp)),
-                  scheme(integrator), model=kernel_owner(model))
-    rollout_packed.launches += 1
-    return xs, us, xfin, cost
+    if mode is None:
+        xs = torch.empty((T, n, B), dtype=F32, device=dev)
+        us = torch.empty((T, m, B), dtype=F32, device=dev)
+        xfin = torch.empty((n, B), dtype=F32, device=dev)
+        cost = torch.empty((B,), dtype=F32, device=dev)
+        _build.launch(f"{prefix}_rollout", dev, pp.vec, param_stride(pp), x0,
+                      uff, xsr, K, xs, us, xfin, cost, T, B,
+                      int(bool(clamp)), scheme(integrator),
+                      model=kernel_owner(model))
+        rollout_packed.launches += 1
+        return xs, us, xfin, cost
+    alpha = alphas if mode == "alphas" else alpha_lanes
+    if alpha is not None:
+        _build.require(k, (T, m, B), "k", dev)
+        _build.require(alpha, (A,) if mode == "alphas" else (B,),
+                       "alphas" if mode == "alphas" else "alpha_lanes", dev)
+    empty = lambda *s: (None if costs_only
+                        else torch.empty(s, dtype=F32, device=dev))
+    xs, us, xfin = empty(T, n, B), empty(T, m, B), empty(n, B)
+    cost = torch.empty((A * B,), dtype=F32, device=dev)
+    _build.launch(f"{prefix}_rollout_modes", dev, pp.vec, param_stride(pp),
+                  x0, uff, xsr, K, k if alpha is not None else None, alpha,
+                  xs, us, xfin, cost, T, B, A, int(mode == "candidates"),
+                  {"alphas": 1, "alpha_lanes": 2}.get(mode, 0),
+                  int(bool(costs_only)), int(bool(clamp)), scheme(integrator),
+                  model=kernel_owner(model))
+    rollout_packed.mode_launches[mode] += 1
+    return cost if costs_only else (xs, us, xfin, cost)
 
 
 rollout_packed.launches = 0
+rollout_packed.mode_launches = dict.fromkeys(ROLLOUT_MODES, 0)
 
 
 def rollout_batched(model, integrator: str, clamp: bool, pp: PackedParams,

@@ -69,6 +69,18 @@ def _run(code, cwd=REPO, extra_env=None):
     "import ilqr_tpu_torch.examples.custom_model as cm\n"
     "cm.register_models()\n"
     "ilqr_tpu_torch.ops._build.model_sources(cm.UNICYCLE_HEADING)",
+    "import ilqr_tpu_torch.__main__, ilqr_tpu_torch.utils\n"
+    "import ilqr_tpu_torch.utils.io, ilqr_tpu_torch.utils.math\n"
+    "import ilqr_tpu_torch.utils.checkpoint, ilqr_tpu_torch.utils.timing\n"
+    "import ilqr_tpu_torch.utils.plotting, ilqr_tpu_torch.runtime\n"
+    "import ilqr_tpu_torch.runtime.trajio\n"
+    "import ilqr_tpu_torch.examples.quadrotor_waypoints\n"
+    "import ilqr_tpu_torch.examples.free_flyer_docking\n"
+    "import ilqr_tpu_torch.examples.mpc_fleet\n"
+    "import os, tempfile\n"
+    "ilqr_tpu_torch.__main__.main(['--cpu', 'integrator', '--quiet',\n"
+    "    '--max-iter', '2', '-T', '5', '--output',\n"
+    "    os.path.join(tempfile.mkdtemp(), 'x.csv')])",
 ])
 def test_imports_no_jax_nor_ilqr_tpu(imports):
     out = _run(_NO_JAX.format(imports=imports))
