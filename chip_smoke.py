@@ -7,7 +7,9 @@ Phases (any failure raises and the script exits non-zero):
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build: the CUDA kernels from ilqr_tpu_torch/csrc with nvcc, one
      process per source, all started together (each source's seconds and
-     each kernel's registers, stack and spills printed);
+     each kernel's registers, stack and spills printed; for acrobot's
+     whole-iteration kernel, a team of 16 threads per lane, also its blocks
+     of 128 threads per SM);
   3. every kernel × model instantiation (and each RK4 reading, a runtime
      mode of a kernel) against its plain PyTorch version on the card, on
      the inputs of its path at that path's shapes: the flagship's at
@@ -23,15 +25,26 @@ Phases (any failure raises and the script exits non-zero):
      kernel, one α per lane), at the line search's shapes of acrobot
      (B = 8192, T = 499, Euler and RK4), the quadrotor and thruster_ring
      (B = 1024, T = 80), pendulum with per-lane params (B = 1024, T = 199)
-     and the custom unicycle (modes_cases), held bit for bit. This process
-     times each kernel
-     alone on the card (CUDA events); then worker processes run the plain
-     versions, which are host-bound, longest first; each case prints its
-     errors, times and bound;
+     and the custom unicycle (modes_cases), held bit for bit; acrobot's
+     whole-iteration kernel (csrc/iteration_team.cuh) in its three forms,
+     and on its edge cases (team_cases: a partial last block, B = 8189,
+     A = 1 and A = 7, every lane dead, NaN in one lane's x0), held bit for
+     bit. This process times each kernel alone on the card (CUDA
+     events, 3a); after phase 4, worker processes run the plain versions,
+     which are host-bound, one job per case builder, longest first, beside
+     phases 5-16 (3b; an iteration case reuses its builder's sweep's plain
+     result on the same inputs, SweepMemo), and this process the edge
+     cases' once the workers are done; each case prints its errors, times
+     and bound;
   4. the fused path: acrobot swing-up through solve_batch_fused at
      B = 8192, T = 499, max_iter = 100 — solves/s, cost, iterations, launch
      counts; then one more solve under torch.profiler for the device time
-     by kernel and the device's busy share;
+     by kernel and the device's busy share; alone on the card, as 3a.
+     From here on the phases share the card and the host's cores: phases
+     5-8, 9-10 with 16, 11, and 12-13 each run in a process of their own
+     (STREAMS), their logs printed when they end, 14-15 in this one
+     (MAIN_PHASES), beside 3b's workers; so their times are not those of
+     a card to themselves;
   5. the fused split route (sweep + line-search kernels) against the merged
      one, and the kernel path against the plain path on the card, at
      B = 1024, max_iter = 2; beside them, not asserted, the kernel path
@@ -176,13 +189,17 @@ either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import inspect
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple
 
@@ -258,7 +275,8 @@ SOURCES = {
     "derivs_packed": "ilqr_tpu_torch/csrc/derivs_acrobot.cu",
     "backward_sweep_packed": "ilqr_tpu_torch/csrc/backward.cu",
 }
-KERNEL_NAMES = ("iteration_kernel", "rollout_kernel", "sweep_kernel",
+KERNEL_NAMES = ("iteration_kernel", "iteration_team_kernel",
+                "rollout_kernel", "sweep_kernel",
                 "linesearch_kernel", "derivs_kernel", "backward_kernel",
                 "rollout_modes_kernel")
 
@@ -415,9 +433,11 @@ def acrobot_cases(dev):
     old = nbytes(kold, Kold)
 
     def meta(label, kind, row=None, group="row"):
+        team = kind == "iteration"   # csrc/iteration_team.cuh, held bitwise
         return dict(row=row or f"{label}/acrobot", group=group,
-                    kernel=f"{kind}_kernel", model="acrobot", limits=True,
-                    T=T, effort=effort(kind, T, N, M))
+                    kernel="iteration_team_kernel" if team
+                    else f"{kind}_kernel", model="acrobot", limits=True,
+                    T=T, effort=effort(kind, T, N, M), bitwise=team)
 
     cases = {
         "rollout_packed": Case(
@@ -505,14 +525,16 @@ def acrobot_cases(dev):
 
 
 def design_traffic_line():
-    """This design's traffic per flagship iteration_packed launch: xs and us
-    read by each of the three phases, the (T, 5, B) gain buffer written
-    once and read twice, the previous gains read, the new state written."""
+    """This design's traffic per flagship iteration_packed launch (the team
+    kernel, csrc/iteration_team.cuh): xs and us read by each of the three
+    phases, the new gains written once into k_out and K_out and read twice
+    (the candidates, the replay of the selected one), the new state
+    written; the previous gains, read and written where a lane drops the
+    new ones, are not counted."""
     f32 = 4
     xs_us = (T * N + T * M) * B_MAIN * f32
     gains = (T * M + T * M * N) * B_MAIN * f32
-    gain_buf = (M * (N + 1)) * T * B_MAIN * f32
-    design = 3 * xs_us + 3 * gain_buf + gains + (xs_us + gains)
+    design = 3 * xs_us + 3 * gains + xs_us
     return (f"[kernel] iteration_packed in this design moves ~"
             f"{design / 1e9:.3f} GB per launch (~"
             f"{design / PEAK_BYTES * 1e3:.3f} ms at the peak rate); the least "
@@ -558,6 +580,7 @@ def comparison_sets():
                                             *CLI_MODELS)]
             + [("fd", name) for name in CLI_SPECS]
             + [("jvp", name) for name in CLI_SPECS]
+            + [("team",)]
             + [("split", name) for name in SPLIT_MODELS]
             + [("lanes", name) for name in LANES_KERNELS]
             + [("derivs", name) for name in COMP_MODELS]
@@ -572,6 +595,8 @@ def build_cases(dev, which):
         return model_cases(dev, which[1])
     if which[0] == "jvp":
         return jvp_cases(dev, which[1])
+    if which[0] == "team":
+        return team_cases(dev)
     if which[0] == "split":
         return split_cases(dev, which[1])
     if which[0] == "lanes":
@@ -585,25 +610,72 @@ def build_cases(dev, which):
     return fd_cases(dev, which[1])
 
 
-_WORKER_CASES = {}
+class SweepMemo:
+    """kernel_sweep.sweep_plain with each result kept by its arguments (the
+    tensors, the model and the packed params by identity). A builder's
+    iteration case runs its sweep's plain version on the same inputs as the
+    builder's sweep case (iteration_plain = sweep_plain, the gates, then
+    linesearch_plain): in one worker that sweep runs once, and the case
+    that reuses it adds the sweep's measured ms to its own plain ms
+    (``saved_ms``). Each call returns copies, so no caller can change what
+    another reads."""
+
+    def __init__(self):
+        self.results = {}
+        self.saved_ms = 0.0
+        self.signature = inspect.signature(kernel_sweep.sweep_plain)
+
+    def __call__(self, *args, **kwargs):
+        bound = self.signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        key = tuple(v if isinstance(v, (str, int, float, bool, type(None)))
+                    else id(v) for v in bound.arguments.values())
+        hit = self.results.get(key)
+        if hit is None:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kernel_sweep.sweep_plain(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            self.results[key] = hit = (out, start.elapsed_time(end))
+        else:
+            self.saved_ms += hit[1]
+        return tuple(t.clone() for t in hit[0])
 
 
 def _worker_init():
     torch.set_num_threads(1)
 
 
-def _worker_job(key):
-    """In a worker process: the comparison of case ``key`` = (builder,
-    label), its builder's inputs made once per process."""
-    which, label = key
-    if which not in _WORKER_CASES:
-        _WORKER_CASES[which] = build_cases(torch.device(DEVICE), which)
-    t0 = time.perf_counter()
-    r = check_case(_WORKER_CASES[which][label])
-    # the plain version's temporaries back to the card: the processes
+def _worker_job(job):
+    """In a worker process: the comparisons of one builder's cases, ``job``
+    = (builder, labels), its inputs made once; its sweeps' plain versions
+    shared with its iteration cases (SweepMemo). Returns [(key, result)]."""
+    which, labels = job
+    cases = build_cases(torch.device(DEVICE), which)
+    memo = SweepMemo()
+    kernel_iter.sweep_plain = memo
+    out = []
+    try:
+        for label in labels:
+            case = cases[label]
+            if case.plain is kernel_sweep.sweep_plain:
+                case = case._replace(plain=memo)
+            t0 = time.perf_counter()
+            memo.saved_ms = 0.0
+            r = check_case(case)
+            r["plain_ms"] += memo.saved_ms
+            out.append(((which, label), dict(
+                r, job_s=time.perf_counter() - t0,
+                peak_reserved=torch.cuda.max_memory_reserved())))
+    finally:
+        kernel_iter.sweep_plain = kernel_sweep.sweep_plain
+    del cases, memo
+    # the plain versions' temporaries back to the card: the processes
     # share its memory with the kernels' local memory
     torch.cuda.empty_cache()
-    return key, dict(r, job_s=time.perf_counter() - t0)
+    return out
 
 
 # the readings of a row's kernel in another mode, by their group: their key
@@ -612,38 +684,70 @@ READING_SUFFIX = {"rk4": "", "rk4_fd": "#fd", "lanes": "#lanes"}
 READING_PREFIX = {"": "rk4_", "fd": "rk4_fd_", "lanes": "lanes_"}
 
 
-def run_comparisons(dev, tick):
-    """Phase 3: every kernel × model instantiation against its plain version
-    on the card (and each reading of a kernel's runtime mode: RK4, per-lane
-    params). This process times the kernels while it is alone on the card
-    (3a); then COMPARE_WORKERS processes run the plain versions, which are
-    host-bound and take minutes in sum, longest first (3b). Returns (rows
+class PendingComparisons(NamedTuple):
+    order: list        # every case's key, in the order the rows print
+    times: dict        # key → its kernel's ms, timed alone on the card
+    wheres: dict
+    metas: dict
+    jobs: list         # the workers' (builder, labels), longest first
+    main_cases: dict   # the team kernel's edge cases (team_cases)
+
+
+def time_kernels(dev):
+    """Phase 3a: every kernel × model instantiation (and each reading of a
+    kernel's runtime mode: RK4, per-lane params) built on its path's inputs
+    and timed while this process is alone on the card. Returns what 3b
+    compares: the edge cases' plain versions in this process, the rest in
+    COMPARE_WORKERS worker processes (host-bound, minutes in sum), longest
+    first."""
+    order, times, wheres, metas, groups = [], {}, {}, {}, {}
+    main_cases = {}
+    for which in comparison_sets():
+        cases = build_cases(dev, which)
+        for label, case in cases.items():
+            key = (which, label)
+            order.append(key)
+            times[key] = time_ms(lambda: case.op(*case.args), reps=3)
+            wheres[key], metas[key] = case.where, case.meta
+            if case.meta["group"] == "edge":
+                main_cases[key] = case
+            else:   # one job per builder, its effort the sum of its cases'
+                effort_sum, labels = groups.get(which, (0, []))
+                groups[which] = (effort_sum + case.meta["effort"],
+                                 labels + [label])
+        del cases
+    torch.cuda.empty_cache()
+    jobs = sorted(groups.items(), key=lambda kv: -kv[1][0])
+    return PendingComparisons(order, times, wheres, metas,
+                              [(which, labels)
+                               for which, (_e, labels) in jobs], main_cases)
+
+
+def compare_edges(pending):
+    """The edge cases' comparisons, in this process (their dense plain
+    versions hold several GB each); the card's memory they held freed."""
+    results = {}
+    for key, case in pending.main_cases.items():
+        t1 = time.perf_counter()
+        results[key] = dict(check_case(case),
+                            job_s=time.perf_counter() - t1)
+    pending.main_cases.clear()
+    torch.cuda.empty_cache()
+    return results
+
+
+def collect_comparisons(pending, results, wall):
+    """Phase 3b's results (``results`` by key, ``wall`` its seconds) printed
+    and held to KERNEL_TOL, bit for bit where the case asks. Returns (rows
     by key, readings by the key of their row and READING_SUFFIX)."""
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(COMPARE_WORKERS, initializer=_worker_init) as pool:
-        order, times, wheres, metas, jobs = [], {}, {}, {}, []
-        for which in comparison_sets():
-            cases = build_cases(dev, which)
-            for label, case in cases.items():
-                key = (which, label)
-                order.append(key)
-                times[key] = time_ms(lambda: case.op(*case.args), reps=3)
-                wheres[key], metas[key] = case.where, case.meta
-                jobs.append((case.meta["effort"], key))
-            del cases
-        torch.cuda.empty_cache()
-        tick(f"phase 3a (kernel times, {len(order)} cases)")
-        jobs.sort(key=lambda j: -j[0])
-        t0 = time.perf_counter()
-        results = dict(pool.imap_unordered(_worker_job,
-                                           [key for _e, key in jobs]))
-        pool.close()
-        pool.join()
-    wall = time.perf_counter() - t0
-    rows, rk4, failed = {}, {}, []
+    order, times = pending.order, pending.times
+    wheres, metas = pending.wheres, pending.metas
+    in_workers = sum(len(labels) for _which, labels in pending.jobs)
+    rows, rk4, edges, failed = {}, {}, {}, []
     for key in order:
         r = dict(results[key], ms=times[key])
         job_s = r.pop("job_s")
+        r.pop("peak_reserved", None)
         print(f"[kernel] {key[1]}: max_abs_err {r['max_abs_err']:.3e} "
               f"max_err {r['max_err']:.3e} (tol {KERNEL_TOL:g}) bitwise "
               f"{r['bitwise_equal']} | kernel {r['ms']:.3f} ms plain "
@@ -657,30 +761,43 @@ def run_comparisons(dev, tick):
                   f"moves ~{d / 1e6:.1f} MB (~{d / PEAK_BYTES * 1e3:.4f} ms "
                   f"at the peak rate); the bound counts "
                   f"{r['bound_bytes'] / 1e6:.1f} MB")
-        # the rollout modes are held bit for bit, the rest to KERNEL_TOL
+        # the rollout modes and the team kernel are held bit for bit, the
+        # rest to KERNEL_TOL
         if not (r["max_err"] <= KERNEL_TOL and (
-                r["bitwise_equal"] or meta["group"] not in MODE_GROUPS)):
+                r["bitwise_equal"] or (meta["group"] not in MODE_GROUPS
+                                       and not meta.get("bitwise")))):
             failed.append(key[1])
+        if meta["group"] == "edge":
+            edges.setdefault(meta["row"], {})[meta["edge"]] = {
+                k: r[k] for k in ("bitwise_equal", "max_abs_err", "ms",
+                                  "plain_ms")}
+            continue
         if meta["group"] == "fd_of":
             rows[meta["row"]].update({f"fd_{k}": v for k, v in r.items()})
             continue
         row = dict(r, **{k: v for k, v in meta.items()
-                         if k not in ("row", "group", "effort")})
+                         if k not in ("row", "group", "effort", "bitwise")})
         if meta["group"] == "row":
             rows[meta["row"]] = row
         else:   # "rk4"; "rk4_fd", the RK4 reading of the row's fd mode;
             #     "lanes", the per-lane params reading
             rk4[meta["row"] + READING_SUFFIX[meta["group"]]] = row
+    for row, readings in edges.items():
+        rows[row]["edge_cases"] = readings
     print(design_traffic_line())
     busy = sum(results[key]["job_s"] for key in order)
-    print(f"[compare] {len(order)} plain comparisons in {COMPARE_WORKERS} "
-          f"processes: {wall:.1f} s wall for {busy:.1f} s of comparisons "
+    peak = max(results[key].get("peak_reserved", 0) for key in order)
+    print(f"[compare] {len(order)} plain comparisons, {in_workers} in "
+          f"{COMPARE_WORKERS} processes beside phases 5-16 (one job per "
+          f"builder, {len(pending.jobs)} jobs), the rest in this one: "
+          f"{wall:.1f} s wall for {busy:.1f} s of comparisons "
           f"(plain ms: one call, with the other processes sharing the card "
-          f"and the host's {os.cpu_count()} cores)")
+          f"and the host's {os.cpu_count()} cores); a worker's peak "
+          f"{peak / 2**30:.1f} GiB reserved on the card")
     if failed:
         raise AssertionError(f"disagree with their plain versions beyond "
-                             f"{KERNEL_TOL} (the rollout modes: not bit for "
-                             f"bit): {failed}")
+                             f"{KERNEL_TOL} (the rollout modes and the team "
+                             f"kernel: not bit for bit): {failed}")
     return rows, rk4
 
 
@@ -1091,10 +1208,11 @@ WIDE_T, WIDE_ITERS, WIDE_DT = 80, 40, 0.05
 # comparison runs at its path's shapes.
 T_BACKWARD = {"thruster_ring16": 4, "thruster_ring20": 4,
               "thruster_ring24": 4}
-# Phase 3's plain versions run in this many worker processes (one per host
-# core but one): they are host-bound, one PyTorch op per operation.
-# every core: the main process waits while the plain versions run
-COMPARE_WORKERS = max(1, min(8, os.cpu_count() or 1))
+# Phase 3's plain versions run in this many worker processes, beside the
+# phases after phase 4 (STREAMS): they are host-bound, one PyTorch op per
+# operation, so each takes a host core.
+COMPARE_WORKERS = max(1, min(5, (os.cpu_count() or 1) - 3))
+STREAM_THREADS = 2    # torch's CPU threads in each stream's process
 DEVICE = "cuda"
 CAP_SOLVE_S = 5.0     # thruster_ring24: max_iter is cut if a solve would
 #                       take longer
@@ -1446,6 +1564,19 @@ def card_vs_cpu(name, T_c, iters, tol, lanes=4, integrator=None,
                 max_rel_cost_diff=rel)
 
 
+def team_occupancy():
+    """(kernel, limits) → the blocks of 128 threads an SM holds of acrobot's
+    team iteration kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    through the launchers' ilqr_acrobot_iteration*_blocks_per_sm)."""
+    lib, out = _build.library(), {}
+    for suffix in ("", "_fd", "_jvp"):
+        fn = getattr(lib, f"ilqr_acrobot_iteration{suffix}_blocks_per_sm")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        for limits in (True, False):
+            out[(f"iteration_team_kernel{suffix}", limits)] = fn(int(limits))
+    return out
+
+
 def ptxas_table(log: str):
     """(kernel, model, limits) → registers, spills and source file, from
     ptxas -v. The build log heads each source's report with "ptxas log of
@@ -1474,7 +1605,8 @@ def ptxas_table(log: str):
             kernel = next((k for k in KERNEL_NAMES if k in name), name)
             limits = None   # the sweep and iteration kernels' template flag
             models = [model]
-            if kernel in ("sweep_kernel", "iteration_kernel"):
+            if kernel in ("sweep_kernel", "iteration_kernel",
+                          "iteration_team_kernel"):
                 limits = "Lb1E" in name
             if kernel != "backward_kernel":
                 if "FiniteDiff" in name:   # the stencil instantiations
@@ -1880,12 +2012,13 @@ def fd_cases(dev, name):
                                       mode, integ)
                 return step * Tc * B + rest * B
 
+            team = kind == "iteration" and name == "acrobot"
             meta = dict(row=key, group=group,
-                        kernel=f"{kind}_kernel" + ("_fd" if mode == "fd"
-                                                   else ""),
+                        kernel=("iteration_team" if team else kind)
+                        + "_kernel" + ("_fd" if mode == "fd" else ""),
                         model=name, limits=limits, T=Tc,
                         effort=effort(kind, Tc, n, m) * (
-                            4 if integ == "rk4" else 1))
+                            4 if integ == "rk4" else 1), bitwise=team)
             if group == "row":
                 stem = ("kernels_quadrotor_iteration_fd.cu"
                         if kind == "iteration" and name == "quadrotor"
@@ -2256,12 +2389,73 @@ def jvp_cases(dev, name):
         stem = ("kernels_quadrotor_iteration_jvp.cu"
                 if kind == "iteration" and name == "quadrotor"
                 else f"kernels_{name}_jvp.cu")
-        meta = dict(row=key, group="row", kernel=f"{kind}_kernel_jvp",
-                    model=name, limits=limits, T=Tb,
+        team = kind == "iteration" and name == "acrobot"
+        meta = dict(row=key, group="row",
+                    kernel=("iteration_team" if team else kind)
+                    + "_kernel_jvp", model=name, limits=limits, T=Tb,
                     effort=8 * effort(kind, Tb, n, m),
-                    source=f"ilqr_tpu_torch/csrc/{stem}")
+                    source=f"ilqr_tpu_torch/csrc/{stem}", bitwise=team)
         out[f"{key} (rk4)"] = Case(op, plain, args, ops,
                                    f"at B={B} T={Tb} A={A}", unread, meta)
+    return out
+
+
+# The team kernel's edge cases (csrc/iteration_team.cuh): a partial last
+# block, A = 1 and A = 7 candidates, every lane dead, NaN in one lane's x0
+TEAM_EDGES = ("partial_block", "one_alpha", "seven_alphas", "all_dead",
+              "nan_lane")
+TEAM_PARTIAL_B = B_MAIN - 3   # the last block of 8 lanes holds 5
+TEAM_EDGE_B, TEAM_EDGE_T = 1024, 100   # the other edge cases' lanes, steps
+
+
+def team_cases(dev):
+    """Acrobot's whole-iteration kernel, a team of 16 threads per lane, on
+    its edge cases (TEAM_EDGES), each derived from a row's inputs: the
+    flagship's analytic Euler (acrobot_cases), the CLI's stencils with
+    Euler (fd_cases) and analytic + RK4 (jvp_cases): the partial block on
+    the first 8189 lanes at T = 499, the others on the first TEAM_EDGE_B
+    lanes and TEAM_EDGE_T steps (x_T the state there). Held bit for bit;
+    their readings go into the row's edge_cases. Their plain versions run
+    in the main process after the others (compare_edges): the dense ones
+    hold every step's derivatives at once, several GB at B = 8189, too
+    many beside the workers' own, and each takes seconds of host time per
+    hundred steps."""
+    bases = {
+        "iteration_packed/acrobot": acrobot_cases(dev)["iteration_packed"],
+        "iteration_packed/acrobot/fd": fd_cases(dev, "acrobot")[
+            "iteration_packed/acrobot/fd (euler)"],
+        "iteration_packed/acrobot/jvp": jvp_cases(dev, "acrobot")[
+            "iteration_packed/acrobot/jvp (rk4)"]}
+    out = {}
+    for row, base in bases.items():
+        a = list(base.args)   # x0 4, xs 5 … live 12, alphas 13
+        for edge in TEAM_EDGES:
+            args = list(a)
+            if edge == "partial_block":
+                B, Te = TEAM_PARTIAL_B, a[5].shape[0]
+            else:
+                B, Te = TEAM_EDGE_B, TEAM_EDGE_T
+                args[6] = a[5][Te]   # x_T: the state after Te steps
+                for i in (5, 7, 8, 9):   # xs, us, kold, Kold
+                    args[i] = a[i][:Te]
+            for i in range(4, 13):
+                args[i] = args[i][..., :B].contiguous()
+            if edge == "one_alpha":
+                args[13] = a[13][:1].contiguous()
+            elif edge == "seven_alphas":
+                args[13] = a[13][:7].contiguous()
+            elif edge == "all_dead":
+                args[12] = torch.zeros_like(args[12])
+            elif edge == "nan_lane":
+                args[4][1, 5] = float("nan")
+            meta = dict(base.meta, group="edge", edge=edge)
+            # the row's operations, in proportion to the lane-steps
+            share = B * Te / (a[4].shape[-1] * a[5].shape[0])
+            out[f"{row} ({edge})"] = base._replace(
+                args=tuple(args),
+                ops=lambda f=base.ops, k=share: round(f() * k),
+                where=f"at B={B} T={Te} A={args[13].shape[0]}", unread=None,
+                meta=meta)
     return out
 
 
@@ -3979,12 +4173,16 @@ def run_custom_slice(dev, rows, readings):
             rows[row]["fd_launches"] = n
         else:
             rows[row]["launches"] = n
+    return res
+
+
+def check_custom_bitwise(rows, readings):
+    """Every custom-model row and reading of phase 3 bit for bit."""
     for key, r in list(rows.items()) + list(readings.items()):
         if r.get("model") in CUSTOM_MODELS and not (
                 r["bitwise_equal"] and r.get("fd_bitwise_equal", True)):
             raise AssertionError(f"{key} is not bitwise equal to its plain "
                                  "version")
-    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4474,6 +4672,189 @@ def run_cli_phase(tmp):
                 d=cli_examples(), e=cli_unported(tmp))
 
 
+# After phase 4 the phases run side by side, beside phase 3b's workers:
+# each of STREAMS in a process of its own, MAIN_PHASES (whose CPU references
+# run in pools of their own) in this one. The phases are host bound, one
+# PyTorch op or launch at a time, so side by side they take about the time
+# their work takes on the host's cores, not the sum of their times. Each
+# process sets its launch counts to 0 and reads them around the paths it
+# drives.
+STREAMS = (("5", "6", "7", "8"), ("9", "10", "16"), ("11",), ("12", "13"))
+MAIN_PHASES = ("14", "15")
+PHASE_LABELS = {
+    "5": "phase 5 (split route, plain path)",
+    "6": "phase 6 (composable path)",
+    "7": "phase 7 (equivalence)",
+    "8": "phase 8 (the m = 2…4 slice)",
+    "9": "phase 9 (the m ≥ 5 slice)",
+    "10": "phase 10 (pendulum, cartpole, bicycle, power_mass)",
+    "11": "phase 11 (the stencils in the fused kernels, RK4)",
+    "12": "phase 12 (the dual-number slice: analytic + RK4, the split "
+          "sweep)",
+    "13": "phase 13 (per-problem params, the fleet warm start and MPC)",
+    "14": "phase 14 (the composable solver at m ≥ 2, the single MPC)",
+    "15": "phase 15 (custom models: the unicycle and unicycle_heading)",
+    "16": "phase 16 (the CLI, the examples, the rollout modes' line search)",
+}
+
+
+class Launches(dict):
+    """Launch counts by the key of a phase 3 row (or reading): ``key in``
+    asks whether phase 3 compares ``key``; a compared key's dict is made at
+    its first use, any other key raises KeyError."""
+
+    def __init__(self, compared):
+        super().__init__()
+        self.compared = frozenset(compared)
+
+    def __contains__(self, key):
+        return key in self.compared
+
+    def __missing__(self, key):
+        if key not in self.compared:
+            raise KeyError(key)
+        value = self[key] = {}
+        return value
+
+
+def compared_keys(pending):
+    """(row keys, reading keys) of phase 3, as collect_comparisons makes
+    them."""
+    rows, readings = set(), set()
+    for key in pending.order:
+        meta = pending.metas[key]
+        if meta["group"] in ("row", "fd_of"):
+            rows.add(meta["row"])
+        elif meta["group"] != "edge":
+            readings.add(meta["row"] + READING_SUFFIX[meta["group"]])
+    return sorted(rows), sorted(readings)
+
+
+def run_phase(phase, main_out, rows, readings, out):
+    """Phase ``phase`` (its number); ``main_out`` is phase 4's result. Its
+    results go into ``out`` by their keys in the summary line, the launches
+    of its paths into ``rows`` and ``readings``."""
+    dev = torch.device(DEVICE)
+    model, params, cfg = flagship()
+    if phase == "5":
+        split_counts, out["split_path"] = run_split_path(dev, model, params,
+                                                         cfg)
+        for name in ("sweep_packed", "linesearch_packed"):
+            rows[f"{name}/acrobot"]["launches"] = split_counts[name]
+    elif phase == "6":
+        comp_out = out["composable_path"] = run_composable_path(
+            dev, model, params, cfg, main_out)
+        for name in ("derivs_packed", "backward_sweep_packed"):
+            rows[f"{name}/acrobot"]["launches"] = comp_out["launches"][name]
+    elif phase == "7":
+        out["equivalence"] = run_equivalence(dev, model, params, cfg)
+    elif phase == "8":
+        out["slice"] = run_slice(dev, rows)
+    elif phase == "9":
+        out["wide_slice"] = run_wide_slice(dev, rows)
+    elif phase == "10":
+        out["cli_slice"] = run_cli_slice(dev, rows)
+    elif phase == "11":
+        out["fd_slice"] = run_fd_slice(dev, rows, readings)
+    elif phase == "12":
+        out["jvp_slice"] = run_jvp_slice(dev, rows, readings)
+    elif phase == "13":
+        out["lanes_slice"] = run_lanes_slice(dev, readings)
+    elif phase == "14":
+        out["composable_slice"] = run_composable_slice(dev, rows, readings)
+    elif phase == "15":
+        out["custom_slice"] = run_custom_slice(dev, rows, readings)
+    else:   # "16"
+        with tempfile.TemporaryDirectory() as tmp:
+            out["entry_point"] = run_cli_phase(tmp)
+        out["entry_point"]["f"] = run_modes_path(dev, readings)
+
+
+def run_phases(phases, main_out, keys):
+    """``phases`` one after another, each's seconds printed; ``keys`` are
+    phase 3's (compared_keys). Returns (their results by their keys in the
+    summary line, each phase's launches: (by row, by reading))."""
+    out, launches = {}, {}
+    for phase in phases:
+        rows, readings = Launches(keys[0]), Launches(keys[1])
+        t0 = time.perf_counter()
+        run_phase(phase, main_out, rows, readings, out)
+        launches[phase] = (dict(rows), dict(readings))
+        print(f"[time] {PHASE_LABELS[phase]} {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
+    return out, launches
+
+
+def _stream_main(which, main_out, keys, log_path, conn):
+    """A stream's process, phases ``which``: its prints go to
+    ``log_path``; it sends ("ok", results, each phase's launches, its peak
+    card memory) or ("error", the traceback)."""
+    sys.stdout = open(log_path, "w", buffering=1)
+    torch.set_num_threads(STREAM_THREADS)
+    try:
+        out, launches = run_phases(which, main_out, keys)
+        msg = ("ok", out, launches, torch.cuda.max_memory_reserved())
+    except BaseException:
+        msg = ("error", traceback.format_exc())
+    sys.stdout.flush()
+    conn.send(msg)
+    conn.close()
+
+
+class Stream(NamedTuple):
+    which: tuple       # its phases
+    proc: multiprocessing.process.BaseProcess
+    conn: object
+    log: str
+
+
+def start_stream(ctx, which, main_out, keys, tmp):
+    log = os.path.join(tmp, f"phases_{'_'.join(which)}.log")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_stream_main,
+                       args=(which, main_out, keys, log, send))
+    proc.start()
+    send.close()   # so that recv sees the end if the process dies
+    return Stream(which, proc, recv, log)
+
+
+def finish_stream(stream):
+    """Waits for ``stream`` and prints its log. Returns (its results, each
+    of its phases' launches); raises if it failed."""
+    try:
+        msg = stream.conn.recv()
+    except EOFError:
+        msg = None
+    stream.proc.join()
+    print(f"[stream] phases {', '.join(stream.which)}, in a process of "
+          f"their own (exit code {stream.proc.exitcode}); their log:")
+    with open(stream.log) as f:
+        print(f.read(), end="", flush=True)
+    if msg is None:
+        raise AssertionError(f"phases {stream.which}: the process ended "
+                             f"without a result")
+    if msg[0] != "ok":
+        raise AssertionError(f"phases {stream.which} failed:\n{msg[1]}")
+    _ok, out, launches, peak = msg
+    print(f"[stream] phases {', '.join(stream.which)}: peak "
+          f"{peak / 2**30:.1f} GiB reserved on the card")
+    return out, launches
+
+
+def merge_launches(rows, readings, launches):
+    """The launches the paths counted, into phase 3's rows and readings,
+    phase by phase in their order (a later phase's count of a kernel
+    replaces an earlier one's, as when the phases ran one after another)."""
+    for phase in sorted(launches, key=int):
+        for got, into, what in zip(launches[phase], (rows, readings),
+                                   ("row", "reading")):
+            for key, fields in got.items():
+                if key not in into:
+                    raise AssertionError(f"launches counted for {key}, a "
+                                         f"{what} phase 3 did not compare")
+                into[key].update(fields)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4524,6 +4905,14 @@ def main() -> int:
               + f">: {e.get('registers')} registers, "
               f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} B "
               f"spill stores, {e.get('spill_loads')} B spill loads")
+    occupancy = team_occupancy()
+    for (kernel, limits), blocks in occupancy.items():
+        e = ptxas.get((kernel, "acrobot", limits), {})
+        print(f"[build] {kernel}<acrobot, limits={limits}> (a team of 16 "
+              f"threads per lane, 8 lanes a block): {e.get('registers')} "
+              f"registers, {e.get('stack_bytes')} B stack, "
+              f"{e.get('spill_stores')} / {e.get('spill_loads')} B spill "
+              f"stores / loads; {blocks} blocks of 128 threads per SM")
 
     t_phase = t0
 
@@ -4534,47 +4923,66 @@ def main() -> int:
         t_phase = now
 
     tick("phases 1-2 (environment, build)")
-    rows, readings = run_comparisons(dev, tick)
-    tick(f"phase 3b (plain versions, {COMPARE_WORKERS} processes)")
-    model, params, cfg = flagship()
-    main_out = run_main_path(dev, model, params, cfg)
-    for name in ("rollout_packed", "iteration_packed"):
-        rows[f"{name}/acrobot"]["launches"] = main_out["launches"][name]
-    main_out["profile"] = profile_solve(
-        "fused", lambda x0, u0: solve_batch_fused(model, params, cfg, DT, x0,
-                                                  u0),
-        float(np.median(main_out["wall_s"])))
-    tick("phase 4 (the flagship path)")
-    split_counts, gauges = run_split_path(dev, model, params, cfg)
-    for name in ("sweep_packed", "linesearch_packed"):
-        rows[f"{name}/acrobot"]["launches"] = split_counts[name]
-    tick("phase 5 (split route, plain path)")
-    comp_out = run_composable_path(dev, model, params, cfg, main_out)
-    for name in ("derivs_packed", "backward_sweep_packed"):
-        rows[f"{name}/acrobot"]["launches"] = comp_out["launches"][name]
-    tick("phase 6 (composable path)")
-    equiv = run_equivalence(dev, model, params, cfg)
-    tick("phase 7 (equivalence)")
-    slice_out = run_slice(dev, rows)
-    tick("phase 8 (the m = 2…4 slice)")
-    wide_out = run_wide_slice(dev, rows)
-    tick("phase 9 (the m ≥ 5 slice)")
-    cli_out = run_cli_slice(dev, rows)
-    tick("phase 10 (pendulum, cartpole, bicycle, power_mass)")
-    fd_out = run_fd_slice(dev, rows, readings)
-    tick("phase 11 (the stencils in the fused kernels, RK4)")
-    jvp_out = run_jvp_slice(dev, rows, readings)
-    tick("phase 12 (the dual-number slice: analytic + RK4, the split sweep)")
-    lanes_out = run_lanes_slice(dev, readings)
-    tick("phase 13 (per-problem params, the fleet warm start and MPC)")
-    slice14_out = run_composable_slice(dev, rows, readings)
-    tick("phase 14 (the composable solver at m ≥ 2, the single MPC)")
-    custom_out = run_custom_slice(dev, rows, readings)
-    tick("phase 15 (custom models: the unicycle and unicycle_heading)")
-    with tempfile.TemporaryDirectory() as tmp:
-        entry_out = run_cli_phase(tmp)
-    entry_out["f"] = run_modes_path(dev, readings)
-    tick("phase 16 (the CLI, the examples, the rollout modes' line search)")
+    ctx = multiprocessing.get_context("spawn")
+    # the workers start (and import) while phase 3a times the kernels; they
+    # touch the card only when 3b hands them their cases
+    pool = ctx.Pool(COMPARE_WORKERS, initializer=_worker_init)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    streams = []
+    try:
+        pending = time_kernels(dev)
+        tick(f"phase 3a (kernel times, {len(pending.order)} cases)")
+        keys = compared_keys(pending)
+        model, params, cfg = flagship()
+        main_out = run_main_path(dev, model, params, cfg)
+        launches = {"4": ({f"{name}/acrobot": dict(
+            launches=main_out["launches"][name])
+            for name in ("rollout_packed", "iteration_packed")}, {})}
+        main_out["profile"] = profile_solve(
+            "fused", lambda x0, u0: solve_batch_fused(model, params, cfg, DT,
+                                                      x0, u0),
+            float(np.median(main_out["wall_s"])))
+        tick("phase 4 (the flagship path, alone on the card)")
+        # from here on the card is shared: phase 3b's workers, STREAMS in
+        # processes of their own, MAIN_PHASES in this one
+        t3b = time.perf_counter()
+        plain = pool.map_async(_worker_job, pending.jobs, chunksize=1)
+        streams = [start_stream(ctx, which, main_out, keys, tmp)
+                   for which in STREAMS]
+        stream_out, main_launches = run_phases(MAIN_PHASES, main_out, keys)
+        launches.update(main_launches)
+        print(f"[stream] this process: peak "
+              f"{torch.cuda.max_memory_reserved() / 2**30:.1f} GiB reserved "
+              f"on the card")
+        results = {}
+        for job_results in plain.get():
+            results.update(job_results)
+        pool.close()
+        pool.join()
+        tick(f"phase 3b (the rest of the workers' plain versions, "
+             f"{COMPARE_WORKERS} processes)")
+        # the edge cases' dense plain versions once the workers are done
+        n_edges = len(pending.main_cases)
+        results.update(compare_edges(pending))
+        wall_3b = time.perf_counter() - t3b
+        tick(f"phase 3b (the edge cases' plain versions, {n_edges} in this "
+             f"process)")
+        for stream in streams:
+            out, stream_launches = finish_stream(stream)
+            stream_out.update(out)
+            launches.update(stream_launches)
+        tick("the streams' phases (the rest of their processes' time)")
+        rows, readings = collect_comparisons(pending, results, wall_3b)
+    finally:
+        pool.terminate()
+        pool.join()
+        for stream in streams:
+            if stream.proc.is_alive():
+                stream.proc.terminate()
+            stream.proc.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    merge_launches(rows, readings, launches)
+    check_custom_bitwise(rows, readings)
     print(f"[time] phases 2-16 {time.perf_counter() - t0:.1f} s", flush=True)
     missing = [key for key, r in readings.items()
                if r["kernel"] == "rollout_modes_kernel"
@@ -4600,8 +5008,11 @@ def main() -> int:
                  library_ms=None, library_note=(
                      "no single PyTorch call computes this function"))
         limits = r["limits"] if r["kernel"].startswith(
-            ("sweep_kernel", "iteration_kernel")) else None
+            ("sweep_kernel", "iteration_kernel", "iteration_team_kernel")
+        ) else None
         r.update(ptxas.get((r["kernel"], r["model"], limits), {}))
+        if (r["kernel"], limits) in occupancy:
+            r["blocks_per_sm"] = occupancy[(r["kernel"], limits)]
     if not all(r.get("launches") for r in rows.values()):
         raise AssertionError(f"a kernel was never launched: {rows}")
     if not all(rows[f"{kind}_packed/{name}"].get("lanes_launches")
@@ -4609,14 +5020,12 @@ def main() -> int:
         raise AssertionError("a per-lane params kernel was never launched on "
                              "its path")
 
-    print(json.dumps({"main_path": main_out, "split_path": gauges,
-                      "composable_path": comp_out, "equivalence": equiv,
-                      "slice": slice_out, "wide_slice": wide_out,
-                      "cli_slice": cli_out, "fd_slice": fd_out,
-                      "jvp_slice": jvp_out, "lanes_slice": lanes_out,
-                      "composable_slice": slice14_out,
-                      "custom_slice": custom_out,
-                      "entry_point": entry_out}))
+    print(json.dumps({"main_path": main_out, **{
+        key: stream_out[key] for key in (
+            "split_path", "composable_path", "equivalence", "slice",
+            "wide_slice", "cli_slice", "fd_slice", "jvp_slice",
+            "lanes_slice", "composable_slice", "custom_slice",
+            "entry_point")}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

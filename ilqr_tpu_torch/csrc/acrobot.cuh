@@ -202,6 +202,10 @@ __device__ __forceinline__ void final_cost_derivs(const Params& p,
 struct Model : cost::DiagonalHessians {
   static constexpr int N = acrobot::N, M = acrobot::M;
   using Params = acrobot::Params;
+  // The whole iteration runs as a team of 16 threads per lane
+  // (iteration_team.cuh): its 5 directions and 15 cost-Hessian pairs fit a
+  // team
+  static constexpr bool kTeamIteration = true;
 
   // Structural pattern of jac(), row by row: '.' a Python-float zero of
   // jac_soa, '1' a Python-float one, 'x' a live entry

@@ -1,0 +1,665 @@
+// iteration_packed (one whole solver iteration) as a team of kTeam threads
+// per lane, for acrobot (n = 4, m = 1): the one-thread iteration_kernel of
+// kernels.cuh redesigned for this card. Every other model keeps that one.
+//
+// Replaces: ilqr_tpu/ops/pallas_iter.py iteration_packed (_iter_kernel), as
+// kernels.cuh iteration_kernel does, on the same inputs, outputs and gain
+// buffer, with the same launcher names and signatures.
+// Bound on this card: as the one-thread kernel's, latency first. One thread
+// per lane left two warps on an SM at B = 8192 (one block of 64 each), so
+// every dependent instruction's latency was exposed, and a lane's
+// independent work ran in series on its thread: the 2(n + m) stencil steps
+// (under RK4 four dynamics calls each) and (n + m)(n + m + 1)/2 cost-Hessian
+// pairs of every time step, and the A line-search candidates.
+// Design: a team of kTeam = 16 threads, half a warp, serves one lane; a
+// block of kBlock = 128 threads serves kLanes = 8 lanes, so B = 8192 is
+// 1 024 blocks. All exchange within a team is __shfl_sync over the team's
+// half of the warp (width kTeam): the team shares no memory and meets no
+// block barrier (a __syncwarp over the team orders what one thread of it
+// stores to device memory before another reads or overwrites it). A
+// shuffle moves a value and never sums one, and each output element is
+// computed by one thread with the one-thread kernel's operations in its
+// order, so the results are that kernel's bit for bit.
+//  - Phase 0, the merged linearize + backward sweep. Under FiniteDiff,
+//    thread 2a evaluates the plus side of direction a (the perturbed step
+//    and running cost) and thread 2a + 1 the minus side, and threads
+//    0 … 14 each take one of the 15 Hessian pairs (a, b ≥ a) of the running
+//    cost; under Jvp thread a takes direction a's first-order dual pass and
+//    threads 0 … 14 one second-order pass each. Every thread then gathers
+//    all entries by shuffles and runs the Riccati step (sweep::step) on its
+//    own copy of the V-carry, with no further exchange; thread q < m(n + 1)
+//    stores entry q of the step's gains (k_t, then K_t row-major) into
+//    k_out and K_out. V_T is computed by every thread, once.
+//  - Phase 1: thread a < A advances candidate a; the shared rows (us, x̄,
+//    k_t, K_t) are read by the team at one address; the A costs are
+//    gathered by shuffles and every thread runs rollout::select on them.
+//    Each candidate stores its state at the start of each of S ≤ 16
+//    segments of the horizon into the gain buffer, a scratch here.
+//  - Phase 2: where a step is taken, thread s rolls out segment s of the
+//    selected candidate again from its stored state and writes the state,
+//    so the replay takes T / S steps, not T; where none is, the team
+//    copies the current state. Where the new gains are not kept, the team
+//    copies the previous ones over them.
+// The closed-form derivatives of phase 0 (Model::jac) do not depend on
+// the V-carry, so they too are spread: thread r evaluates them for step
+// t − r of each block of 16 steps t, t − 1, …, and each step gathers them.
+// A team whose lane lies past B (the last block's) reads lane B − 1, runs
+// no time step and writes nothing; it still meets every shuffle of its own
+// team, and no thread returns early.
+#pragma once
+
+#include <type_traits>
+
+#include "kernels.cuh"
+
+namespace team {
+
+constexpr int kTeam = 16;               // threads per lane: half a warp
+constexpr int kBlock = 128;             // threads per block
+constexpr int kLanes = kBlock / kTeam;  // lanes per block
+// Blocks an SM is to hold: registers capped at 128 a thread, which the
+// analytic form fits without spills and the stencil and dual-number forms
+// with a few dozen bytes. Timed on an H100 at B = 8192, T = 499 against 2,
+// 3, 5, 6 and 8 blocks: fewer leave the dense forms' latency exposed, more
+// spill them heavily.
+constexpr int kMinBlocks = 4;
+
+static_assert(fused::kMaxA <= kTeam, "a team holds every candidate");
+
+struct Team {
+  int rank;       // the thread's place in its team, 0 … kTeam − 1
+  unsigned mask;  // the team's half of the warp
+
+  // v as team thread src holds it
+  __device__ __forceinline__ float from(float v, int src) const {
+    return __shfl_sync(mask, v, src, kTeam);
+  }
+};
+
+// The pair (a, b ≥ a) that is the q-th of fd.cuh's and jvp.cuh's loops
+// over n + m = NZ directions
+template <int NZ>
+__device__ __forceinline__ void pair_of(int q, int& a, int& b) {
+  a = 0;
+  b = 0;
+  int i = 0;
+#pragma unroll
+  for (int aa = 0; aa < NZ; ++aa)
+#pragma unroll
+    for (int bb = aa; bb < NZ; ++bb, ++i)
+      if (i == q) {
+        a = aa;
+        b = bb;
+      }
+}
+
+// Every team thread receives what its team computed: column a of (fx | fu)
+// and entry a of (cx | cu) from thread a · stride, the Hessian of pair q
+// from thread q, placed and mirrored as fd::linearize places them.
+template <class Model>
+__device__ __forceinline__ void gather(
+    const Team& tm, int stride, const float col[Model::N], float dcol,
+    float h, float fx[Model::N][Model::N], float fu[Model::N][Model::M],
+    float cx[Model::N], float cu[Model::M], float cxx[Model::N][Model::N],
+    float cxu[Model::N][Model::M], float cuu[Model::M][Model::M]) {
+  constexpr int N = Model::N, M = Model::M, NZ = N + M;
+#pragma unroll
+  for (int a = 0; a < NZ; ++a) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const float v = tm.from(col[r], a * stride);
+      if (a < N)
+        fx[r][a] = v;
+      else
+        fu[r][a - N] = v;
+    }
+    const float v = tm.from(dcol, a * stride);
+    if (a < N)
+      cx[a] = v;
+    else
+      cu[a - N] = v;
+  }
+  int q = 0;
+#pragma unroll
+  for (int a = 0; a < NZ; ++a)
+#pragma unroll
+    for (int b = a; b < NZ; ++b, ++q) {
+      const float v = tm.from(h, q);
+      if (b < N) {
+        cxx[a][b] = v;
+        cxx[b][a] = v;
+      } else if (a < N) {
+        cxu[a][b - N] = v;
+      } else {
+        cuu[a - N][b - N] = v;
+        cuu[b - N][a - N] = v;
+      }
+    }
+}
+
+// sweep::FiniteDiff spread over the team (fd.cuh's arithmetic, term by term)
+struct FiniteDiff {
+  static constexpr bool kDense = true;
+  sweep::FiniteDiff d;
+  Team tm;
+
+  template <class Model>
+  __device__ __forceinline__ void linearize(
+      const typename Model::Params& p, const float x[Model::N],
+      const float u[Model::M], float fx[Model::N][Model::N],
+      float fu[Model::N][Model::M], float cx[Model::N], float cu[Model::M],
+      float cxx[Model::N][Model::N], float cxu[Model::N][Model::M],
+      float cuu[Model::M][Model::M]) const {
+    constexpr int N = Model::N, M = Model::M, NZ = N + M;
+    constexpr int NP = NZ * (NZ + 1) / 2;
+    static_assert(2 * NZ <= kTeam && NP <= kTeam,
+                  "a team holds both sides of every direction and every "
+                  "Hessian pair");
+    const fd::Stencil& s = d.s;
+    // one side of direction a = rank / 2: z + eps·t_a on even ranks,
+    // z − eps·t_a on odd ones
+    float y[N], c = 0.0f;
+#pragma unroll
+    for (int r = 0; r < N; ++r) y[r] = 0.0f;
+    if (tm.rank < 2 * NZ) {
+      float xq[N], uq[M];
+      fd::shift<Model>(x, u, tm.rank >> 1, -1, 0.0f, s.eps,
+                       (tm.rank & 1) == 0, xq, uq);
+      integrate::step<Model>(p, xq, uq, s.scheme, y);
+      c = Model::cost(p, xq, uq);
+    }
+    // the plus side forms the difference quotients (odd ranks form
+    // unused ones)
+    const int minus = tm.rank | 1;
+    float col[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      col[r] = (y[r] - tm.from(y[r], minus)) / s.den1;
+    const float dcol = (c - tm.from(c, minus)) / s.den1;
+    float h = 0.0f;
+    if (tm.rank < NP) {
+      int a, b;
+      pair_of<NZ>(tm.rank, a, b);
+      h = fd::second<Model, true>(p, x, u, a, b, s);
+    }
+    gather<Model>(tm, 2, col, dcol, h, fx, fu, cx, cu, cxx, cxu, cuu);
+  }
+  template <class Model>
+  __device__ __forceinline__ void terminal(
+      const typename Model::Params& p, const float xT[Model::N],
+      float vx[Model::N], float vxx[Model::N][Model::N]) const {
+    d.template terminal<Model>(p, xT, vx, vxx);
+  }
+};
+
+// sweep::Jvp spread over the team (jvp.cuh's arithmetic, term by term)
+struct Jvp {
+  static constexpr bool kDense = true;
+  sweep::Jvp d;
+  Team tm;
+
+  template <class Model>
+  __device__ __forceinline__ void linearize(
+      const typename Model::Params& p, const float x[Model::N],
+      const float u[Model::M], float fx[Model::N][Model::N],
+      float fu[Model::N][Model::M], float cx[Model::N], float cu[Model::M],
+      float cxx[Model::N][Model::N], float cxu[Model::N][Model::M],
+      float cuu[Model::M][Model::M]) const {
+    constexpr int N = Model::N, M = Model::M, NZ = N + M;
+    constexpr int NP = NZ * (NZ + 1) / 2;
+    static_assert(NZ <= kTeam && NP <= kTeam,
+                  "a team holds every direction and every Hessian pair");
+    float col[N], dcol = 0.0f;
+#pragma unroll
+    for (int r = 0; r < N; ++r) col[r] = 0.0f;
+    if (tm.rank < NZ) {
+      jvp::D1 xd[N], ud[M], y[N];
+      jvp::seed1<Model>(x, u, tm.rank, xd, ud);
+      integrate::step<Model, jvp::D1>(p, xd, ud, d.scheme, y);
+      dcol = Model::cost(p, xd, ud).d;
+#pragma unroll
+      for (int r = 0; r < N; ++r) col[r] = y[r].d;
+    }
+    float h = 0.0f;
+    if (tm.rank < NP) {
+      int a, b;
+      pair_of<NZ>(tm.rank, a, b);
+      jvp::D2 xd[N], ud[M];
+      jvp::seed2<Model>(x, u, a, b, xd, ud);
+      h = Model::cost(p, xd, ud).d.d;
+    }
+    gather<Model>(tm, 1, col, dcol, h, fx, fu, cx, cu, cxx, cxu, cuu);
+  }
+  template <class Model>
+  __device__ __forceinline__ void terminal(
+      const typename Model::Params& p, const float xT[Model::N],
+      float vx[Model::N], float vxx[Model::N][Model::N]) const {
+    d.template terminal<Model>(p, xT, vx, vxx);
+  }
+};
+
+// sweep::Analytic with A and Bu evaluated ahead by another thread of the
+// team (the kernel's phase 0): their live entries, row-major
+struct Analytic {
+  static constexpr bool kDense = false;
+  const float* a;   // N × N
+  const float* bu;  // N × M
+
+  template <class Model>
+  __device__ __forceinline__ void jac(const typename Model::Params&,
+                                      const float*, const float*,
+                                      float A[Model::N][Model::N],
+                                      float Bu[Model::N][Model::M]) const {
+    constexpr int N = Model::N, M = Model::M;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (Model::a_kind(r, i) == 'x') A[r][i] = a[r * N + i];
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+        if (Model::b_kind(r, j) == 'x') Bu[r][j] = bu[r * M + j];
+    }
+  }
+};
+
+// The derivative source of phase 0: the dense ones spread over the team,
+// the closed forms as they are
+__device__ __forceinline__ sweep::Analytic spread(sweep::Analytic d,
+                                                  const Team&) {
+  return d;
+}
+__device__ __forceinline__ FiniteDiff spread(sweep::FiniteDiff d,
+                                             const Team& tm) {
+  return {d, tm};
+}
+__device__ __forceinline__ Jvp spread(sweep::Jvp d, const Team& tm) {
+  return {d, tm};
+}
+
+// The shared rows of one time step that a rollout reads: u_t, x̄_t and the
+// gains k_t, K_t. The rollouts load row t + 1 while they step through row t,
+// so that the loads' latency hides behind the step.
+template <class Model>
+struct Row {
+  static constexpr int N = Model::N, M = Model::M;
+  float u[M], xsr[N], k[M], K[M][N];
+
+  __device__ __forceinline__ void load(const float* __restrict__ us,
+                                       const float* __restrict__ xs,
+                                       const rollout::Gains<Model>& g, int t,
+                                       size_t B, int lane) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) u[j] = us[(t * M + j) * B + lane];
+#pragma unroll
+    for (int i = 0; i < N; ++i) xsr[i] = xs[(t * N + i) * B + lane];
+    g.load(t, lane, k, K);
+  }
+};
+
+// Where phase 1 leaves each candidate's state for phase 2: the gain buffer,
+// free once phase 0 has stored the gains in k_out and K_out, holds the state
+// x_t at the start t = s·L of each segment s ≥ 1 of every candidate. S
+// segments of L steps, as many as it holds (S − 1 states of n floats for
+// each of the A candidates in its T·m(n + 1) floats per lane), at most one
+// a team thread.
+struct Segments {
+  int S, L;
+
+  // per_t: the buffer's floats per lane and time step
+  __device__ __forceinline__ Segments(int T, int A, int per_t, int n) {
+    S = min(kTeam, 1 + (T * per_t) / (A * n));
+    L = (T + S - 1) / S;
+  }
+  // the scratch row of entry i of candidate a's state at segment s ≥ 1
+  __device__ __forceinline__ int row(int a, int s, int i, int n) const {
+    return (a * (S - 1) + s - 1) * n + i;
+  }
+};
+
+// One line-search candidate's cost: rollout::candidate_costs for the one α,
+// a; its state at the start of each segment s ≥ 1 stored to the scratch.
+template <class Model, int kScheme>
+__device__ __forceinline__ float candidate_as(
+    const typename Model::Params& p, const float x0[Model::N],
+    const float* __restrict__ us, const float* __restrict__ xs,
+    const rollout::Gains<Model>& g, int a, float alpha, int T, size_t B,
+    int lane, bool clamp, const Segments& seg, float* scratch) {
+  constexpr int N = Model::N, M = Model::M;
+  float x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = x0[i];
+  float cost = 0.0f;
+  Row<Model> next;
+  if (T > 0) next.load(us, xs, g, 0, B, lane);
+  for (int t = 0, s = 0; t < T; ++t) {
+    const Row<Model> r = next;
+    if (t + 1 < T) next.load(us, xs, g, t + 1, B, lane);
+    if (t == s * seg.L) {
+      if (s > 0) {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          scratch[seg.row(a, s, i, N) * B + lane] = x[i];
+      }
+      ++s;
+    }
+    float uff[M], u[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) uff[j] = r.u[j] + alpha * r.k[j];
+    cost = cost
+           + rollout::step<Model, kScheme>(p, x, uff, r.xsr, r.K, clamp, u);
+  }
+  return cost + Model::final_cost(p, x);
+}
+
+// Phase 2 where a step is taken: segment s of the selected candidate a,
+// steps t0 … t1 − 1 from its stored state (x0 for s = 0), rolled out again
+// as rollout::emit rolls out the whole horizon, with the state written;
+// the last segment writes x_T.
+template <class Model, int kScheme>
+__device__ __forceinline__ void emit_as(
+    const typename Model::Params& p, const float x0[Model::N],
+    const float* __restrict__ us, const float* __restrict__ xs,
+    const rollout::Gains<Model>& g, int a, float alpha, int s, int T,
+    size_t B, int lane, bool clamp, const Segments& seg,
+    const float* scratch, float* __restrict__ xs_out,
+    float* __restrict__ us_out, float* __restrict__ xfin_out) {
+  constexpr int N = Model::N, M = Model::M;
+  const int t0 = s * seg.L, t1 = min(T, t0 + seg.L);
+  if (t0 >= T) return;
+  float x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    x[i] = s == 0 ? x0[i] : scratch[seg.row(a, s, i, N) * B + lane];
+  Row<Model> next;
+  next.load(us, xs, g, t0, B, lane);
+  for (int t = t0; t < t1; ++t) {
+    const Row<Model> r = next;
+    if (t + 1 < t1) next.load(us, xs, g, t + 1, B, lane);
+#pragma unroll
+    for (int i = 0; i < N; ++i) xs_out[(t * N + i) * B + lane] = x[i];
+    float uff[M], u[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) uff[j] = r.u[j] + alpha * r.k[j];
+    rollout::step<Model, kScheme>(p, x, uff, r.xsr, r.K, clamp, u);
+#pragma unroll
+    for (int j = 0; j < M; ++j) us_out[(t * M + j) * B + lane] = u[j];
+  }
+  if (t1 == T) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) xfin_out[i * B + lane] = x[i];
+  }
+}
+
+template <class Model, bool kLimits, class Deriv>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+iteration_team_kernel(const float* __restrict__ params, int pstride,
+                      const float* __restrict__ x0,
+                      const float* __restrict__ xs,
+                      const float* __restrict__ xterm,
+                      const float* __restrict__ us,
+                      const float* __restrict__ Kold,
+                      const float* __restrict__ kold,
+                      const float* __restrict__ alphas, int A,
+                      const float* __restrict__ lam,
+                      const float* __restrict__ cprev,
+                      const float* __restrict__ live,
+                      float* __restrict__ xs_out, float* __restrict__ us_out,
+                      float* __restrict__ xfin, float* __restrict__ k_out,
+                      float* __restrict__ K_out, float* __restrict__ lscost,
+                      float* __restrict__ alpha_sel, float* __restrict__ acc,
+                      float* __restrict__ dcost,
+                      float* __restrict__ expected,
+                      float* __restrict__ div_out,
+                      float* __restrict__ gnorm_out, float* gains,
+                      float z_min, float tol_grad, float lam_grad_term, int T,
+                      int B_, int clamp, int scheme, Deriv d) {
+  constexpr int N = Model::N, M = Model::M, G = M * (N + 1);
+  static_assert(G <= kTeam, "a team stores a gain row, one entry a thread");
+  constexpr int kMaxA = fused::kMaxA;
+  const Team tm{static_cast<int>(threadIdx.x % kTeam),
+                0xffffu << (threadIdx.x & 16u)};
+  const int lane = blockIdx.x * kLanes + threadIdx.x / kTeam;
+  const bool valid = lane < B_;
+  const int ln = valid ? lane : B_ - 1;  // where a team past B reads
+  const int Tl = valid ? T : 0;          // … and the steps it runs
+  const bool writer = valid && tm.rank == 0;
+  const size_t B = B_;
+  const typename Model::Params p = fused::load_lane<Model>(params, pstride,
+                                                           ln);
+  const auto dd = spread(d, tm);
+
+  // phase 0: merged linearize + backward sweep, the gains into k_out, K_out
+  const float lm = lam[ln];
+  sweep::Carry<Model> c;
+  {
+    float xT[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) xT[i] = xterm[i * B + ln];
+    sweep::terminal_init<Model>(p, xT, dd, c);
+  }
+  // (x_t, u_t) loaded one step ahead, as the rollouts load their rows
+  float xn[N], un[M];
+  auto load_xu = [&](int t, float xv[N], float uv[M]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) xv[i] = xs[(t * N + i) * B + ln];
+#pragma unroll
+    for (int j = 0; j < M; ++j) uv[j] = us[(t * M + j) * B + ln];
+  };
+  if (Tl > 0) load_xu(Tl - 1, xn, un);
+  // under the closed forms, thread r evaluates Model::jac at step t − r
+  // for each block of kTeam steps t, t − 1, …, and each step takes the
+  // live entries of its A and Bu from that thread
+  [[maybe_unused]] float a_own[N * N], bu_own[N * M];
+  for (int t = Tl - 1; t >= 0; --t) {
+    float x[N], u[M];
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = xn[i];
+#pragma unroll
+    for (int j = 0; j < M; ++j) u[j] = un[j];
+    if (t > 0) load_xu(t - 1, xn, un);
+    float k[M], Kr[M][N];
+    if constexpr (std::is_same_v<Deriv, sweep::Analytic>) {
+      const int r = (Tl - 1 - t) % kTeam;   // the step's place in its block
+      if (r == 0 && t - tm.rank >= 0) {
+        float xj[N], uj[M], A[N][N], Bu[N][M];
+        load_xu(t - tm.rank, xj, uj);
+        Model::jac(p, xj, uj, A, Bu);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+#pragma unroll
+          for (int j = 0; j < N; ++j)
+            if (Model::a_kind(i, j) == 'x') a_own[i * N + j] = A[i][j];
+#pragma unroll
+          for (int j = 0; j < M; ++j)
+            if (Model::b_kind(i, j) == 'x') bu_own[i * M + j] = Bu[i][j];
+        }
+      }
+      float a[N * N], bu[N * M];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+          if (Model::a_kind(i, j) == 'x')
+            a[i * N + j] = tm.from(a_own[i * N + j], r);
+#pragma unroll
+        for (int j = 0; j < M; ++j)
+          if (Model::b_kind(i, j) == 'x')
+            bu[i * M + j] = tm.from(bu_own[i * M + j], r);
+      }
+      sweep::step<Model, kLimits>(p, x, u, lm, Analytic{a, bu}, c, k, Kr);
+    } else {
+      sweep::step<Model, kLimits>(p, x, u, lm, dd, c, k, Kr);
+    }
+    float v = 0.0f;
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if (tm.rank == j) v = k[j];
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (tm.rank == M + j * N + i) v = Kr[j][i];
+    }
+    if (tm.rank < M)
+      k_out[(static_cast<size_t>(t) * M + tm.rank) * B + ln] = v;
+    else if (tm.rank < G)
+      K_out[(static_cast<size_t>(t) * M * N + tm.rank - M) * B + ln] = v;
+  }
+  // the gain rows the team stored, visible to every thread of it
+  __syncwarp(tm.mask);
+  const float gn = c.gacc * static_cast<float>(1.0 / T);
+  if (writer) {
+    div_out[lane] = c.div;
+    gnorm_out[lane] = gn;
+  }
+  const float okf = 1.0f - c.div;
+  const float gtf = okf * (gn < tol_grad ? 1.0f : 0.0f)
+                    * (lm < lam_grad_term ? 1.0f : 0.0f);
+  const float gate = okf * (1.0f - gtf) * live[ln];  // take-step gate
+  const float keep = okf * live[ln];                 // gain-keep gate
+
+  // phase 1: candidate rank, costs only (its segment states stored);
+  // then every thread holds all A
+  float x0v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x0v[i] = x0[i * B + ln];
+  const rollout::Gains<Model> g{k_out, K_out, M * B, M * N * B, B};
+  const Segments seg(T, A, G, N);
+  float own = 0.0f;
+  if (tm.rank < A) {
+    const float alpha = alphas[tm.rank];
+    own = scheme == integrate::kRK4
+              ? candidate_as<Model, integrate::kRK4>(
+                    p, x0v, us, xs, g, tm.rank, alpha, Tl, B, ln,
+                    clamp != 0, seg, gains)
+              : candidate_as<Model, integrate::kEuler>(
+                    p, x0v, us, xs, g, tm.rank, alpha, Tl, B, ln,
+                    clamp != 0, seg, gains);
+  }
+  float al[kMaxA], cand[kMaxA];
+#pragma unroll
+  for (int a = 0; a < kMaxA; ++a) {
+    al[a] = (a < A) ? alphas[a] : 0.0f;
+    cand[a] = tm.from(own, a);
+  }
+
+  // phase 2: select the first accepted α; the state as rollout::emit
+  // leaves it: where a step is taken, the selected candidate rolled out
+  // again, its S segments side by side on the team, from the states phase
+  // 1 stored; where none is, the current state copied by the team. Then,
+  // where the new gains are not kept, the previous ones copied over them.
+  const rollout::Selection s = rollout::select<kMaxA>(
+      cand, al, A, cprev[ln], c.dv0, c.dv1, z_min);
+  const bool take = s.accepted * gate > 0.5f;
+  __syncwarp(tm.mask);   // the stored states before they are read
+  if (take && valid) {
+    int sel = -1;   // the selected candidate: the first with its α
+#pragma unroll
+    for (int a = kMaxA - 1; a >= 0; --a)
+      if (a < A && al[a] == s.alpha) sel = a;
+    if (tm.rank < seg.S) {
+      if (scheme == integrate::kRK4)
+        emit_as<Model, integrate::kRK4>(p, x0v, us, xs, g, sel, s.alpha,
+                                        tm.rank, T, B, lane, clamp != 0, seg,
+                                        gains, xs_out, us_out, xfin);
+      else
+        emit_as<Model, integrate::kEuler>(p, x0v, us, xs, g, sel, s.alpha,
+                                          tm.rank, T, B, lane, clamp != 0,
+                                          seg, gains, xs_out, us_out, xfin);
+    }
+  } else if (valid) {
+    for (int r = tm.rank; r < T * N; r += kTeam)
+      xs_out[r * B + lane] = xs[r * B + lane];
+    for (int r = tm.rank; r < T * M; r += kTeam)
+      us_out[r * B + lane] = us[r * B + lane];
+    if (tm.rank < N) xfin[tm.rank * B + lane] = xterm[tm.rank * B + lane];
+  }
+  __syncwarp(tm.mask);   // the new gains read before they are replaced
+  if (valid && !(keep > 0.5f)) {
+    for (int r = tm.rank; r < T * M; r += kTeam)
+      k_out[r * B + lane] = kold[r * B + lane];
+    for (int r = tm.rank; r < T * M * N; r += kTeam)
+      K_out[r * B + lane] = Kold[r * B + lane];
+  }
+  if (writer) {
+    lscost[lane] = s.cost;
+    alpha_sel[lane] = s.alpha;
+    acc[lane] = s.accepted;
+    dcost[lane] = s.dcost;
+    expected[lane] = s.expected;
+  }
+}
+
+template <class Model, class Deriv>
+inline int launch_iteration(
+    const void* params, int pstride, const void* x0, const void* xs,
+    const void* xterm, const void* us, const void* Kold, const void* kold,
+    const void* alphas, int A, const void* lam, const void* cprev,
+    const void* live, void* xs_out, void* us_out, void* xfin, void* k_out,
+    void* K_out, void* lscost, void* alpha_sel, void* acc, void* dcost,
+    void* expected, void* div, void* gnorm, void* gains, float z_min,
+    float tol_grad, float lam_grad_term, int T, int B, int clamp,
+    int use_limits, int scheme, Deriv d, void* stream) {
+  auto kernel = use_limits ? iteration_team_kernel<Model, true, Deriv>
+                           : iteration_team_kernel<Model, false, Deriv>;
+  kernel<<<(B + kLanes - 1) / kLanes, kBlock, 0, (cudaStream_t)stream>>>(
+      (const float*)params, pstride, (const float*)x0, (const float*)xs,
+      (const float*)xterm, (const float*)us, (const float*)Kold,
+      (const float*)kold, (const float*)alphas, A, (const float*)lam,
+      (const float*)cprev, (const float*)live, (float*)xs_out,
+      (float*)us_out, (float*)xfin, (float*)k_out, (float*)K_out,
+      (float*)lscost, (float*)alpha_sel, (float*)acc, (float*)dcost,
+      (float*)expected, (float*)div, (float*)gnorm, (float*)gains, z_min,
+      tol_grad, lam_grad_term, T, B, clamp, scheme, d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace team
+
+namespace fused {
+
+// Whether a model's whole iteration is the team kernel: the model says so
+// with a static constexpr bool kTeamIteration = true (acrobot.cuh); every
+// other model, and every custom model, keeps the one-thread kernel.
+template <class Model, class = void>
+struct TeamIteration {
+  static constexpr bool value = false;
+};
+template <class Model>
+struct TeamIteration<Model, std::void_t<decltype(Model::kTeamIteration)>> {
+  static constexpr bool value = Model::kTeamIteration;
+};
+
+// The whole-iteration launch of ILQR_ITERATION_LAUNCHER,
+// ILQR_FD_ITERATION_LAUNCHER and ILQR_JVP_ITERATION_LAUNCHER: the model's
+// one kernel, chosen at compile time
+template <class Model, class Deriv, class... Args>
+inline int launch_whole_iteration(Args... args) {
+  if constexpr (TeamIteration<Model>::value)
+    return team::launch_iteration<Model, Deriv>(args...);
+  else
+    return launch_iteration<Model, Deriv>(args...);
+}
+
+// Blocks of the team kernel an SM holds at once
+template <class Model, class Deriv>
+inline int team_blocks_per_sm(int use_limits) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n,
+      use_limits ? team::iteration_team_kernel<Model, true, Deriv>
+                 : team::iteration_team_kernel<Model, false, Deriv>,
+      team::kBlock, 0);
+  return n;
+}
+
+}  // namespace fused
+
+// ilqr_<NAME>_iteration<SUFFIX>_blocks_per_sm(use_limits): the blocks of
+// 128 threads an SM holds of the team kernel of derivative source DERIV
+// (SUFFIX empty for sweep::Analytic, _fd, _jvp), beside the launchers of a
+// model with kTeamIteration
+#define ILQR_TEAM_BLOCKS_PER_SM(NAME, MODEL, SUFFIX, DERIV)                  \
+  extern "C" int ilqr_##NAME##_iteration##SUFFIX##_blocks_per_sm(            \
+      int use_limits) {                                                      \
+    return fused::team_blocks_per_sm<MODEL, DERIV>(use_limits);              \
+  }

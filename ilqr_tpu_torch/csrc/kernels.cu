@@ -1,11 +1,13 @@
 // The fused solver's four kernels instantiated for acrobot (n = 4, m = 1),
-// with the library's shared entry points. See kernels.cuh.
+// with the library's shared entry points. See kernels.cuh; the whole
+// iteration is the team kernel of iteration_team.cuh (Model::kTeamIteration).
 #include <cuda_runtime.h>
 
 #include "acrobot.cuh"
 #include "kernels.cuh"
 
 ILQR_FUSED_LAUNCHERS(acrobot, acrobot::Model)
+ILQR_TEAM_BLOCKS_PER_SM(acrobot, acrobot::Model, , sweep::Analytic)
 
 extern "C" {
 

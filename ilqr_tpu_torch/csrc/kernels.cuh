@@ -10,7 +10,10 @@
 // V-carry, dV, the divergence latch, the gnorm sum, the A candidate states)
 // stay in registers, or in local memory where a large model (the quadrotor,
 // n = 12, m = 4) needs more than the 255 registers a thread may hold. Lanes
-// are independent, so no block waits for another.
+// are independent, so no block waits for another. One kernel no longer
+// follows this layout: acrobot's whole iteration (iteration_packed) is a
+// team of 16 threads per lane (iteration_team.cuh); every other model and
+// every custom model keeps iteration_kernel below.
 //
 // The integrator (Euler or RK4, integrate.cuh) is a runtime argument of
 // every kernel. The sweep and whole-iteration kernels are templates on the
@@ -488,6 +491,11 @@ inline int launch_iteration(
 
 }  // namespace fused
 
+// The whole iteration as a team of threads per lane, for the models that
+// ask for it (Model::kTeamIteration), and the launch that picks a model's
+// whole-iteration kernel
+#include "iteration_team.cuh"
+
 // The extern "C" launchers of one model, ilqr_<NAME>_<kernel>, with the
 // signatures ops/_build.py binds. The sweep and iteration launchers pick the
 // kernel with control limits (the box QP) or without (the Newton step). The
@@ -495,6 +503,9 @@ inline int launch_iteration(
 // the analytic sweep and iteration run the Euler step (the JAX kernel's
 // use_analytic), the stencil ones (_fd) take the integrator and the
 // stencil's eps and denominators.
+// The iteration launchers instantiate the model's whole-iteration kernel:
+// iteration_kernel, or the team kernel of iteration_team.cuh where the model
+// has kTeamIteration (acrobot).
 // ILQR_FUSED_LAUNCHERS instantiates the four analytic kernels; a model
 // whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
@@ -597,11 +608,11 @@ inline int launch_iteration(
                                       stream);                                 \
   }
 
-#define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                \
-  extern "C" int ilqr_##NAME##_iteration(ILQR_ITERATION_PARAMS,             \
-                                         void* stream) {                    \
-    return fused::launch_iteration<MODEL>(                                  \
-        ILQR_ITERATION_ARGS, integrate::kEuler, sweep::Analytic{}, stream); \
+#define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                 \
+  extern "C" int ilqr_##NAME##_iteration(ILQR_ITERATION_PARAMS,              \
+                                         void* stream) {                     \
+    return fused::launch_whole_iteration<MODEL, sweep::Analytic>(            \
+        ILQR_ITERATION_ARGS, integrate::kEuler, sweep::Analytic{}, stream);  \
   }
 
 #define ILQR_FD_SWEEP_LAUNCHER(NAME, MODEL)                              \
@@ -613,14 +624,14 @@ inline int launch_iteration(
         sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}}, stream); \
   }
 
-#define ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)                             \
-  extern "C" int ilqr_##NAME##_iteration_fd(ILQR_ITERATION_PARAMS,          \
-                                            int scheme, float eps,          \
-                                            float den1, float den2,         \
-                                            void* stream) {                 \
-    return fused::launch_iteration<MODEL>(                                  \
-        ILQR_ITERATION_ARGS, scheme,                                        \
-        sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}}, stream);   \
+#define ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)                              \
+  extern "C" int ilqr_##NAME##_iteration_fd(ILQR_ITERATION_PARAMS,           \
+                                            int scheme, float eps,           \
+                                            float den1, float den2,          \
+                                            void* stream) {                  \
+    return fused::launch_whole_iteration<MODEL, sweep::FiniteDiff>(          \
+        ILQR_ITERATION_ARGS, scheme,                                         \
+        sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}}, stream);    \
   }
 
 #define ILQR_JVP_SWEEP_LAUNCHER(NAME, MODEL)                                \
@@ -630,9 +641,9 @@ inline int launch_iteration(
                                       stream);                              \
   }
 
-#define ILQR_JVP_ITERATION_LAUNCHER(NAME, MODEL)                            \
-  extern "C" int ilqr_##NAME##_iteration_jvp(ILQR_ITERATION_PARAMS,         \
-                                             int scheme, void* stream) {    \
-    return fused::launch_iteration<MODEL>(ILQR_ITERATION_ARGS, scheme,      \
-                                          sweep::Jvp{scheme}, stream);      \
+#define ILQR_JVP_ITERATION_LAUNCHER(NAME, MODEL)                             \
+  extern "C" int ilqr_##NAME##_iteration_jvp(ILQR_ITERATION_PARAMS,          \
+                                             int scheme, void* stream) {     \
+    return fused::launch_whole_iteration<MODEL, sweep::Jvp>(                 \
+        ILQR_ITERATION_ARGS, scheme, sweep::Jvp{scheme}, stream);            \
   }

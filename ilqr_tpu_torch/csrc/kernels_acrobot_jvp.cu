@@ -1,7 +1,9 @@
 // The fused solver's dual-number sweep and whole-iteration kernels
 // (deriv_mode="analytic" with RK4: exact derivatives of the step)
-// instantiated for acrobot (n = 4, m = 1). See kernels.cuh.
+// instantiated for acrobot (n = 4, m = 1). See kernels.cuh; the whole
+// iteration is the team kernel of iteration_team.cuh (Model::kTeamIteration).
 #include "acrobot.cuh"
 #include "kernels.cuh"
 
 ILQR_JVP_LAUNCHERS(acrobot, acrobot::Model)
+ILQR_TEAM_BLOCKS_PER_SM(acrobot, acrobot::Model, _jvp, sweep::Jvp)

@@ -53,6 +53,15 @@ struct Carry {
 // The derivative sources of the step (see the top of this file)
 struct Analytic {
   static constexpr bool kDense = false;
+  // A = ∂f/∂x, Bu = ∂f/∂u at (x, u): the model's closed forms
+  template <class Model>
+  __device__ __forceinline__ void jac(const typename Model::Params& p,
+                                      const float x[Model::N],
+                                      const float u[Model::M],
+                                      float A[Model::N][Model::N],
+                                      float Bu[Model::N][Model::M]) const {
+    Model::jac(p, x, u, A, Bu);
+  }
 };
 struct FiniteDiff {
   static constexpr bool kDense = true;
@@ -187,7 +196,7 @@ __device__ __forceinline__ void step(const typename Model::Params& p,
   } else {
     // fx = I + dt·A, fu = dt·B (Euler), the cost's analytic derivatives
     float A[N][N], Bu[N][M];
-    Model::jac(p, x, u, A, Bu);
+    d.template jac<Model>(p, x, u, A, Bu);
 #pragma unroll
     for (int r = 0; r < N; ++r) {
 #pragma unroll

@@ -1,0 +1,98 @@
+"""Acrobot's whole-iteration kernel, a team of 16 threads per lane
+(csrc/iteration_team.cuh), against ``iteration_plain`` on the card in its
+three forms (analytic with Euler, the stencils with Euler and RK4, the dual
+numbers with RK4), on the team design's edge cases: a partial last block
+(B = 8189), A = 1 and A = 7 candidates, every lane dead (live = 0), a lane
+with NaN in x0, and the Newton step without limits. Every test here needs a
+CUDA device and skips without one.
+
+Like tests/test_torch_cuda.py this file imports neither JAX nor ilqr_tpu;
+run it there as ``python -m pytest --noconftest -p no:cacheprovider
+tests/test_torch_cuda_team.py``. Kernel and plain version run the same
+IEEE f32 operations in the same order (--fmad=false), so the outputs are
+held bit for bit (NaNs in the same places), as chip_smoke.py holds them.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ilqr_tpu_torch import SolverConfig, get_model
+from ilqr_tpu_torch.models import acrobot as tac
+from ilqr_tpu_torch.ops import kernel_iter, kernel_rollout
+
+T, N, M, DT = 7, 4, 1, 0.02
+CFG = SolverConfig()
+# (integrator, mode, clamp): the flagship's analytic Euler, the CLI's
+# stencils with Euler and RK4, analytic + RK4 (the dual numbers)
+FORMS = {"analytic": ("euler", "jvp", True), "fd": ("euler", "fd", False),
+         "fd_rk4": ("rk4", "fd", False), "jvp_rk4": ("rk4", "jvp", False)}
+# B, A, live ("mixed", "dead"), the lane with NaN in x0, use_limits
+CASES = {"partial_block": (8189, 11, "mixed", None, True),
+         "one_alpha": (77, 1, "mixed", None, True),
+         "seven_alphas": (77, 7, "mixed", None, True),
+         "all_dead": (77, 11, "dead", None, True),
+         "nan_lane": (77, 11, "mixed", 5, True),
+         "no_limits": (77, 11, "mixed", None, False)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(dev, integrator, clamp, B, A, live, nan_lane, seed):
+    """The iteration's arguments after the model and mode: x0, its
+    open-loop rollout around random controls, previous gains, λ and the
+    previous cost mixed over the lanes."""
+    model = get_model("acrobot")
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    pp = kernel_rollout.pack_params(tac.default_params(), DT, dev)
+    x0 = 0.05 * rng.normal(size=(N, B))
+    if nan_lane is not None:
+        x0[1, nan_lane] = np.nan
+    x0, us = f(x0), f(rng.normal(size=(T, M, B)))
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    xs, _u, xT, c0 = kernel_rollout.rollout_plain(
+        model, integrator, clamp, pp, x0, us, zeros(T, N, B),
+        zeros(T, M, N, B))
+    lam = f(rng.choice([1e-6, 1.0, 10.0], size=B))
+    cprev = c0 * f(rng.choice([0.99, 1.0, 1.01, 2.0], size=B))
+    live = f(rng.uniform(size=B) > 0.5) if live == "mixed" else zeros(B)
+    return (model, integrator, clamp, pp, x0, xs.contiguous(),
+            xT.contiguous(), us, f(rng.normal(size=(T, M, B))),
+            f(rng.normal(size=(T, M, N, B))), lam, cprev.contiguous(), live,
+            f(CFG.alphas[:A]))
+
+
+def _equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        assert torch.equal(g[ok], w[ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_team_iteration_matches_plain(dev, form, case):
+    integrator, mode, clamp = FORMS[form]
+    B, A, live, nan_lane, use_limits = CASES[case]
+    args = _inputs(dev, integrator, clamp, B, A, live, nan_lane,
+                   seed=sorted(CASES).index(case))
+    kw = dict(mode=mode, use_limits=use_limits, z_min=CFG.z_min,
+              tol_grad=CFG.tol_grad, lambda_grad_term=CFG.lambda_grad_term)
+    before = kernel_iter.iteration_packed.launches
+    got = kernel_iter.iteration_packed(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel_iter.iteration_packed.launches == before + 1
+    want = kernel_iter.iteration_plain(*args, **kw)
+    _equal(got, want)
+    if live == "dead":   # no lane takes a step or keeps the new gains
+        _equal(got[:2] + got[3:5], (args[5], args[7], args[8], args[9]))
+    if nan_lane is not None:
+        assert torch.isnan(got[5][nan_lane]) and got[7][nan_lane] == 0.0
