@@ -8,8 +8,9 @@ Phases (any failure raises and the script exits non-zero):
   2. build: the CUDA kernels from ilqr_tpu_torch/csrc with nvcc, one
      process per source, all started together (each source's seconds and
      each kernel's registers, stack and spills printed; for acrobot's
-     whole-iteration kernel, a team of 16 threads per lane, also its blocks
-     of 128 threads per SM);
+     whole-iteration kernel, a team of 16 threads per lane, and the merged
+     sweep of the seven split-route models, a warp per lane, also their
+     blocks of 128 threads per SM);
   3. every kernel × model instantiation (and each RK4 reading, a runtime
      mode of a kernel) against its plain PyTorch version on the card, on
      the inputs of its path at that path's shapes: the flagship's at
@@ -29,7 +30,12 @@ Phases (any failure raises and the script exits non-zero):
      whole-iteration kernel (csrc/iteration_team.cuh) in its three forms,
      and on its edge cases (team_cases: a partial last block, B = 8189,
      A = 1 and A = 7, every lane dead, NaN in one lane's x0), held bit for
-     bit. This process times each kernel alone on the card (CUDA
+     bit; the merged sweep of the split-route models (m·n ≥ 32: the
+     quadrotor and the m ≥ 5 models), a warp per lane
+     (csrc/sweep_team.cuh), in its rows held bit for bit, and on its edge
+     cases (sweep_team_cases: thruster_ring's and the quadrotor's three
+     forms, a partial last block, B = 1021, NaN in one lane's x0, λ mixed
+     so that lanes latch div, per-lane params, T = 1). This process times each kernel alone on the card (CUDA
      events, 3a); after phase 4, worker processes run the plain versions,
      which are host-bound, one job per case builder, longest first, beside
      phases 5-16 (3b; an iteration case reuses its builder's sweep's plain
@@ -275,7 +281,7 @@ SOURCES = {
     "derivs_packed": "ilqr_tpu_torch/csrc/derivs_acrobot.cu",
     "backward_sweep_packed": "ilqr_tpu_torch/csrc/backward.cu",
 }
-KERNEL_NAMES = ("iteration_kernel", "iteration_team_kernel",
+KERNEL_NAMES = ("iteration_kernel", "iteration_team_kernel", "sweep_team_kernel",
                 "rollout_kernel", "sweep_kernel",
                 "linesearch_kernel", "derivs_kernel", "backward_kernel",
                 "rollout_modes_kernel")
@@ -580,7 +586,7 @@ def comparison_sets():
                                             *CLI_MODELS)]
             + [("fd", name) for name in CLI_SPECS]
             + [("jvp", name) for name in CLI_SPECS]
-            + [("team",)]
+            + [("team",), ("sweep_team",)]
             + [("split", name) for name in SPLIT_MODELS]
             + [("lanes", name) for name in LANES_KERNELS]
             + [("derivs", name) for name in COMP_MODELS]
@@ -597,6 +603,8 @@ def build_cases(dev, which):
         return jvp_cases(dev, which[1])
     if which[0] == "team":
         return team_cases(dev)
+    if which[0] == "sweep_team":
+        return sweep_team_cases(dev)
     if which[0] == "split":
         return split_cases(dev, which[1])
     if which[0] == "lanes":
@@ -709,7 +717,7 @@ def time_kernels(dev):
             order.append(key)
             times[key] = time_ms(lambda: case.op(*case.args), reps=3)
             wheres[key], metas[key] = case.where, case.meta
-            if case.meta["group"] == "edge":
+            if case.meta["group"] == "edge" and case.meta.get("main", True):
                 main_cases[key] = case
             else:   # one job per builder, its effort the sum of its cases'
                 effort_sum, labels = groups.get(which, (0, []))
@@ -1391,11 +1399,14 @@ def model_cases(dev, name):
             step, rest = lane_ops(model, params, kind, limits, A, dt)
             return step * Tc * B + rest * B
 
+        team = kind == "sweep" and team_sweep(model)
         out[key] = Case(op, plain, args, ops, f"at B={B} T={Tc} A={A}",
                         unread, dict(row=key, group="row",
-                                     kernel=f"{kind}_kernel", model=name,
+                                     kernel=("sweep_team" if team else kind)
+                                     + "_kernel", model=name,
                                      limits=limits, T=Tc,
-                                     effort=effort(kind, Tc, n, m)))
+                                     effort=effort(kind, Tc, n, m),
+                                     bitwise=team))
     return out
 
 
@@ -1577,6 +1588,41 @@ def team_occupancy():
     return out
 
 
+def sweep_occupancy():
+    """(kernel, model, limits) → (blocks an SM holds, threads per block,
+    dynamic shared memory bytes per block) of
+    every model's merged sweep in its three forms: the one-thread kernel,
+    or the team kernel of the split-route models
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the team kernel's
+    dynamic shared memory, through the launchers'
+    ilqr_<model>_sweep*_blocks_per_sm)."""
+    lib, out = _build.library(), {}
+    for name in kernel_rollout.FUSED_KERNEL_MODELS:
+        kernel = ("sweep_team_kernel" if team_sweep(get_model(name))
+                  else "sweep_kernel")
+        for suffix in ("", "_fd", "_jvp"):
+            fn = getattr(lib, f"ilqr_{name}_sweep{suffix}_blocks_per_sm")
+            fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+            fn.restype = ctypes.c_int
+            for limits in (True, False):
+                threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+                blocks = fn(int(limits), ctypes.byref(threads),
+                            ctypes.byref(smem))
+                # the launcher's kernel is the one team_sweep names (a
+                # team block is 128 threads, a one-thread block 64), and
+                # an SM holds at least one block of it
+                if blocks <= 0 or (threads.value == 128) != (
+                        kernel == "sweep_team_kernel"):
+                    raise RuntimeError(
+                        f"ilqr_{name}_sweep{suffix}_blocks_per_sm"
+                        f"({int(limits)}): {blocks} blocks of "
+                        f"{threads.value} threads, {smem.value} B shared "
+                        f"(expected {kernel})")
+                out[(f"{kernel}{suffix}", name, limits)] = (
+                    blocks, threads.value, smem.value)
+    return out
+
+
 def ptxas_table(log: str):
     """(kernel, model, limits) → registers, spills and source file, from
     ptxas -v. The build log heads each source's report with "ptxas log of
@@ -1606,7 +1652,7 @@ def ptxas_table(log: str):
             limits = None   # the sweep and iteration kernels' template flag
             models = [model]
             if kernel in ("sweep_kernel", "iteration_kernel",
-                          "iteration_team_kernel"):
+                          "iteration_team_kernel", "sweep_team_kernel"):
                 limits = "Lb1E" in name
             if kernel != "backward_kernel":
                 if "FiniteDiff" in name:   # the stencil instantiations
@@ -2012,9 +2058,10 @@ def fd_cases(dev, name):
                                       mode, integ)
                 return step * Tc * B + rest * B
 
-            team = kind == "iteration" and name == "acrobot"
+            team = ((kind == "iteration" and name == "acrobot")
+                    or (kind == "sweep" and team_sweep(model)))
             meta = dict(row=key, group=group,
-                        kernel=("iteration_team" if team else kind)
+                        kernel=(f"{kind}_team" if team else kind)
                         + "_kernel" + ("_fd" if mode == "fd" else ""),
                         model=name, limits=limits, T=Tc,
                         effort=effort(kind, Tc, n, m) * (
@@ -2389,9 +2436,10 @@ def jvp_cases(dev, name):
         stem = ("kernels_quadrotor_iteration_jvp.cu"
                 if kind == "iteration" and name == "quadrotor"
                 else f"kernels_{name}_jvp.cu")
-        team = kind == "iteration" and name == "acrobot"
+        team = ((kind == "iteration" and name == "acrobot")
+                or (kind == "sweep" and team_sweep(model)))
         meta = dict(row=key, group="row",
-                    kernel=("iteration_team" if team else kind)
+                    kernel=(f"{kind}_team" if team else kind)
                     + "_kernel_jvp", model=name, limits=limits, T=Tb,
                     effort=8 * effort(kind, Tb, n, m),
                     source=f"ilqr_tpu_torch/csrc/{stem}", bitwise=team)
@@ -2456,6 +2504,85 @@ def team_cases(dev):
                 ops=lambda f=base.ops, k=share: round(f() * k),
                 where=f"at B={B} T={Te} A={args[13].shape[0]}", unread=None,
                 meta=meta)
+    return out
+
+
+# The team sweep's edge cases (csrc/sweep_team.cuh), on the first
+# SWEEP_EDGE_T steps of a row's inputs: a partial last block (B = 1021: the
+# last block of 4 lanes holds 1), NaN in one lane's x0, λ mixed so that some
+# lanes latch div (a non-positive pivot), per-lane params (each lane's goal
+# moved) and T = 1
+SWEEP_EDGES = ("partial_block", "nan_lane", "div_lanes", "per_lane", "T1")
+SWEEP_EDGE_B, SWEEP_EDGE_T = B_M - 3, 4
+SWEEP_EDGE_ROWS = {   # row → (case builder, the case's label)
+    "sweep_packed/thruster_ring": ("model", "sweep_packed/thruster_ring"),
+    "sweep_packed/thruster_ring/fd": (
+        "fd", "sweep_packed/thruster_ring/fd (euler)"),
+    "sweep_packed/thruster_ring/jvp": (
+        "jvp", "sweep_packed/thruster_ring/jvp (rk4)"),
+    "sweep_packed/quadrotor": ("model", "sweep_packed/quadrotor"),
+    "sweep_packed/quadrotor/fd": ("fd", "sweep_packed/quadrotor/fd (rk4)"),
+    "sweep_packed/quadrotor/jvp": ("jvp", "sweep_packed/quadrotor/jvp (rk4)"),
+}
+
+
+def team_sweep(model) -> bool:
+    """Whether ``model``'s merged sweep is the team kernel of
+    csrc/sweep_team.cuh: the models whose iter_kernel="auto" takes the
+    split iteration, m·n ≥ 32, the rule csrc/sweep_team.cuh's TeamSweep
+    applies at compile time (sweep_occupancy checks the launchers' pick on
+    the card)."""
+    return not fused._use_iter_kernel(model, SolverConfig())
+
+
+def sweep_team_cases(dev):
+    """The team sweep of thruster_ring (projected Newton, m = 12) and the
+    quadrotor (the enumeration, m = 4) in its three forms, on its edge cases
+    (SWEEP_EDGES), each derived from a phase-3 row's inputs. Held bit for
+    bit; their readings go into the row's edge_cases. Their plain versions
+    (a few steps each) run in a worker like the rows' (meta main False), not
+    in the main process after the workers as the team iteration's do."""
+    builders, out = {}, {}
+    for row, (builder, label) in SWEEP_EDGE_ROWS.items():
+        name = row.split("/")[1]
+        if (builder, name) not in builders:
+            builders[(builder, name)] = build_cases(dev, (builder, name))
+        base = builders[(builder, name)][label]
+        a = list(base.args)   # model 0, integrator 1, pp 2, xs 3, xT 4,
+        #                       us 5, λ 6 (then mode, limits)
+        for edge in SWEEP_EDGES:
+            Te = 1 if edge == "T1" else SWEEP_EDGE_T
+            B = SWEEP_EDGE_B if edge == "partial_block" else B_M
+            args = list(a)
+            args[3] = a[3][:Te, :, :B].contiguous()
+            args[4] = a[3][Te, :, :B].contiguous()   # x_T: the state there
+            args[5] = a[5][:Te, :, :B].contiguous()
+            args[6] = a[6][:B].contiguous()
+            rng = np.random.default_rng(SWEEP_EDGES.index(edge))
+            if edge == "nan_lane":   # a copy: the slice may share storage
+                args[3] = args[3].clone()
+                args[3][0, :, 5] = float("nan")
+            elif edge == "div_lanes":
+                args[6] = torch.as_tensor(
+                    rng.choice([1e-6, 1.0, 10.0, -50.0], size=B),
+                    dtype=torch.float32, device=dev)
+            elif edge == "per_lane":
+                pp, n = a[2], a[0].n
+                rows = pp.vec[None].repeat(B, 1)
+                rows[:, :n] += torch.as_tensor(
+                    0.1 * rng.normal(size=(B, n)), dtype=torch.float32,
+                    device=dev)
+                args[2] = kernel_rollout.PackedParams(rows.contiguous(),
+                                                      pp.cls, pp.shapes)
+            share = B * Te / (a[5].shape[-1] * a[5].shape[0])
+            out[f"{row} ({edge})"] = base._replace(
+                args=tuple(args),
+                ops=lambda f=base.ops, k=share: round(f() * k),
+                where=f"at B={B} T={Te}", unread=None,
+                meta=dict(base.meta, row=row, group="edge", edge=edge,
+                          effort=round(base.meta["effort"] * share),
+                          main=False))
+        del base
     return out
 
 
@@ -4906,6 +5033,18 @@ def main() -> int:
               f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} B "
               f"spill stores, {e.get('spill_loads')} B spill loads")
     occupancy = team_occupancy()
+    sweep_occ = sweep_occupancy()
+    for (kernel, model_name, limits), (blocks, threads, smem) in sorted(
+            sweep_occ.items(), key=lambda kv: str(kv[0])):
+        if not kernel.startswith("sweep_team_kernel"):
+            continue
+        e = ptxas.get((kernel, model_name, limits), {})
+        print(f"[build] {kernel}<{model_name}, limits={limits}> (a warp per "
+              f"lane): {e.get('registers')} registers, "
+              f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} / "
+              f"{e.get('spill_loads')} B spill stores / loads; {blocks} "
+              f"blocks of {threads} threads per SM, {smem} B of shared "
+              f"memory per block")
     for (kernel, limits), blocks in occupancy.items():
         e = ptxas.get((kernel, "acrobot", limits), {})
         print(f"[build] {kernel}<acrobot, limits={limits}> (a team of 16 "
@@ -5008,11 +5147,15 @@ def main() -> int:
                  library_ms=None, library_note=(
                      "no single PyTorch call computes this function"))
         limits = r["limits"] if r["kernel"].startswith(
-            ("sweep_kernel", "iteration_kernel", "iteration_team_kernel")
-        ) else None
+            ("sweep_kernel", "iteration_kernel", "iteration_team_kernel",
+             "sweep_team_kernel")) else None
         r.update(ptxas.get((r["kernel"], r["model"], limits), {}))
         if (r["kernel"], limits) in occupancy:
             r["blocks_per_sm"] = occupancy[(r["kernel"], limits)]
+        if (r["kernel"], r["model"], limits) in sweep_occ:
+            (r["blocks_per_sm"], r["block_threads"],
+             r["smem_per_block"]) = sweep_occ[(r["kernel"], r["model"],
+                                               limits)]
     if not all(r.get("launches") for r in rows.values()):
         raise AssertionError(f"a kernel was never launched: {rows}")
     if not all(rows[f"{kind}_packed/{name}"].get("lanes_launches")

@@ -11,6 +11,10 @@ namespace custom {
 // the dense derivative policies only (sweep_step.cuh FiniteDiff and Jvp,
 // which fold nothing), so no entry is structurally constant.
 struct DensePattern {
+  // the merged sweep stays the one-thread kernel (sweep_team.cuh TeamSweep):
+  // the team kernel is held against its plain version for the package's
+  // models only
+  static constexpr bool kTeamSweep = false;
   __host__ __device__ static constexpr char a_kind(int, int) { return 'x'; }
   __host__ __device__ static constexpr char b_kind(int, int) { return 'x'; }
   __host__ __device__ static constexpr char cxx_kind(int, int) { return 'x'; }

@@ -13,7 +13,11 @@
 // are independent, so no block waits for another. One kernel no longer
 // follows this layout: acrobot's whole iteration (iteration_packed) is a
 // team of 16 threads per lane (iteration_team.cuh); every other model and
-// every custom model keeps iteration_kernel below.
+// every custom model keeps iteration_kernel below. Nor does the merged
+// sweep (sweep_packed) of the models with m·n ≥ 32 (the quadrotor and the
+// m ≥ 5 models): a warp per lane (sweep_team.cuh); every other model and
+// every custom model keeps sweep_kernel below, and every whole-iteration
+// kernel its one-thread backward_phase.
 //
 // The integrator (Euler or RK4, integrate.cuh) is a runtime argument of
 // every kernel. The sweep and whole-iteration kernels are templates on the
@@ -493,8 +497,11 @@ inline int launch_iteration(
 
 // The whole iteration as a team of threads per lane, for the models that
 // ask for it (Model::kTeamIteration), and the launch that picks a model's
-// whole-iteration kernel
+// whole-iteration kernel; the merged sweep as a warp per lane (the models
+// with m·n ≥ 32, fused::TeamSweep) and the launch that picks a model's sweep
+// kernel
 #include "iteration_team.cuh"
+#include "sweep_team.cuh"
 
 // The extern "C" launchers of one model, ilqr_<NAME>_<kernel>, with the
 // signatures ops/_build.py binds. The sweep and iteration launchers pick the
@@ -505,7 +512,13 @@ inline int launch_iteration(
 // stencil's eps and denominators.
 // The iteration launchers instantiate the model's whole-iteration kernel:
 // iteration_kernel, or the team kernel of iteration_team.cuh where the model
-// has kTeamIteration (acrobot).
+// has kTeamIteration (acrobot); the sweep launchers its sweep kernel:
+// sweep_kernel, or the team kernel of sweep_team.cuh where fused::TeamSweep
+// picks it (m·n ≥ 32, custom models excepted), with
+// ilqr_<NAME>_sweep[_fd|_jvp]_blocks_per_sm(use_limits, int* threads,
+// int* smem_bytes) beside them (the blocks of that kernel an SM holds, and
+// the threads and dynamic shared memory of each; -1 where a CUDA call
+// fails).
 // ILQR_FUSED_LAUNCHERS instantiates the four analytic kernels; a model
 // whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
@@ -601,12 +614,20 @@ inline int launch_iteration(
   }                                                                            \
   }
 
+#define ILQR_SWEEP_BLOCKS_PER_SM(NAME, MODEL, SUFFIX, DERIV)                \
+  extern "C" int ilqr_##NAME##_sweep##SUFFIX##_blocks_per_sm(                \
+      int use_limits, int* threads, int* smem_bytes) {                       \
+    return fused::sweep_blocks_per_sm<MODEL, DERIV>(use_limits, threads,     \
+                                                    smem_bytes);             \
+  }
+
 #define ILQR_SPLIT_LAUNCHERS(NAME, MODEL)                                      \
   ILQR_ROLLOUT_LAUNCHERS(NAME, MODEL)                                          \
   extern "C" int ilqr_##NAME##_sweep(ILQR_SWEEP_PARAMS, void* stream) {        \
-    return fused::launch_sweep<MODEL>(ILQR_SWEEP_ARGS, sweep::Analytic{},      \
-                                      stream);                                 \
-  }
+    return fused::launch_model_sweep<MODEL, sweep::Analytic>(                  \
+        ILQR_SWEEP_ARGS, sweep::Analytic{}, stream);                           \
+  }                                                                            \
+  ILQR_SWEEP_BLOCKS_PER_SM(NAME, MODEL, , sweep::Analytic)
 
 #define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                 \
   extern "C" int ilqr_##NAME##_iteration(ILQR_ITERATION_PARAMS,              \
@@ -619,10 +640,11 @@ inline int launch_iteration(
   extern "C" int ilqr_##NAME##_sweep_fd(ILQR_SWEEP_PARAMS, int scheme,   \
                                         float eps, float den1,           \
                                         float den2, void* stream) {      \
-    return fused::launch_sweep<MODEL>(                                   \
+    return fused::launch_model_sweep<MODEL, sweep::FiniteDiff>(          \
         ILQR_SWEEP_ARGS,                                                 \
         sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}}, stream); \
-  }
+  }                                                                      \
+  ILQR_SWEEP_BLOCKS_PER_SM(NAME, MODEL, _fd, sweep::FiniteDiff)
 
 #define ILQR_FD_ITERATION_LAUNCHER(NAME, MODEL)                              \
   extern "C" int ilqr_##NAME##_iteration_fd(ILQR_ITERATION_PARAMS,           \
@@ -637,9 +659,10 @@ inline int launch_iteration(
 #define ILQR_JVP_SWEEP_LAUNCHER(NAME, MODEL)                                \
   extern "C" int ilqr_##NAME##_sweep_jvp(ILQR_SWEEP_PARAMS, int scheme,     \
                                          void* stream) {                    \
-    return fused::launch_sweep<MODEL>(ILQR_SWEEP_ARGS, sweep::Jvp{scheme},  \
-                                      stream);                              \
-  }
+    return fused::launch_model_sweep<MODEL, sweep::Jvp>(                    \
+        ILQR_SWEEP_ARGS, sweep::Jvp{scheme}, stream);                       \
+  }                                                                         \
+  ILQR_SWEEP_BLOCKS_PER_SM(NAME, MODEL, _jvp, sweep::Jvp)
 
 #define ILQR_JVP_ITERATION_LAUNCHER(NAME, MODEL)                             \
   extern "C" int ilqr_##NAME##_iteration_jvp(ILQR_ITERATION_PARAMS,          \

@@ -331,6 +331,35 @@ def test_every_cuda_source_is_built_and_packaged():
         assert _build.signature(f"ilqr_backward_n{n}")
 
 
+@pytest.mark.parametrize("name", sorted(kernel_rollout.FUSED_KERNEL_MODELS))
+def test_team_sweep_trait_follows_the_route_rule(name):
+    """The merged sweep runs as a warp per lane (csrc/sweep_team.cuh) for
+    exactly the models whose iter_kernel="auto" takes the split iteration
+    (fused._use_iter_kernel): that route rule is m·n ≥ 32, which is the
+    rule fused::TeamSweep applies to Model::M and Model::N at compile time;
+    no model's header overrides it, and every split-route model lies where
+    the team covers it (m ≥ 4, n + m ≤ 32 threads)."""
+    import re
+
+    from ilqr_tpu_torch import fused
+
+    csrc = _build.CSRC
+    rule = re.search(r"kTeamSweepRule = ([^;]*);",
+                     (csrc / "sweep_team.cuh").read_text()).group(1)
+    assert "Model::M * Model::N >= 32" in rule, rule
+    unit = "kernels.cu" if name == "acrobot" else f"kernels_{name}.cu"
+    headers = [h for h in re.findall(r'#include "(\w+\.cuh)"',
+                                     (csrc / unit).read_text())
+               if h != "kernels.cuh"]
+    assert len(headers) == 1, headers
+    assert "kTeamSweep" not in (csrc / headers[0]).read_text(), headers[0]
+    model = get_model(name)
+    split = not fused._use_iter_kernel(model, SolverConfig())
+    assert split == (model.m * model.n >= 32)
+    if split:
+        assert model.m >= 4 and model.n + model.m <= 32, (model.n, model.m)
+
+
 def test_pack_params_layout():
     """The flat vector the kernels read: AcrobotParams leaves in field
     order, then dt (csrc/acrobot.cuh load_params)."""

@@ -43,18 +43,15 @@ those that differ; it exits non-zero if any does.
 
 from __future__ import annotations
 
-import argparse
 import ctypes
-import functools
-import hashlib
-import importlib.util
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-CHANGE = Path(__file__).resolve().parents[1]
+import _ab
+
+CHANGE = _ab.CHANGE
 SOURCES = ("kernels.cu", "kernels_acrobot_fd.cu", "kernels_acrobot_jvp.cu",
            "derivs_acrobot.cu", "backward.cu")
 # row: (phase 3 case builder, its key, the launcher's suffix)
@@ -71,68 +68,11 @@ PATHS = {"flagship": None,
                          max_iter=20)}
 
 
-def _load_tree(root: Path):
-    """The package of ``root`` with its acrobot library built and bound;
-    the change's chip_smoke.py as a module. Returns (_build, the library's
-    path, chip_smoke)."""
-    sys.path.insert(0, str(root))
-    import ilqr_tpu_torch
-    from ilqr_tpu_torch.ops import _build
-
-    if Path(ilqr_tpu_torch.__file__).resolve().parents[1] != root:
-        raise RuntimeError(f"imported {ilqr_tpu_torch.__file__}, not "
-                           f"{root}'s package")
-    out_dir = _build.BUILD_ROOT / f"acrobot-{_build.source_hash()}"
-    lib = _build._build_library(out_dir, [_build.CSRC / s for s in SOURCES],
-                                _build.LIB_NAME)
-    _build.library = functools.lru_cache(maxsize=None)(
-        lambda: _build._bind_shared(ctypes.CDLL(str(lib))))
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_ab", CHANGE / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return _build, lib, smoke
-
-
-def _ptxas(log_path: Path):
-    """(form, limits) → registers, stack, spill stores and loads of every
-    acrobot iteration kernel in a ptxas -v log."""
-    out, key, source = {}, None, None
-    for line in log_path.read_text().splitlines():
-        if line.startswith("ptxas log of "):
-            source = line.split()[-1]
-        elif "Compiling entry function" in line:
-            name = line.split("'")[1]
-            key = None
-            if "iteration" in name and source.startswith("kernels"):
-                form = ("fd" if "FiniteDiff" in name else
-                        "jvp" if "Jvp" in name else "analytic")
-                key = f"{form}/limits={'Lb1E' in name}"
-        elif key and "bytes stack frame" in line:
-            nums = [int(w) for w in line.replace(",", " ").split()
-                    if w.isdigit()]
-            out.setdefault(key, {}).update(stack=nums[0], spill_stores=nums[1],
-                                           spill_loads=nums[2])
-        elif key and "Used" in line and "registers" in line:
-            out.setdefault(key, {})["registers"] = int(
-                line.split("Used")[1].split()[0])
-            key = None
-    return out
-
-
-def _regs_blocks(regs: int, block: int = 64) -> int:
-    """Blocks of ``block`` threads an SM holds by its 64 Ki registers
-    (allocated per warp in units of 256) and its 2 048 threads."""
-    per_warp = -(-regs * 32 // 256) * 256
-    warps = block // 32
-    return min(32, 2048 // block, 65536 // (per_warp * warps))
-
-
-def _digest(outs) -> str:
-    h = hashlib.sha256()
-    for t in outs:
-        h.update(t.detach().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
+def _iteration_key(source: str, name: str):
+    """The ptxas key of an acrobot iteration kernel: form and limits."""
+    if "iteration" in name and source.startswith("kernels"):
+        return f"{_ab.form_of(name)}/limits={'Lb1E' in name}"
+    return None
 
 
 def worker(root: Path, tag: str, check: bool) -> dict:
@@ -140,13 +80,13 @@ def worker(root: Path, tag: str, check: bool) -> dict:
     import numpy as np
     import torch
 
-    _build, lib, smoke = _load_tree(root)
+    _build, lib, smoke = _ab.load_tree(root, "acrobot", SOURCES)
     from ilqr_tpu_torch.ops import kernel_iter
 
     dev = torch.device("cuda")
     res = dict(tree=tag, root=str(root), smi=smoke.nvidia_smi(), rows={},
                paths={})
-    ptx = _ptxas(lib.parent / "ptxas.log")
+    ptx = _ab.ptxas(lib.parent / "ptxas.log", _iteration_key)
     res["compile_seconds"] = json.loads(
         (lib.parent / "compile_seconds.json").read_text())
     team = hasattr(_build.library(), "ilqr_acrobot_iteration_blocks_per_sm")
@@ -168,8 +108,8 @@ def worker(root: Path, tag: str, check: bool) -> dict:
             fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
             blocks, block = fn(1), 128
         else:
-            blocks, block = _regs_blocks(p["registers"]), 64
-        res["rows"][row] = dict(ms=ms, digest=_digest(outs), **p,
+            blocks, block = _ab.regs_blocks(p["registers"]), 64
+        res["rows"][row] = dict(ms=ms, digest=_ab.digest(outs), **p,
                                 blocks_per_sm=blocks, block_threads=block,
                                 where=case.where)
         print(f"[{tag}] {row}: {ms:.3f} ms, {p}, {blocks} blocks of {block} "
@@ -253,63 +193,7 @@ def compare_smoke_costs(parent_log: Path, change_log: Path) -> int:
     return 1 if differ else 0
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("parent", nargs="?")
-    ap.add_argument("--out", default=str(CHANGE / "build"
-                                         / "iteration_ab.json"))
-    ap.add_argument("--worker", nargs=2, metavar=("ROOT", "TAG"))
-    ap.add_argument("--check", action="store_true")
-    ap.add_argument("--smoke-costs", nargs=2, metavar=("PARENT_LOG",
-                                                      "CHANGE_LOG"))
-    args = ap.parse_args()
-    if args.smoke_costs:
-        return compare_smoke_costs(*map(Path, args.smoke_costs))
-    if args.worker:
-        root, tag = args.worker
-        print("RESULT " + json.dumps(worker(Path(root).resolve(), tag,
-                                            args.check)), flush=True)
-        return 0
-    if args.parent is None:
-        ap.error("PARENT_ROOT is required")
-    import torch
-
-    if not torch.cuda.is_available():
-        print("iteration_ab: no CUDA device", file=sys.stderr)
-        return 2
-    trees = {"parent": Path(args.parent).resolve(), "change": CHANGE}
-    passes = []
-    for i, tag in enumerate(("parent", "change", "change", "parent")):
-        t0 = time.perf_counter()
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
-               str(trees[tag]), tag] + (["--check"] if i == 1 else [])
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              cwd=str(trees[tag]))
-        sys.stdout.write(proc.stdout[-6000:])
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stderr[-6000:])
-            raise SystemExit(f"pass {i} ({tag}) failed")
-        line = next(ln for ln in proc.stdout.splitlines()
-                    if ln.startswith("RESULT "))
-        passes.append(dict(json.loads(line[len("RESULT "):]),
-                           seconds=time.perf_counter() - t0))
-    for row in ROWS:
-        digests = {p["rows"][row]["digest"] for p in passes}
-        if len(digests) != 1:
-            raise AssertionError(f"{row}: the trees' outputs differ "
-                                 f"({digests})")
-    for p in passes:
-        for path in PATHS:
-            ref = passes[0]["paths"][path]["mean_cost"]
-            if p["paths"][path]["mean_cost"] != ref:
-                raise AssertionError(f"{path}: mean cost "
-                                     f"{p['paths'][path]['mean_cost']} "
-                                     f"against the parent's {ref}")
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(passes, indent=1))
-    secs = ", ".join(f"{p['seconds']:.1f}" for p in passes)
-    print(f"[ab] {passes[0]['smi']}; passes parent, change, change, parent "
-          f"({secs} s)")
+def summary(passes):
     for row in ROWS:
         r = [p["rows"][row] for p in passes]
         print(f"[ab] row {row}: ms " + " / ".join(f"{x['ms']:.3f}" for x in r)
@@ -329,7 +213,17 @@ def main() -> int:
             + "; busy " + " / ".join(
                 "n/a" if x["busy_share"] is None else f"{x['busy_share']:.3f}"
                 for x in r) + f"; mean cost {r[0]['mean_cost']}")
-    return 0
+
+
+def main() -> int:
+    ap = _ab.parser(__doc__, "iteration_ab.json")
+    ap.add_argument("--smoke-costs", nargs=2, metavar=("PARENT_LOG",
+                                                      "CHANGE_LOG"))
+    args = ap.parse_args()
+    if args.smoke_costs:
+        return compare_smoke_costs(*map(Path, args.smoke_costs))
+    return _ab.run(args, ap, Path(__file__).resolve(), worker, ROWS, PATHS,
+                   summary)
 
 
 if __name__ == "__main__":

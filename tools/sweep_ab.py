@@ -1,0 +1,247 @@
+#!/usr/bin/env python3
+"""The merged sweep of the split-route models in two trees, in turns on one
+card.
+
+    python3 tools/sweep_ab.py PARENT_ROOT [--out FILE]
+
+PARENT_ROOT is a checkout of the commit to compare with (for example
+``git archive <commit> | tar -x -C archive_check/parent``); the tree this
+script lies in is the change. The split-route models are those whose
+``iter_kernel="auto"`` takes the split iteration (m·n ≥ 32): the quadrotor,
+omni_thruster, free_flyer and thruster_ring{,16,20,24}. For each tree the
+sources of their fused kernels but the whole-iteration ones
+(kernels_<model>{,_fd,_jvp}.cu, and kernels.cu for the library's shared
+entry points) are built with the package's own nvcc flags into a library of
+their own under the tree's build/ilqr_tpu_torch/, and ptxas's registers,
+stack and spills of every sweep kernel are read from the build. Then four
+passes, parent, change, change, parent, each in a process of its own on
+that tree's package, take:
+
+  - the sweep_packed rows of chip_smoke.py phase 3 for those models, at its
+    shapes and on its inputs (B = 1024; the analytic sweep at the slice's
+    T = 80, the stencil and dual-number ones at the CLI problem's T = 120 /
+    100 and RK4, rings 16-24 on their first 4 steps; omni_thruster also
+    without limits): CUDA events, median of 5, and a digest of every
+    output, which must be the same in both trees;
+  - each row's blocks per SM: the change's from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor (its launchers'
+    ilqr_<model>_sweep*_blocks_per_sm), the parent's from its registers
+    (blocks of 64 threads);
+  - the split-route paths (solves/s, ms per iteration, sweep_packed
+    launches per host iteration, mean cost, and one profiled solve's device
+    busy share and device ms by kernel): the CLI's fd batch solves of
+    thruster_ring, free_flyer and omni_thruster (with and without limits)
+    at max_iter M5_FD_ITERS and the quadrotor's fd + RK4 at FD_WIDE_ITERS,
+    as chip_smoke.py phase 11 runs them, and the analytic Euler paths of
+    phases 8-9 (thruster_ring, free_flyer, omni_thruster, the quadrotor; T =
+    80, max_iter 40).
+
+The change's first pass also runs tests/test_torch_cuda_sweep_team.py (the
+team kernel against sweep_plain on the card, bit for bit). The readings go
+to FILE as JSON (default build/sweep_ab.json) and a summary is printed. The
+passes, builds and checks are tools/_ab.py's. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import sys
+import time
+from pathlib import Path
+
+import _ab
+
+CHANGE = _ab.CHANGE
+MODELS = ("thruster_ring", "thruster_ring16", "thruster_ring20",
+          "thruster_ring24", "free_flyer", "omni_thruster", "quadrotor")
+# row: (phase 3 case builder, its key)
+ROWS = {f"{name}/{form}": (builder, key)
+        for name in MODELS
+        for form, builder, key in (
+            ("analytic", "model", f"sweep_packed/{name}"),
+            ("fd", "fd", f"sweep_packed/{name}/fd (euler)"),
+            ("jvp_rk4", "jvp", f"sweep_packed/{name}/jvp (rk4)"))}
+ROWS["quadrotor/fd_rk4"] = ("fd", "sweep_packed/quadrotor/fd (rk4)")
+ROWS["omni_thruster/analytic/unconstrained"] = (
+    "model", "sweep_packed/omni_thruster/unconstrained")
+ROWS["omni_thruster/fd/unconstrained"] = (
+    "fd", "sweep_packed/omni_thruster/fd/unconstrained (euler)")
+ROWS["omni_thruster/jvp_rk4/unconstrained"] = (
+    "jvp", "sweep_packed/omni_thruster/jvp/unconstrained (rk4)")
+# path: (model, "fd" (the CLI's batch solve) or "analytic" (phases 8-9),
+# SolverConfig changes)
+PATHS = {"thruster_ring/fd": ("thruster_ring", "fd", {}),
+         "free_flyer/fd": ("free_flyer", "fd", {}),
+         "omni_thruster/fd": ("omni_thruster", "fd", {}),
+         "omni_thruster/fd/unconstrained": (
+             "omni_thruster", "fd", dict(use_control_limits=False)),
+         "quadrotor/fd_rk4": ("quadrotor", "fd", dict(integrator="rk4")),
+         "thruster_ring/analytic": ("thruster_ring", "analytic", {}),
+         "free_flyer/analytic": ("free_flyer", "analytic", {}),
+         "omni_thruster/analytic": ("omni_thruster", "analytic", {}),
+         "quadrotor/analytic": ("quadrotor", "analytic", {})}
+
+
+SOURCES = ["kernels.cu"] + [f"kernels_{m}{s}.cu" for m in MODELS
+                            for s in ("", "_fd", "_jvp")]
+
+
+def _sweep_key(source: str, name: str):
+    """The ptxas key of a sweep kernel (one-thread or team): model, form
+    and limits."""
+    if (("sweep_kernel" in name or "sweep_team_kernel" in name)
+            and source.startswith("kernels_")):
+        model = (source.removeprefix("kernels_").removesuffix(".cu")
+                 .removesuffix("_fd").removesuffix("_jvp"))
+        return f"{model}/{_ab.form_of(name)}/limits={'Lb1E' in name}"
+    return None
+
+
+def _rows(smoke, _build, dev, ptx):
+    """Each row: ms (median of 5), output digest, ptxas readings, blocks
+    per SM."""
+    import torch
+
+    out, cases = {}, {}
+    lib = _build.library()
+    for row, (builder, key) in ROWS.items():
+        name, form = row.split("/")[0], row.split("/")[1]
+        if (builder, name) not in cases:
+            cases = {(builder, name): smoke.build_cases(dev, (builder, name))}
+        case = cases[(builder, name)][key]
+        ms = smoke.time_ms(lambda: case.op(*case.args), reps=5)
+        outs = case.op(*case.args)
+        torch.cuda.synchronize()
+        limits = not row.endswith("/unconstrained")
+        kind = {"analytic": "analytic", "fd": "fd", "fd_rk4": "fd",
+                "jvp_rk4": "jvp"}[form]
+        p = ptx.get(f"{name}/{kind}/limits={limits}", {})
+        suffix = {"analytic": "", "fd": "_fd", "jvp": "_jvp"}[kind]
+        fn = getattr(lib, f"ilqr_{name}_sweep{suffix}_blocks_per_sm", None)
+        if fn is not None:
+            fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+            fn.restype = ctypes.c_int
+            threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+            blocks = fn(int(limits), ctypes.byref(threads),
+                        ctypes.byref(smem))
+            block, smem = threads.value, smem.value
+        else:
+            blocks, block, smem = (_ab.regs_blocks(p.get("registers", 255)),
+                                   64, 0)
+        out[row] = dict(ms=ms, digest=_ab.digest(outs), **p,
+                        blocks_per_sm=blocks, block_threads=block,
+                        smem_per_block=smem, where=case.where)
+        print(f"row {row}: {ms:.3f} ms, {p}, {blocks} blocks of {block} per "
+              f"SM, digest {out[row]['digest']}", flush=True)
+    return out
+
+
+def worker(root: Path, tag: str, check: bool) -> dict:
+    """One pass on ``root``'s package (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    _build, lib, smoke = _ab.load_tree(root, "split", SOURCES)
+    dev = torch.device("cuda")
+    res = dict(tree=tag, root=str(root), smi=smoke.nvidia_smi(), paths={})
+    res["compile_seconds"] = json.loads(
+        (lib.parent / "compile_seconds.json").read_text())
+    ptx = _ab.ptxas(lib.parent / "ptxas.log", _sweep_key)
+    res["rows"] = _rows(smoke, _build, dev, ptx)
+    torch.cuda.empty_cache()
+
+    if check:   # the team kernel's edge cases against the plain version
+        import pytest
+
+        t0 = time.perf_counter()
+        rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q",
+                          str(CHANGE / "tests"
+                              / "test_torch_cuda_sweep_team.py")])
+        if rc != 0:
+            raise AssertionError(f"tests/test_torch_cuda_sweep_team.py: "
+                                 f"pytest exit {rc}")
+        res["edge_cases"] = dict(bitwise=True,
+                                 seconds=time.perf_counter() - t0)
+
+    for path, (name, kind, extra) in PATHS.items():
+        label = f"[{tag}] {path}"
+        if kind == "fd":
+            depth = (smoke.FD_WIDE_ITERS if name == "quadrotor"
+                     else smoke.M5_FD_ITERS)
+            out, _c = smoke.run_fd_path(dev, name, label, B=smoke.B_M,
+                                        profile=True, max_iter=depth,
+                                        **extra)
+        else:
+            out, _first = smoke.run_model_path(dev, name, label, **extra)
+            model, params, cfg, T, dt, u0, draw = smoke.workload(name)
+            x0 = draw(np.random.default_rng(0))
+            out["profile"] = smoke.profile_solve(
+                label, lambda x0_, u0_: smoke.solve_batch_fused(
+                    model, params, cfg, dt, x0_, u0_),
+                float(np.median(out["wall_s"])), x0, u0)
+        its = out["host_iterations"]
+        prof = out.get("profile") or {}
+        res["paths"][path] = dict(
+            solves_per_s=out["solves_per_s"],
+            ms_per_iteration=out["ms_per_iteration"], host_iterations=its,
+            max_iter=out["max_iter"],
+            sweep_launches_per_iteration=out["launches"]["sweep_packed"]
+            / max(1, its),
+            mean_cost=out["mean_cost"],
+            busy_share=prof.get("device_busy_share"),
+            device_ms_by_kernel=prof.get("device_ms_by_kernel"),
+            wall_ms=prof.get("wall_ms"))
+        print(f"{label}: {res['paths'][path]}", flush=True)
+    return res
+
+
+def _summary_row(row, passes):
+    r = [p["rows"][row] for p in passes]
+    par, chg = r[0], r[1]
+    speed = (r[0]["ms"] + r[3]["ms"]) / (r[1]["ms"] + r[2]["ms"])
+    return (f"[ab] row {row}: ms " + " / ".join(f"{x['ms']:.3f}" for x in r)
+            + f" ({speed:.2f}x); parent {par.get('registers')} regs "
+            f"{par.get('stack')} B stack {par.get('spill_stores')}/"
+            f"{par.get('spill_loads')} B spills, {par['blocks_per_sm']} "
+            f"blocks of {par['block_threads']}/SM; change "
+            f"{chg.get('registers')} regs {chg.get('stack')} B stack "
+            f"{chg.get('spill_stores')}/{chg.get('spill_loads')} B spills, "
+            f"{chg['blocks_per_sm']} blocks of {chg['block_threads']}/SM "
+            f"with {chg.get('smem_per_block')} B shared each; "
+            f"{par['where']}; outputs equal")
+
+
+def summary(passes):
+    print(f"[ab] build s parent "
+          f"{max(passes[0]['compile_seconds'].values()):.1f} (longest "
+          f"source), change {max(passes[1]['compile_seconds'].values()):.1f}")
+    for row in ROWS:
+        print(_summary_row(row, passes))
+    for path in PATHS:
+        r = [p["paths"][path] for p in passes]
+        print(f"[ab] path {path}: solves/s " + " / ".join(
+            f"{x['solves_per_s']:.1f}" for x in r) + "; ms/iteration "
+            + " / ".join(f"{x['ms_per_iteration']:.3f}" for x in r)
+            + f"; host iterations {r[0]['host_iterations']} (max_iter "
+            f"{r[0]['max_iter']}); sweeps/iteration "
+            + " / ".join(f"{x['sweep_launches_per_iteration']:.2f}"
+                         for x in r)
+            + "; busy " + " / ".join(
+                "n/a" if x["busy_share"] is None else f"{x['busy_share']:.3f}"
+                for x in r)
+            + "; device ms by kernel " + " / ".join(
+                json.dumps({k: round(v, 1) for k, v in
+                            (x["device_ms_by_kernel"] or {}).items()})
+                for x in (r[0], r[1]))
+            + f"; mean cost {r[0]['mean_cost']}")
+
+
+def main() -> int:
+    ap = _ab.parser(__doc__, "sweep_ab.json")
+    return _ab.run(ap.parse_args(), ap, Path(__file__).resolve(), worker,
+                   ROWS, PATHS, summary)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
