@@ -7,10 +7,10 @@ Phases (any failure raises and the script exits non-zero):
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build: the CUDA kernels from ilqr_tpu_torch/csrc with nvcc, one
      process per source, all started together (each source's seconds and
-     each kernel's registers, stack and spills printed; for acrobot's
-     whole-iteration kernel, a team of 16 threads per lane, and the merged
-     sweep of the seven split-route models, a warp per lane, also their
-     blocks of 128 threads per SM);
+     each kernel's registers, stack and spills printed; every sweep,
+     whole-iteration and line-search launcher's kernel checked against the
+     one launched_kernel names, and for the team and warp kernels also
+     their blocks of 128 threads per SM);
   3. every kernel × model instantiation (and each RK4 reading, a runtime
      mode of a kernel) against its plain PyTorch version on the card, on
      the inputs of its path at that path's shapes: the flagship's at
@@ -26,16 +26,25 @@ Phases (any failure raises and the script exits non-zero):
      kernel, one α per lane), at the line search's shapes of acrobot
      (B = 8192, T = 499, Euler and RK4), the quadrotor and thruster_ring
      (B = 1024, T = 80), pendulum with per-lane params (B = 1024, T = 199)
-     and the custom unicycle (modes_cases), held bit for bit; acrobot's
-     whole-iteration kernel (csrc/iteration_team.cuh) in its three forms,
-     and on its edge cases (team_cases: a partial last block, B = 8189,
-     A = 1 and A = 7, every lane dead, NaN in one lane's x0), held bit for
-     bit; the merged sweep of the split-route models (m·n ≥ 32: the
-     quadrotor and the m ≥ 5 models), a warp per lane
-     (csrc/sweep_team.cuh), in its rows held bit for bit, and on its edge
-     cases (sweep_team_cases: thruster_ring's and the quadrotor's three
-     forms, a partial last block, B = 1021, NaN in one lane's x0, λ mixed
-     so that lanes latch div, per-lane params, T = 1). This process times each kernel alone on the card (CUDA
+     and the custom unicycle (modes_cases), held bit for bit; the team
+     and warp kernels, held bit for bit in their rows and on their edge
+     cases: the whole iteration of acrobot, cartpole and pendulum as a
+     team of 16 threads per lane (csrc/iteration_team.cuh; team_cases:
+     acrobot's three forms, a partial last block, B = 8189, A = 1 and
+     A = 7, every lane dead, NaN in one lane's x0; edge_cases
+     "iteration_team": cartpole's three forms and pendulum's analytic one,
+     the same edges at B = 1024 / 1021), the line search of every model
+     as a team of 16 threads per lane (csrc/linesearch_team.cuh; edge_cases
+     "linesearch_team": the pendulum, the quadrotor's RK4 reading,
+     thruster_ring24, those edges and the clamp flipped), the merged sweep
+     and the whole iteration of the split-route models (m·n ≥ 32: the
+     quadrotor and the m ≥ 5 models) as a warp per lane
+     (csrc/sweep_team.cuh, sweep_team_cases: thruster_ring's and the
+     quadrotor's three forms, a partial last block, B = 1021, NaN in one
+     lane's x0, λ mixed so that lanes latch div, per-lane params, T = 1;
+     csrc/iteration_warp.cuh, edge_cases "iteration_warp": thruster_ring's
+     three forms and the quadrotor's stencils, the edges of the team
+     iteration on the first 4 steps). This process times each kernel alone on the card (CUDA
      events, 3a); after phase 4, worker processes run the plain versions,
      which are host-bound, one job per case builder, longest first, beside
      phases 5-16 (3b; an iteration case reuses its builder's sweep's plain
@@ -281,10 +290,14 @@ SOURCES = {
     "derivs_packed": "ilqr_tpu_torch/csrc/derivs_acrobot.cu",
     "backward_sweep_packed": "ilqr_tpu_torch/csrc/backward.cu",
 }
-KERNEL_NAMES = ("iteration_kernel", "iteration_team_kernel", "sweep_team_kernel",
-                "rollout_kernel", "sweep_kernel",
-                "linesearch_kernel", "derivs_kernel", "backward_kernel",
+KERNEL_NAMES = ("iteration_kernel", "iteration_team_kernel",
+                "iteration_warp_kernel", "sweep_team_kernel",
+                "rollout_kernel", "sweep_kernel", "linesearch_kernel",
+                "linesearch_team_kernel", "derivs_kernel", "backward_kernel",
                 "rollout_modes_kernel")
+# the sweep and whole-iteration kernels, templates on the limits flag
+LIMITS_KERNELS = ("sweep_kernel", "iteration_kernel", "iteration_team_kernel",
+                  "iteration_warp_kernel", "sweep_team_kernel")
 
 
 def nvidia_smi() -> str:
@@ -439,11 +452,11 @@ def acrobot_cases(dev):
     old = nbytes(kold, Kold)
 
     def meta(label, kind, row=None, group="row"):
-        team = kind == "iteration"   # csrc/iteration_team.cuh, held bitwise
+        kernel = launched_kernel(kind, model)
         return dict(row=row or f"{label}/acrobot", group=group,
-                    kernel="iteration_team_kernel" if team
-                    else f"{kind}_kernel", model="acrobot", limits=True,
-                    T=T, effort=effort(kind, T, N, M), bitwise=team)
+                    kernel=kernel, model="acrobot", limits=True, T=T,
+                    effort=effort(kind, T, N, M),
+                    bitwise=is_team(kernel))
 
     cases = {
         "rollout_packed": Case(
@@ -587,6 +600,7 @@ def comparison_sets():
             + [("fd", name) for name in CLI_SPECS]
             + [("jvp", name) for name in CLI_SPECS]
             + [("team",), ("sweep_team",)]
+            + [(which,) for which in EDGE_ROWS]
             + [("split", name) for name in SPLIT_MODELS]
             + [("lanes", name) for name in LANES_KERNELS]
             + [("derivs", name) for name in COMP_MODELS]
@@ -605,6 +619,8 @@ def build_cases(dev, which):
         return team_cases(dev)
     if which[0] == "sweep_team":
         return sweep_team_cases(dev)
+    if which[0] in EDGE_ROWS:
+        return edge_cases(dev, which[0])
     if which[0] == "split":
         return split_cases(dev, which[1])
     if which[0] == "lanes":
@@ -1399,14 +1415,12 @@ def model_cases(dev, name):
             step, rest = lane_ops(model, params, kind, limits, A, dt)
             return step * Tc * B + rest * B
 
-        team = kind == "sweep" and team_sweep(model)
+        kernel = launched_kernel(kind, model)
         out[key] = Case(op, plain, args, ops, f"at B={B} T={Tc} A={A}",
-                        unread, dict(row=key, group="row",
-                                     kernel=("sweep_team" if team else kind)
-                                     + "_kernel", model=name,
-                                     limits=limits, T=Tc,
+                        unread, dict(row=key, group="row", kernel=kernel,
+                                     model=name, limits=limits, T=Tc,
                                      effort=effort(kind, Tc, n, m),
-                                     bitwise=team))
+                                     bitwise=is_team(kernel)))
     return out
 
 
@@ -1575,51 +1589,44 @@ def card_vs_cpu(name, T_c, iters, tol, lanes=4, integrator=None,
                 max_rel_cost_diff=rel)
 
 
-def team_occupancy():
-    """(kernel, limits) → the blocks of 128 threads an SM holds of acrobot's
-    team iteration kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-    through the launchers' ilqr_acrobot_iteration*_blocks_per_sm)."""
-    lib, out = _build.library(), {}
-    for suffix in ("", "_fd", "_jvp"):
-        fn = getattr(lib, f"ilqr_acrobot_iteration{suffix}_blocks_per_sm")
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-        for limits in (True, False):
-            out[(f"iteration_team_kernel{suffix}", limits)] = fn(int(limits))
-    return out
-
-
-def sweep_occupancy():
+def launcher_occupancy():
     """(kernel, model, limits) → (blocks an SM holds, threads per block,
-    dynamic shared memory bytes per block) of
-    every model's merged sweep in its three forms: the one-thread kernel,
-    or the team kernel of the split-route models
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the team kernel's
-    dynamic shared memory, through the launchers'
-    ilqr_<model>_sweep*_blocks_per_sm)."""
+    dynamic shared memory bytes per block) of the kernel that each model's
+    sweep and whole-iteration launchers (in their three forms, limits None
+    for the line search) and line-search launcher launch
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor through the launchers'
+    ilqr_<model>_{sweep,iteration}[_fd|_jvp]_blocks_per_sm and
+    ilqr_<model>_linesearch_blocks_per_sm). Raises where a launcher's
+    kernel is not the one launched_kernel names (a team or warp block is
+    128 threads, a one-thread block 64; only the warp kernels have dynamic
+    shared memory), where an SM holds no block of it, or where a CUDA call
+    failed (-1)."""
     lib, out = _build.library(), {}
+    ptr = ctypes.POINTER(ctypes.c_int)
     for name in kernel_rollout.FUSED_KERNEL_MODELS:
-        kernel = ("sweep_team_kernel" if team_sweep(get_model(name))
-                  else "sweep_kernel")
-        for suffix in ("", "_fd", "_jvp"):
-            fn = getattr(lib, f"ilqr_{name}_sweep{suffix}_blocks_per_sm")
-            fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
-            fn.restype = ctypes.c_int
-            for limits in (True, False):
-                threads, smem = ctypes.c_int(0), ctypes.c_int(0)
-                blocks = fn(int(limits), ctypes.byref(threads),
-                            ctypes.byref(smem))
-                # the launcher's kernel is the one team_sweep names (a
-                # team block is 128 threads, a one-thread block 64), and
-                # an SM holds at least one block of it
-                if blocks <= 0 or (threads.value == 128) != (
-                        kernel == "sweep_team_kernel"):
-                    raise RuntimeError(
-                        f"ilqr_{name}_sweep{suffix}_blocks_per_sm"
-                        f"({int(limits)}): {blocks} blocks of "
-                        f"{threads.value} threads, {smem.value} B shared "
-                        f"(expected {kernel})")
-                out[(f"{kernel}{suffix}", name, limits)] = (
-                    blocks, threads.value, smem.value)
+        for kind in ("sweep", "iteration", "linesearch"):
+            kernel = launched_kernel(kind, get_model(name))
+            warp = kernel in ("sweep_team_kernel", "iteration_warp_kernel")
+            forms = ("",) if kind == "linesearch" else ("", "_fd", "_jvp")
+            for suffix in forms:
+                fname = f"ilqr_{name}_{kind}{suffix}_blocks_per_sm"
+                fn = getattr(lib, fname)
+                fn.argtypes = ([ptr] * 2 if kind == "linesearch"
+                               else [ctypes.c_int, ptr, ptr])
+                fn.restype = ctypes.c_int
+                for limits in ((None,) if kind == "linesearch"
+                               else (True, False)):
+                    threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+                    blocks = fn(*([] if limits is None else [int(limits)]),
+                                ctypes.byref(threads), ctypes.byref(smem))
+                    if (blocks <= 0 or (threads.value == 128)
+                            != is_team(kernel) or (smem.value > 0) != warp):
+                        raise RuntimeError(
+                            f"{fname}({limits}): {blocks} blocks of "
+                            f"{threads.value} threads, {smem.value} B shared "
+                            f"(expected {kernel})")
+                    out[(kernel + suffix, name, limits)] = (
+                        blocks, threads.value, smem.value)
     return out
 
 
@@ -1651,8 +1658,7 @@ def ptxas_table(log: str):
             kernel = next((k for k in KERNEL_NAMES if k in name), name)
             limits = None   # the sweep and iteration kernels' template flag
             models = [model]
-            if kernel in ("sweep_kernel", "iteration_kernel",
-                          "iteration_team_kernel", "sweep_team_kernel"):
+            if kernel in LIMITS_KERNELS:
                 limits = "Lb1E" in name
             if kernel != "backward_kernel":
                 if "FiniteDiff" in name:   # the stencil instantiations
@@ -2058,14 +2064,13 @@ def fd_cases(dev, name):
                                       mode, integ)
                 return step * Tc * B + rest * B
 
-            team = ((kind == "iteration" and name == "acrobot")
-                    or (kind == "sweep" and team_sweep(model)))
+            kernel = launched_kernel(kind, model)
             meta = dict(row=key, group=group,
-                        kernel=(f"{kind}_team" if team else kind)
-                        + "_kernel" + ("_fd" if mode == "fd" else ""),
+                        kernel=kernel + ("_fd" if mode == "fd" else ""),
                         model=name, limits=limits, T=Tc,
                         effort=effort(kind, Tc, n, m) * (
-                            4 if integ == "rk4" else 1), bitwise=team)
+                            4 if integ == "rk4" else 1),
+                        bitwise=is_team(kernel))
             if group == "row":
                 stem = ("kernels_quadrotor_iteration_fd.cu"
                         if kind == "iteration" and name == "quadrotor"
@@ -2436,13 +2441,12 @@ def jvp_cases(dev, name):
         stem = ("kernels_quadrotor_iteration_jvp.cu"
                 if kind == "iteration" and name == "quadrotor"
                 else f"kernels_{name}_jvp.cu")
-        team = ((kind == "iteration" and name == "acrobot")
-                or (kind == "sweep" and team_sweep(model)))
-        meta = dict(row=key, group="row",
-                    kernel=(f"{kind}_team" if team else kind)
-                    + "_kernel_jvp", model=name, limits=limits, T=Tb,
+        kernel = launched_kernel(kind, model)
+        meta = dict(row=key, group="row", kernel=kernel + "_jvp",
+                    model=name, limits=limits, T=Tb,
                     effort=8 * effort(kind, Tb, n, m),
-                    source=f"ilqr_tpu_torch/csrc/{stem}", bitwise=team)
+                    source=f"ilqr_tpu_torch/csrc/{stem}",
+                    bitwise=is_team(kernel))
         out[f"{key} (rk4)"] = Case(op, plain, args, ops,
                                    f"at B={B} T={Tb} A={A}", unread, meta)
     return out
@@ -2530,9 +2534,40 @@ def team_sweep(model) -> bool:
     """Whether ``model``'s merged sweep is the team kernel of
     csrc/sweep_team.cuh: the models whose iter_kernel="auto" takes the
     split iteration, m·n ≥ 32, the rule csrc/sweep_team.cuh's TeamSweep
-    applies at compile time (sweep_occupancy checks the launchers' pick on
+    applies at compile time (launcher_occupancy checks the launchers' pick on
     the card)."""
     return not fused._use_iter_kernel(model, SolverConfig())
+
+
+# The models whose whole iteration is csrc/iteration_team.cuh's team of 16
+# threads per lane (Model::kTeamIteration in their headers)
+TEAM_ITERATION = ("acrobot", "cartpole", "pendulum")
+
+
+def launched_kernel(kind, model) -> str:
+    """The kernel that ``model``'s ``kind`` launcher launches, by the
+    compile-time picks of csrc/kernels.cuh (launcher_occupancy checks them
+    on the card): for the package's models the line search's team
+    (csrc/linesearch_team.cuh), the whole iteration's team
+    (csrc/iteration_team.cuh) for TEAM_ITERATION, and where team_sweep the
+    sweep's and the whole iteration's warp (csrc/sweep_team.cuh,
+    csrc/iteration_warp.cuh); otherwise, and for every custom model, the
+    one-thread kernel."""
+    if kernel_rollout.kernel_owner(model) is None:
+        if kind == "linesearch":
+            return "linesearch_team_kernel"
+        if kind == "iteration" and model.name in TEAM_ITERATION:
+            return "iteration_team_kernel"
+        if kind in ("sweep", "iteration") and team_sweep(model):
+            return {"sweep": "sweep_team_kernel",
+                    "iteration": "iteration_warp_kernel"}[kind]
+    return f"{kind}_kernel"
+
+
+def is_team(kernel) -> bool:
+    """Whether ``kernel`` is one of the team or warp kernels, which phase 3
+    holds bit for bit."""
+    return "_team_kernel" in kernel or "_warp_kernel" in kernel
 
 
 def sweep_team_cases(dev):
@@ -2579,6 +2614,99 @@ def sweep_team_cases(dev):
                 args=tuple(args),
                 ops=lambda f=base.ops, k=share: round(f() * k),
                 where=f"at B={B} T={Te}", unread=None,
+                meta=dict(base.meta, row=row, group="edge", edge=edge,
+                          effort=round(base.meta["effort"] * share),
+                          main=False))
+        del base
+    return out
+
+
+# The edge cases of the line search's team (csrc/linesearch_team.cuh), the
+# 16-thread whole iteration of cartpole and pendulum (csrc/iteration_team.cuh)
+# and the warp iteration (csrc/iteration_warp.cuh), each derived from a
+# phase-3 row's inputs (row → (case builder, the case's label)): a partial
+# last block (B = 1021: 5 lanes in the last block of 8, 1 in the last of
+# 4), A = 1 and A = 7 candidates (the row's A = 11), every lane dead (no
+# step taken, no gain kept), NaN in one lane's x0, and for the line search
+# the row's clamp flipped (the pendulum's and ring24's rollouts unclamped;
+# the iteration rows' unconstrained twins are rows of their own). The
+# iteration edges run on the first EDGE_T[builder] steps.
+LINESEARCH_EDGES = ("partial_block", "one_alpha", "seven_alphas", "all_dead",
+                    "nan_lane", "clamp_flipped")
+ITERATION_EDGES = LINESEARCH_EDGES[:-1]
+EDGE_ROWS = {
+    "linesearch_team": {
+        "linesearch_packed/pendulum": ("model", "linesearch_packed/pendulum"),
+        "linesearch_packed/quadrotor": (   # its RK4 reading's inputs
+            "fd", "linesearch_packed/quadrotor (rk4)"),
+        "linesearch_packed/thruster_ring24": (
+            "model", "linesearch_packed/thruster_ring24")},
+    "iteration_team": {
+        "iteration_packed/cartpole": ("model", "iteration_packed/cartpole"),
+        "iteration_packed/cartpole/fd": (
+            "fd", "iteration_packed/cartpole/fd (euler)"),
+        "iteration_packed/cartpole/jvp": (
+            "jvp", "iteration_packed/cartpole/jvp (rk4)"),
+        "iteration_packed/pendulum": ("model", "iteration_packed/pendulum")},
+    "iteration_warp": {
+        "iteration_packed/thruster_ring": (
+            "model", "iteration_packed/thruster_ring"),
+        "iteration_packed/thruster_ring/fd": (
+            "fd", "iteration_packed/thruster_ring/fd (euler)"),
+        "iteration_packed/thruster_ring/jvp": (
+            "jvp", "iteration_packed/thruster_ring/jvp (rk4)"),
+        "iteration_packed/quadrotor/fd": (
+            "fd", "iteration_packed/quadrotor/fd (euler)")}}
+EDGE_T = {"linesearch_team": None, "iteration_team": 40, "iteration_warp": 4}
+# argument positions by kernel: x0, the state trajectory, x_T, the other
+# per-step tensors, the other per-lane tensors, α, the gates
+EDGE_ARGS = {"iteration": (4, 5, 6, (7, 8, 9), (10, 11, 12), 13, (12,)),
+             "linesearch": (4, 6, 7, (5, 8, 9, 10, 11), (13, 14, 15, 16), 12,
+                            (15, 16))}
+
+
+def edge_cases(dev, which):
+    """The edge cases of builder ``which`` (EDGE_ROWS), each derived from a
+    phase-3 row's inputs. Held bit for bit; their readings go into the
+    row's edge_cases. Their plain versions run in a worker like the rows'
+    (meta main False)."""
+    builders, out = {}, {}
+    for row, (builder, label) in EDGE_ROWS[which].items():
+        name = row.split("/")[1]
+        if (builder, name) not in builders:
+            builders[(builder, name)] = build_cases(dev, (builder, name))
+        base = builders[(builder, name)][label]
+        kind = row.split("_")[0]
+        x0_i, xs_i, xT_i, steps, lanes, al_i, gates = EDGE_ARGS[kind]
+        a = list(base.args)
+        T0 = a[xs_i].shape[0]
+        Te = min(T0, EDGE_T[which] or T0)
+        edges = LINESEARCH_EDGES if kind == "linesearch" else ITERATION_EDGES
+        for edge in edges:
+            B = B_M - 3 if edge == "partial_block" else B_M
+            args = list(a)
+            if Te < T0:   # x_T: the state after Te steps
+                args[xT_i] = a[xs_i][Te]
+            for i in (xs_i, *steps):
+                args[i] = a[i][:Te]
+            for i in (x0_i, xs_i, xT_i, *steps, *lanes):
+                args[i] = args[i][..., :B].contiguous().clone()
+            if edge == "one_alpha":
+                args[al_i] = a[al_i][:1].contiguous()
+            elif edge == "seven_alphas":
+                args[al_i] = a[al_i][:7].contiguous()
+            elif edge == "all_dead":
+                for i in gates:
+                    args[i] = torch.zeros_like(args[i])
+            elif edge == "nan_lane":
+                args[x0_i][:, 5] = float("nan")
+            elif edge == "clamp_flipped":
+                args[2] = not a[2]
+            share = B * Te / (a[x0_i].shape[-1] * T0)
+            out[f"{row} ({edge})"] = base._replace(
+                args=tuple(args),
+                ops=lambda f=base.ops, k=share: round(f() * k),
+                where=f"at B={B} T={Te} A={args[al_i].shape[0]}", unread=None,
                 meta=dict(base.meta, row=row, group="edge", edge=edge,
                           effort=round(base.meta["effort"] * share),
                           main=False))
@@ -3015,8 +3143,9 @@ def lanes_cases(dev, name, packing="lanes"):
         out[f"{row} (per-lane params)"] = Case(
             op, plain, args, lambda kind=kind: kernel_ops(kind),
             f"at B={B} T={T} A={A}, one params row per lane", unread,
-            dict(row=row, group="lanes", kernel=f"{kind}_kernel", model=name,
-                 limits=True, T=T, effort=effort(kind, T, n, m)))
+            dict(row=row, group="lanes", kernel=launched_kernel(kind, model),
+                 model=name, limits=True, T=T, effort=effort(kind, T, n, m),
+                 bitwise=is_team(launched_kernel(kind, model))))
     return out
 
 
@@ -5032,26 +5161,23 @@ def main() -> int:
               + f">: {e.get('registers')} registers, "
               f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} B "
               f"spill stores, {e.get('spill_loads')} B spill loads")
-    occupancy = team_occupancy()
-    sweep_occ = sweep_occupancy()
+    occupancy = launcher_occupancy()
     for (kernel, model_name, limits), (blocks, threads, smem) in sorted(
-            sweep_occ.items(), key=lambda kv: str(kv[0])):
-        if not kernel.startswith("sweep_team_kernel"):
+            occupancy.items(), key=lambda kv: str(kv[0])):
+        if not is_team(kernel):
             continue
         e = ptxas.get((kernel, model_name, limits), {})
-        print(f"[build] {kernel}<{model_name}, limits={limits}> (a warp per "
-              f"lane): {e.get('registers')} registers, "
+        what = ("a warp per lane, 4 lanes a block"
+                if kernel.startswith(("sweep_team_kernel",
+                                      "iteration_warp_kernel"))
+                else "a team of 16 threads per lane, 8 lanes a block")
+        print(f"[build] {kernel}<{model_name}"
+              + ("" if limits is None else f", limits={limits}")
+              + f"> ({what}): {e.get('registers')} registers, "
               f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} / "
               f"{e.get('spill_loads')} B spill stores / loads; {blocks} "
               f"blocks of {threads} threads per SM, {smem} B of shared "
               f"memory per block")
-    for (kernel, limits), blocks in occupancy.items():
-        e = ptxas.get((kernel, "acrobot", limits), {})
-        print(f"[build] {kernel}<acrobot, limits={limits}> (a team of 16 "
-              f"threads per lane, 8 lanes a block): {e.get('registers')} "
-              f"registers, {e.get('stack_bytes')} B stack, "
-              f"{e.get('spill_stores')} / {e.get('spill_loads')} B spill "
-              f"stores / loads; {blocks} blocks of 128 threads per SM")
 
     t_phase = t0
 
@@ -5146,15 +5272,12 @@ def main() -> int:
         r.update(route="cuda", replaces=REPLACES[kind], tol=KERNEL_TOL,
                  library_ms=None, library_note=(
                      "no single PyTorch call computes this function"))
-        limits = r["limits"] if r["kernel"].startswith(
-            ("sweep_kernel", "iteration_kernel", "iteration_team_kernel",
-             "sweep_team_kernel")) else None
+        limits = (r["limits"] if r["kernel"].startswith(LIMITS_KERNELS)
+                  else None)
         r.update(ptxas.get((r["kernel"], r["model"], limits), {}))
-        if (r["kernel"], limits) in occupancy:
-            r["blocks_per_sm"] = occupancy[(r["kernel"], limits)]
-        if (r["kernel"], r["model"], limits) in sweep_occ:
+        if (r["kernel"], r["model"], limits) in occupancy:
             (r["blocks_per_sm"], r["block_threads"],
-             r["smem_per_block"]) = sweep_occ[(r["kernel"], r["model"],
+             r["smem_per_block"]) = occupancy[(r["kernel"], r["model"],
                                                limits)]
     if not all(r.get("launches") for r in rows.values()):
         raise AssertionError(f"a kernel was never launched: {rows}")

@@ -14,6 +14,10 @@ namespace cartpole {
 struct Model : cost::DiagonalHessians {
   static constexpr int N = 4;  // [p, θ, ṗ, θ̇]
   static constexpr int M = 1;  // [cart force]
+  // The whole iteration runs as a team of 16 threads per lane
+  // (iteration_team.cuh): its 5 directions and 15 cost-Hessian pairs fit a
+  // team
+  static constexpr bool kTeamIteration = true;
 
   // Packed params (ops/kernel_rollout.pack_params): the params leaves in
   // field order, then dt.

@@ -11,10 +11,13 @@ namespace custom {
 // the dense derivative policies only (sweep_step.cuh FiniteDiff and Jvp,
 // which fold nothing), so no entry is structurally constant.
 struct DensePattern {
-  // the merged sweep stays the one-thread kernel (sweep_team.cuh TeamSweep):
-  // the team kernel is held against its plain version for the package's
-  // models only
+  // the merged sweep, the whole iteration and the line search stay the
+  // one-thread kernels (sweep_team.cuh TeamSweep, iteration_warp.cuh,
+  // linesearch_team.cuh TeamLineSearch; no kTeamIteration): the team
+  // kernels are held against their plain versions for the package's models
+  // only
   static constexpr bool kTeamSweep = false;
+  static constexpr bool kTeamLineSearch = false;
   __host__ __device__ static constexpr char a_kind(int, int) { return 'x'; }
   __host__ __device__ static constexpr char b_kind(int, int) { return 'x'; }
   __host__ __device__ static constexpr char cxx_kind(int, int) { return 'x'; }

@@ -1,45 +1,45 @@
 // iteration_packed (one whole solver iteration) as a team of kTeam threads
-// per lane, for acrobot (n = 4, m = 1): the one-thread iteration_kernel of
-// kernels.cuh redesigned for this card. Every other model keeps that one.
+// per lane, for the models that opt in with Model::kTeamIteration (acrobot,
+// cartpole and pendulum: m = 1, n = 4, 4, 2): the one-thread
+// iteration_kernel of kernels.cuh redesigned for this card. The models with
+// m·n ≥ 32 take a warp per lane (iteration_warp.cuh); every other model and
+// every custom model keeps the one-thread kernel.
 //
 // Replaces: ilqr_tpu/ops/pallas_iter.py iteration_packed (_iter_kernel), as
 // kernels.cuh iteration_kernel does, on the same inputs, outputs and gain
 // buffer, with the same launcher names and signatures.
 // Bound on this card: as the one-thread kernel's, latency first. One thread
-// per lane left two warps on an SM at B = 8192 (one block of 64 each), so
-// every dependent instruction's latency was exposed, and a lane's
-// independent work ran in series on its thread: the 2(n + m) stencil steps
-// (under RK4 four dynamics calls each) and (n + m)(n + m + 1)/2 cost-Hessian
-// pairs of every time step, and the A line-search candidates.
+// per lane left two warps on an SM at B = 8192 (one block of 64 each), and
+// used 16 of the 132 SMs at B = 1024, so every dependent instruction's
+// latency was exposed, and a lane's independent work ran in series on its
+// thread: the 2(n + m) stencil steps (under RK4 four dynamics calls each)
+// and (n + m)(n + m + 1)/2 cost-Hessian pairs of every time step, and the A
+// line-search candidates.
 // Design: a team of kTeam = 16 threads, half a warp, serves one lane; a
 // block of kBlock = 128 threads serves kLanes = 8 lanes, so B = 8192 is
-// 1 024 blocks. All exchange within a team is __shfl_sync over the team's
-// half of the warp (width kTeam): the team shares no memory and meets no
-// block barrier (a __syncwarp over the team orders what one thread of it
-// stores to device memory before another reads or overwrites it). A
-// shuffle moves a value and never sums one, and each output element is
-// computed by one thread with the one-thread kernel's operations in its
+// 1 024 blocks and B = 1024 128. All exchange within a team is __shfl_sync
+// over the team's half of the warp (width kTeam): the team shares no memory
+// and meets no block barrier (a __syncwarp over the team orders what one
+// thread of it stores to device memory before another reads or overwrites
+// it). A shuffle moves a value and never sums one, and each output element
+// is computed by one thread with the one-thread kernel's operations in its
 // order, so the results are that kernel's bit for bit.
 //  - Phase 0, the merged linearize + backward sweep. Under FiniteDiff,
 //    thread 2a evaluates the plus side of direction a (the perturbed step
-//    and running cost) and thread 2a + 1 the minus side, and threads
-//    0 … 14 each take one of the 15 Hessian pairs (a, b ≥ a) of the running
-//    cost; under Jvp thread a takes direction a's first-order dual pass and
-//    threads 0 … 14 one second-order pass each. Every thread then gathers
-//    all entries by shuffles and runs the Riccati step (sweep::step) on its
-//    own copy of the V-carry, with no further exchange; thread q < m(n + 1)
-//    stores entry q of the step's gains (k_t, then K_t row-major) into
-//    k_out and K_out. V_T is computed by every thread, once.
-//  - Phase 1: thread a < A advances candidate a; the shared rows (us, x̄,
-//    k_t, K_t) are read by the team at one address; the A costs are
-//    gathered by shuffles and every thread runs rollout::select on them.
-//    Each candidate stores its state at the start of each of S ≤ 16
-//    segments of the horizon into the gain buffer, a scratch here.
-//  - Phase 2: where a step is taken, thread s rolls out segment s of the
-//    selected candidate again from its stored state and writes the state,
-//    so the replay takes T / S steps, not T; where none is, the team
-//    copies the current state. Where the new gains are not kept, the team
-//    copies the previous ones over them.
+//    and running cost) and thread 2a + 1 the minus side, and thread q takes
+//    the q-th Hessian pair (a, b ≥ a) of the running cost; under Jvp thread
+//    a takes direction a's first-order dual pass and thread q one
+//    second-order pass. Every thread then gathers all entries by shuffles
+//    and runs the Riccati step (sweep::step) on its own copy of the
+//    V-carry, with no further exchange; thread q < m(n + 1) stores entry q
+//    of the step's gains (k_t, then K_t row-major) into k_out and K_out.
+//    V_T is computed by every thread, once. The team's limits: 2(n + m) and
+//    (n + m)(n + m + 1)/2 ≤ 16 (acrobot and cartpole 10 and 15, pendulum 6
+//    and 6), m(n + 1) ≤ 16 gain entries.
+//  - Phases 1-2, the line search of linesearch_team.cuh (team::line_search)
+//    on the gains in k_out and K_out, its segment states in the gain buffer,
+//    a scratch here (S ≤ 16 segments). Where the new gains are not kept, the
+//    team copies the previous ones over them.
 // The closed-form derivatives of phase 0 (Model::jac) do not depend on
 // the V-carry, so they too are spread: thread r evaluates them for step
 // t − r of each block of 16 steps t, t − 1, …, and each step gathers them.
@@ -50,31 +50,16 @@
 
 #include <type_traits>
 
-#include "kernels.cuh"
+#include "linesearch_team.cuh"
 
 namespace team {
 
-constexpr int kTeam = 16;               // threads per lane: half a warp
-constexpr int kBlock = 128;             // threads per block
-constexpr int kLanes = kBlock / kTeam;  // lanes per block
 // Blocks an SM is to hold: registers capped at 128 a thread, which the
 // analytic form fits without spills and the stencil and dual-number forms
 // with a few dozen bytes. Timed on an H100 at B = 8192, T = 499 against 2,
-// 3, 5, 6 and 8 blocks: fewer leave the dense forms' latency exposed, more
-// spill them heavily.
+// 3, 5, 6 and 8 blocks (acrobot): fewer leave the dense forms' latency
+// exposed, more spill them heavily.
 constexpr int kMinBlocks = 4;
-
-static_assert(fused::kMaxA <= kTeam, "a team holds every candidate");
-
-struct Team {
-  int rank;       // the thread's place in its team, 0 … kTeam − 1
-  unsigned mask;  // the team's half of the warp
-
-  // v as team thread src holds it
-  __device__ __forceinline__ float from(float v, int src) const {
-    return __shfl_sync(mask, v, src, kTeam);
-  }
-};
 
 // The pair (a, b ≥ a) that is the q-th of fd.cuh's and jvp.cuh's loops
 // over n + m = NZ directions
@@ -277,120 +262,6 @@ __device__ __forceinline__ Jvp spread(sweep::Jvp d, const Team& tm) {
   return {d, tm};
 }
 
-// The shared rows of one time step that a rollout reads: u_t, x̄_t and the
-// gains k_t, K_t. The rollouts load row t + 1 while they step through row t,
-// so that the loads' latency hides behind the step.
-template <class Model>
-struct Row {
-  static constexpr int N = Model::N, M = Model::M;
-  float u[M], xsr[N], k[M], K[M][N];
-
-  __device__ __forceinline__ void load(const float* __restrict__ us,
-                                       const float* __restrict__ xs,
-                                       const rollout::Gains<Model>& g, int t,
-                                       size_t B, int lane) {
-#pragma unroll
-    for (int j = 0; j < M; ++j) u[j] = us[(t * M + j) * B + lane];
-#pragma unroll
-    for (int i = 0; i < N; ++i) xsr[i] = xs[(t * N + i) * B + lane];
-    g.load(t, lane, k, K);
-  }
-};
-
-// Where phase 1 leaves each candidate's state for phase 2: the gain buffer,
-// free once phase 0 has stored the gains in k_out and K_out, holds the state
-// x_t at the start t = s·L of each segment s ≥ 1 of every candidate. S
-// segments of L steps, as many as it holds (S − 1 states of n floats for
-// each of the A candidates in its T·m(n + 1) floats per lane), at most one
-// a team thread.
-struct Segments {
-  int S, L;
-
-  // per_t: the buffer's floats per lane and time step
-  __device__ __forceinline__ Segments(int T, int A, int per_t, int n) {
-    S = min(kTeam, 1 + (T * per_t) / (A * n));
-    L = (T + S - 1) / S;
-  }
-  // the scratch row of entry i of candidate a's state at segment s ≥ 1
-  __device__ __forceinline__ int row(int a, int s, int i, int n) const {
-    return (a * (S - 1) + s - 1) * n + i;
-  }
-};
-
-// One line-search candidate's cost: rollout::candidate_costs for the one α,
-// a; its state at the start of each segment s ≥ 1 stored to the scratch.
-template <class Model, int kScheme>
-__device__ __forceinline__ float candidate_as(
-    const typename Model::Params& p, const float x0[Model::N],
-    const float* __restrict__ us, const float* __restrict__ xs,
-    const rollout::Gains<Model>& g, int a, float alpha, int T, size_t B,
-    int lane, bool clamp, const Segments& seg, float* scratch) {
-  constexpr int N = Model::N, M = Model::M;
-  float x[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = x0[i];
-  float cost = 0.0f;
-  Row<Model> next;
-  if (T > 0) next.load(us, xs, g, 0, B, lane);
-  for (int t = 0, s = 0; t < T; ++t) {
-    const Row<Model> r = next;
-    if (t + 1 < T) next.load(us, xs, g, t + 1, B, lane);
-    if (t == s * seg.L) {
-      if (s > 0) {
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-          scratch[seg.row(a, s, i, N) * B + lane] = x[i];
-      }
-      ++s;
-    }
-    float uff[M], u[M];
-#pragma unroll
-    for (int j = 0; j < M; ++j) uff[j] = r.u[j] + alpha * r.k[j];
-    cost = cost
-           + rollout::step<Model, kScheme>(p, x, uff, r.xsr, r.K, clamp, u);
-  }
-  return cost + Model::final_cost(p, x);
-}
-
-// Phase 2 where a step is taken: segment s of the selected candidate a,
-// steps t0 … t1 − 1 from its stored state (x0 for s = 0), rolled out again
-// as rollout::emit rolls out the whole horizon, with the state written;
-// the last segment writes x_T.
-template <class Model, int kScheme>
-__device__ __forceinline__ void emit_as(
-    const typename Model::Params& p, const float x0[Model::N],
-    const float* __restrict__ us, const float* __restrict__ xs,
-    const rollout::Gains<Model>& g, int a, float alpha, int s, int T,
-    size_t B, int lane, bool clamp, const Segments& seg,
-    const float* scratch, float* __restrict__ xs_out,
-    float* __restrict__ us_out, float* __restrict__ xfin_out) {
-  constexpr int N = Model::N, M = Model::M;
-  const int t0 = s * seg.L, t1 = min(T, t0 + seg.L);
-  if (t0 >= T) return;
-  float x[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    x[i] = s == 0 ? x0[i] : scratch[seg.row(a, s, i, N) * B + lane];
-  Row<Model> next;
-  next.load(us, xs, g, t0, B, lane);
-  for (int t = t0; t < t1; ++t) {
-    const Row<Model> r = next;
-    if (t + 1 < t1) next.load(us, xs, g, t + 1, B, lane);
-#pragma unroll
-    for (int i = 0; i < N; ++i) xs_out[(t * N + i) * B + lane] = x[i];
-    float uff[M], u[M];
-#pragma unroll
-    for (int j = 0; j < M; ++j) uff[j] = r.u[j] + alpha * r.k[j];
-    rollout::step<Model, kScheme>(p, x, uff, r.xsr, r.K, clamp, u);
-#pragma unroll
-    for (int j = 0; j < M; ++j) us_out[(t * M + j) * B + lane] = u[j];
-  }
-  if (t1 == T) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) xfin_out[i * B + lane] = x[i];
-  }
-}
-
 template <class Model, bool kLimits, class Deriv>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 iteration_team_kernel(const float* __restrict__ params, int pstride,
@@ -416,9 +287,7 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
                       int B_, int clamp, int scheme, Deriv d) {
   constexpr int N = Model::N, M = Model::M, G = M * (N + 1);
   static_assert(G <= kTeam, "a team stores a gain row, one entry a thread");
-  constexpr int kMaxA = fused::kMaxA;
-  const Team tm{static_cast<int>(threadIdx.x % kTeam),
-                0xffffu << (threadIdx.x & 16u)};
+  const Team tm = half_warp();
   const int lane = blockIdx.x * kLanes + threadIdx.x / kTeam;
   const bool valid = lane < B_;
   const int ln = valid ? lane : B_ - 1;  // where a team past B reads
@@ -517,69 +386,14 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
   const float gate = okf * (1.0f - gtf) * live[ln];  // take-step gate
   const float keep = okf * live[ln];                 // gain-keep gate
 
-  // phase 1: candidate rank, costs only (its segment states stored);
-  // then every thread holds all A
-  float x0v[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) x0v[i] = x0[i * B + ln];
-  const rollout::Gains<Model> g{k_out, K_out, M * B, M * N * B, B};
-  const Segments seg(T, A, G, N);
-  float own = 0.0f;
-  if (tm.rank < A) {
-    const float alpha = alphas[tm.rank];
-    own = scheme == integrate::kRK4
-              ? candidate_as<Model, integrate::kRK4>(
-                    p, x0v, us, xs, g, tm.rank, alpha, Tl, B, ln,
-                    clamp != 0, seg, gains)
-              : candidate_as<Model, integrate::kEuler>(
-                    p, x0v, us, xs, g, tm.rank, alpha, Tl, B, ln,
-                    clamp != 0, seg, gains);
-  }
-  float al[kMaxA], cand[kMaxA];
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    al[a] = (a < A) ? alphas[a] : 0.0f;
-    cand[a] = tm.from(own, a);
-  }
-
-  // phase 2: select the first accepted α; the state as rollout::emit
-  // leaves it: where a step is taken, the selected candidate rolled out
-  // again, its S segments side by side on the team, from the states phase
-  // 1 stored; where none is, the current state copied by the team. Then,
-  // where the new gains are not kept, the previous ones copied over them.
-  const rollout::Selection s = rollout::select<kMaxA>(
-      cand, al, A, cprev[ln], c.dv0, c.dv1, z_min);
-  const bool take = s.accepted * gate > 0.5f;
-  __syncwarp(tm.mask);   // the stored states before they are read
-  if (take && valid) {
-    int sel = -1;   // the selected candidate: the first with its α
-#pragma unroll
-    for (int a = kMaxA - 1; a >= 0; --a)
-      if (a < A && al[a] == s.alpha) sel = a;
-    if (tm.rank < seg.S) {
-      if (scheme == integrate::kRK4)
-        emit_as<Model, integrate::kRK4>(p, x0v, us, xs, g, sel, s.alpha,
-                                        tm.rank, T, B, lane, clamp != 0, seg,
-                                        gains, xs_out, us_out, xfin);
-      else
-        emit_as<Model, integrate::kEuler>(p, x0v, us, xs, g, sel, s.alpha,
-                                          tm.rank, T, B, lane, clamp != 0,
-                                          seg, gains, xs_out, us_out, xfin);
-    }
-  } else if (valid) {
-    for (int r = tm.rank; r < T * N; r += kTeam)
-      xs_out[r * B + lane] = xs[r * B + lane];
-    for (int r = tm.rank; r < T * M; r += kTeam)
-      us_out[r * B + lane] = us[r * B + lane];
-    if (tm.rank < N) xfin[tm.rank * B + lane] = xterm[tm.rank * B + lane];
-  }
-  __syncwarp(tm.mask);   // the new gains read before they are replaced
-  if (valid && !(keep > 0.5f)) {
-    for (int r = tm.rank; r < T * M; r += kTeam)
-      k_out[r * B + lane] = kold[r * B + lane];
-    for (int r = tm.rank; r < T * M * N; r += kTeam)
-      K_out[r * B + lane] = Kold[r * B + lane];
-  }
+  // phases 1-2: the line search on the new gains, the gain buffer its
+  // scratch; the previous gains copied over the new ones where not kept
+  const rollout::Selection s = line_search<Model>(
+      tm, p, x0, us, xs, xterm,
+      rollout::Gains<Model>{k_out, K_out, M * B, M * N * B, B}, kold, Kold,
+      alphas, A, cprev[ln], c.dv0, c.dv1, z_min, gate, keep > 0.5f, T, B, ln,
+      valid, clamp != 0, scheme, Segments(T, A, G, N, kTeam), gains, xs_out,
+      us_out, xfin, k_out, K_out);
   if (writer) {
     lscost[lane] = s.cost;
     alpha_sel[lane] = s.alpha;
@@ -589,37 +403,13 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
   }
 }
 
-template <class Model, class Deriv>
-inline int launch_iteration(
-    const void* params, int pstride, const void* x0, const void* xs,
-    const void* xterm, const void* us, const void* Kold, const void* kold,
-    const void* alphas, int A, const void* lam, const void* cprev,
-    const void* live, void* xs_out, void* us_out, void* xfin, void* k_out,
-    void* K_out, void* lscost, void* alpha_sel, void* acc, void* dcost,
-    void* expected, void* div, void* gnorm, void* gains, float z_min,
-    float tol_grad, float lam_grad_term, int T, int B, int clamp,
-    int use_limits, int scheme, Deriv d, void* stream) {
-  auto kernel = use_limits ? iteration_team_kernel<Model, true, Deriv>
-                           : iteration_team_kernel<Model, false, Deriv>;
-  kernel<<<(B + kLanes - 1) / kLanes, kBlock, 0, (cudaStream_t)stream>>>(
-      (const float*)params, pstride, (const float*)x0, (const float*)xs,
-      (const float*)xterm, (const float*)us, (const float*)Kold,
-      (const float*)kold, (const float*)alphas, A, (const float*)lam,
-      (const float*)cprev, (const float*)live, (float*)xs_out,
-      (float*)us_out, (float*)xfin, (float*)k_out, (float*)K_out,
-      (float*)lscost, (float*)alpha_sel, (float*)acc, (float*)dcost,
-      (float*)expected, (float*)div, (float*)gnorm, (float*)gains, z_min,
-      tol_grad, lam_grad_term, T, B, clamp, scheme, d);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace team
 
 namespace fused {
 
 // Whether a model's whole iteration is the team kernel: the model says so
-// with a static constexpr bool kTeamIteration = true (acrobot.cuh); every
-// other model, and every custom model, keeps the one-thread kernel.
+// with a static constexpr bool kTeamIteration = true (acrobot.cuh,
+// cartpole.cuh, pendulum.cuh); the team's limits hold for it (above).
 template <class Model, class = void>
 struct TeamIteration {
   static constexpr bool value = false;
@@ -629,37 +419,4 @@ struct TeamIteration<Model, std::void_t<decltype(Model::kTeamIteration)>> {
   static constexpr bool value = Model::kTeamIteration;
 };
 
-// The whole-iteration launch of ILQR_ITERATION_LAUNCHER,
-// ILQR_FD_ITERATION_LAUNCHER and ILQR_JVP_ITERATION_LAUNCHER: the model's
-// one kernel, chosen at compile time
-template <class Model, class Deriv, class... Args>
-inline int launch_whole_iteration(Args... args) {
-  if constexpr (TeamIteration<Model>::value)
-    return team::launch_iteration<Model, Deriv>(args...);
-  else
-    return launch_iteration<Model, Deriv>(args...);
-}
-
-// Blocks of the team kernel an SM holds at once
-template <class Model, class Deriv>
-inline int team_blocks_per_sm(int use_limits) {
-  int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n,
-      use_limits ? team::iteration_team_kernel<Model, true, Deriv>
-                 : team::iteration_team_kernel<Model, false, Deriv>,
-      team::kBlock, 0);
-  return n;
-}
-
 }  // namespace fused
-
-// ilqr_<NAME>_iteration<SUFFIX>_blocks_per_sm(use_limits): the blocks of
-// 128 threads an SM holds of the team kernel of derivative source DERIV
-// (SUFFIX empty for sweep::Analytic, _fd, _jvp), beside the launchers of a
-// model with kTeamIteration
-#define ILQR_TEAM_BLOCKS_PER_SM(NAME, MODEL, SUFFIX, DERIV)                  \
-  extern "C" int ilqr_##NAME##_iteration##SUFFIX##_blocks_per_sm(            \
-      int use_limits) {                                                      \
-    return fused::team_blocks_per_sm<MODEL, DERIV>(use_limits);              \
-  }

@@ -7,7 +7,6 @@
 #include "kernels.cuh"
 
 ILQR_FUSED_LAUNCHERS(acrobot, acrobot::Model)
-ILQR_TEAM_BLOCKS_PER_SM(acrobot, acrobot::Model, , sweep::Analytic)
 
 extern "C" {
 

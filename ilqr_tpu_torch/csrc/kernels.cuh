@@ -10,14 +10,18 @@
 // V-carry, dV, the divergence latch, the gnorm sum, the A candidate states)
 // stay in registers, or in local memory where a large model (the quadrotor,
 // n = 12, m = 4) needs more than the 255 registers a thread may hold. Lanes
-// are independent, so no block waits for another. One kernel no longer
-// follows this layout: acrobot's whole iteration (iteration_packed) is a
-// team of 16 threads per lane (iteration_team.cuh); every other model and
-// every custom model keeps iteration_kernel below. Nor does the merged
-// sweep (sweep_packed) of the models with m·n ≥ 32 (the quadrotor and the
-// m ≥ 5 models): a warp per lane (sweep_team.cuh); every other model and
-// every custom model keeps sweep_kernel below, and every whole-iteration
-// kernel its one-thread backward_phase.
+// are independent, so no block waits for another. Three kernels no longer
+// follow this layout for the package's models; custom models (ops/codegen.py)
+// keep the one-thread kernels below throughout:
+//  - the line search (linesearch_packed) of every model is a team of 16
+//    threads per lane (linesearch_team.cuh), in place of linesearch_kernel;
+//  - the whole iteration (iteration_packed) of acrobot, cartpole and
+//    pendulum is a team of 16 threads per lane (iteration_team.cuh), that
+//    of the models with m·n ≥ 32 (the quadrotor and the m ≥ 5 models) a
+//    warp per lane (iteration_warp.cuh); the m = 2-3 models keep
+//    iteration_kernel;
+//  - the merged sweep (sweep_packed) of the models with m·n ≥ 32 is a warp
+//    per lane (sweep_team.cuh); every other model keeps sweep_kernel.
 //
 // The integrator (Euler or RK4, integrate.cuh) is a runtime argument of
 // every kernel. The sweep and whole-iteration kernels are templates on the
@@ -470,38 +474,18 @@ inline int launch_sweep(const void* params, int pstride, const void* xs,
                 T, B, d);
 }
 
-template <class Model, class Deriv>
-inline int launch_iteration(
-    const void* params, int pstride, const void* x0, const void* xs,
-    const void* xterm, const void* us, const void* Kold, const void* kold,
-    const void* alphas, int A, const void* lam, const void* cprev,
-    const void* live, void* xs_out, void* us_out, void* xfin, void* k_out,
-    void* K_out, void* lscost, void* alpha_sel, void* acc, void* dcost,
-    void* expected, void* div, void* gnorm, void* gains, float z_min,
-    float tol_grad, float lam_grad_term, int T, int B, int clamp,
-    int use_limits, int scheme, Deriv d, void* stream) {
-  return launch(
-      use_limits ? iteration_kernel<Model, true, Deriv>
-                 : iteration_kernel<Model, false, Deriv>,
-      B, stream, (const float*)params, pstride, (const float*)x0,
-      (const float*)xs, (const float*)xterm, (const float*)us,
-      (const float*)Kold, (const float*)kold, (const float*)alphas, A,
-      (const float*)lam, (const float*)cprev, (const float*)live,
-      (float*)xs_out, (float*)us_out, (float*)xfin, (float*)k_out,
-      (float*)K_out, (float*)lscost, (float*)alpha_sel, (float*)acc,
-      (float*)dcost, (float*)expected, (float*)div, (float*)gnorm,
-      (float*)gains, z_min, tol_grad, lam_grad_term, T, B, clamp, scheme, d);
-}
-
 }  // namespace fused
 
-// The whole iteration as a team of threads per lane, for the models that
-// ask for it (Model::kTeamIteration), and the launch that picks a model's
-// whole-iteration kernel; the merged sweep as a warp per lane (the models
-// with m·n ≥ 32, fused::TeamSweep) and the launch that picks a model's sweep
-// kernel
+// The line search as a team of 16 threads per lane and the launch that
+// picks a model's line-search kernel; the whole iteration as a team of 16
+// threads per lane (Model::kTeamIteration); the merged sweep as a warp per
+// lane (the models with m·n ≥ 32, fused::TeamSweep) and the launch that
+// picks a model's sweep kernel; the whole iteration of those models as a
+// warp per lane and the launch that picks a model's whole-iteration kernel
+#include "linesearch_team.cuh"
 #include "iteration_team.cuh"
 #include "sweep_team.cuh"
+#include "iteration_warp.cuh"
 
 // The extern "C" launchers of one model, ilqr_<NAME>_<kernel>, with the
 // signatures ops/_build.py binds. The sweep and iteration launchers pick the
@@ -510,15 +494,20 @@ inline int launch_iteration(
 // the analytic sweep and iteration run the Euler step (the JAX kernel's
 // use_analytic), the stencil ones (_fd) take the integrator and the
 // stencil's eps and denominators.
-// The iteration launchers instantiate the model's whole-iteration kernel:
-// iteration_kernel, or the team kernel of iteration_team.cuh where the model
-// has kTeamIteration (acrobot); the sweep launchers its sweep kernel:
-// sweep_kernel, or the team kernel of sweep_team.cuh where fused::TeamSweep
-// picks it (m·n ≥ 32, custom models excepted), with
-// ilqr_<NAME>_sweep[_fd|_jvp]_blocks_per_sm(use_limits, int* threads,
-// int* smem_bytes) beside them (the blocks of that kernel an SM holds, and
-// the threads and dynamic shared memory of each; -1 where a CUDA call
-// fails).
+// Each launcher instantiates the model's one kernel for its work, chosen at
+// compile time (fused::launch_model_linesearch, launch_model_sweep,
+// launch_whole_iteration): the line search's team kernel
+// (linesearch_team.cuh; linesearch_kernel for a custom model); the sweep's
+// sweep_kernel, or the warp kernel of sweep_team.cuh where fused::TeamSweep
+// picks it (m·n ≥ 32, custom models excepted); the whole iteration's
+// iteration_kernel, the team kernel of iteration_team.cuh where the model
+// has kTeamIteration (acrobot, cartpole, pendulum), or the warp kernel of
+// iteration_warp.cuh where TeamSweep picks it. Beside each stand
+// ilqr_<NAME>_linesearch_blocks_per_sm(int* threads, int* smem_bytes) and
+// ilqr_<NAME>_{sweep,iteration}[_fd|_jvp]_blocks_per_sm(use_limits,
+// int* threads, int* smem_bytes): the blocks of that kernel an SM holds,
+// and the threads and dynamic shared memory of each; -1 where a CUDA call
+// fails.
 // ILQR_FUSED_LAUNCHERS instantiates the four analytic kernels; a model
 // whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
@@ -601,16 +590,18 @@ inline int launch_iteration(
       void* xs_out, void* us_out, void* xfin, void* k_out, void* K_out,        \
       void* lscost, void* alpha_sel, void* acc, void* dcost, void* expected,   \
       float z_min, int T, int B, int clamp, int scheme, void* stream) {        \
-    return fused::launch(                                                      \
-        fused::linesearch_kernel<MODEL>, B, stream, (const float*)params,      \
-        pstride, (const float*)x0, (const float*)us, (const float*)xsr,        \
-        (const float*)xterm, (const float*)K, (const float*)k,                 \
-        (const float*)Kold, (const float*)kold, (const float*)alphas, A,       \
-        (const float*)dv, (const float*)cprev, (const float*)gate,             \
-        (const float*)keep, (float*)xs_out, (float*)us_out, (float*)xfin,      \
-        (float*)k_out, (float*)K_out, (float*)lscost, (float*)alpha_sel,       \
-        (float*)acc, (float*)dcost, (float*)expected, z_min, T, B, clamp,      \
-        scheme);                                                               \
+    return fused::launch_model_linesearch<MODEL>(                              \
+        B, stream, (const float*)params, pstride, (const float*)x0,            \
+        (const float*)us, (const float*)xsr, (const float*)xterm,              \
+        (const float*)K, (const float*)k, (const float*)Kold,                  \
+        (const float*)kold, (const float*)alphas, A, (const float*)dv,         \
+        (const float*)cprev, (const float*)gate, (const float*)keep,           \
+        (float*)xs_out, (float*)us_out, (float*)xfin, (float*)k_out,           \
+        (float*)K_out, (float*)lscost, (float*)alpha_sel, (float*)acc,         \
+        (float*)dcost, (float*)expected, z_min, T, B, clamp, scheme);          \
+  }                                                                            \
+  int ilqr_##NAME##_linesearch_blocks_per_sm(int* threads, int* smem_bytes) {  \
+    return fused::linesearch_blocks_per_sm<MODEL>(threads, smem_bytes);        \
   }                                                                            \
   }
 
@@ -629,12 +620,20 @@ inline int launch_iteration(
   }                                                                            \
   ILQR_SWEEP_BLOCKS_PER_SM(NAME, MODEL, , sweep::Analytic)
 
+#define ILQR_ITERATION_BLOCKS_PER_SM(NAME, MODEL, SUFFIX, DERIV)            \
+  extern "C" int ilqr_##NAME##_iteration##SUFFIX##_blocks_per_sm(            \
+      int use_limits, int* threads, int* smem_bytes) {                       \
+    return fused::iteration_blocks_per_sm<MODEL, DERIV>(use_limits, threads, \
+                                                        smem_bytes);         \
+  }
+
 #define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                 \
   extern "C" int ilqr_##NAME##_iteration(ILQR_ITERATION_PARAMS,              \
                                          void* stream) {                     \
     return fused::launch_whole_iteration<MODEL, sweep::Analytic>(            \
         ILQR_ITERATION_ARGS, integrate::kEuler, sweep::Analytic{}, stream);  \
-  }
+  }                                                                          \
+  ILQR_ITERATION_BLOCKS_PER_SM(NAME, MODEL, , sweep::Analytic)
 
 #define ILQR_FD_SWEEP_LAUNCHER(NAME, MODEL)                              \
   extern "C" int ilqr_##NAME##_sweep_fd(ILQR_SWEEP_PARAMS, int scheme,   \
@@ -654,7 +653,8 @@ inline int launch_iteration(
     return fused::launch_whole_iteration<MODEL, sweep::FiniteDiff>(          \
         ILQR_ITERATION_ARGS, scheme,                                         \
         sweep::FiniteDiff{fd::Stencil{eps, den1, den2, scheme}}, stream);    \
-  }
+  }                                                                          \
+  ILQR_ITERATION_BLOCKS_PER_SM(NAME, MODEL, _fd, sweep::FiniteDiff)
 
 #define ILQR_JVP_SWEEP_LAUNCHER(NAME, MODEL)                                \
   extern "C" int ilqr_##NAME##_sweep_jvp(ILQR_SWEEP_PARAMS, int scheme,     \
@@ -669,4 +669,5 @@ inline int launch_iteration(
                                              int scheme, void* stream) {     \
     return fused::launch_whole_iteration<MODEL, sweep::Jvp>(                 \
         ILQR_ITERATION_ARGS, scheme, sweep::Jvp{scheme}, stream);            \
-  }
+  }                                                                          \
+  ILQR_ITERATION_BLOCKS_PER_SM(NAME, MODEL, _jvp, sweep::Jvp)

@@ -6,4 +6,3 @@
 #include "kernels.cuh"
 
 ILQR_FD_LAUNCHERS(acrobot, acrobot::Model)
-ILQR_TEAM_BLOCKS_PER_SM(acrobot, acrobot::Model, _fd, sweep::FiniteDiff)

@@ -6,4 +6,3 @@
 #include "kernels.cuh"
 
 ILQR_JVP_LAUNCHERS(acrobot, acrobot::Model)
-ILQR_TEAM_BLOCKS_PER_SM(acrobot, acrobot::Model, _jvp, sweep::Jvp)

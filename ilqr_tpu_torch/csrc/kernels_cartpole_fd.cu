@@ -1,6 +1,7 @@
 // The fused solver's stencil sweep and whole-iteration kernels
 // (deriv_mode="fd", Euler or RK4) instantiated for cartpole
-// (n = 4, m = 1). See kernels.cuh.
+// (n = 4, m = 1). See kernels.cuh; the whole
+// iteration is the team kernel of iteration_team.cuh (Model::kTeamIteration).
 #include "cartpole.cuh"
 #include "kernels.cuh"
 

@@ -1,6 +1,7 @@
 // The fused solver's dual-number sweep and whole-iteration kernels
 // (deriv_mode="analytic" with RK4: exact derivatives of the step)
-// instantiated for cartpole (n = 4, m = 1). See kernels.cuh.
+// instantiated for cartpole (n = 4, m = 1). See kernels.cuh; the whole
+// iteration is the team kernel of iteration_team.cuh (Model::kTeamIteration).
 #include "cartpole.cuh"
 #include "kernels.cuh"
 

@@ -13,6 +13,10 @@ namespace pendulum {
 struct Model : cost::DiagonalHessians {
   static constexpr int N = 2;  // [θ, θ̇]
   static constexpr int M = 1;  // [torque]
+  // The whole iteration runs as a team of 16 threads per lane
+  // (iteration_team.cuh): its 3 directions and 6 cost-Hessian pairs fit a
+  // team
+  static constexpr bool kTeamIteration = true;
 
   // Packed params (ops/kernel_rollout.pack_params): the params leaves in
   // field order, then dt.

@@ -120,6 +120,7 @@ __device__ __forceinline__ void candidate_costs(
 
 struct Selection {
   float alpha, cost, dcost, expected, accepted;
+  int index;   // the selected candidate (0 where none is accepted)
 };
 
 // jnp.sign: keeps ±0 and NaN
@@ -141,6 +142,7 @@ __device__ __forceinline__ Selection select(const float cand[MAX_A],
   s.dcost = cprev - cand[0];
   s.expected = -al[0] * (dv0 + al[0] * dv1);
   s.accepted = 0.0f;
+  s.index = 0;
   bool chosen = false;
 #pragma unroll
   for (int a = 0; a < MAX_A; ++a) {
@@ -150,6 +152,7 @@ __device__ __forceinline__ Selection select(const float cand[MAX_A],
       const float z = expected > 0.0f ? dcost / expected : sign_of(dcost);
       const bool acc = z > z_min;
       if (acc && !chosen) {
+        s.index = a;
         s.alpha = al[a];
         s.cost = cand[a];
         s.dcost = dcost;

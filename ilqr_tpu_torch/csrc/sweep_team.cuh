@@ -2,8 +2,9 @@
 // 32 threads per lane, one warp, for the models that take the split
 // iteration (m·n ≥ 32: the quadrotor, n = 12, m = 4, and the m ≥ 5 models,
 // n = 6, 5 ≤ m ≤ 24): the one-thread sweep_kernel of kernels.cuh redesigned
-// for this card. Every other model, every custom model and the
-// whole-iteration kernels keep that one.
+// for this card. Every other model and every custom model keeps that one.
+// The same models' whole iteration runs this sweep as its phase 0
+// (sweep_lane, iteration_warp.cuh).
 //
 // Replaces: ilqr_tpu/ops/pallas_sweep.py sweep_packed (_kernel +
 // _sweep_step, _terminal_init, _qp_pn, _chol_masked_tiles,
@@ -1093,35 +1094,26 @@ __device__ __forceinline__ void step(Lane<Model>& s,
   __syncwarp();
 }
 
+// The merged sweep of lane `lane` on its warp, its state in s: p and x_T
+// loaded, V_T, then the T steps from T − 1 down, the gains of each stored to
+// k_out, K_out. Returns thread 0's accumulators (the other threads' are
+// zero).
 template <class Model, bool kLimits, class Deriv>
-__global__ void __launch_bounds__(kBlock)
-sweep_team_kernel(const float* __restrict__ params, int pstride,
-                  const float* __restrict__ xs,
-                  const float* __restrict__ xterm,
-                  const float* __restrict__ us,
-                  const float* __restrict__ lam, float* __restrict__ k_out,
-                  float* __restrict__ K_out, float* __restrict__ dv,
-                  float* __restrict__ div, float* __restrict__ gnorm, int T,
-                  int B_, Deriv d) {
+__device__ __forceinline__ Acc sweep_lane(
+    Lane<Model>& s, const Kinds<Model, Deriv>& kd,
+    const float* __restrict__ params, int pstride,
+    const float* __restrict__ xs, const float* __restrict__ xterm,
+    const float* __restrict__ us, float lm, int T, size_t B, int lane,
+    const Deriv& d, int rank, float* __restrict__ k_out,
+    float* __restrict__ K_out) {
   constexpr int N = Model::N, M = Model::M, NZ = N + M;
   static_assert(NZ <= kTeam, "a team loads (x_t, u_t), one entry a thread");
-  extern __shared__ float4 smem[];
-  __shared__ KindStore<Model, Deriv> kinds;
-  if (threadIdx.x == 0) fill_kinds<Model, Deriv>(kinds);
-  __syncthreads();
-  const int rank = threadIdx.x % kTeam;
-  const int lane = blockIdx.x * kLanes + threadIdx.x / kTeam;
-  if (lane >= B_) return;   // the whole team: no barrier follows
-  Lane<Model>& s = reinterpret_cast<Lane<Model>*>(smem)[threadIdx.x / kTeam];
-  const size_t B = B_;
-  const Kinds<Model, Deriv> kd{&kinds};
   if (rank == 0) s.p = fused::load_lane<Model>(params, pstride, lane);
   if (rank < N) s.x[rank] = xterm[rank * B + lane];
   __syncwarp();
   const typename Model::Params& p = s.p;
   terminal<Model>(s, p, d, rank);
   Acc acc;
-  const float lm = lam[lane];
   // (x_t, u_t) one entry a thread, loaded one step ahead
   auto load = [&](int t) {
     if (rank < N) return xs[(static_cast<size_t>(t) * N + rank) * B + lane];
@@ -1140,6 +1132,31 @@ sweep_team_kernel(const float* __restrict__ params, int pstride,
     step<Model, kLimits>(s, p, d, kd, lm, rank, acc, t, B, lane, k_out,
                          K_out);
   }
+  return acc;
+}
+
+template <class Model, bool kLimits, class Deriv>
+__global__ void __launch_bounds__(kBlock)
+sweep_team_kernel(const float* __restrict__ params, int pstride,
+                  const float* __restrict__ xs,
+                  const float* __restrict__ xterm,
+                  const float* __restrict__ us,
+                  const float* __restrict__ lam, float* __restrict__ k_out,
+                  float* __restrict__ K_out, float* __restrict__ dv,
+                  float* __restrict__ div, float* __restrict__ gnorm, int T,
+                  int B_, Deriv d) {
+  extern __shared__ float4 smem[];
+  __shared__ KindStore<Model, Deriv> kinds;
+  if (threadIdx.x == 0) fill_kinds<Model, Deriv>(kinds);
+  __syncthreads();
+  const int rank = threadIdx.x % kTeam;
+  const int lane = blockIdx.x * kLanes + threadIdx.x / kTeam;
+  if (lane >= B_) return;   // the whole team: no barrier follows
+  Lane<Model>& s = reinterpret_cast<Lane<Model>*>(smem)[threadIdx.x / kTeam];
+  const size_t B = B_;
+  const Acc acc = sweep_lane<Model, kLimits>(
+      s, Kinds<Model, Deriv>{&kinds}, params, pstride, xs, xterm, us,
+      lam[lane], T, B, lane, d, rank, k_out, K_out);
   if (rank == 0) {
     dv[lane] = acc.dv0;
     dv[B + lane] = acc.dv1;
@@ -1148,15 +1165,15 @@ sweep_team_kernel(const float* __restrict__ params, int pstride,
   }
 }
 
-// A block's dynamic shared memory, and the status of the call that allows
-// the kernel that much: made once per instantiation (and so once per
-// process: the port drives one card a process)
-template <class Model, bool kLimits, class Deriv>
+// A block's dynamic shared memory (kLanes lanes' state), and the status of
+// the call that allows kernel K, a team kernel of this model, that much:
+// made once per kernel (and so once per process: the port drives one card
+// a process)
+template <class Model, auto K>
 inline int prepare(size_t& smem) {
   smem = kLanes * sizeof(Lane<Model>);
   static const int err = (int)cudaFuncSetAttribute(
-      sweep_team_kernel<Model, kLimits, Deriv>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(kLanes * sizeof(Lane<Model>)));
   return err;
 }
@@ -1167,8 +1184,9 @@ inline int launch_sweep(const void* params, int pstride, const void* xs,
                         void* k, void* K, void* dv, void* div, void* gnorm,
                         int T, int B, int use_limits, Deriv d, void* stream) {
   size_t smem = 0;
-  const int err = use_limits ? prepare<Model, true, Deriv>(smem)
-                             : prepare<Model, false, Deriv>(smem);
+  const int err =
+      use_limits ? prepare<Model, sweep_team_kernel<Model, true, Deriv>>(smem)
+                 : prepare<Model, sweep_team_kernel<Model, false, Deriv>>(smem);
   if (err != 0) return err;
   auto kernel = use_limits ? sweep_team_kernel<Model, true, Deriv>
                            : sweep_team_kernel<Model, false, Deriv>;
@@ -1221,8 +1239,13 @@ inline int sweep_blocks_per_sm(int use_limits, int* threads, int* smem_bytes) {
   cudaError_t err;
   if constexpr (TeamSweep<Model>::value) {
     size_t smem = 0;
-    if ((use_limits ? sweep_team::prepare<Model, true, Deriv>(smem)
-                    : sweep_team::prepare<Model, false, Deriv>(smem)) != 0)
+    if ((use_limits
+             ? sweep_team::prepare<
+                   Model, sweep_team::sweep_team_kernel<Model, true, Deriv>>(
+                   smem)
+             : sweep_team::prepare<
+                   Model, sweep_team::sweep_team_kernel<Model, false, Deriv>>(
+                   smem)) != 0)
       return -1;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &n,

@@ -1,6 +1,6 @@
-"""Acrobot's whole-iteration kernel, a team of 16 threads per lane
-(csrc/iteration_team.cuh), against ``iteration_plain`` on the card in its
-three forms (analytic with Euler, the stencils with Euler and RK4, the dual
+"""The whole-iteration kernel of acrobot, cartpole and pendulum, a team of
+16 threads per lane (csrc/iteration_team.cuh), against ``iteration_plain``
+on the card in its three forms (analytic with Euler, the stencils with Euler and RK4, the dual
 numbers with RK4), on the team design's edge cases: a partial last block
 (B = 8189), A = 1 and A = 7 candidates, every lane dead (live = 0), a lane
 with NaN in x0, and the Newton step without limits. Every test here needs a
@@ -18,10 +18,10 @@ import pytest
 import torch
 
 from ilqr_tpu_torch import SolverConfig, get_model
-from ilqr_tpu_torch.models import acrobot as tac
 from ilqr_tpu_torch.ops import kernel_iter, kernel_rollout
 
-T, N, M, DT = 7, 4, 1, 0.02
+T, DT = 7, 0.02
+MODELS = ("acrobot", "cartpole", "pendulum")   # Model::kTeamIteration
 CFG = SolverConfig()
 # (integrator, mode, clamp): the flagship's analytic Euler, the CLI's
 # stencils with Euler and RK4, analytic + RK4 (the dual numbers)
@@ -43,14 +43,15 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, integrator, clamp, B, A, live, nan_lane, seed):
+def _inputs(dev, name, integrator, clamp, B, A, live, nan_lane, seed):
     """The iteration's arguments after the model and mode: x0, its
     open-loop rollout around random controls, previous gains, λ and the
     previous cost mixed over the lanes."""
-    model = get_model("acrobot")
+    model = get_model(name)
+    N, M = model.n, model.m
     rng = np.random.default_rng(seed)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    pp = kernel_rollout.pack_params(tac.default_params(), DT, dev)
+    pp = kernel_rollout.pack_params(model.default_params(), DT, dev)
     x0 = 0.05 * rng.normal(size=(N, B))
     if nan_lane is not None:
         x0[1, nan_lane] = np.nan
@@ -79,10 +80,11 @@ def _equal(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("form", sorted(FORMS))
-def test_team_iteration_matches_plain(dev, form, case):
+@pytest.mark.parametrize("name", MODELS)
+def test_team_iteration_matches_plain(dev, name, form, case):
     integrator, mode, clamp = FORMS[form]
     B, A, live, nan_lane, use_limits = CASES[case]
-    args = _inputs(dev, integrator, clamp, B, A, live, nan_lane,
+    args = _inputs(dev, name, integrator, clamp, B, A, live, nan_lane,
                    seed=sorted(CASES).index(case))
     kw = dict(mode=mode, use_limits=use_limits, z_min=CFG.z_min,
               tol_grad=CFG.tol_grad, lambda_grad_term=CFG.lambda_grad_term)

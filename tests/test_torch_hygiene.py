@@ -360,6 +360,111 @@ def test_team_sweep_trait_follows_the_route_rule(name):
         assert model.m >= 4 and model.n + model.m <= 32, (model.n, model.m)
 
 
+def _model_header(name):
+    """The traits header of ``name``'s kernel sources (the one csrc header
+    its kernels_<model>.cu includes beside kernels.cuh)."""
+    import re
+
+    csrc = _build.CSRC
+    unit = "kernels.cu" if name == "acrobot" else f"kernels_{name}.cu"
+    headers = [h for h in re.findall(r'#include "(\w+\.cuh)"',
+                                     (csrc / unit).read_text())
+               if h != "kernels.cuh"]
+    assert len(headers) == 1, headers
+    return (csrc / headers[0]).read_text()
+
+
+# The models whose whole iteration is the 16-thread team
+# (csrc/iteration_team.cuh): those with Model::kTeamIteration = true
+TEAM_ITERATION = ("acrobot", "cartpole", "pendulum")
+
+
+@pytest.mark.parametrize("name", sorted(kernel_rollout.FUSED_KERNEL_MODELS))
+def test_team_iteration_trait_holds_to_the_team_limits(name):
+    """The whole iteration runs as a team of 16 threads per lane
+    (csrc/iteration_team.cuh) for acrobot, cartpole and pendulum, each of
+    which declares Model::kTeamIteration = true in its header, and for no
+    other model; each of them lies inside the team's limits (the stencil's
+    2(n + m) sides and (n + m)(n + m + 1)/2 cost-Hessian pairs, one a
+    thread; m(n + 1) gain entries, one a thread) and takes the merged
+    iteration on iter_kernel="auto". A custom model declares no
+    kTeamIteration, so it keeps the one-thread kernel."""
+    from ilqr_tpu_torch import fused
+
+    text = _model_header(name)
+    team = "static constexpr bool kTeamIteration = true;" in text
+    assert team == (name in TEAM_ITERATION), name
+    assert "kTeamIteration = false" not in text
+    assert "bool kTeamIteration" not in (
+        _build.CSRC / "custom.cuh").read_text()
+    if team:
+        model = get_model(name)
+        nz = model.n + model.m
+        assert 2 * nz <= 16 and nz * (nz + 1) // 2 <= 16
+        assert model.m * (model.n + 1) <= 16
+        assert fused._use_iter_kernel(model, SolverConfig())
+
+
+@pytest.mark.parametrize("name", sorted(kernel_rollout.FUSED_KERNEL_MODELS))
+def test_warp_iteration_follows_the_route_rule(name):
+    """The whole iteration runs as a warp per lane (csrc/iteration_warp.cuh)
+    for exactly the models that iter_kernel="auto" sends to the split
+    iteration (fused._use_iter_kernel: m·n ≥ 32), which users reach with
+    iter_kernel="merged": iteration_warp.cuh picks it by fused::TeamSweep,
+    whose rule is m·n ≥ 32 on Model::M and Model::N, after the team's own
+    models; custom models opt out (custom.cuh DensePattern,
+    kTeamSweep = false); no split-route model is a team model."""
+    import re
+
+    from ilqr_tpu_torch import fused
+
+    csrc = _build.CSRC
+    pick = re.search(r"kIterationKind = ([^;]*);",
+                     (csrc / "iteration_warp.cuh").read_text()).group(1)
+    assert pick.split() == ["TeamIteration<Model>::value", "?", "1", ":",
+                            "TeamSweep<Model>::value", "?", "2", ":", "0"]
+    rule = re.search(r"kTeamSweepRule = ([^;]*);",
+                     (csrc / "sweep_team.cuh").read_text()).group(1)
+    assert "Model::M * Model::N >= 32" in rule, rule
+    assert ("static constexpr bool kTeamSweep = false;"
+            in (csrc / "custom.cuh").read_text())
+    model = get_model(name)
+    warp = model.m * model.n >= 32
+    assert warp == (not fused._use_iter_kernel(model, SolverConfig()))
+    if warp:
+        assert name not in TEAM_ITERATION
+        assert model.m >= 4 and model.n + model.m <= 32, (model.n, model.m)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_rollout.FUSED_KERNEL_MODELS))
+def test_team_linesearch_covers_every_model(name):
+    """The line search runs as a team of 16 threads per lane
+    (csrc/linesearch_team.cuh) for every model of the package: the trait
+    fused::TeamLineSearch is true unless a model says otherwise, no model
+    header does, and every ILQR_ROLLOUT_LAUNCHERS line search goes through
+    launch_model_linesearch; custom models opt out (custom.cuh DensePattern,
+    kTeamLineSearch = false). A team holds every candidate: the kernels'
+    most, kMaxA, is at most its 16 threads."""
+    import re
+
+    csrc = _build.CSRC
+    team = (csrc / "linesearch_team.cuh").read_text()
+    default = re.search(r"struct TeamLineSearch \{\s*static constexpr bool "
+                        r"value = (\w+);", team)
+    assert default and default.group(1) == "true"
+    assert "kTeamLineSearch" not in _model_header(name)
+    assert ("static constexpr bool kTeamLineSearch = false;"
+            in (csrc / "custom.cuh").read_text())
+    kernels = (csrc / "kernels.cuh").read_text()
+    launchers = kernels[kernels.index("#define ILQR_ROLLOUT_LAUNCHERS"):]
+    launchers = launchers[:launchers.index("#define ILQR_SWEEP_BLOCKS")]
+    assert "fused::launch_model_linesearch<MODEL>" in launchers
+    assert "linesearch_kernel" not in launchers
+    max_a = int(re.search(r"constexpr int kMaxA = (\d+);", kernels).group(1))
+    lanes = int(re.search(r"constexpr int kTeam = (\d+);", team).group(1))
+    assert max_a == len(SolverConfig().alphas) and max_a <= lanes
+
+
 def test_pack_params_layout():
     """The flat vector the kernels read: AcrobotParams leaves in field
     order, then dt (csrc/acrobot.cuh load_params)."""

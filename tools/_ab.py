@@ -27,12 +27,12 @@ CHANGE = Path(__file__).resolve().parents[1]
 PASSES = ("parent", "change", "change", "parent")
 
 
-def load_tree(root: Path, tag: str, sources):
+def load_tree(root: Path, tag: str, sources=None):
     """The package of ``root`` with a library of its csrc ``sources`` built
-    (the package's own nvcc flags, under its build/ilqr_tpu_torch/<tag>-<the
-    sources' hash>) and bound in place of the whole library; the change's
-    chip_smoke.py as a module. Returns (_build, the library's path,
-    chip_smoke)."""
+    (every csrc/*.cu where None; the package's own nvcc flags, under its
+    build/ilqr_tpu_torch/<tag>-<the sources' hash>) and bound in place of
+    the whole library; the change's chip_smoke.py as a module. Returns
+    (_build, the library's path, chip_smoke)."""
     sys.path.insert(0, str(root))
     import ilqr_tpu_torch
     from ilqr_tpu_torch.ops import _build
@@ -41,8 +41,9 @@ def load_tree(root: Path, tag: str, sources):
         raise RuntimeError(f"imported {ilqr_tpu_torch.__file__}, not "
                            f"{root}'s package")
     out_dir = _build.BUILD_ROOT / f"{tag}-{_build.source_hash()}"
-    lib = _build._build_library(out_dir, [_build.CSRC / s for s in sources],
-                                _build.LIB_NAME)
+    units = (sorted(_build.CSRC.glob("*.cu")) if sources is None
+             else [_build.CSRC / s for s in sources])
+    lib = _build._build_library(out_dir, units, _build.LIB_NAME)
     _build.library = functools.lru_cache(maxsize=None)(
         lambda: _build._bind_shared(ctypes.CDLL(str(lib))))
     spec = importlib.util.spec_from_file_location(
@@ -90,6 +91,110 @@ def regs_blocks(regs: int, block: int = 64) -> int:
     per_warp = -(-regs * 32 // 256) * 256
     warps = block // 32
     return min(32, 2048 // block, 65536 // (per_warp * warps))
+
+
+def occupancy(lib, fname: str, limits, registers: int):
+    """(blocks an SM holds, threads a block, dynamic shared memory bytes a
+    block) of the kernel that a launcher launches: from the tree's entry
+    point ``fname`` (ilqr_<model>_<kernel>[_fd|_jvp]_blocks_per_sm; use_limits
+    first unless ``limits`` is None, then the threads and the bytes), from
+    the one-argument form that trees before the line-search team gave
+    acrobot's team iteration (blocks of 128), else from the kernel's
+    ``registers`` (one-thread blocks of 64)."""
+    fn = getattr(lib, fname, None)
+    three = (hasattr(lib, "ilqr_acrobot_linesearch_blocks_per_sm")
+             or "_sweep" in fname)
+    if fn is not None and three:
+        ptr = ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = ([] if limits is None else [ctypes.c_int]) + [ptr] * 2
+        fn.restype = ctypes.c_int
+        threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+        blocks = fn(*([] if limits is None else [int(limits)]),
+                    ctypes.byref(threads), ctypes.byref(smem))
+        return blocks, threads.value, smem.value
+    if fn is not None:
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        return fn(int(limits)), 128, 0
+    return regs_blocks(registers), 64, 0
+
+
+def time_rows(smoke, dev, rows, reading):
+    """Each row (key → (phase-3 case builder, case label)): the case's
+    kernel timed (CUDA events, median of 5), a digest of its outputs and
+    ``reading(row, case)``'s fields; the cases built once per builder."""
+    import torch
+
+    out, cases = {}, {}
+    for row, (builder, label) in sorted(rows.items(),
+                                        key=lambda kv: kv[1][0]):
+        if builder not in cases:
+            cases = {builder: smoke.build_cases(dev, builder)}
+        case = cases[builder][label]
+        ms = smoke.time_ms(lambda: case.op(*case.args), reps=5)
+        outs = case.op(*case.args)
+        torch.cuda.synchronize()
+        out[row] = dict(ms=ms, digest=digest(outs), where=case.where,
+                        **reading(row, case))
+        print(f"row {row}: {out[row]}", flush=True)
+    del cases
+    torch.cuda.empty_cache()
+    return {row: out[row] for row in rows}
+
+
+def path_reading(out: dict, kernel: str) -> dict:
+    """A path's readings: solves/s, ms per iteration, host iterations,
+    ``kernel``'s launches per host iteration, mean cost, and its profiled
+    solve's device busy share and device ms by kernel (where it has one)."""
+    its = out["host_iterations"]
+    prof = out.get("profile") or {}
+    return dict(solves_per_s=out["solves_per_s"],
+                ms_per_iteration=out["ms_per_iteration"],
+                host_iterations=its, max_iter=out.get("max_iter"),
+                launches_per_iteration=out["launches"][kernel] / max(1, its),
+                mean_cost=out["mean_cost"],
+                busy_share=prof.get("device_busy_share"),
+                device_ms_by_kernel=prof.get("device_ms_by_kernel"))
+
+
+def summary_rows(passes, rows):
+    """The rows' times in the four passes (and the change's speed-up), with
+    the parent's and the change's registers, stack, spills and blocks."""
+    for row in rows:
+        r = [p["rows"][row] for p in passes]
+        par, chg = r[0], r[1]
+        speed = (r[0]["ms"] + r[3]["ms"]) / (r[1]["ms"] + r[2]["ms"])
+        print(f"[ab] row {row}: ms " + " / ".join(f"{x['ms']:.3f}" for x in r)
+              + f" ({speed:.2f}x); parent {par.get('registers')} regs "
+              f"{par.get('stack')} B stack {par.get('spill_stores')}/"
+              f"{par.get('spill_loads')} B spills, {par['blocks_per_sm']} "
+              f"blocks of {par['block_threads']}/SM; change "
+              f"{chg.get('registers')} regs {chg.get('stack')} B stack "
+              f"{chg.get('spill_stores')}/{chg.get('spill_loads')} B spills, "
+              f"{chg['blocks_per_sm']} blocks of {chg['block_threads']}/SM "
+              f"with {chg.get('smem_per_block')} B shared each; "
+              f"{par['where']}; outputs equal")
+
+
+def summary_paths(passes, paths, kernel):
+    """The paths' readings in the four passes; ``kernel``'s launches per
+    iteration and device ms by kernel of the parent's and change's first
+    passes."""
+    for path in paths:
+        r = [p["paths"][path] for p in passes]
+        print(f"[ab] path {path}: solves/s " + " / ".join(
+            f"{x['solves_per_s']:.1f}" for x in r) + "; ms/iteration "
+            + " / ".join(f"{x['ms_per_iteration']:.3f}" for x in r)
+            + f"; host iterations {r[0]['host_iterations']} (max_iter "
+            f"{r[0]['max_iter']}); {kernel}/iteration "
+            + " / ".join(f"{x['launches_per_iteration']:.2f}" for x in r)
+            + "; busy " + " / ".join(
+                "n/a" if x["busy_share"] is None else f"{x['busy_share']:.3f}"
+                for x in r)
+            + "; device ms by kernel " + " / ".join(
+                json.dumps({k: round(v, 1) for k, v in
+                            (x["device_ms_by_kernel"] or {}).items()})
+                for x in (r[0], r[1]))
+            + f"; mean cost {r[0]['mean_cost']}")
 
 
 def digest(outs) -> str:

@@ -1,38 +1,45 @@
 #!/usr/bin/env python3
-"""Acrobot's whole-iteration kernel in two trees, in turns on one card.
+"""The whole-iteration kernels in two trees, in turns on one card.
 
     python3 tools/iteration_ab.py PARENT_ROOT [--out FILE]
 
 PARENT_ROOT is a checkout of the commit to compare with (for example
 ``git archive <commit> | tar -x -C archive_check/parent``); the tree this
-script lies in is the change. For each tree the sources of acrobot's fused
-kernels (kernels.cu, kernels_acrobot_{fd,jvp}.cu, derivs_acrobot.cu,
-backward.cu) are built with the package's own nvcc flags into a library of
-their own under the tree's build/ilqr_tpu_torch/, and ptxas's registers,
-stack and spills of every acrobot iteration kernel are read from the build.
-Then four passes, parent, change, change, parent, each in a process of its
-own on that tree's package, take:
+script lies in is the change. For each tree every csrc/*.cu source is built
+with the package's own nvcc flags into a library of its own under the
+tree's build/ilqr_tpu_torch/ (tools/linesearch_ab.py reuses it), and
+ptxas's registers, stack and spills of every iteration kernel are read from
+the build. Then four passes, parent, change, change, parent, each in a
+process of its own on that tree's package, take:
 
-  - the four iteration_packed rows of chip_smoke.py phase 3 at its shapes
-    and on its inputs (B = 8192, T = 499, A = 11): analytic with Euler (the
-    flagship), the stencils with Euler and with RK4, the dual numbers with
-    RK4; CUDA events, median of 5, and a digest of every output, which
-    must be the same in both trees;
-  - each row's blocks per SM: the change's from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor (its launchers'
-    ilqr_acrobot_iteration*_blocks_per_sm), the parent's from its
-    registers (blocks of 64 threads; at B = 8192 its grid of 128 blocks
-    puts at most one on each of the 132 SMs);
-  - the flagship path as chip_smoke.py phase 4 runs it (solves/s, ms per
-    iteration, one profiled solve's device busy share) and the acrobot CLI
-    batch solves of phases 11b and 12a (the stencils with Euler, max_iter
-    100, and with RK4, and analytic + RK4, max_iter 20): solves/s, ms per
-    iteration, iteration_packed launches per host iteration, mean cost.
+  - the iteration_packed rows of chip_smoke.py phase 3 at its shapes and on
+    its inputs: acrobot's four (B = 8192, T = 499, A = 11: analytic with
+    Euler, the stencils with Euler and with RK4, the dual numbers with RK4);
+    cartpole's and pendulum's (B = 1024, the CLI problems' T: analytic,
+    stencils with Euler, dual numbers with RK4, each with limits and
+    without; pendulum's per-lane params); the seven split-route models'
+    merged iteration (B = 1024, T = 80, the stencil and dual-number rows at
+    the CLI problem's T, rings 16-24 on their first 4 steps; omni_thruster
+    also without limits); CUDA events, median of 5, and a digest of every
+    output, which must be the same in both trees;
+  - each row's blocks per SM: from the launchers'
+    ilqr_<model>_iteration*_blocks_per_sm where a tree has them
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), else from its
+    registers (one-thread blocks of 64);
+  - the paths (solves/s, ms per iteration, iteration_packed launches per
+    host iteration, mean cost, and a profiled solve's device busy share and
+    device ms by kernel): the flagship as chip_smoke.py phase 4 runs it;
+    the CLI's cartpole and pendulum batch solves at B = 1024 (phases 10-12:
+    analytic, the stencils and analytic + RK4, with limits and without the
+    first two); the merged-route gauges of phases 8-9 (the quadrotor,
+    thruster_ring, omni_thruster with limits and without, free_flyer: T =
+    80, max_iter 40, iter_kernel="merged").
 
-The change's first pass also runs tests/test_torch_cuda_team.py's cases (the
-team kernel against iteration_plain on the card, bit for bit). The passes'
-readings go to FILE as JSON (default build/iteration_ab.json) and a summary
-is printed. Needs one CUDA device.
+The change's first pass also runs tests/test_torch_cuda_team.py and
+tests/test_torch_cuda_iteration_warp.py (the team and warp kernels against
+iteration_plain on the card, bit for bit). The passes' readings go to FILE
+as JSON (default build/iteration_ab.json) and a summary is printed; the
+passes, builds and checks are tools/_ab.py's. Needs one CUDA device.
 
     python3 tools/iteration_ab.py --smoke-costs PARENT_LOG CHANGE_LOG
 
@@ -43,7 +50,6 @@ those that differ; it exits non-zero if any does.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import sys
 import time
@@ -52,26 +58,63 @@ from pathlib import Path
 import _ab
 
 CHANGE = _ab.CHANGE
-SOURCES = ("kernels.cu", "kernels_acrobot_fd.cu", "kernels_acrobot_jvp.cu",
-           "derivs_acrobot.cu", "backward.cu")
-# row: (phase 3 case builder, its key, the launcher's suffix)
-ROWS = {"analytic": ("acrobot", "iteration_packed", ""),
-        "fd": ("fd", "iteration_packed/acrobot/fd (euler)", "_fd"),
-        "fd_rk4": ("fd", "iteration_packed/acrobot/fd (rk4)", "_fd"),
-        "jvp_rk4": ("jvp", "iteration_packed/acrobot/jvp (rk4)", "_jvp")}
-# path: SolverConfig changes of the CLI's acrobot batch solve (None: the
-# flagship); max_iter as chip_smoke.py phases 11b and 12a run them
-PATHS = {"flagship": None,
-         "fd": dict(),
-         "fd_rk4": dict(integrator="rk4", max_iter=20),
-         "jvp_rk4": dict(deriv_mode="analytic", integrator="rk4",
-                         max_iter=20)}
+TEAM = ("cartpole", "pendulum")
+WARP = ("quadrotor", "omni_thruster", "free_flyer", "thruster_ring",
+        "thruster_ring16", "thruster_ring20", "thruster_ring24")
+# row: (phase 3 case builder, its label)
+ROWS = {"acrobot/analytic": (("acrobot",), "iteration_packed"),
+        "acrobot/fd": (("fd", "acrobot"),
+                       "iteration_packed/acrobot/fd (euler)"),
+        "acrobot/fd_rk4": (("fd", "acrobot"),
+                           "iteration_packed/acrobot/fd (rk4)"),
+        "acrobot/jvp_rk4": (("jvp", "acrobot"),
+                            "iteration_packed/acrobot/jvp (rk4)")}
+for _name in TEAM + WARP:
+    ROWS[f"{_name}/analytic"] = (("model", _name),
+                                 f"iteration_packed/{_name}")
+    ROWS[f"{_name}/fd"] = (("fd", _name),
+                           f"iteration_packed/{_name}/fd (euler)")
+    ROWS[f"{_name}/jvp_rk4"] = (("jvp", _name),
+                                f"iteration_packed/{_name}/jvp (rk4)")
+for _name in TEAM + ("omni_thruster",):
+    ROWS[f"{_name}/analytic/unconstrained"] = (
+        ("model", _name), f"iteration_packed/{_name}/unconstrained")
+for _name in TEAM:
+    ROWS[f"{_name}/fd/unconstrained"] = (
+        ("fd", _name), f"iteration_packed/{_name}/fd/unconstrained (euler)")
+    ROWS[f"{_name}/jvp_rk4/unconstrained"] = (
+        ("jvp", _name), f"iteration_packed/{_name}/jvp/unconstrained (rk4)")
+ROWS["pendulum/analytic/per_lane"] = (
+    ("lanes", "pendulum"), "iteration_packed/pendulum (per-lane params)")
+FREE = dict(use_control_limits=False, clamp_forward=False)
+JVP = dict(deriv_mode="analytic", integrator="rk4")
+# path: (model, "flagship", "analytic" (run_model_path) or "cli"
+# (run_fd_path), SolverConfig changes)
+PATHS = {"acrobot/flagship": ("acrobot", "flagship", {})}
+for _name in TEAM:
+    PATHS.update({
+        f"{_name}/analytic": (_name, "analytic", {}),
+        f"{_name}/analytic/unconstrained": (_name, "analytic", FREE),
+        f"{_name}/fd": (_name, "cli", {}),
+        f"{_name}/fd/unconstrained": (_name, "cli",
+                                      dict(use_control_limits=False)),
+        f"{_name}/jvp_rk4": (_name, "cli", JVP)})
+for _name, _extra in (("quadrotor", {}), ("thruster_ring", {}),
+                      ("omni_thruster", {}),
+                      ("omni_thruster/unconstrained", FREE),
+                      ("free_flyer", {})):
+    PATHS[f"{_name}/merged"] = (_name.split("/")[0], "analytic",
+                                dict(_extra, iter_kernel="merged"))
 
 
 def _iteration_key(source: str, name: str):
-    """The ptxas key of an acrobot iteration kernel: form and limits."""
+    """The ptxas key of an iteration kernel: model, form and limits."""
     if "iteration" in name and source.startswith("kernels"):
-        return f"{_ab.form_of(name)}/limits={'Lb1E' in name}"
+        model = ("acrobot" if source == "kernels.cu" else
+                 source.removeprefix("kernels_").removesuffix(".cu")
+                 .removesuffix("_fd").removesuffix("_jvp")
+                 .removesuffix("_iteration"))
+        return f"{model}/{_ab.form_of(name)}/limits={'Lb1E' in name}"
     return None
 
 
@@ -80,83 +123,68 @@ def worker(root: Path, tag: str, check: bool) -> dict:
     import numpy as np
     import torch
 
-    _build, lib, smoke = _ab.load_tree(root, "acrobot", SOURCES)
+    _build, lib, smoke = _ab.load_tree(root, "all")
     from ilqr_tpu_torch.ops import kernel_iter
 
     dev = torch.device("cuda")
-    res = dict(tree=tag, root=str(root), smi=smoke.nvidia_smi(), rows={},
-               paths={})
+    res = dict(tree=tag, root=str(root), smi=smoke.nvidia_smi(), paths={})
     ptx = _ab.ptxas(lib.parent / "ptxas.log", _iteration_key)
     res["compile_seconds"] = json.loads(
         (lib.parent / "compile_seconds.json").read_text())
-    team = hasattr(_build.library(), "ilqr_acrobot_iteration_blocks_per_sm")
-    cases = {}
-    for row, (builder, key, suffix) in ROWS.items():
-        if builder not in cases:
-            cases[builder] = smoke.build_cases(
-                dev, ("acrobot",) if builder == "acrobot"
-                else (builder, "acrobot"))
-        case = cases[builder][key]
-        ms = smoke.time_ms(lambda: case.op(*case.args), reps=5)
-        outs = case.op(*case.args)
-        torch.cuda.synchronize()
-        form = {"": "analytic", "_fd": "fd", "_jvp": "jvp"}[suffix]
-        p = ptx.get(f"{form}/limits=True", {})
-        if team:
-            fn = getattr(_build.library(),
-                         f"ilqr_acrobot_iteration{suffix}_blocks_per_sm")
-            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-            blocks, block = fn(1), 128
-        else:
-            blocks, block = _ab.regs_blocks(p["registers"]), 64
-        res["rows"][row] = dict(ms=ms, digest=_ab.digest(outs), **p,
-                                blocks_per_sm=blocks, block_threads=block,
-                                where=case.where)
-        print(f"[{tag}] {row}: {ms:.3f} ms, {p}, {blocks} blocks of {block} "
-              f"per SM, digest {res['rows'][row]['digest']}", flush=True)
-    del cases
-    torch.cuda.empty_cache()
 
-    if check:   # the team kernel's edge cases against the plain version
-        sys.path.insert(0, str(CHANGE / "tests"))
-        import test_torch_cuda_team as tt
+    def reading(row, case):
+        name, form = row.split("/")[:2]
+        kind = {"analytic": "analytic", "fd": "fd", "fd_rk4": "fd",
+                "jvp_rk4": "jvp"}[form]
+        limits = not row.endswith("/unconstrained")
+        p = ptx.get(f"{name}/{kind}/limits={limits}", {})
+        suffix = {"analytic": "", "fd": "_fd", "jvp": "_jvp"}[kind]
+        blocks, threads, smem = _ab.occupancy(
+            _build.library(), f"ilqr_{name}_iteration{suffix}_blocks_per_sm",
+            limits, p.get("registers", 255))
+        return dict(p, blocks_per_sm=blocks, block_threads=threads,
+                    smem_per_block=smem)
+
+    res["rows"] = _ab.time_rows(smoke, dev, ROWS, reading)
+
+    if check:   # the team and warp kernels against the plain version
+        import pytest
 
         t0 = time.perf_counter()
-        for form in sorted(tt.FORMS):
-            for case in sorted(tt.CASES):
-                tt.test_team_iteration_matches_plain(dev, form, case)
-        res["edge_cases"] = dict(n=len(tt.FORMS) * len(tt.CASES),
-                                 bitwise=True,
+        rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q"]
+                         + [str(CHANGE / "tests" / f) for f in (
+                             "test_torch_cuda_team.py",
+                             "test_torch_cuda_iteration_warp.py")])
+        if rc != 0:
+            raise AssertionError(f"the team and warp iteration tests: "
+                                 f"pytest exit {rc}")
+        res["edge_cases"] = dict(bitwise=True,
                                  seconds=time.perf_counter() - t0)
-        print(f"[{tag}] {res['edge_cases']['n']} edge cases bitwise against "
-              f"iteration_plain", flush=True)
 
-    model, params, cfg = smoke.flagship()
-    for path, extra in PATHS.items():
+    for path, (name, kind, extra) in PATHS.items():
+        label = f"[{tag}] {path}"
         kernel_iter.iteration_packed.launches = 0
-        if extra is None:
+        if kind == "flagship":
+            model, params, cfg = smoke.flagship()
             out = smoke.run_main_path(dev, model, params, cfg)
             out["profile"] = smoke.profile_solve(
                 "fused", lambda x0, u0: smoke.solve_batch_fused(
                     model, params, cfg, smoke.DT, x0, u0),
                 float(np.median(out["wall_s"])))
-            launches = out["launches"]["iteration_packed"]
+        elif kind == "cli":
+            out, _c = smoke.run_fd_path(dev, name, label, B=smoke.B_M,
+                                        profile=True, **extra)
         else:
-            out, _c = smoke.run_fd_path(dev, "acrobot", f"{tag} {path}",
-                                        B=smoke.B_MAIN, profile=True, **extra)
-            launches = out["launches"]["iteration_packed"]
-        its = out["host_iterations"]
-        prof = out.get("profile") or {}
-        res["paths"][path] = dict(
-            solves_per_s=out["solves_per_s"],
-            ms_per_iteration=out["ms_per_iteration"], host_iterations=its,
-            launches_per_iteration=launches / max(1, its),
-            mean_cost=out["mean_cost"],
-            busy_share=prof.get("device_busy_share"),
-            iteration_ms_in_profile=sum(
-                v for k, v in (prof.get("device_ms_by_kernel") or {}).items()
-                if k.startswith("iteration_")))
-        print(f"[{tag}] path {path}: {res['paths'][path]}", flush=True)
+            out, _first = smoke.run_model_path(dev, name, label, **extra)
+            model, params, cfg, T, dt, u0, draw = smoke.workload(name)
+            cfg = cfg.replace(**extra)
+            out["profile"] = smoke.profile_solve(
+                label, lambda x0_, u0_: smoke.solve_batch_fused(
+                    model, params, cfg, dt, x0_, u0_),
+                float(np.median(out["wall_s"])),
+                draw(np.random.default_rng(0)), u0)
+        res["paths"][path] = _ab.path_reading(out, "iteration_packed")
+        print(f"{label}: {res['paths'][path]}", flush=True)
     return res
 
 
@@ -194,25 +222,11 @@ def compare_smoke_costs(parent_log: Path, change_log: Path) -> int:
 
 
 def summary(passes):
-    for row in ROWS:
-        r = [p["rows"][row] for p in passes]
-        print(f"[ab] row {row}: ms " + " / ".join(f"{x['ms']:.3f}" for x in r)
-              + f"; parent {r[0].get('registers')} regs {r[0].get('stack')} "
-              f"B stack {r[0].get('spill_stores')}/{r[0].get('spill_loads')} "
-              f"B spills, {r[0]['blocks_per_sm']} blocks/SM; change "
-              f"{r[1].get('registers')} regs {r[1].get('stack')} B stack "
-              f"{r[1].get('spill_stores')}/{r[1].get('spill_loads')} B "
-              f"spills, {r[1]['blocks_per_sm']} blocks/SM; outputs equal")
-    for path in PATHS:
-        r = [p["paths"][path] for p in passes]
-        print(f"[ab] path {path}: solves/s " + " / ".join(
-            f"{x['solves_per_s']:.1f}" for x in r) + "; ms/iteration "
-            + " / ".join(f"{x['ms_per_iteration']:.3f}" for x in r)
-            + "; launches/iteration " + " / ".join(
-                f"{x['launches_per_iteration']:.2f}" for x in r)
-            + "; busy " + " / ".join(
-                "n/a" if x["busy_share"] is None else f"{x['busy_share']:.3f}"
-                for x in r) + f"; mean cost {r[0]['mean_cost']}")
+    print(f"[ab] build s parent "
+          f"{max(passes[0]['compile_seconds'].values()):.1f} (longest "
+          f"source), change {max(passes[1]['compile_seconds'].values()):.1f}")
+    _ab.summary_rows(passes, ROWS)
+    _ab.summary_paths(passes, PATHS, "iteration_packed")
 
 
 def main() -> int:

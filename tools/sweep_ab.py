@@ -44,7 +44,6 @@ passes, builds and checks are tools/_ab.py's. Needs one CUDA device.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import sys
 import time
@@ -98,45 +97,6 @@ def _sweep_key(source: str, name: str):
     return None
 
 
-def _rows(smoke, _build, dev, ptx):
-    """Each row: ms (median of 5), output digest, ptxas readings, blocks
-    per SM."""
-    import torch
-
-    out, cases = {}, {}
-    lib = _build.library()
-    for row, (builder, key) in ROWS.items():
-        name, form = row.split("/")[0], row.split("/")[1]
-        if (builder, name) not in cases:
-            cases = {(builder, name): smoke.build_cases(dev, (builder, name))}
-        case = cases[(builder, name)][key]
-        ms = smoke.time_ms(lambda: case.op(*case.args), reps=5)
-        outs = case.op(*case.args)
-        torch.cuda.synchronize()
-        limits = not row.endswith("/unconstrained")
-        kind = {"analytic": "analytic", "fd": "fd", "fd_rk4": "fd",
-                "jvp_rk4": "jvp"}[form]
-        p = ptx.get(f"{name}/{kind}/limits={limits}", {})
-        suffix = {"analytic": "", "fd": "_fd", "jvp": "_jvp"}[kind]
-        fn = getattr(lib, f"ilqr_{name}_sweep{suffix}_blocks_per_sm", None)
-        if fn is not None:
-            fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
-            fn.restype = ctypes.c_int
-            threads, smem = ctypes.c_int(0), ctypes.c_int(0)
-            blocks = fn(int(limits), ctypes.byref(threads),
-                        ctypes.byref(smem))
-            block, smem = threads.value, smem.value
-        else:
-            blocks, block, smem = (_ab.regs_blocks(p.get("registers", 255)),
-                                   64, 0)
-        out[row] = dict(ms=ms, digest=_ab.digest(outs), **p,
-                        blocks_per_sm=blocks, block_threads=block,
-                        smem_per_block=smem, where=case.where)
-        print(f"row {row}: {ms:.3f} ms, {p}, {blocks} blocks of {block} per "
-              f"SM, digest {out[row]['digest']}", flush=True)
-    return out
-
-
 def worker(root: Path, tag: str, check: bool) -> dict:
     """One pass on ``root``'s package (see the module's docstring)."""
     import numpy as np
@@ -148,8 +108,23 @@ def worker(root: Path, tag: str, check: bool) -> dict:
     res["compile_seconds"] = json.loads(
         (lib.parent / "compile_seconds.json").read_text())
     ptx = _ab.ptxas(lib.parent / "ptxas.log", _sweep_key)
-    res["rows"] = _rows(smoke, _build, dev, ptx)
-    torch.cuda.empty_cache()
+
+    def reading(row, case):
+        name, form = row.split("/")[:2]
+        kind = {"analytic": "analytic", "fd": "fd", "fd_rk4": "fd",
+                "jvp_rk4": "jvp"}[form]
+        limits = not row.endswith("/unconstrained")
+        p = ptx.get(f"{name}/{kind}/limits={limits}", {})
+        suffix = {"analytic": "", "fd": "_fd", "jvp": "_jvp"}[kind]
+        blocks, threads, smem = _ab.occupancy(
+            _build.library(), f"ilqr_{name}_sweep{suffix}_blocks_per_sm",
+            limits, p.get("registers", 255))
+        return dict(p, blocks_per_sm=blocks, block_threads=threads,
+                    smem_per_block=smem)
+
+    res["rows"] = _ab.time_rows(
+        smoke, dev, {row: ((builder, row.split("/")[0]), key)
+                     for row, (builder, key) in ROWS.items()}, reading)
 
     if check:   # the team kernel's edge cases against the plain version
         import pytest
@@ -180,61 +155,17 @@ def worker(root: Path, tag: str, check: bool) -> dict:
                 label, lambda x0_, u0_: smoke.solve_batch_fused(
                     model, params, cfg, dt, x0_, u0_),
                 float(np.median(out["wall_s"])), x0, u0)
-        its = out["host_iterations"]
-        prof = out.get("profile") or {}
-        res["paths"][path] = dict(
-            solves_per_s=out["solves_per_s"],
-            ms_per_iteration=out["ms_per_iteration"], host_iterations=its,
-            max_iter=out["max_iter"],
-            sweep_launches_per_iteration=out["launches"]["sweep_packed"]
-            / max(1, its),
-            mean_cost=out["mean_cost"],
-            busy_share=prof.get("device_busy_share"),
-            device_ms_by_kernel=prof.get("device_ms_by_kernel"),
-            wall_ms=prof.get("wall_ms"))
+        res["paths"][path] = _ab.path_reading(out, "sweep_packed")
         print(f"{label}: {res['paths'][path]}", flush=True)
     return res
-
-
-def _summary_row(row, passes):
-    r = [p["rows"][row] for p in passes]
-    par, chg = r[0], r[1]
-    speed = (r[0]["ms"] + r[3]["ms"]) / (r[1]["ms"] + r[2]["ms"])
-    return (f"[ab] row {row}: ms " + " / ".join(f"{x['ms']:.3f}" for x in r)
-            + f" ({speed:.2f}x); parent {par.get('registers')} regs "
-            f"{par.get('stack')} B stack {par.get('spill_stores')}/"
-            f"{par.get('spill_loads')} B spills, {par['blocks_per_sm']} "
-            f"blocks of {par['block_threads']}/SM; change "
-            f"{chg.get('registers')} regs {chg.get('stack')} B stack "
-            f"{chg.get('spill_stores')}/{chg.get('spill_loads')} B spills, "
-            f"{chg['blocks_per_sm']} blocks of {chg['block_threads']}/SM "
-            f"with {chg.get('smem_per_block')} B shared each; "
-            f"{par['where']}; outputs equal")
 
 
 def summary(passes):
     print(f"[ab] build s parent "
           f"{max(passes[0]['compile_seconds'].values()):.1f} (longest "
           f"source), change {max(passes[1]['compile_seconds'].values()):.1f}")
-    for row in ROWS:
-        print(_summary_row(row, passes))
-    for path in PATHS:
-        r = [p["paths"][path] for p in passes]
-        print(f"[ab] path {path}: solves/s " + " / ".join(
-            f"{x['solves_per_s']:.1f}" for x in r) + "; ms/iteration "
-            + " / ".join(f"{x['ms_per_iteration']:.3f}" for x in r)
-            + f"; host iterations {r[0]['host_iterations']} (max_iter "
-            f"{r[0]['max_iter']}); sweeps/iteration "
-            + " / ".join(f"{x['sweep_launches_per_iteration']:.2f}"
-                         for x in r)
-            + "; busy " + " / ".join(
-                "n/a" if x["busy_share"] is None else f"{x['busy_share']:.3f}"
-                for x in r)
-            + "; device ms by kernel " + " / ".join(
-                json.dumps({k: round(v, 1) for k, v in
-                            (x["device_ms_by_kernel"] or {}).items()})
-                for x in (r[0], r[1]))
-            + f"; mean cost {r[0]['mean_cost']}")
+    _ab.summary_rows(passes, ROWS)
+    _ab.summary_paths(passes, PATHS, "sweep_packed")
 
 
 def main() -> int:
