@@ -33,7 +33,14 @@ Phases (any failure raises and the script exits non-zero):
      acrobot's three forms, a partial last block, B = 8189, A = 1 and
      A = 7, every lane dead, NaN in one lane's x0; edge_cases
      "iteration_team": cartpole's three forms and pendulum's analytic one,
-     the same edges at B = 1024 / 1021), the line search of every model
+     the same edges at B = 1024 / 1021), that of double_integrator,
+     bicycle, power_mass and point_mass_3d as the same team at 32 threads
+     per lane (edge_cases "iteration_team32": point_mass_3d's analytic
+     form, power_mass's stencils, bicycle's dual numbers), the backward
+     kernel (csrc/backward.cuh, a team per lane fed by a cp.async ring;
+     edge_cases "backward_team": cartpole's and pendulum's rows on a
+     partial last block, T = 1, a NaN lane, lanes that latch div, clamped
+     controls, mixed λ), the line search of every model
      as a team of 16 threads per lane (csrc/linesearch_team.cuh; edge_cases
      "linesearch_team": the pendulum, the quadrotor's RK4 reading,
      thruster_ring24, those edges and the clamp flipped), the merged sweep
@@ -68,7 +75,8 @@ Phases (any failure raises and the script exits non-zero):
   6. the composable path: solve_batch at the same size on the same x0
      (derivative, backward and rollout kernels; the line search as one
      rollout over B·A lanes) beside solve_batch_fused — solves/s, cost,
-     iterations, launches, λ retries — and one profiled solve;
+     iterations, launches, λ retries — and one profiled solve, with the
+     backward kernel's device ms a launch and the device's busy share;
   7. equivalence at B = 1024, T = T_EQ, 12 iterations: the composable
      path and the fused split sweep each against the fused merged route
      (the gauge below), with the share of lanes a 1e-6 nudge of x0 forks;
@@ -86,9 +94,10 @@ Phases (any failure raises and the script exits non-zero):
      launches, a profiled solve) and its merged route; the omni_thruster
      (with and without limits) and free_flyer paths and their merged
      routes under the gauge;
-     thruster_ring24 at the cap (one solve, max_iter cut if it would take
-     over 10 s) and thruster_ring16/20 at a cut depth; short omni_thruster
-     and thruster_ring solves against the plain path on the CPU;
+     thruster_ring24 at the cap (one solve at max_iter RING24_ITERS = 34,
+     the same in every tree) and thruster_ring16/20 at a cut depth; short
+     omni_thruster and thruster_ring solves against the plain path on the
+     CPU;
  10. the last four models (pendulum, cartpole, bicycle, power_mass — the
      live cxu, cxx off-diagonals and full cuu of the sweep's general
      terms): each model's path at full width (the CLI's canonical problem
@@ -209,6 +218,7 @@ import inspect
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -290,10 +300,13 @@ SOURCES = {
     "derivs_packed": "ilqr_tpu_torch/csrc/derivs_acrobot.cu",
     "backward_sweep_packed": "ilqr_tpu_torch/csrc/backward.cu",
 }
+# (backward_kernel: the one-thread backward kernel of the trees before the
+# team, which tools/backward_ab.py profiles beside it)
 KERNEL_NAMES = ("iteration_kernel", "iteration_team_kernel",
                 "iteration_warp_kernel", "sweep_team_kernel",
                 "rollout_kernel", "sweep_kernel", "linesearch_kernel",
-                "linesearch_team_kernel", "derivs_kernel", "backward_kernel",
+                "linesearch_team_kernel", "derivs_kernel",
+                "backward_team_kernel", "backward_kernel",
                 "rollout_modes_kernel")
 # the sweep and whole-iteration kernels, templates on the limits flag
 LIMITS_KERNELS = ("sweep_kernel", "iteration_kernel", "iteration_team_kernel",
@@ -1120,10 +1133,20 @@ def run_composable_path(dev, model, params, cfg, fused_out):
     if not np.all(np.isfinite(scost)):
         raise AssertionError("non-finite costs on the fused split sweep")
     out["rollout_ba"] = time_rollout_ba(dev, model, params, len(cfg.alphas))
-    out["profile"] = profile_solve(
+    reset_launch_counts()
+    prof = out["profile"] = profile_solve(
         "composable", lambda x0, u0: solve_batch(model, params, cfg, DT, x0,
                                                  u0),
         float(np.median(walls)))
+    bl = launch_counts()["backward_sweep_packed"]
+    if prof is not None:
+        bms = sum(prof["device_ms_by_kernel"].get(k, 0.0) for k in (
+            "backward_team_kernel", "backward_kernel"))
+        out["backward_ms_per_launch"] = bms / max(1, bl)
+        print(f"[composable] profiled solve: the backward kernel "
+              f"{out['backward_ms_per_launch']:.3f} ms a launch ({bl} "
+              f"launches, {bms:.1f} ms), device busy share "
+              f"{prof['device_busy_share']:.3f} ({nvidia_smi()})")
     return out
 
 
@@ -1238,8 +1261,9 @@ T_BACKWARD = {"thruster_ring16": 4, "thruster_ring20": 4,
 COMPARE_WORKERS = max(1, min(5, (os.cpu_count() or 1) - 3))
 STREAM_THREADS = 2    # torch's CPU threads in each stream's process
 DEVICE = "cuda"
-CAP_SOLVE_S = 5.0     # thruster_ring24: max_iter is cut if a solve would
-#                       take longer
+RING24_ITERS = 34     # thruster_ring24's path: a fixed cut depth (cut from
+#                       WIDE_ITERS), so that every tree runs the same
+#                       iterations and reaches the same mean cost
 SHORT_ITERS = 2       # thruster_ring16/20's solves (and ring24's merged
 #                       route): a cut depth that launches every kernel
 LOWER_SHARE = 0.3     # controls on the lower bound where limits apply
@@ -1596,13 +1620,40 @@ def launcher_occupancy():
     for the line search) and line-search launcher launch
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor through the launchers'
     ilqr_<model>_{sweep,iteration}[_fd|_jvp]_blocks_per_sm and
-    ilqr_<model>_linesearch_blocks_per_sm). Raises where a launcher's
-    kernel is not the one launched_kernel names (a team or warp block is
-    128 threads, a one-thread block 64; only the warp kernels have dynamic
-    shared memory), where an SM holds no block of it, or where a CUDA call
-    failed (-1)."""
+    ilqr_<model>_linesearch_blocks_per_sm), and the backward kernel of
+    each m = 1 package model (ilqr_backward_n<n>_blocks_per_sm). Raises
+    where a launcher's kernel is not the one launched_kernel names (a team
+    or warp block is 128 threads, a one-thread block 64; only the warp
+    kernels have dynamic shared memory; a whole-iteration launcher's
+    ilqr_<model>_iteration[_fd|_jvp]_lane_threads is TEAM_ITERATION's width
+    for a team, 32 for the warp, 1 for the one-thread kernel; the backward
+    kernel's block, at the lanes of the model's row, is a whole number of
+    warps with its stage ring in dynamic shared memory), where an SM holds
+    no block of it, or where a CUDA call failed (-1)."""
     lib, out = _build.library(), {}
     ptr = ctypes.POINTER(ctypes.c_int)
+    m1 = [(name, get_model(name), lib, B_MAIN if name == "acrobot" else B_M)
+          for name in kernel_rollout.FUSED_KERNEL_MODELS
+          if get_model(name).m == 1]
+    m1 += [(name, model, _build.lib_for(model), CUSTOM_B)
+           for name, model in custom_models().items() if model.m == 1]
+    for name, model, mlib, B in m1:
+        # at the lanes of the model's backward row (the block's warps and
+        # the copies' width follow B)
+        fname = f"ilqr_backward_n{model.n}_blocks_per_sm"
+        fn = getattr(mlib, fname)
+        fn.argtypes, fn.restype = [ctypes.c_int] + [ptr] * 3, ctypes.c_int
+        threads, smem, copy = (ctypes.c_int(0) for _ in range(3))
+        blocks = fn(B, ctypes.byref(threads), ctypes.byref(smem),
+                    ctypes.byref(copy))
+        if (blocks <= 0 or threads.value not in (32, 64) or smem.value <= 0
+                or copy.value not in (4, 16)):
+            raise RuntimeError(f"{fname}({B}): {blocks} blocks of "
+                               f"{threads.value} threads, {smem.value} B "
+                               f"shared, {copy.value}-byte copies")
+        out[("backward_team_kernel", name, backward_geometry(
+            copy.value, threads.value // 32))] = (blocks, threads.value,
+                                                  smem.value)
     for name in kernel_rollout.FUSED_KERNEL_MODELS:
         for kind in ("sweep", "iteration", "linesearch"):
             kernel = launched_kernel(kind, get_model(name))
@@ -1627,7 +1678,23 @@ def launcher_occupancy():
                             f"(expected {kernel})")
                     out[(kernel + suffix, name, limits)] = (
                         blocks, threads.value, smem.value)
+                if kind == "iteration":
+                    width = getattr(lib, f"ilqr_{name}_iteration{suffix}"
+                                         "_lane_threads")
+                    width.restype = ctypes.c_int
+                    want = (TEAM_ITERATION.get(name, 0) if is_team(kernel)
+                            and not warp else 32 if warp else 1)
+                    if width() != want:
+                        raise RuntimeError(
+                            f"ilqr_{name}_iteration{suffix}: {width()} "
+                            f"threads a lane (expected {kernel}, {want})")
     return out
+
+
+def backward_geometry(copy_bytes: int, warps: int) -> str:
+    """The third key of a backward kernel instantiation in ptxas_table and
+    launcher_occupancy: its copies' width and its warps a block."""
+    return f"{copy_bytes}-byte copies, {warps} warp{'s' * (warps > 1)}"
 
 
 def ptxas_table(log: str):
@@ -1638,8 +1705,10 @@ def ptxas_table(log: str):
     dual-number instantiations' kernels_<model>[_iteration]_fd.cu and
     kernels_<model>[_iteration]_jvp.cu) instantiates one model, and
     kernels.cu is acrobot's. derivs_<model>.cu instantiates the derivative
-    kernel for its model, and backward.cu one kernel per n
-    (n = 2 filed under pendulum, n = 4 under acrobot and cartpole). The
+    kernel for its model, and backward.cu the backward kernel's
+    instantiations for each n (n = 2 filed under pendulum, n = 4 under
+    acrobot and cartpole), each keyed by backward_geometry of its template
+    arguments <N, VEC, WARPS> in place of the limits flag. The
     stencil and dual-number sweep, iteration and derivative kernels are
     filed as <kernel>_fd and <kernel>_jvp (the derivative kernel's jvp mode
     as derivs_kernel)."""
@@ -1660,14 +1729,20 @@ def ptxas_table(log: str):
             models = [model]
             if kernel in LIMITS_KERNELS:
                 limits = "Lb1E" in name
-            if kernel != "backward_kernel":
+            backward = kernel in ("backward_team_kernel", "backward_kernel")
+            if not backward:
                 if "FiniteDiff" in name:   # the stencil instantiations
                     kernel += "_fd"
                 elif "Jvp" in name and kernel != "derivs_kernel":
                     kernel += "_jvp"
-            if kernel == "backward_kernel":
+            if backward:
                 models = (["pendulum"] if "ILi2E" in name
                           else ["acrobot", "cartpole"])
+                targs = re.search(r"backward_team_kernelILi(\d+)ELi(\d+)"
+                                  r"ELi(\d+)E", name)
+                if targs:
+                    limits = backward_geometry(4 * int(targs[2]),
+                                               int(targs[3]))
             entry = {"source": f"ilqr_tpu_torch/csrc/{source}"}
             for mm in models:
                 table[(kernel, mm, limits)] = entry
@@ -1831,14 +1906,9 @@ def run_wide_slice(dev, rows):
     sweep_ms = time_ms(lambda: kernel_sweep.sweep_packed(
         model, "euler", pp, xs0, xT0, us0, torch.ones(B_M, device=dev)),
         reps=1)
-    # a solve runs about one sweep and one line search per iteration
-    cap_iters = min(WIDE_ITERS, max(1, int(CAP_SOLVE_S * 1e3
-                                           / (1.5 * sweep_ms))))
+    cap_iters = RING24_ITERS
     print(f"[wide] thruster_ring24: one sweep launch {sweep_ms:.1f} ms at "
-          f"B={B_M} T={T}; max_iter {cap_iters}"
-          + ("" if cap_iters == WIDE_ITERS else
-             f" (cut from {WIDE_ITERS} to keep one solve under "
-             f"{CAP_SOLVE_S:g} s)"))
+          f"B={B_M} T={T}; max_iter {cap_iters} (cut from {WIDE_ITERS})")
     cap, _r = run_model_path(dev, "thruster_ring24",
                              "thruster_ring24 (m = 24, the cap)", reps=1,
                              warmup=False, max_iter=cap_iters)
@@ -2539,20 +2609,26 @@ def team_sweep(model) -> bool:
     return not fused._use_iter_kernel(model, SolverConfig())
 
 
-# The models whose whole iteration is csrc/iteration_team.cuh's team of 16
-# threads per lane (Model::kTeamIteration in their headers)
-TEAM_ITERATION = ("acrobot", "cartpole", "pendulum")
+# The models whose whole iteration is csrc/iteration_team.cuh's team
+# (Model::kTeamIteration in their headers), by its threads a lane
+# (team::kTeamWidth: half a warp where the team's limits allow, else a warp)
+TEAM_ITERATION = {"acrobot": 16, "cartpole": 16, "pendulum": 16,
+                  "double_integrator": 32, "bicycle": 32, "power_mass": 32,
+                  "point_mass_3d": 32}
 
 
 def launched_kernel(kind, model) -> str:
     """The kernel that ``model``'s ``kind`` launcher launches, by the
     compile-time picks of csrc/kernels.cuh (launcher_occupancy checks them
-    on the card): for the package's models the line search's team
-    (csrc/linesearch_team.cuh), the whole iteration's team
+    on the card): the backward kernel's team (csrc/backward.cuh) for every
+    model, custom ones too; for the package's models the line search's
+    team (csrc/linesearch_team.cuh), the whole iteration's team
     (csrc/iteration_team.cuh) for TEAM_ITERATION, and where team_sweep the
     sweep's and the whole iteration's warp (csrc/sweep_team.cuh,
     csrc/iteration_warp.cuh); otherwise, and for every custom model, the
     one-thread kernel."""
+    if kind == "backward":
+        return "backward_team_kernel"
     if kernel_rollout.kernel_owner(model) is None:
         if kind == "linesearch":
             return "linesearch_team_kernel"
@@ -2622,15 +2698,20 @@ def sweep_team_cases(dev):
 
 
 # The edge cases of the line search's team (csrc/linesearch_team.cuh), the
-# 16-thread whole iteration of cartpole and pendulum (csrc/iteration_team.cuh)
-# and the warp iteration (csrc/iteration_warp.cuh), each derived from a
-# phase-3 row's inputs (row → (case builder, the case's label)): a partial
-# last block (B = 1021: 5 lanes in the last block of 8, 1 in the last of
-# 4), A = 1 and A = 7 candidates (the row's A = 11), every lane dead (no
-# step taken, no gain kept), NaN in one lane's x0, and for the line search
-# the row's clamp flipped (the pendulum's and ring24's rollouts unclamped;
-# the iteration rows' unconstrained twins are rows of their own). The
-# iteration edges run on the first EDGE_T[builder] steps.
+# 16-thread whole iteration of cartpole and pendulum and the 32-thread one of
+# the m = 2-3 models (csrc/iteration_team.cuh), the warp iteration
+# (csrc/iteration_warp.cuh) and the backward kernel's team
+# (csrc/backward.cuh), each derived from a phase-3 row's inputs (row →
+# (case builder, the case's label)): a partial last block (B = 1021: 5
+# lanes in the last block of 8, 1 in the last of 4), A = 1 and A = 7
+# candidates (the row's A = 11), every lane dead (no step taken, no gain
+# kept), NaN in one lane's x0, and for the line search the row's clamp
+# flipped (the pendulum's and ring24's rollouts unclamped; the iteration
+# rows' unconstrained twins are rows of their own). The iteration edges run
+# on the first EDGE_T[builder] steps. The backward kernel's (BACKWARD_EDGES)
+# are its own: a partial last block, T = 1, NaN in one lane's fx, λ = −50
+# on every third lane (QuuF ≤ 0 latches div), limits a hundredth as wide
+# (clamped controls) and λ mixed over {0, 1e-6, 1, 10, 1e3}.
 LINESEARCH_EDGES = ("partial_block", "one_alpha", "seven_alphas", "all_dead",
                     "nan_lane", "clamp_flipped")
 ITERATION_EDGES = LINESEARCH_EDGES[:-1]
@@ -2656,8 +2737,23 @@ EDGE_ROWS = {
         "iteration_packed/thruster_ring/jvp": (
             "jvp", "iteration_packed/thruster_ring/jvp (rk4)"),
         "iteration_packed/quadrotor/fd": (
-            "fd", "iteration_packed/quadrotor/fd (euler)")}}
-EDGE_T = {"linesearch_team": None, "iteration_team": 40, "iteration_warp": 4}
+            "fd", "iteration_packed/quadrotor/fd (euler)")},
+    "iteration_team32": {
+        "iteration_packed/point_mass_3d": (
+            "model", "iteration_packed/point_mass_3d"),
+        "iteration_packed/power_mass/fd": (
+            "fd", "iteration_packed/power_mass/fd (euler)"),
+        "iteration_packed/bicycle/jvp": (
+            "jvp", "iteration_packed/bicycle/jvp (rk4)")},
+    "backward_team": {
+        "backward_sweep_packed/cartpole": (
+            "split", "backward_sweep_packed/cartpole"),
+        "backward_sweep_packed/pendulum": (
+            "split", "backward_sweep_packed/pendulum")}}
+EDGE_T = {"linesearch_team": None, "iteration_team": 40, "iteration_warp": 4,
+          "iteration_team32": 40}
+BACKWARD_EDGES = ("partial_block", "T1", "nan_lane", "div_lanes", "clamped",
+                  "mixed_lam")
 # argument positions by kernel: x0, the state trajectory, x_T, the other
 # per-step tensors, the other per-lane tensors, α, the gates
 EDGE_ARGS = {"iteration": (4, 5, 6, (7, 8, 9), (10, 11, 12), 13, (12,)),
@@ -2677,6 +2773,9 @@ def edge_cases(dev, which):
             builders[(builder, name)] = build_cases(dev, (builder, name))
         base = builders[(builder, name)][label]
         kind = row.split("_")[0]
+        if kind == "backward":
+            out.update(backward_edges(row, base))
+            continue
         x0_i, xs_i, xT_i, steps, lanes, al_i, gates = EDGE_ARGS[kind]
         a = list(base.args)
         T0 = a[xs_i].shape[0]
@@ -2711,6 +2810,39 @@ def edge_cases(dev, which):
                           effort=round(base.meta["effort"] * share),
                           main=False))
         del base
+    return out
+
+
+def backward_edges(row, base):
+    """BACKWARD_EDGES of the backward kernel's phase-3 row ``row``, from its
+    case ``base`` (args: fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, λ, cxT,
+    cxxT, lane last, time first)."""
+    a = list(base.args)
+    T0, B0 = a[1].shape[0], a[1].shape[-1]
+    out = {}
+    for i, edge in enumerate(BACKWARD_EDGES):
+        B = B_M - 3 if edge == "partial_block" else B_M
+        Te = 1 if edge == "T1" else T0
+        rng = np.random.default_rng(i)
+        args = [t[:Te] if j < 9 else t for j, t in enumerate(a)]
+        args = [t[..., :B].contiguous().clone() for t in args]
+        if edge == "nan_lane":
+            args[0][Te // 2, 0, 0, 5] = float("nan")
+        elif edge == "div_lanes":
+            args[9][::3] = -50.0
+        elif edge == "clamped":
+            args[7] *= 0.01
+            args[8] *= 0.01
+        elif edge == "mixed_lam":
+            args[9] = torch.as_tensor(
+                rng.choice([0.0, 1e-6, 1.0, 10.0, 1e3], size=B),
+                dtype=torch.float32, device=args[9].device)
+        share = B * Te / (B0 * T0)
+        out[f"{row} ({edge})"] = base._replace(
+            args=tuple(args), ops=lambda f=base.ops, k=share: round(f() * k),
+            where=f"at B={B} T={Te}", unread=None,
+            meta=dict(base.meta, row=row, group="edge", edge=edge,
+                      effort=round(base.meta["effort"] * share), main=False))
     return out
 
 
@@ -2794,9 +2926,9 @@ def split_cases(dev, name):
         kernel_backward.backward_sweep_packed, kernel_backward.backward_plain,
         args, backward_ops, f"at B={B} T={T} n={n}", None,
         dict(row=f"backward_sweep_packed/{name}", group="row",
-             kernel="backward_kernel", model=name, limits=True, T=T,
-             effort=effort("backward", T, n, m),
-             source="ilqr_tpu_torch/csrc/backward.cu"))
+             kernel=launched_kernel("backward", model), model=name,
+             limits=True, T=T, effort=effort("backward", T, n, m),
+             source="ilqr_tpu_torch/csrc/backward.cu", bitwise=True))
     return out
 
 
@@ -4076,9 +4208,9 @@ def custom_cases(dev, name):
             lambda: _custom_backward_ops(model, params, dt) * B,
             f"at B={B} T={T} n={n}", None,
             dict(row=f"backward_sweep_packed/{name}", group="row",
-                 kernel="backward_kernel", model=name, limits=True, T=T,
-                 effort=effort("backward", T, n, m),
-                 source=CUSTOM_SOURCES["backward"]))
+                 kernel=launched_kernel("backward", model), model=name,
+                 limits=True, T=T, effort=effort("backward", T, n, m),
+                 source=CUSTOM_SOURCES["backward"], bitwise=True))
     return out
 
 
@@ -5157,7 +5289,8 @@ def main() -> int:
     for (kernel, model_name, limits), e in sorted(
             ptxas.items(), key=lambda kv: str(kv[0])):
         print(f"[build] {kernel}<{model_name}"
-              + ("" if limits is None else f", limits={limits}")
+              + ("" if limits is None else f", {limits}"
+                 if isinstance(limits, str) else f", limits={limits}")
               + f">: {e.get('registers')} registers, "
               f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} B "
               f"spill stores, {e.get('spill_loads')} B spill loads")
@@ -5170,9 +5303,15 @@ def main() -> int:
         what = ("a warp per lane, 4 lanes a block"
                 if kernel.startswith(("sweep_team_kernel",
                                       "iteration_warp_kernel"))
+                else "a team per lane, fed by a cp.async ring"
+                if kernel == "backward_team_kernel"
+                else f"a team of {TEAM_ITERATION[model_name]} threads per "
+                f"lane, {128 // TEAM_ITERATION[model_name]} lanes a block"
+                if kernel.startswith("iteration_team_kernel")
                 else "a team of 16 threads per lane, 8 lanes a block")
         print(f"[build] {kernel}<{model_name}"
-              + ("" if limits is None else f", limits={limits}")
+              + ("" if limits is None else f", {limits}"
+                 if isinstance(limits, str) else f", limits={limits}")
               + f"> ({what}): {e.get('registers')} registers, "
               f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} / "
               f"{e.get('spill_loads')} B spill stores / loads; {blocks} "
@@ -5273,7 +5412,9 @@ def main() -> int:
                  library_ms=None, library_note=(
                      "no single PyTorch call computes this function"))
         limits = (r["limits"] if r["kernel"].startswith(LIMITS_KERNELS)
-                  else None)
+                  else next((k[2] for k in occupancy if k[0] == r["kernel"]
+                             and k[1] == r["model"]), None)
+                  if r["kernel"] == "backward_team_kernel" else None)
         r.update(ptxas.get((r["kernel"], r["model"], limits), {}))
         if (r["kernel"], r["model"], limits) in occupancy:
             (r["blocks_per_sm"], r["block_threads"],

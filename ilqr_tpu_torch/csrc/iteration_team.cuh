@@ -1,9 +1,12 @@
-// iteration_packed (one whole solver iteration) as a team of kTeam threads
-// per lane, for the models that opt in with Model::kTeamIteration (acrobot,
-// cartpole and pendulum: m = 1, n = 4, 4, 2): the one-thread
+// iteration_packed (one whole solver iteration) as a team of W threads per
+// lane, for the models that opt in with Model::kTeamIteration: half a warp
+// (W = 16) for acrobot, cartpole and pendulum (m = 1, n = 4, 4, 2), a whole
+// warp (W = 32) for double_integrator, bicycle, power_mass (m = 2, n = 4)
+// and point_mass_3d (m = 3, n = 6), whose stencil sides, Hessian pairs or
+// gain entries a half warp does not hold (kTeamWidth). The one-thread
 // iteration_kernel of kernels.cuh redesigned for this card. The models with
-// m·n ≥ 32 take a warp per lane (iteration_warp.cuh); every other model and
-// every custom model keeps the one-thread kernel.
+// m·n ≥ 32 take iteration_warp.cuh's warp per lane; every custom model
+// keeps the one-thread kernel.
 //
 // Replaces: ilqr_tpu/ops/pallas_iter.py iteration_packed (_iter_kernel), as
 // kernels.cuh iteration_kernel does, on the same inputs, outputs and gain
@@ -14,35 +17,38 @@
 // latency was exposed, and a lane's independent work ran in series on its
 // thread: the 2(n + m) stencil steps (under RK4 four dynamics calls each)
 // and (n + m)(n + m + 1)/2 cost-Hessian pairs of every time step, and the A
-// line-search candidates.
-// Design: a team of kTeam = 16 threads, half a warp, serves one lane; a
-// block of kBlock = 128 threads serves kLanes = 8 lanes, so B = 8192 is
-// 1 024 blocks and B = 1024 128. All exchange within a team is __shfl_sync
-// over the team's half of the warp (width kTeam): the team shares no memory
-// and meets no block barrier (a __syncwarp over the team orders what one
-// thread of it stores to device memory before another reads or overwrites
-// it). A shuffle moves a value and never sums one, and each output element
-// is computed by one thread with the one-thread kernel's operations in its
+// line-search candidates (the m = 2-3 models: 150-255 registers, bicycle
+// spilling, point_mass_3d a 704 B stack).
+// Design: a team of W threads serves one lane; a block of kBlock = 128
+// threads serves 128 / W lanes (8 for W = 16, 4 for W = 32), so B = 1024 is
+// 128 or 256 blocks. All exchange within a team is __shfl_sync over the
+// team's part of the warp (width W): the team shares no memory and meets no
+// block barrier (a __syncwarp over the team orders what one thread of it
+// stores to device memory before another reads or overwrites it). A
+// shuffle moves a value and never sums one, and each output element is
+// computed by one thread with the one-thread kernel's operations in its
 // order, so the results are that kernel's bit for bit.
 //  - Phase 0, the merged linearize + backward sweep. Under FiniteDiff,
 //    thread 2a evaluates the plus side of direction a (the perturbed step
 //    and running cost) and thread 2a + 1 the minus side, and thread q takes
-//    the q-th Hessian pair (a, b ≥ a) of the running cost; under Jvp thread
-//    a takes direction a's first-order dual pass and thread q one
-//    second-order pass. Every thread then gathers all entries by shuffles
+//    the Hessian pairs q, q + W, … (a, b ≥ a) of the running cost (two
+//    rounds for point_mass_3d's 45 on a warp); under Jvp thread a takes
+//    direction a's first-order dual pass and thread q the second-order
+//    passes q, q + W, …. Every thread then gathers all entries by shuffles
 //    and runs the Riccati step (sweep::step) on its own copy of the
 //    V-carry, with no further exchange; thread q < m(n + 1) stores entry q
 //    of the step's gains (k_t, then K_t row-major) into k_out and K_out.
-//    V_T is computed by every thread, once. The team's limits: 2(n + m) and
-//    (n + m)(n + m + 1)/2 ≤ 16 (acrobot and cartpole 10 and 15, pendulum 6
-//    and 6), m(n + 1) ≤ 16 gain entries.
+//    V_T is computed by every thread, once. The team's limits: 2(n + m)
+//    ≤ W stencil sides (acrobot and cartpole 10, pendulum 6, the m = 2
+//    models 12, point_mass_3d 18) and m(n + 1) ≤ W gain entries (5, 3, 10,
+//    21); Hessian pairs (15, 6, 21, 45) any number, in rounds.
 //  - Phases 1-2, the line search of linesearch_team.cuh (team::line_search)
 //    on the gains in k_out and K_out, its segment states in the gain buffer,
-//    a scratch here (S ≤ 16 segments). Where the new gains are not kept, the
+//    a scratch here (S ≤ W segments). Where the new gains are not kept, the
 //    team copies the previous ones over them.
 // The closed-form derivatives of phase 0 (Model::jac) do not depend on
 // the V-carry, so they too are spread: thread r evaluates them for step
-// t − r of each block of 16 steps t, t − 1, …, and each step gathers them.
+// t − r of each block of W steps t, t − 1, …, and each step gathers them.
 // A team whose lane lies past B (the last block's) reads lane B − 1, runs
 // no time step and writes nothing; it still meets every shuffle of its own
 // team, and no thread returns early.
@@ -54,12 +60,42 @@
 
 namespace team {
 
-// Blocks an SM is to hold: registers capped at 128 a thread, which the
-// analytic form fits without spills and the stencil and dual-number forms
-// with a few dozen bytes. Timed on an H100 at B = 8192, T = 499 against 2,
-// 3, 5, 6 and 8 blocks (acrobot): fewer leave the dense forms' latency
-// exposed, more spill them heavily.
+// Blocks an SM is to hold, for W = 16: registers capped at 128 a thread,
+// which the analytic form fits without spills and the stencil and
+// dual-number forms with a few dozen bytes. Timed on an H100 at B = 8192,
+// T = 499 against 2, 3, 5, 6 and 8 blocks (acrobot): fewer leave the dense
+// forms' latency exposed, more spill them heavily.
 constexpr int kMinBlocks = 4;
+// … and for W = 32 (the m = 2-3 models, B = 1024: 256 blocks, two an SM
+// fill the card). Timed on an H100 (700 W) on the stencil rows at B = 1024,
+// four readings each, 2 / 3 / 4 blocks: point_mass_3d 1.57-1.71 /
+// 1.76-1.89 / 1.88-2.04 ms (more blocks spill its 255 registers' worth);
+// double_integrator 0.61-0.64 / 0.53-0.60 / 0.59-0.73, bicycle 0.56-0.61 /
+// 0.50-0.63 / 0.52-0.62, power_mass 0.60-0.66 / 0.58-0.72 / 0.59-0.67,
+// overlapping. So 2.
+constexpr int kMinBlocks32 = 2;
+template <int W>
+constexpr int kMinBlocksOf = W == kTeam ? kMinBlocks : kMinBlocks32;
+
+// The team of W threads of this thread: half a warp or the warp
+template <int W>
+__device__ __forceinline__ TeamOf<W> team_of() {
+  if constexpr (W == kTeam)
+    return half_warp();
+  else
+    return {static_cast<int>(threadIdx.x % 32), 0xffffffffu};
+}
+
+// The team width of a model's whole iteration: half a warp where it holds
+// the model's stencil sides, Hessian pairs and gain entries one a thread,
+// else the warp
+template <class Model>
+constexpr int kTeamWidth =
+    2 * (Model::N + Model::M) <= kTeam
+            && (Model::N + Model::M) * (Model::N + Model::M + 1) / 2 <= kTeam
+            && Model::M * (Model::N + 1) <= kTeam
+        ? kTeam
+        : 32;
 
 // The pair (a, b ≥ a) that is the q-th of fd.cuh's and jvp.cuh's loops
 // over n + m = NZ directions
@@ -78,14 +114,21 @@ __device__ __forceinline__ void pair_of(int q, int& a, int& b) {
       }
 }
 
+// Pair rounds of a team of W: thread r takes pairs r, r + W, …
+template <class Model, int W>
+constexpr int kRounds =
+    ((Model::N + Model::M) * (Model::N + Model::M + 1) / 2 + W - 1) / W;
+
 // Every team thread receives what its team computed: column a of (fx | fu)
 // and entry a of (cx | cu) from thread a · stride, the Hessian of pair q
-// from thread q, placed and mirrored as fd::linearize places them.
-template <class Model>
+// from thread q mod W (its round q / W), placed and mirrored as
+// fd::linearize places them.
+template <class Model, int W>
 __device__ __forceinline__ void gather(
-    const Team& tm, int stride, const float col[Model::N], float dcol,
-    float h, float fx[Model::N][Model::N], float fu[Model::N][Model::M],
-    float cx[Model::N], float cu[Model::M], float cxx[Model::N][Model::N],
+    const TeamOf<W>& tm, int stride, const float col[Model::N], float dcol,
+    const float h[kRounds<Model, W>], float fx[Model::N][Model::N],
+    float fu[Model::N][Model::M], float cx[Model::N], float cu[Model::M],
+    float cxx[Model::N][Model::N],
     float cxu[Model::N][Model::M], float cuu[Model::M][Model::M]) {
   constexpr int N = Model::N, M = Model::M, NZ = N + M;
 #pragma unroll
@@ -109,7 +152,7 @@ __device__ __forceinline__ void gather(
   for (int a = 0; a < NZ; ++a)
 #pragma unroll
     for (int b = a; b < NZ; ++b, ++q) {
-      const float v = tm.from(h, q);
+      const float v = tm.from(h[q / W], q % W);
       if (b < N) {
         cxx[a][b] = v;
         cxx[b][a] = v;
@@ -123,10 +166,11 @@ __device__ __forceinline__ void gather(
 }
 
 // sweep::FiniteDiff spread over the team (fd.cuh's arithmetic, term by term)
+template <int W>
 struct FiniteDiff {
   static constexpr bool kDense = true;
   sweep::FiniteDiff d;
-  Team tm;
+  TeamOf<W> tm;
 
   template <class Model>
   __device__ __forceinline__ void linearize(
@@ -136,10 +180,8 @@ struct FiniteDiff {
       float cxx[Model::N][Model::N], float cxu[Model::N][Model::M],
       float cuu[Model::M][Model::M]) const {
     constexpr int N = Model::N, M = Model::M, NZ = N + M;
-    constexpr int NP = NZ * (NZ + 1) / 2;
-    static_assert(2 * NZ <= kTeam && NP <= kTeam,
-                  "a team holds both sides of every direction and every "
-                  "Hessian pair");
+    constexpr int NP = NZ * (NZ + 1) / 2, R = kRounds<Model, W>;
+    static_assert(2 * NZ <= W, "a team holds both sides of every direction");
     const fd::Stencil& s = d.s;
     // one side of direction a = rank / 2: z + eps·t_a on even ranks,
     // z − eps·t_a on odd ones
@@ -161,13 +203,17 @@ struct FiniteDiff {
     for (int r = 0; r < N; ++r)
       col[r] = (y[r] - tm.from(y[r], minus)) / s.den1;
     const float dcol = (c - tm.from(c, minus)) / s.den1;
-    float h = 0.0f;
-    if (tm.rank < NP) {
-      int a, b;
-      pair_of<NZ>(tm.rank, a, b);
-      h = fd::second<Model, true>(p, x, u, a, b, s);
+    float h[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      h[r] = 0.0f;
+      if (tm.rank + r * W < NP) {
+        int a, b;
+        pair_of<NZ>(tm.rank + r * W, a, b);
+        h[r] = fd::second<Model, true>(p, x, u, a, b, s);
+      }
     }
-    gather<Model>(tm, 2, col, dcol, h, fx, fu, cx, cu, cxx, cxu, cuu);
+    gather<Model, W>(tm, 2, col, dcol, h, fx, fu, cx, cu, cxx, cxu, cuu);
   }
   template <class Model>
   __device__ __forceinline__ void terminal(
@@ -178,10 +224,11 @@ struct FiniteDiff {
 };
 
 // sweep::Jvp spread over the team (jvp.cuh's arithmetic, term by term)
+template <int W>
 struct Jvp {
   static constexpr bool kDense = true;
   sweep::Jvp d;
-  Team tm;
+  TeamOf<W> tm;
 
   template <class Model>
   __device__ __forceinline__ void linearize(
@@ -191,9 +238,8 @@ struct Jvp {
       float cxx[Model::N][Model::N], float cxu[Model::N][Model::M],
       float cuu[Model::M][Model::M]) const {
     constexpr int N = Model::N, M = Model::M, NZ = N + M;
-    constexpr int NP = NZ * (NZ + 1) / 2;
-    static_assert(NZ <= kTeam && NP <= kTeam,
-                  "a team holds every direction and every Hessian pair");
+    constexpr int NP = NZ * (NZ + 1) / 2, R = kRounds<Model, W>;
+    static_assert(NZ <= W, "a team holds every direction");
     float col[N], dcol = 0.0f;
 #pragma unroll
     for (int r = 0; r < N; ++r) col[r] = 0.0f;
@@ -205,15 +251,19 @@ struct Jvp {
 #pragma unroll
       for (int r = 0; r < N; ++r) col[r] = y[r].d;
     }
-    float h = 0.0f;
-    if (tm.rank < NP) {
-      int a, b;
-      pair_of<NZ>(tm.rank, a, b);
-      jvp::D2 xd[N], ud[M];
-      jvp::seed2<Model>(x, u, a, b, xd, ud);
-      h = Model::cost(p, xd, ud).d.d;
+    float h[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      h[r] = 0.0f;
+      if (tm.rank + r * W < NP) {
+        int a, b;
+        pair_of<NZ>(tm.rank + r * W, a, b);
+        jvp::D2 xd[N], ud[M];
+        jvp::seed2<Model>(x, u, a, b, xd, ud);
+        h[r] = Model::cost(p, xd, ud).d.d;
+      }
     }
-    gather<Model>(tm, 1, col, dcol, h, fx, fu, cx, cu, cxx, cxu, cuu);
+    gather<Model, W>(tm, 1, col, dcol, h, fx, fu, cx, cu, cxx, cxu, cuu);
   }
   template <class Model>
   __device__ __forceinline__ void terminal(
@@ -250,20 +300,23 @@ struct Analytic {
 
 // The derivative source of phase 0: the dense ones spread over the team,
 // the closed forms as they are
+template <int W>
 __device__ __forceinline__ sweep::Analytic spread(sweep::Analytic d,
-                                                  const Team&) {
+                                                  const TeamOf<W>&) {
   return d;
 }
-__device__ __forceinline__ FiniteDiff spread(sweep::FiniteDiff d,
-                                             const Team& tm) {
+template <int W>
+__device__ __forceinline__ FiniteDiff<W> spread(sweep::FiniteDiff d,
+                                                const TeamOf<W>& tm) {
   return {d, tm};
 }
-__device__ __forceinline__ Jvp spread(sweep::Jvp d, const Team& tm) {
+template <int W>
+__device__ __forceinline__ Jvp<W> spread(sweep::Jvp d, const TeamOf<W>& tm) {
   return {d, tm};
 }
 
-template <class Model, bool kLimits, class Deriv>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+template <class Model, bool kLimits, class Deriv, int W>
+__global__ void __launch_bounds__(kBlock, kMinBlocksOf<W>)
 iteration_team_kernel(const float* __restrict__ params, int pstride,
                       const float* __restrict__ x0,
                       const float* __restrict__ xs,
@@ -286,9 +339,10 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
                       float z_min, float tol_grad, float lam_grad_term, int T,
                       int B_, int clamp, int scheme, Deriv d) {
   constexpr int N = Model::N, M = Model::M, G = M * (N + 1);
-  static_assert(G <= kTeam, "a team stores a gain row, one entry a thread");
-  const Team tm = half_warp();
-  const int lane = blockIdx.x * kLanes + threadIdx.x / kTeam;
+  static_assert(G <= W, "a team stores a gain row, one entry a thread");
+  static_assert(fused::kMaxA <= W, "a team holds every candidate");
+  const TeamOf<W> tm = team_of<W>();
+  const int lane = blockIdx.x * (kBlock / W) + threadIdx.x / W;
   const bool valid = lane < B_;
   const int ln = valid ? lane : B_ - 1;  // where a team past B reads
   const int Tl = valid ? T : 0;          // … and the steps it runs
@@ -317,7 +371,7 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
   };
   if (Tl > 0) load_xu(Tl - 1, xn, un);
   // under the closed forms, thread r evaluates Model::jac at step t − r
-  // for each block of kTeam steps t, t − 1, …, and each step takes the
+  // for each block of W steps t, t − 1, …, and each step takes the
   // live entries of its A and Bu from that thread
   [[maybe_unused]] float a_own[N * N], bu_own[N * M];
   for (int t = Tl - 1; t >= 0; --t) {
@@ -329,7 +383,7 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
     if (t > 0) load_xu(t - 1, xn, un);
     float k[M], Kr[M][N];
     if constexpr (std::is_same_v<Deriv, sweep::Analytic>) {
-      const int r = (Tl - 1 - t) % kTeam;   // the step's place in its block
+      const int r = (Tl - 1 - t) % W;   // the step's place in its block
       if (r == 0 && t - tm.rank >= 0) {
         float xj[N], uj[M], A[N][N], Bu[N][M];
         load_xu(t - tm.rank, xj, uj);
@@ -392,7 +446,7 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
       tm, p, x0, us, xs, xterm,
       rollout::Gains<Model>{k_out, K_out, M * B, M * N * B, B}, kold, Kold,
       alphas, A, cprev[ln], c.dv0, c.dv1, z_min, gate, keep > 0.5f, T, B, ln,
-      valid, clamp != 0, scheme, Segments(T, A, G, N, kTeam), gains, xs_out,
+      valid, clamp != 0, scheme, Segments(T, A, G, N, W), gains, xs_out,
       us_out, xfin, k_out, K_out);
   if (writer) {
     lscost[lane] = s.cost;
@@ -409,7 +463,9 @@ namespace fused {
 
 // Whether a model's whole iteration is the team kernel: the model says so
 // with a static constexpr bool kTeamIteration = true (acrobot.cuh,
-// cartpole.cuh, pendulum.cuh); the team's limits hold for it (above).
+// cartpole.cuh, pendulum.cuh on half a warp; double_integrator.cuh,
+// bicycle.cuh, power_mass.cuh, point_mass_3d.cuh on a warp,
+// team::kTeamWidth); the team's limits hold for it (above).
 template <class Model, class = void>
 struct TeamIteration {
   static constexpr bool value = false;

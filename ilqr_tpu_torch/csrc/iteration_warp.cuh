@@ -114,10 +114,10 @@ iteration_warp_kernel(const float* __restrict__ params, int pstride,
 
 namespace fused {
 
-// The kernel of a model's whole iteration: the 16-thread team where the
-// model asks for it (TeamIteration), the warp where its merged sweep is the
-// warp's (TeamSweep: m·n ≥ 32, custom models excepted), else the one-thread
-// kernel
+// The kernel of a model's whole iteration: the team where the model asks
+// for it (TeamIteration; 16 threads a lane or 32, team::kTeamWidth), the
+// warp where its merged sweep is the warp's (TeamSweep: m·n ≥ 32, custom
+// models excepted), else the one-thread kernel
 template <class Model>
 constexpr int kIterationKind = TeamIteration<Model>::value ? 1
                                : TeamSweep<Model>::value   ? 2
@@ -126,7 +126,8 @@ constexpr int kIterationKind = TeamIteration<Model>::value ? 1
 template <class Model, bool kLimits, class Deriv>
 constexpr auto iteration_kernel_of() {
   if constexpr (kIterationKind<Model> == 1)
-    return team::iteration_team_kernel<Model, kLimits, Deriv>;
+    return team::iteration_team_kernel<Model, kLimits, Deriv,
+                                       team::kTeamWidth<Model>>;
   else if constexpr (kIterationKind<Model> == 2)
     return sweep_team::iteration_warp_kernel<Model, kLimits, Deriv>;
   else
@@ -141,7 +142,7 @@ inline int iteration_geometry(int& threads, int& lanes, size_t& smem) {
   smem = 0;
   if constexpr (kIterationKind<Model> == 1) {
     threads = team::kBlock;
-    lanes = team::kLanes;
+    lanes = team::kBlock / team::kTeamWidth<Model>;
   } else if constexpr (kIterationKind<Model> == 2) {
     threads = sweep_team::kBlock;
     lanes = sweep_team::kLanes;
@@ -208,6 +209,15 @@ inline int iteration_blocks_per_sm(int use_limits, int* threads,
                  : iteration_kernel_of<Model, false, Deriv>(),
       *threads, smem);
   return occ == cudaSuccess ? n : -1;
+}
+
+// Threads a lane of the whole-iteration kernel that launch_whole_iteration
+// launches: 1 (the one-thread kernel), 16 or 32 (the team), 32 (the warp)
+template <class Model>
+constexpr int iteration_lane_threads() {
+  return kIterationKind<Model> == 1   ? team::kTeamWidth<Model>
+         : kIterationKind<Model> == 2 ? sweep_team::kTeam
+                                      : 1;
 }
 
 }  // namespace fused

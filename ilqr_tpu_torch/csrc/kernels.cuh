@@ -17,8 +17,10 @@
 //    threads per lane (linesearch_team.cuh), in place of linesearch_kernel;
 //  - the whole iteration (iteration_packed) of acrobot, cartpole and
 //    pendulum is a team of 16 threads per lane (iteration_team.cuh), that
-//    of the models with m·n ≥ 32 (the quadrotor and the m ≥ 5 models) a
-//    warp per lane (iteration_warp.cuh); the m = 2-3 models keep
+//    of double_integrator, bicycle, power_mass and point_mass_3d (m = 2-3)
+//    the same team at 32 threads per lane, that of the models with
+//    m·n ≥ 32 (the quadrotor and the m ≥ 5 models) a warp per lane running
+//    sweep_team.cuh's sweep (iteration_warp.cuh); no package model keeps
 //    iteration_kernel;
 //  - the merged sweep (sweep_packed) of the models with m·n ≥ 32 is a warp
 //    per lane (sweep_team.cuh); every other model keeps sweep_kernel.
@@ -501,13 +503,15 @@ inline int launch_sweep(const void* params, int pstride, const void* xs,
 // sweep_kernel, or the warp kernel of sweep_team.cuh where fused::TeamSweep
 // picks it (m·n ≥ 32, custom models excepted); the whole iteration's
 // iteration_kernel, the team kernel of iteration_team.cuh where the model
-// has kTeamIteration (acrobot, cartpole, pendulum), or the warp kernel of
-// iteration_warp.cuh where TeamSweep picks it. Beside each stand
+// has kTeamIteration (16 threads a lane for acrobot, cartpole, pendulum; 32
+// for double_integrator, bicycle, power_mass, point_mass_3d), or the warp
+// kernel of iteration_warp.cuh where TeamSweep picks it. Beside each stand
 // ilqr_<NAME>_linesearch_blocks_per_sm(int* threads, int* smem_bytes) and
 // ilqr_<NAME>_{sweep,iteration}[_fd|_jvp]_blocks_per_sm(use_limits,
 // int* threads, int* smem_bytes): the blocks of that kernel an SM holds,
 // and the threads and dynamic shared memory of each; -1 where a CUDA call
-// fails.
+// fails; and ilqr_<NAME>_iteration[_fd|_jvp]_lane_threads(): the threads a
+// lane of the whole-iteration kernel (1, 16 or 32).
 // ILQR_FUSED_LAUNCHERS instantiates the four analytic kernels; a model
 // whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
@@ -625,6 +629,9 @@ inline int launch_sweep(const void* params, int pstride, const void* xs,
       int use_limits, int* threads, int* smem_bytes) {                       \
     return fused::iteration_blocks_per_sm<MODEL, DERIV>(use_limits, threads, \
                                                         smem_bytes);         \
+  }                                                                          \
+  extern "C" int ilqr_##NAME##_iteration##SUFFIX##_lane_threads() {          \
+    return fused::iteration_lane_threads<MODEL>();                           \
   }
 
 #define ILQR_ITERATION_LAUNCHER(NAME, MODEL)                                 \

@@ -13,6 +13,11 @@ namespace point_mass_3d {
 struct Model : cost::DiagonalHessians {
   static constexpr int N = 6;  // [x, y, z, vx, vy, vz]
   static constexpr int M = 3;  // [Fx, Fy, Fz]
+  // The whole iteration runs as a team of 32 threads per lane
+  // (iteration_team.cuh, team::kTeamWidth): its 18 stencil sides
+  // and 21 gain entries fit a warp, its 45 cost-Hessian pairs
+  // take two rounds
+  static constexpr bool kTeamIteration = true;
 
   // Packed params: the params leaves in field order, then dt.
   struct Params {

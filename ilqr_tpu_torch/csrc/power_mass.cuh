@@ -20,6 +20,11 @@ namespace power_mass {
 struct Model {
   static constexpr int N = 4;  // [px, py, vx, vy]
   static constexpr int M = 2;  // [ux, uy]
+  // The whole iteration runs as a team of 32 threads per lane
+  // (iteration_team.cuh, team::kTeamWidth): its 12 stencil sides
+  // and 10 gain entries fit a warp, its 21 cost-Hessian pairs
+  // take one round
+  static constexpr bool kTeamIteration = true;
 
   // Packed params (ops/kernel_rollout.pack_params): the params leaves in
   // field order, then dt.

@@ -11,10 +11,12 @@ caller escalates its λ.
 The m = 1 control-limited case with the closed-form QP
 (``boxqp_mode="auto"``) runs the backward op (ops/kernel_backward.py: its
 CUDA kernel on the card, its plain version on the CPU) unless
-``cfg.backward_kernel="xla"``. Every other case runs :func:`_backward_scan`,
-the JAX package's scan step as a loop over T with the batch written out,
-and its QPs (ops/boxqp.py), in plain PyTorch on either device, as the JAX
-package runs them in XLA with no Pallas kernel: the closed form at m = 1,
+``cfg.backward_kernel="xla"``; its inputs are laid out once per iteration
+(:func:`backward_inputs`) and reused by every λ attempt. Every other case
+runs :func:`_backward_scan`, the JAX package's scan step as a loop over T
+with the batch written out, and its QPs (ops/boxqp.py), in plain PyTorch on
+either device, as the JAX package runs them in XLA with no Pallas kernel:
+the closed form at m = 1,
 ``enum`` (m ≤ 4), ``pn_fixed``, the iterative box QP (``"auto"`` at m ≥ 2,
 ``"iterative"``, ``"enum"`` above m = 4) and, without control limits, the
 Cholesky step. Full DDP and the parallel-in-time ``assoc*`` modes raise
@@ -39,8 +41,11 @@ from ilqr_tpu_torch.ops.boxqp import (
     cholesky,
     free_solve,
 )
-from ilqr_tpu_torch.ops.kernel_backward import backward_sweep_batched
-from ilqr_tpu_torch.ops.kernel_rollout import F32, clip
+from ilqr_tpu_torch.ops.kernel_backward import (
+    backward_sweep_lanes,
+    pack_backward_inputs,
+)
+from ilqr_tpu_torch.ops.kernel_rollout import F32, clip, lane_last
 from ilqr_tpu_torch.types import BackwardResult, Derivs
 
 
@@ -153,12 +158,29 @@ def _backward_scan(d: Derivs, us, lam, u_min, u_max, cfg: SolverConfig,
                           diverged=diverged)
 
 
+def backward_inputs(derivs: Derivs, us, u_min, u_max, cfg: SolverConfig):
+    """The backward kernel's inputs for one linearization, lane last (ops/
+    kernel_backward.py pack_backward_inputs), where the kernel runs (m = 1,
+    limits, the closed-form QP), else None: the derivatives and the limit
+    offsets u_min − us, u_max − us, which no λ attempt changes. us
+    (B, T, 1); u_min/u_max (1,) shared or (B, 1) per lane."""
+    if not _uses_kernel(cfg, us.shape[-1]):
+        return None
+    us_t = lane_last(us[..., 0])                           # (T, B)
+    lane = lambda a: a[:, 0] if a.ndim == 2 else a          # (B,) or (1,)
+    d = derivs
+    return pack_backward_inputs(d.fx, d.fu, d.cx, d.cu, d.cxx, d.cxu, d.cuu,
+                                lane(u_min) - us_t, lane(u_max) - us_t)
+
+
 def backward_pass(derivs: Derivs, us, lam, u_min, u_max, cfg: SolverConfig,
-                  prev_k_last=None) -> BackwardResult:
+                  prev_k_last=None, packed=None) -> BackwardResult:
     """One backward sweep per problem: us (B, T, m), lam (B,), u_min/u_max
     (m,) shared or (B, m) per lane, prev_k_last (B, m) the previous
     sweep's k[T-1] that warm-starts the first iterative QP (ref
-    ilqr_core.cpp:369; zeros when None)."""
+    ilqr_core.cpp:369; zeros when None). ``packed``: the kernel's inputs
+    from :func:`backward_inputs` on the same arguments, laid out once for
+    all λ attempts (laid out here when None)."""
     B, T, m = us.shape
     check_supported(cfg, m)
     if prev_k_last is None:
@@ -166,11 +188,9 @@ def backward_pass(derivs: Derivs, us, lam, u_min, u_max, cfg: SolverConfig,
     if not _uses_kernel(cfg, m):
         return _backward_scan(derivs, us, lam, u_min, u_max, cfg,
                               prev_k_last)
-    per_step = lambda a: a[:, None] if a.ndim == 2 else a
-    d = derivs
-    k, K, dV, diverged = backward_sweep_batched(
-        d.fx, d.fu, d.cx, d.cu, d.cxx, d.cxu, d.cuu,
-        per_step(u_min) - us, per_step(u_max) - us, lam)
+    if packed is None:
+        packed = backward_inputs(derivs, us, u_min, u_max, cfg)
+    k, K, dV, diverged = backward_sweep_lanes(packed, lam)
     return BackwardResult(k=k, K=K, dV=dV, diverged=diverged)
 
 

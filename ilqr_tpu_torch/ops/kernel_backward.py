@@ -166,6 +166,40 @@ def backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam, cxT,
 backward_sweep_packed.launches = 0
 
 
+def pack_backward_inputs(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi):
+    """The batch-major derivatives and limit offsets laid out as
+    :func:`backward_sweep_packed` takes them, lane last: everything but λ,
+    which a λ retry changes. A derivative that is the batch-major view of
+    ``derivs_packed``'s lane-last output comes back as that output, with no
+    copy. Counted in ``pack_backward_inputs.relayouts``: the composable
+    solver lays its inputs out once per iteration and reuses them on every
+    λ attempt (ops/backward.py :func:`backward_inputs`).
+
+    Args as :func:`backward_sweep_batched`'s; ``lo``/``hi`` batch-major
+    (B, T, 1) or lane-last (T, B) already."""
+    pack_backward_inputs.relayouts += 1
+    lim = lambda a: a if a.ndim == 2 else lane_last(a[..., 0])
+    return (lane_last(fx), lane_last(fu[..., 0]), lane_last(cx[:, :-1]),
+            lane_last(cu[..., 0]), lane_last(cxx[:, :-1]),
+            lane_last(cxu[..., 0]), lane_last(cuu[..., 0, 0]), lim(lo),
+            lim(hi), lane_last(cx[:, -1]), lane_last(cxx[:, -1]))
+
+
+pack_backward_inputs.relayouts = 0
+
+
+def backward_sweep_lanes(packed, lam):
+    """:func:`backward_sweep_packed` on inputs that
+    :func:`pack_backward_inputs` laid out, with ``lam`` (B,); the results
+    batch-major: k (B,T,1), K (B,T,1,n), dV (B,2), diverged (B,) bool."""
+    fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, cxT, cxxT = packed
+    k, K, dv, div = backward_sweep_packed(fx, fu, cx, cu, cxx, cxu, cuu, lo,
+                                          hi, lam.to(F32).contiguous(), cxT,
+                                          cxxT)
+    return (batch_first(k)[..., None], batch_first(K)[:, :, None, :],
+            batch_first(dv), div > 0.5)
+
+
 def backward_sweep_batched(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam):
     """Batch-major wrapper (counterpart of
     ``pallas_backward.backward_sweep_batched`` and of ``backward_m1``'s
@@ -181,13 +215,5 @@ def backward_sweep_batched(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, lam):
         raise NotImplementedError(
             "the backward kernel is specialized to m = 1 (the closed-form "
             f"QP); got m = {fu.shape[-1]}")
-    k, K, dv, div = backward_sweep_packed(
-        lane_last(fx), lane_last(fu[..., 0]), lane_last(cx[:, :-1]),
-        lane_last(cu[..., 0]), lane_last(cxx[:, :-1]),
-        lane_last(cxu[..., 0]), lane_last(cuu[..., 0, 0]),
-        lane_last(lo[..., 0]), lane_last(hi[..., 0]),
-        lam.to(F32).contiguous(), lane_last(cx[:, -1]),
-        lane_last(cxx[:, -1]))
-    return (batch_first(k)[..., None], batch_first(K)[:, :, None, :],
-            batch_first(dv), div > 0.5)
-
+    return backward_sweep_lanes(
+        pack_backward_inputs(fx, fu, cx, cu, cxx, cxu, cuu, lo, hi), lam)

@@ -39,7 +39,11 @@ import torch
 
 from ilqr_tpu_torch.config import SolverConfig
 from ilqr_tpu_torch.models.base import Model
-from ilqr_tpu_torch.ops.backward import backward_pass, gradient_norm
+from ilqr_tpu_torch.ops.backward import (
+    backward_inputs,
+    backward_pass,
+    gradient_norm,
+)
 from ilqr_tpu_torch.ops.backward import check_supported as _check_backward
 from ilqr_tpu_torch.ops.boxqp import host_any as _host_any
 from ilqr_tpu_torch.ops.derivatives import compute_derivs, stage_route
@@ -153,7 +157,9 @@ def ilqr_iteration(model: Model, pp: PackedParams, cfg: SolverConfig,
     # ---- STEP 1: linearize (ref :115-120)
     derivs = compute_derivs(model, pp, cfg, state.xs, state.us)
 
-    # ---- STEP 2: backward pass with λ escalation (ref :136-150)
+    # ---- STEP 2: backward pass with λ escalation (ref :136-150); the
+    # kernel's inputs laid out once for every attempt
+    packed = backward_inputs(derivs, state.us, u_min, u_max, cfg)
     lam, dlam = state.lam, state.dlam
     k, K = state.k, state.K
     dV = torch.zeros((B, 2), dtype=F32, device=dev)
@@ -163,7 +169,7 @@ def ilqr_iteration(model: Model, pp: PackedParams, cfg: SolverConfig,
     while True:
         attempts += 1
         br = backward_pass(derivs, state.us, lam, u_min, u_max, cfg,
-                           prev_k_last=state.k[:, -1])
+                           prev_k_last=state.k[:, -1], packed=packed)
         k = torch.where(attempt[:, None, None], br.k, k)
         K = torch.where(attempt[:, None, None, None], br.K, K)
         dV = torch.where(attempt[:, None], br.dV, dV)

@@ -374,21 +374,29 @@ def _model_header(name):
     return (csrc / headers[0]).read_text()
 
 
-# The models whose whole iteration is the 16-thread team
-# (csrc/iteration_team.cuh): those with Model::kTeamIteration = true
-TEAM_ITERATION = ("acrobot", "cartpole", "pendulum")
+# The models whose whole iteration is the team of csrc/iteration_team.cuh
+# (those with Model::kTeamIteration = true), by its width: half a warp where
+# the team's limits allow, else the warp (team::kTeamWidth)
+TEAM_ITERATION = {"acrobot": 16, "cartpole": 16, "pendulum": 16,
+                  "double_integrator": 32, "bicycle": 32, "power_mass": 32,
+                  "point_mass_3d": 32}
 
 
 @pytest.mark.parametrize("name", sorted(kernel_rollout.FUSED_KERNEL_MODELS))
 def test_team_iteration_trait_holds_to_the_team_limits(name):
-    """The whole iteration runs as a team of 16 threads per lane
-    (csrc/iteration_team.cuh) for acrobot, cartpole and pendulum, each of
-    which declares Model::kTeamIteration = true in its header, and for no
-    other model; each of them lies inside the team's limits (the stencil's
-    2(n + m) sides and (n + m)(n + m + 1)/2 cost-Hessian pairs, one a
-    thread; m(n + 1) gain entries, one a thread) and takes the merged
-    iteration on iter_kernel="auto". A custom model declares no
-    kTeamIteration, so it keeps the one-thread kernel."""
+    """The whole iteration runs as a team per lane (csrc/iteration_team.cuh)
+    for every model that iter_kernel="auto" sends to the merged iteration
+    (m·n < 32): 16 threads for acrobot, cartpole and pendulum, 32 for
+    double_integrator, bicycle, power_mass and point_mass_3d. Each declares
+    Model::kTeamIteration = true in its header, and no other model does;
+    team::kTeamWidth takes half a warp exactly where the stencil's 2(n + m)
+    sides, the (n + m)(n + m + 1)/2 cost-Hessian pairs and the m(n + 1) gain
+    entries fit it one a thread, and every team model lies inside the
+    warp's limits (sides and gain entries one a thread, pairs in rounds).
+    A custom model declares no kTeamIteration, so it keeps the one-thread
+    kernel."""
+    import re
+
     from ilqr_tpu_torch import fused
 
     text = _model_header(name)
@@ -397,12 +405,22 @@ def test_team_iteration_trait_holds_to_the_team_limits(name):
     assert "kTeamIteration = false" not in text
     assert "bool kTeamIteration" not in (
         _build.CSRC / "custom.cuh").read_text()
+    rule = re.search(r"constexpr int kTeamWidth =([^;]*);", (
+        _build.CSRC / "iteration_team.cuh").read_text()).group(1).split()
+    assert rule == [
+        "2", "*", "(Model::N", "+", "Model::M)", "<=", "kTeam", "&&",
+        "(Model::N", "+", "Model::M)", "*", "(Model::N", "+", "Model::M",
+        "+", "1)", "/", "2", "<=", "kTeam", "&&", "Model::M", "*",
+        "(Model::N", "+", "1)", "<=", "kTeam", "?", "kTeam", ":", "32"], rule
+    model = get_model(name)
+    assert team == fused._use_iter_kernel(model, SolverConfig())
     if team:
-        model = get_model(name)
         nz = model.n + model.m
-        assert 2 * nz <= 16 and nz * (nz + 1) // 2 <= 16
-        assert model.m * (model.n + 1) <= 16
-        assert fused._use_iter_kernel(model, SolverConfig())
+        half = (2 * nz <= 16 and nz * (nz + 1) // 2 <= 16
+                and model.m * (model.n + 1) <= 16)
+        width = 16 if half else 32
+        assert width == TEAM_ITERATION[name]
+        assert 2 * nz <= width and model.m * (model.n + 1) <= width
 
 
 @pytest.mark.parametrize("name", sorted(kernel_rollout.FUSED_KERNEL_MODELS))
@@ -431,8 +449,8 @@ def test_warp_iteration_follows_the_route_rule(name):
     model = get_model(name)
     warp = model.m * model.n >= 32
     assert warp == (not fused._use_iter_kernel(model, SolverConfig()))
+    assert warp == (name not in TEAM_ITERATION)
     if warp:
-        assert name not in TEAM_ITERATION
         assert model.m >= 4 and model.n + model.m <= 32, (model.n, model.m)
 
 
@@ -564,8 +582,10 @@ def test_ptxas_table_files_rows_under_their_own_model():
     FiniteDiff in the mangled name) are filed as sweep_kernel_fd and
     iteration_kernel_fd under their model, the dual-number ones (_jvp.cu;
     Jvp) as <kernel>_jvp. derivs_<model>.cu's rows go to its model (the
-    stencil mode as derivs_kernel_fd), backward.cu's n = 2 row to
-    pendulum and its n = 4 row to acrobot and cartpole."""
+    stencil mode as derivs_kernel_fd), backward.cu's n = 2 rows to
+    pendulum and its n = 4 rows to acrobot and cartpole, each instantiation
+    of the backward kernel (a template on <N, VEC, WARPS>) under its own
+    copy width and warps."""
     import chip_smoke
 
     def entry(mangled, regs, stack):
@@ -576,10 +596,13 @@ def test_ptxas_table_files_rows_under_their_own_model():
                 f"registers, used 0 barriers\n")
 
     ring = "_ZN5fused{}IN13thruster_ring5ModelILi{}EEE{}EvPKf"
+    bwd = ("_ZN8backward20backward_team_kernelILi{}ELi{}ELi{}EEEvNS_6Inputs"
+           "EPKfS3_S3_PfS4_S4_S4_ii")
     log = "".join([
         "ptxas log of backward.cu\n",
-        entry("_ZN12_GLOBAL__N_115backward_kernelILi2EEEvPKf", 40, 0),
-        entry("_ZN12_GLOBAL__N_115backward_kernelILi4EEEvPKf", 80, 0),
+        entry(bwd.format(2, 4, 1), 40, 0),
+        entry(bwd.format(4, 4, 2), 80, 0),
+        entry(bwd.format(4, 1, 2), 96, 0),
         "ptxas log of derivs_acrobot.cu\n",
         entry("_ZN12_GLOBAL__N_113derivs_kernelIN7acrobot5ModelEN5sweep3"
               "JvpEEEvPKf", 64, 0),
@@ -636,9 +659,13 @@ def test_ptxas_table_files_rows_under_their_own_model():
     assert t[("derivs_kernel", "pendulum", None)] == dict(
         registers=66, stack_bytes=16, spill_stores=8, spill_loads=12,
         source="ilqr_tpu_torch/csrc/derivs_pendulum.cu")
-    assert t[("backward_kernel", "acrobot", None)]["registers"] == 80
-    assert t[("backward_kernel", "cartpole", None)]["registers"] == 80
-    assert t[("backward_kernel", "pendulum", None)]["registers"] == 40
+    wide, narrow = (chip_smoke.backward_geometry(16, 2),
+                    chip_smoke.backward_geometry(4, 2))
+    assert t[("backward_team_kernel", "acrobot", wide)]["registers"] == 80
+    assert t[("backward_team_kernel", "cartpole", wide)]["registers"] == 80
+    assert t[("backward_team_kernel", "acrobot", narrow)]["registers"] == 96
+    assert t[("backward_team_kernel", "pendulum",
+              chip_smoke.backward_geometry(16, 1))]["registers"] == 40
     assert t[("iteration_kernel_jvp", "quadrotor", True)] == dict(
         registers=207, stack_bytes=5000, spill_stores=8, spill_loads=12,
         source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration_jvp.cu")
@@ -647,4 +674,4 @@ def test_ptxas_table_files_rows_under_their_own_model():
         registers=206, stack_bytes=4720, spill_stores=8, spill_loads=12,
         source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration_fd.cu")
     assert t[("sweep_kernel_fd", "acrobot", False)]["registers"] == 92
-    assert len(t) == 18
+    assert len(t) == 20

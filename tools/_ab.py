@@ -1,8 +1,9 @@
-"""What the A/B tools (tools/iteration_ab.py, tools/sweep_ab.py) share: a
-tree's package with a library of some of its kernel sources built and bound,
-ptxas readings, output digests, and the four passes (parent, change, change,
-parent), each in a process of its own, with their outputs and mean costs
-held equal across the trees.
+"""What the A/B tools (tools/{iteration,sweep,linesearch,backward}_ab.py)
+share: a tree's package with a library of some of its kernel sources built
+and bound, ptxas readings, output digests, and the passes in turns (parent,
+change, change, parent, and so on: four unless --passes says more), each in
+a process of its own, with their outputs and mean costs held equal across
+the trees.
 
 A tool supplies its rows (phase-3 cases of chip_smoke.py, each pass's
 readings under ``rows``, each with an output ``digest``), its paths (each
@@ -25,6 +26,19 @@ from pathlib import Path
 
 CHANGE = Path(__file__).resolve().parents[1]
 PASSES = ("parent", "change", "change", "parent")
+
+
+def pass_order(n: int) -> tuple:
+    """``n`` passes in turns: parent, change, change, parent, parent, …"""
+    if n < 2 or n % 2:
+        raise ValueError(f"--passes takes an even count ≥ 2, got {n}")
+    return tuple(PASSES[i % 4] for i in range(n))
+
+
+def _sides(passes):
+    """The parent's passes and the change's, each in its order."""
+    return ([p for p in passes if p["tree"] == "parent"],
+            [p for p in passes if p["tree"] == "change"])
 
 
 def load_tree(root: Path, tag: str, sources=None):
@@ -55,10 +69,15 @@ def load_tree(root: Path, tag: str, sources=None):
 
 def ptxas(log_path: Path, key_of) -> dict:
     """key → registers, stack, spill stores and loads, and static shared
-    memory where there is any, of the kernels of a ptxas -v log that
+    memory where there is any, of the kernels of a ptxas -v log file that
     ``key_of(source, mangled name)`` files under a key (None: not read)."""
+    return ptxas_text(log_path.read_text(), key_of)
+
+
+def ptxas_text(log: str, key_of) -> dict:
+    """:func:`ptxas` on the log's text."""
     out, key, source = {}, None, None
-    for line in log_path.read_text().splitlines():
+    for line in log.splitlines():
         if line.startswith("ptxas log of "):
             source = line.split()[-1]
         elif "Compiling entry function" in line:
@@ -157,12 +176,16 @@ def path_reading(out: dict, kernel: str) -> dict:
 
 
 def summary_rows(passes, rows):
-    """The rows' times in the four passes (and the change's speed-up), with
-    the parent's and the change's registers, stack, spills and blocks."""
+    """The rows' times in the passes (and the change's speed-up: the
+    parent's mean over the change's), with the parent's and the change's
+    registers, stack, spills and blocks."""
+    parents, changes = _sides(passes)
     for row in rows:
         r = [p["rows"][row] for p in passes]
-        par, chg = r[0], r[1]
-        speed = (r[0]["ms"] + r[3]["ms"]) / (r[1]["ms"] + r[2]["ms"])
+        par, chg = parents[0]["rows"][row], changes[0]["rows"][row]
+        mean = lambda side: sum(p["rows"][row]["ms"] for p in side) / len(
+            side)
+        speed = mean(parents) / mean(changes)
         print(f"[ab] row {row}: ms " + " / ".join(f"{x['ms']:.3f}" for x in r)
               + f" ({speed:.2f}x); parent {par.get('registers')} regs "
               f"{par.get('stack')} B stack {par.get('spill_stores')}/"
@@ -176,11 +199,13 @@ def summary_rows(passes, rows):
 
 
 def summary_paths(passes, paths, kernel):
-    """The paths' readings in the four passes; ``kernel``'s launches per
+    """The paths' readings in the passes; ``kernel``'s launches per
     iteration and device ms by kernel of the parent's and change's first
     passes."""
+    parents, changes = _sides(passes)
     for path in paths:
         r = [p["paths"][path] for p in passes]
+        firsts = (parents[0]["paths"][path], changes[0]["paths"][path])
         print(f"[ab] path {path}: solves/s " + " / ".join(
             f"{x['solves_per_s']:.1f}" for x in r) + "; ms/iteration "
             + " / ".join(f"{x['ms_per_iteration']:.3f}" for x in r)
@@ -193,7 +218,7 @@ def summary_paths(passes, paths, kernel):
             + "; device ms by kernel " + " / ".join(
                 json.dumps({k: round(v, 1) for k, v in
                             (x["device_ms_by_kernel"] or {}).items()})
-                for x in (r[0], r[1]))
+                for x in firsts)
             + f"; mean cost {r[0]['mean_cost']}")
 
 
@@ -206,19 +231,41 @@ def digest(outs) -> str:
 
 def parser(doc: str, out_name: str) -> argparse.ArgumentParser:
     """The tools' shared arguments: PARENT_ROOT, --out (default
-    build/<out_name>), and the passes' own --worker ROOT TAG and --check."""
+    build/<out_name>), --passes (an even count, 4 by default), and the
+    passes' own --worker ROOT TAG and --check."""
     ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("parent", nargs="?")
     ap.add_argument("--out", default=str(CHANGE / "build" / out_name))
+    ap.add_argument("--passes", type=int, default=len(PASSES),
+                    help="passes in turns, parent first (default 4)")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated prefixes of the rows and paths "
+                         "to take (default: all)")
     ap.add_argument("--worker", nargs=2, metavar=("ROOT", "TAG"))
     ap.add_argument("--check", action="store_true")
     return ap
 
 
-def _pass(script: Path, tree: Path, tag: str, check: bool) -> dict:
+def select(args, rows: dict, paths: dict) -> list:
+    """Keeps in ``rows`` and ``paths`` (in place) the keys that start with
+    one of --only's prefixes, where it is given; returns the arguments that
+    hand the same choice to each pass."""
+    if not args.only:
+        return []
+    prefixes = tuple(args.only.split(","))
+    for d in (rows, paths):
+        for key in [k for k in d if not k.startswith(prefixes)]:
+            del d[key]
+    if not rows and not paths:
+        raise SystemExit(f"--only {args.only}: no row or path")
+    return ["--only", args.only]
+
+
+def _pass(script: Path, tree: Path, tag: str, check: bool,
+          extra=()) -> dict:
     t0 = time.perf_counter()
     cmd = [sys.executable, str(script), "--worker", str(tree), tag] + (
-        ["--check"] if check else [])
+        ["--check"] if check else []) + list(extra)
     proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(tree))
     sys.stdout.write(proc.stdout[-8000:])
     if proc.returncode != 0:
@@ -230,12 +277,14 @@ def _pass(script: Path, tree: Path, tag: str, check: bool) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
-def run(args, ap, script: Path, worker, rows, paths, summary) -> int:
-    """A worker's pass (``--worker``), or the four passes: ``worker(root,
-    tag, check)`` on each tree in a process of its own, the change's first
-    with check; then every row's digest and every path's mean cost held
-    equal across the passes, the passes written to --out as JSON and
-    ``summary(passes)`` printed."""
+def run(args, ap, script: Path, worker, rows, paths, summary,
+        extra=()) -> int:
+    """A worker's pass (``--worker``), or the passes in turns (--passes):
+    ``worker(root, tag, check)`` on each tree in a process of its own, the
+    change's first with check; then every row's digest and every path's
+    mean cost held equal across the passes, the passes written to --out as
+    JSON and ``summary(passes)`` printed. ``extra``: arguments every pass's
+    command line repeats."""
     if args.worker:
         root, tag = args.worker
         print("RESULT " + json.dumps(worker(Path(root).resolve(), tag,
@@ -249,8 +298,9 @@ def run(args, ap, script: Path, worker, rows, paths, summary) -> int:
         print(f"{script.stem}: no CUDA device", file=sys.stderr)
         return 2
     trees = {"parent": Path(args.parent).resolve(), "change": CHANGE}
-    passes = [_pass(script, trees[tag], tag, i == 1)
-              for i, tag in enumerate(PASSES)]
+    order = pass_order(args.passes)
+    passes = [_pass(script, trees[tag], tag, i == 1,
+                    extra) for i, tag in enumerate(order)]
     for row in rows:
         digests = {p["rows"][row]["digest"] for p in passes}
         if len(digests) != 1:
@@ -266,6 +316,6 @@ def run(args, ap, script: Path, worker, rows, paths, summary) -> int:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(passes, indent=1))
     secs = ", ".join(f"{p['seconds']:.1f}" for p in passes)
-    print(f"[ab] {passes[0]['smi']}; passes {', '.join(PASSES)} ({secs} s)")
+    print(f"[ab] {passes[0]['smi']}; passes {', '.join(order)} ({secs} s)")
     summary(passes)
     return 0

@@ -59,6 +59,9 @@ import _ab
 
 CHANGE = _ab.CHANGE
 TEAM = ("cartpole", "pendulum")
+# the 32-thread team (m = 2-3); FREE23: those with unconstrained rows
+TEAM32 = ("double_integrator", "bicycle", "power_mass", "point_mass_3d")
+FREE23 = ("double_integrator", "bicycle", "power_mass")
 WARP = ("quadrotor", "omni_thruster", "free_flyer", "thruster_ring",
         "thruster_ring16", "thruster_ring20", "thruster_ring24")
 # row: (phase 3 case builder, its label)
@@ -86,6 +89,20 @@ for _name in TEAM:
         ("jvp", _name), f"iteration_packed/{_name}/jvp/unconstrained (rk4)")
 ROWS["pendulum/analytic/per_lane"] = (
     ("lanes", "pendulum"), "iteration_packed/pendulum (per-lane params)")
+for _name in TEAM32:
+    ROWS[f"{_name}/analytic"] = (("model", _name),
+                                 f"iteration_packed/{_name}")
+    ROWS[f"{_name}/fd"] = (("fd", _name),
+                           f"iteration_packed/{_name}/fd (euler)")
+    ROWS[f"{_name}/jvp_rk4"] = (("jvp", _name),
+                                f"iteration_packed/{_name}/jvp (rk4)")
+for _name in FREE23:
+    ROWS[f"{_name}/fd/unconstrained"] = (
+        ("fd", _name), f"iteration_packed/{_name}/fd/unconstrained (euler)")
+    ROWS[f"{_name}/jvp_rk4/unconstrained"] = (
+        ("jvp", _name), f"iteration_packed/{_name}/jvp/unconstrained (rk4)")
+    ROWS[f"{_name}/analytic/unconstrained"] = (
+        ("model", _name), f"iteration_packed/{_name}/unconstrained")
 FREE = dict(use_control_limits=False, clamp_forward=False)
 JVP = dict(deriv_mode="analytic", integrator="rk4")
 # path: (model, "flagship", "analytic" (run_model_path) or "cli"
@@ -99,6 +116,9 @@ for _name in TEAM:
         f"{_name}/fd/unconstrained": (_name, "cli",
                                       dict(use_control_limits=False)),
         f"{_name}/jvp_rk4": (_name, "cli", JVP)})
+for _name in TEAM32:
+    PATHS.update({f"{_name}/analytic": (_name, "analytic", {}),
+                  f"{_name}/fd": (_name, "cli", {})})
 for _name, _extra in (("quadrotor", {}), ("thruster_ring", {}),
                       ("omni_thruster", {}),
                       ("omni_thruster/unconstrained", FREE),
@@ -154,6 +174,7 @@ def worker(root: Path, tag: str, check: bool) -> dict:
         rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q"]
                          + [str(CHANGE / "tests" / f) for f in (
                              "test_torch_cuda_team.py",
+                             "test_torch_cuda_iteration_m23.py",
                              "test_torch_cuda_iteration_warp.py")])
         if rc != 0:
             raise AssertionError(f"the team and warp iteration tests: "
@@ -236,8 +257,9 @@ def main() -> int:
     args = ap.parse_args()
     if args.smoke_costs:
         return compare_smoke_costs(*map(Path, args.smoke_costs))
+    extra = _ab.select(args, ROWS, PATHS)
     return _ab.run(args, ap, Path(__file__).resolve(), worker, ROWS, PATHS,
-                   summary)
+                   summary, extra)
 
 
 if __name__ == "__main__":

@@ -170,8 +170,10 @@ def summary(passes):
 
 def main() -> int:
     ap = _ab.parser(__doc__, "sweep_ab.json")
-    return _ab.run(ap.parse_args(), ap, Path(__file__).resolve(), worker,
-                   ROWS, PATHS, summary)
+    args = ap.parse_args()
+    extra = _ab.select(args, ROWS, PATHS)
+    return _ab.run(args, ap, Path(__file__).resolve(), worker, ROWS, PATHS,
+                   summary, extra)
 
 
 if __name__ == "__main__":
