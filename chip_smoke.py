@@ -8,9 +8,9 @@ Phases (any failure raises and the script exits non-zero):
   2. build: the CUDA kernels from ilqr_tpu_torch/csrc with nvcc, one
      process per source, all started together (each source's seconds and
      each kernel's registers, stack and spills printed; every sweep,
-     whole-iteration and line-search launcher's kernel checked against the
-     one launched_kernel names, and for the team and warp kernels also
-     their blocks of 128 threads per SM);
+     whole-iteration, line-search and derivative launcher's kernel checked
+     against the one launched_kernel names, with its threads a lane, and
+     for the team, warp and derivative kernels also their blocks per SM);
   3. every kernel × model instantiation (and each RK4 reading, a runtime
      mode of a kernel) against its plain PyTorch version on the card, on
      the inputs of its path at that path's shapes: the flagship's at
@@ -46,12 +46,23 @@ Phases (any failure raises and the script exits non-zero):
      thruster_ring24, those edges and the clamp flipped), the merged sweep
      and the whole iteration of the split-route models (m·n ≥ 32: the
      quadrotor and the m ≥ 5 models) as a warp per lane
-     (csrc/sweep_team.cuh, sweep_team_cases: thruster_ring's and the
-     quadrotor's three forms, a partial last block, B = 1021, NaN in one
-     lane's x0, λ mixed so that lanes latch div, per-lane params, T = 1;
-     csrc/iteration_warp.cuh, edge_cases "iteration_warp": thruster_ring's
-     three forms and the quadrotor's stencils, the edges of the team
-     iteration on the first 4 steps). This process times each kernel alone on the card (CUDA
+     (csrc/sweep_team.cuh, sweep_team_cases "sweep_team": thruster_ring's
+     and the quadrotor's three forms, a partial last block, B = 1021, NaN
+     in one lane's x0, λ mixed so that lanes latch div, per-lane params,
+     T = 1; csrc/iteration_warp.cuh, edge_cases "iteration_warp":
+     thruster_ring's three forms and the quadrotor's stencils, the edges of
+     the team iteration on the first 4 steps), the merged sweep of the
+     m·n < 32 models' stencils and dual numbers on the team of their
+     whole iteration (sweep_small_team_kernel; sweep_team_cases
+     "sweep_small_team": acrobot's stencils at B = 8192 / 8189, cartpole's
+     stencils and dual numbers, point_mass_3d's stencils, the warp
+     sweep's edges), and
+     the derivative kernel, a thread per (t, lane) storing each entry as it
+     is made (csrc/derivs.cuh;
+     derivs_edge_cases: acrobot's both modes at B = 8192, point_mass_3d,
+     thruster_ring24 and the custom unicycle, each 3 lanes short of its
+     row, T = 1, NaN in one lane's x0, per-lane params). This process
+     times each kernel alone on the card (CUDA
      events, 3a); after phase 4, worker processes run the plain versions,
      which are host-bound, one job per case builder, longest first, beside
      phases 5-16 (3b; an iteration case reuses its builder's sweep's plain
@@ -302,15 +313,19 @@ SOURCES = {
 }
 # (backward_kernel: the one-thread backward kernel of the trees before the
 # team, which tools/backward_ab.py profiles beside it)
+# (derivs_kernel: the one thread per (t, lane) derivative kernel of the
+# trees before derivs_entry_kernel, which tools/derivs_ab.py reads beside it)
 KERNEL_NAMES = ("iteration_kernel", "iteration_team_kernel",
                 "iteration_warp_kernel", "sweep_team_kernel",
-                "rollout_kernel", "sweep_kernel", "linesearch_kernel",
-                "linesearch_team_kernel", "derivs_kernel",
+                "sweep_small_team_kernel", "rollout_kernel", "sweep_kernel",
+                "linesearch_kernel", "linesearch_team_kernel",
+                "derivs_entry_kernel", "derivs_kernel",
                 "backward_team_kernel", "backward_kernel",
                 "rollout_modes_kernel")
 # the sweep and whole-iteration kernels, templates on the limits flag
 LIMITS_KERNELS = ("sweep_kernel", "iteration_kernel", "iteration_team_kernel",
-                  "iteration_warp_kernel", "sweep_team_kernel")
+                  "iteration_warp_kernel", "sweep_team_kernel",
+                  "sweep_small_team_kernel")
 
 
 def nvidia_smi() -> str:
@@ -469,7 +484,7 @@ def acrobot_cases(dev):
         return dict(row=row or f"{label}/acrobot", group=group,
                     kernel=kernel, model="acrobot", limits=True, T=T,
                     effort=effort(kind, T, N, M),
-                    bitwise=is_team(kernel))
+                    bitwise=held_bitwise(kernel))
 
     cases = {
         "rollout_packed": Case(
@@ -612,7 +627,8 @@ def comparison_sets():
                                             *CLI_MODELS)]
             + [("fd", name) for name in CLI_SPECS]
             + [("jvp", name) for name in CLI_SPECS]
-            + [("team",), ("sweep_team",)]
+            + [("team",), ("sweep_team",), ("sweep_small_team",),
+               ("derivs_edges",)]
             + [(which,) for which in EDGE_ROWS]
             + [("split", name) for name in SPLIT_MODELS]
             + [("lanes", name) for name in LANES_KERNELS]
@@ -630,8 +646,10 @@ def build_cases(dev, which):
         return jvp_cases(dev, which[1])
     if which[0] == "team":
         return team_cases(dev)
-    if which[0] == "sweep_team":
-        return sweep_team_cases(dev)
+    if which[0] in SWEEP_EDGE_ROWS:
+        return sweep_team_cases(dev, which[0])
+    if which[0] == "derivs_edges":
+        return derivs_edge_cases(dev)
     if which[0] in EDGE_ROWS:
         return edge_cases(dev, which[0])
     if which[0] == "split":
@@ -1444,7 +1462,7 @@ def model_cases(dev, name):
                         unread, dict(row=key, group="row", kernel=kernel,
                                      model=name, limits=limits, T=Tc,
                                      effort=effort(kind, Tc, n, m),
-                                     bitwise=is_team(kernel)))
+                                     bitwise=held_bitwise(kernel)))
     return out
 
 
@@ -1620,16 +1638,20 @@ def launcher_occupancy():
     for the line search) and line-search launcher launch
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor through the launchers'
     ilqr_<model>_{sweep,iteration}[_fd|_jvp]_blocks_per_sm and
-    ilqr_<model>_linesearch_blocks_per_sm), and the backward kernel of
-    each m = 1 package model (ilqr_backward_n<n>_blocks_per_sm). Raises
-    where a launcher's kernel is not the one launched_kernel names (a team
-    or warp block is 128 threads, a one-thread block 64; only the warp
-    kernels have dynamic shared memory; a whole-iteration launcher's
-    ilqr_<model>_iteration[_fd|_jvp]_lane_threads is TEAM_ITERATION's width
-    for a team, 32 for the warp, 1 for the one-thread kernel; the backward
-    kernel's block, at the lanes of the model's row, is a whole number of
-    warps with its stage ring in dynamic shared memory), where an SM holds
-    no block of it, or where a CUDA call failed (-1)."""
+    ilqr_<model>_linesearch_blocks_per_sm), the backward kernel of each
+    m = 1 package model (ilqr_backward_n<n>_blocks_per_sm), and the
+    derivative kernel of every model, custom ones too, in both modes
+    (ilqr_<model>_derivs_blocks_per_sm, the stencil mode keyed with _fd).
+    Raises where a launcher's kernel is not the one launched_kernel names
+    (a team or warp block is 128 threads, a one-thread block 64; only the
+    warp kernels have dynamic shared memory; a sweep or whole-iteration
+    launcher's ilqr_<model>_{sweep,iteration}[_fd|_jvp]_lane_threads is
+    TEAM_ITERATION's width for a team, 32 for the warp, 1 for the
+    one-thread kernel; the backward kernel's block, at the lanes of the
+    model's row, is a whole number of warps with its stage ring in dynamic
+    shared memory; the derivative kernel's block is 256 threads, 32 lanes
+    by 8 entries, with none), where an SM holds no block of it, or where a
+    CUDA call failed (-1)."""
     lib, out = _build.library(), {}
     ptr = ctypes.POINTER(ctypes.c_int)
     m1 = [(name, get_model(name), lib, B_MAIN if name == "acrobot" else B_M)
@@ -1656,10 +1678,12 @@ def launcher_occupancy():
                                                   smem.value)
     for name in kernel_rollout.FUSED_KERNEL_MODELS:
         for kind in ("sweep", "iteration", "linesearch"):
-            kernel = launched_kernel(kind, get_model(name))
-            warp = kernel in ("sweep_team_kernel", "iteration_warp_kernel")
             forms = ("",) if kind == "linesearch" else ("", "_fd", "_jvp")
             for suffix in forms:
+                kernel = launched_kernel(kind, get_model(name),
+                                         suffix.lstrip("_") or "analytic")
+                warp = kernel in ("sweep_team_kernel",
+                                  "iteration_warp_kernel")
                 fname = f"ilqr_{name}_{kind}{suffix}_blocks_per_sm"
                 fn = getattr(lib, fname)
                 fn.argtypes = ([ptr] * 2 if kind == "linesearch"
@@ -1678,16 +1702,33 @@ def launcher_occupancy():
                             f"(expected {kernel})")
                     out[(kernel + suffix, name, limits)] = (
                         blocks, threads.value, smem.value)
-                if kind == "iteration":
-                    width = getattr(lib, f"ilqr_{name}_iteration{suffix}"
+                if kind != "linesearch":
+                    width = getattr(lib, f"ilqr_{name}_{kind}{suffix}"
                                          "_lane_threads")
                     width.restype = ctypes.c_int
                     want = (TEAM_ITERATION.get(name, 0) if is_team(kernel)
                             and not warp else 32 if warp else 1)
                     if width() != want:
                         raise RuntimeError(
-                            f"ilqr_{name}_iteration{suffix}: {width()} "
+                            f"ilqr_{name}_{kind}{suffix}: {width()} "
                             f"threads a lane (expected {kernel}, {want})")
+    derivs = [(name, lib, None) for name in kernel_derivs.DERIVS_KERNEL_MODELS]
+    derivs += [(name, _build.lib_for(model), model)
+               for name, model in custom_models().items()]
+    for name, mlib, model in derivs:
+        kernel = launched_kernel("derivs", model or get_model(name))
+        fn = getattr(mlib, f"ilqr_{name}_derivs_blocks_per_sm")
+        fn.argtypes, fn.restype = [ctypes.c_int, ptr, ptr], ctypes.c_int
+        for fd in (0, 1):
+            threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+            blocks = fn(fd, ctypes.byref(threads), ctypes.byref(smem))
+            if blocks <= 0 or threads.value != 256 or smem.value:
+                raise RuntimeError(
+                    f"ilqr_{name}_derivs_blocks_per_sm({fd}): {blocks} "
+                    f"blocks of {threads.value} threads, {smem.value} B "
+                    f"shared (expected {kernel}: 256 threads, none)")
+            out[(kernel + ("_fd" if fd else ""), name, None)] = (
+                blocks, threads.value, smem.value)
     return out
 
 
@@ -1711,7 +1752,7 @@ def ptxas_table(log: str):
     arguments <N, VEC, WARPS> in place of the limits flag. The
     stencil and dual-number sweep, iteration and derivative kernels are
     filed as <kernel>_fd and <kernel>_jvp (the derivative kernel's jvp mode
-    as derivs_kernel)."""
+    as derivs_entry_kernel, and a tree's before it as derivs_kernel)."""
     table, entry, model, source = {}, None, "acrobot", None
     for line in log.splitlines():
         if line.startswith("ptxas log of "):
@@ -1733,7 +1774,7 @@ def ptxas_table(log: str):
             if not backward:
                 if "FiniteDiff" in name:   # the stencil instantiations
                     kernel += "_fd"
-                elif "Jvp" in name and kernel != "derivs_kernel":
+                elif "Jvp" in name and not kernel.startswith("derivs_"):
                     kernel += "_jvp"
             if backward:
                 models = (["pendulum"] if "ILi2E" in name
@@ -2134,13 +2175,13 @@ def fd_cases(dev, name):
                                       mode, integ)
                 return step * Tc * B + rest * B
 
-            kernel = launched_kernel(kind, model)
+            kernel = launched_kernel(kind, model, mode)
             meta = dict(row=key, group=group,
                         kernel=kernel + ("_fd" if mode == "fd" else ""),
                         model=name, limits=limits, T=Tc,
                         effort=effort(kind, Tc, n, m) * (
                             4 if integ == "rk4" else 1),
-                        bitwise=is_team(kernel))
+                        bitwise=held_bitwise(kernel))
             if group == "row":
                 stem = ("kernels_quadrotor_iteration_fd.cu"
                         if kind == "iteration" and name == "quadrotor"
@@ -2511,12 +2552,12 @@ def jvp_cases(dev, name):
         stem = ("kernels_quadrotor_iteration_jvp.cu"
                 if kind == "iteration" and name == "quadrotor"
                 else f"kernels_{name}_jvp.cu")
-        kernel = launched_kernel(kind, model)
+        kernel = launched_kernel(kind, model, "jvp")
         meta = dict(row=key, group="row", kernel=kernel + "_jvp",
                     model=name, limits=limits, T=Tb,
                     effort=8 * effort(kind, Tb, n, m),
                     source=f"ilqr_tpu_torch/csrc/{stem}",
-                    bitwise=is_team(kernel))
+                    bitwise=held_bitwise(kernel))
         out[f"{key} (rk4)"] = Case(op, plain, args, ops,
                                    f"at B={B} T={Tb} A={A}", unread, meta)
     return out
@@ -2581,22 +2622,38 @@ def team_cases(dev):
     return out
 
 
-# The team sweep's edge cases (csrc/sweep_team.cuh), on the first
-# SWEEP_EDGE_T steps of a row's inputs: a partial last block (B = 1021: the
-# last block of 4 lanes holds 1), NaN in one lane's x0, λ mixed so that some
-# lanes latch div (a non-positive pivot), per-lane params (each lane's goal
-# moved) and T = 1
+# The team sweeps' edge cases, on the first SWEEP_EDGE_T steps of a row's
+# inputs at the row's lanes: a partial last block (3 lanes fewer: B = 1021
+# leaves 1 lane in the last block of 4 of the warp sweep, 5 in the last of
+# 8 of the 16-thread team, 1 in the last of 4 of the 32-thread one; acrobot
+# B = 8189), NaN in one lane's x0, λ mixed so that some lanes latch div (a
+# non-positive pivot), per-lane params (each lane's goal moved) and T = 1.
+# By builder: the warp per lane (csrc/sweep_team.cuh) and the team of the
+# model's whole iteration (csrc/iteration_team.cuh sweep_small_team_kernel,
+# the stencil and dual-number forms: 16 threads a lane for acrobot and
+# cartpole, 32 for point_mass_3d).
 SWEEP_EDGES = ("partial_block", "nan_lane", "div_lanes", "per_lane", "T1")
-SWEEP_EDGE_B, SWEEP_EDGE_T = B_M - 3, 4
-SWEEP_EDGE_ROWS = {   # row → (case builder, the case's label)
-    "sweep_packed/thruster_ring": ("model", "sweep_packed/thruster_ring"),
-    "sweep_packed/thruster_ring/fd": (
-        "fd", "sweep_packed/thruster_ring/fd (euler)"),
-    "sweep_packed/thruster_ring/jvp": (
-        "jvp", "sweep_packed/thruster_ring/jvp (rk4)"),
-    "sweep_packed/quadrotor": ("model", "sweep_packed/quadrotor"),
-    "sweep_packed/quadrotor/fd": ("fd", "sweep_packed/quadrotor/fd (rk4)"),
-    "sweep_packed/quadrotor/jvp": ("jvp", "sweep_packed/quadrotor/jvp (rk4)"),
+SWEEP_EDGE_T = 4
+SWEEP_EDGE_ROWS = {   # builder: row → (case builder, the case's label)
+    "sweep_team": {
+        "sweep_packed/thruster_ring": ("model", "sweep_packed/thruster_ring"),
+        "sweep_packed/thruster_ring/fd": (
+            "fd", "sweep_packed/thruster_ring/fd (euler)"),
+        "sweep_packed/thruster_ring/jvp": (
+            "jvp", "sweep_packed/thruster_ring/jvp (rk4)"),
+        "sweep_packed/quadrotor": ("model", "sweep_packed/quadrotor"),
+        "sweep_packed/quadrotor/fd": (
+            "fd", "sweep_packed/quadrotor/fd (rk4)"),
+        "sweep_packed/quadrotor/jvp": (
+            "jvp", "sweep_packed/quadrotor/jvp (rk4)")},
+    "sweep_small_team": {
+        "sweep_packed/acrobot/fd": ("fd", "sweep_packed/acrobot/fd (euler)"),
+        "sweep_packed/cartpole/fd": (
+            "fd", "sweep_packed/cartpole/fd (euler)"),
+        "sweep_packed/cartpole/jvp": (
+            "jvp", "sweep_packed/cartpole/jvp (rk4)"),
+        "sweep_packed/point_mass_3d/fd": (
+            "fd", "sweep_packed/point_mass_3d/fd (euler)")},
 }
 
 
@@ -2617,23 +2674,31 @@ TEAM_ITERATION = {"acrobot": 16, "cartpole": 16, "pendulum": 16,
                   "point_mass_3d": 32}
 
 
-def launched_kernel(kind, model) -> str:
+def launched_kernel(kind, model, form="analytic") -> str:
     """The kernel that ``model``'s ``kind`` launcher launches, by the
     compile-time picks of csrc/kernels.cuh (launcher_occupancy checks them
-    on the card): the backward kernel's team (csrc/backward.cuh) for every
-    model, custom ones too; for the package's models the line search's
-    team (csrc/linesearch_team.cuh), the whole iteration's team
-    (csrc/iteration_team.cuh) for TEAM_ITERATION, and where team_sweep the
-    sweep's and the whole iteration's warp (csrc/sweep_team.cuh,
-    csrc/iteration_warp.cuh); otherwise, and for every custom model, the
-    one-thread kernel."""
+    on the card): the backward kernel's team (csrc/backward.cuh) and the
+    derivative kernel's thread per (t, lane) (csrc/derivs.cuh) for
+    every model, custom ones too; for the package's models the line
+    search's team (csrc/linesearch_team.cuh), the whole iteration's team
+    (csrc/iteration_team.cuh) for TEAM_ITERATION, and its merged sweep's
+    in the stencil and dual-number forms (``form`` "fd" or "jvp"; the
+    closed forms, "analytic", keep one thread a lane: csrc/sweep_team.cuh
+    kSweepKind), and where team_sweep the sweep's and the whole
+    iteration's warp (csrc/sweep_team.cuh, csrc/iteration_warp.cuh);
+    otherwise, and for every custom model, the one-thread kernel."""
     if kind == "backward":
         return "backward_team_kernel"
+    if kind == "derivs":
+        return "derivs_entry_kernel"
     if kernel_rollout.kernel_owner(model) is None:
         if kind == "linesearch":
             return "linesearch_team_kernel"
         if kind == "iteration" and model.name in TEAM_ITERATION:
             return "iteration_team_kernel"
+        if (kind == "sweep" and model.name in TEAM_ITERATION
+                and form != "analytic"):
+            return "sweep_small_team_kernel"
         if kind in ("sweep", "iteration") and team_sweep(model):
             return {"sweep": "sweep_team_kernel",
                     "iteration": "iteration_warp_kernel"}[kind]
@@ -2641,29 +2706,41 @@ def launched_kernel(kind, model) -> str:
 
 
 def is_team(kernel) -> bool:
-    """Whether ``kernel`` is one of the team or warp kernels, which phase 3
-    holds bit for bit."""
+    """Whether ``kernel`` is one of the team or warp kernels (blocks of 128
+    threads, several threads a lane)."""
     return "_team_kernel" in kernel or "_warp_kernel" in kernel
 
 
-def sweep_team_cases(dev):
-    """The team sweep of thruster_ring (projected Newton, m = 12) and the
-    quadrotor (the enumeration, m = 4) in its three forms, on its edge cases
-    (SWEEP_EDGES), each derived from a phase-3 row's inputs. Held bit for
-    bit; their readings go into the row's edge_cases. Their plain versions
-    (a few steps each) run in a worker like the rows' (meta main False), not
-    in the main process after the workers as the team iteration's do."""
+def held_bitwise(kernel) -> bool:
+    """Whether phase 3 holds ``kernel`` bit for bit: the team and warp
+    kernels, and the derivative kernel (csrc/derivs.cuh), whose threads
+    store each entry as it is made."""
+    return is_team(kernel) or kernel.startswith("derivs_entry_kernel")
+
+
+def sweep_team_cases(dev, which):
+    """The team sweeps of builder ``which`` (SWEEP_EDGE_ROWS): the warp
+    sweep of thruster_ring (projected Newton, m = 12) and the quadrotor (the
+    enumeration, m = 4) in its three forms; the split sweep on the team of
+    the model's whole iteration (acrobot's stencils at B = 8192, cartpole's
+    stencils and dual numbers, point_mass_3d's stencils on the 32-thread
+    team). On their edge cases (SWEEP_EDGES), each derived from a
+    phase-3 row's inputs. Held bit for bit; their readings go into the
+    row's edge_cases. Their plain versions (a few steps each) run in a
+    worker like the rows' (meta main False), not in the main process after
+    the workers as the team iteration's do."""
     builders, out = {}, {}
-    for row, (builder, label) in SWEEP_EDGE_ROWS.items():
+    for row, (builder, label) in SWEEP_EDGE_ROWS[which].items():
         name = row.split("/")[1]
         if (builder, name) not in builders:
             builders[(builder, name)] = build_cases(dev, (builder, name))
         base = builders[(builder, name)][label]
         a = list(base.args)   # model 0, integrator 1, pp 2, xs 3, xT 4,
         #                       us 5, λ 6 (then mode, limits)
+        B0 = a[5].shape[-1]
         for edge in SWEEP_EDGES:
             Te = 1 if edge == "T1" else SWEEP_EDGE_T
-            B = SWEEP_EDGE_B if edge == "partial_block" else B_M
+            B = B0 - 3 if edge == "partial_block" else B0
             args = list(a)
             args[3] = a[3][:Te, :, :B].contiguous()
             args[4] = a[3][Te, :, :B].contiguous()   # x_T: the state there
@@ -2813,6 +2890,72 @@ def edge_cases(dev, which):
     return out
 
 
+# The derivative kernel's edge cases (csrc/derivs.cuh), on the first
+# DERIVS_EDGE_T steps of a row's inputs, in jvp mode and fd mode (the
+# latter's as fd_<edge>): 3 lanes short of the row's (B not a multiple of a
+# block's 32 lanes), T = 1, NaN in one lane's x0, and per-lane params (each
+# lane's goal moved). Rows: acrobot at B = 8192, point_mass_3d, the largest
+# stack before this design (thruster_ring24) and the custom unicycle
+# (row → (case builder, model, the jvp and fd cases' labels)).
+DERIVS_EDGES = ("partial_block", "T1", "nan_lane", "per_lane")
+DERIVS_EDGE_T = 20
+DERIVS_EDGE_ROWS = {
+    "derivs_packed/acrobot": ("acrobot", "acrobot", (
+        "derivs_packed (jvp)", "derivs_packed (fd)")),
+    "derivs_packed/point_mass_3d": ("derivs", "point_mass_3d", (
+        "derivs_packed/point_mass_3d (jvp, euler)",
+        "derivs_packed/point_mass_3d (fd, euler)")),
+    "derivs_packed/thruster_ring24": ("derivs", "thruster_ring24", (
+        "derivs_packed/thruster_ring24 (jvp, euler)",
+        "derivs_packed/thruster_ring24 (fd, euler)")),
+    "derivs_packed/unicycle": ("custom", "unicycle", (
+        "derivs_packed/unicycle (jvp)", "derivs_packed/unicycle (fd)"))}
+
+
+def derivs_edge_cases(dev):
+    """DERIVS_EDGES of DERIVS_EDGE_ROWS, each derived from a phase-3 case's
+    inputs (args: model, integrator, pp, xs (T+1, n, B), us (T, m, B),
+    mode[, eps]). Held bit for bit; their readings go into the row's
+    edge_cases. Their plain versions run in a worker (meta main False)."""
+    builders, out = {}, {}
+    for row, (builder, name, labels) in DERIVS_EDGE_ROWS.items():
+        if (builder, name) not in builders:
+            builders[(builder, name)] = build_cases(dev, (builder, name))
+        for label in labels:
+            base = builders[(builder, name)][label]
+            a = list(base.args)
+            T0, B0 = a[4].shape[0], a[4].shape[-1]
+            for i, edge in enumerate(DERIVS_EDGES):
+                Te = 1 if edge == "T1" else min(T0, DERIVS_EDGE_T)
+                B = B0 - 3 if edge == "partial_block" else B0
+                args = list(a)
+                args[3] = a[3][:Te + 1, :, :B].contiguous().clone()
+                args[4] = a[4][:Te, :, :B].contiguous()
+                rng = np.random.default_rng(i)
+                if edge == "nan_lane":
+                    args[3][0, :, 5] = float("nan")
+                elif edge == "per_lane":
+                    pp, n = a[2], a[0].n
+                    rows = pp.vec[None].repeat(B, 1)
+                    rows[:, :n] += torch.as_tensor(
+                        0.1 * rng.normal(size=(B, n)), dtype=torch.float32,
+                        device=dev)
+                    args[2] = kernel_rollout.PackedParams(
+                        rows.contiguous(), pp.cls, pp.shapes)
+                share = B * Te / (B0 * T0)
+                mode = a[5]
+                out[f"{row} ({mode}, {edge})"] = base._replace(
+                    args=tuple(args),
+                    ops=lambda f=base.ops, k=share: round(f() * k),
+                    where=f"at B={B} T={Te}", unread=None,
+                    meta=dict(base.meta, row=row, group="edge",
+                              edge=edge if mode == "jvp" else f"fd_{edge}",
+                              effort=round(base.meta["effort"] * share),
+                              main=False))
+            del base
+    return out
+
+
 def backward_edges(row, base):
     """BACKWARD_EDGES of the backward kernel's phase-3 row ``row``, from its
     case ``base`` (args: fx, fu, cx, cu, cxx, cxu, cuu, lo, hi, λ, cxT,
@@ -2888,9 +3031,10 @@ def split_cases(dev, name):
             readings)
     for mode, integ, group in readings:
         meta = dict(row=f"derivs_packed/{name}", group=group,
-                    kernel="derivs_kernel", model=name, limits=True, T=T,
-                    effort=effort("derivs", T, n, m)
-                    * (4 if integ == "rk4" else 1), source=src)
+                    kernel=launched_kernel("derivs", model), model=name,
+                    limits=True, T=T, effort=effort("derivs", T, n, m)
+                    * (4 if integ == "rk4" else 1), source=src,
+                    bitwise=True)
         out[f"derivs_packed/{name} ({mode}, {integ})"] = Case(
             kernel_derivs.derivs_packed, kernel_derivs.derivs_plain,
             (model, integ, pp, xs_full, us0, mode),
@@ -3277,7 +3421,7 @@ def lanes_cases(dev, name, packing="lanes"):
             f"at B={B} T={T} A={A}, one params row per lane", unread,
             dict(row=row, group="lanes", kernel=launched_kernel(kind, model),
                  model=name, limits=True, T=T, effort=effort(kind, T, n, m),
-                 bitwise=is_team(launched_kernel(kind, model))))
+                 bitwise=held_bitwise(launched_kernel(kind, model))))
     return out
 
 
@@ -3618,9 +3762,11 @@ def derivs_cases(dev, name):
             return step * Tc * B + rest * B
 
         meta = dict(row=f"derivs_packed/{name}", group=group,
-                    kernel="derivs_kernel", model=name, limits=True, T=Tc,
+                    kernel=launched_kernel("derivs", model), model=name,
+                    limits=True, T=Tc,
                     effort=effort("derivs", Tc, n, m) * B // 64 * (n + m),
-                    source=f"ilqr_tpu_torch/csrc/derivs_{name}.cu")
+                    source=f"ilqr_tpu_torch/csrc/derivs_{name}.cu",
+                    bitwise=True)
         label = f"derivs_packed/{name} ({mode}, {integ}" + (
             ", per-lane params)" if group == "lanes" else ")")
         out[label] = Case(kernel_derivs.derivs_packed,
@@ -4187,8 +4333,10 @@ def custom_cases(dev, name):
         out[label] = Case(op, plain, args, ops, f"at B={B} T={T} A={A}",
                           unread, dict(
                               row=row, group=group,
-                              kernel=f"{kind}_kernel{suffix}", model=name,
-                              limits=True, T=T,
+                              kernel=launched_kernel(kind, model)
+                              + suffix, model=name, limits=True, T=T,
+                              bitwise=held_bitwise(
+                                  launched_kernel(kind, model)),
                               effort=effort(kind, T, n, m)
                               * (8 if mode == "jvp" and kind in (
                                   "sweep", "iteration") else 1),
@@ -5297,7 +5445,7 @@ def main() -> int:
     occupancy = launcher_occupancy()
     for (kernel, model_name, limits), (blocks, threads, smem) in sorted(
             occupancy.items(), key=lambda kv: str(kv[0])):
-        if not is_team(kernel):
+        if not held_bitwise(kernel):
             continue
         e = ptxas.get((kernel, model_name, limits), {})
         what = ("a warp per lane, 4 lanes a block"
@@ -5305,9 +5453,12 @@ def main() -> int:
                                       "iteration_warp_kernel"))
                 else "a team per lane, fed by a cp.async ring"
                 if kernel == "backward_team_kernel"
+                else "a thread per (t, lane) storing each entry as it is made, "
+                "256 lanes of one step a block" if kernel.startswith("derivs_entry_kernel")
                 else f"a team of {TEAM_ITERATION[model_name]} threads per "
                 f"lane, {128 // TEAM_ITERATION[model_name]} lanes a block"
-                if kernel.startswith("iteration_team_kernel")
+                if kernel.startswith(("iteration_team_kernel",
+                                      "sweep_small_team_kernel"))
                 else "a team of 16 threads per lane, 8 lanes a block")
         print(f"[build] {kernel}<{model_name}"
               + ("" if limits is None else f", {limits}"

@@ -84,6 +84,42 @@ __device__ __forceinline__ float second(const typename Model::Params& p,
   return (fpp - fpm - fmp + fmm) / s.den2;
 }
 
+// Direction a of (x, u), the states first: column a of the discrete step's
+// Jacobian (fx | fu) into col, and entry a of the running cost's gradient
+// (cx | cu) returned, each (F₊ − F₋) / den1
+template <class Model>
+__device__ __forceinline__ float direction(const typename Model::Params& p,
+                                           const float x[Model::N],
+                                           const float u[Model::M], int a,
+                                           const Stencil& s,
+                                           float col[Model::N]) {
+  constexpr int N = Model::N, M = Model::M;
+  float xp[N], up[M], xm[N], um[M], yp[N], ym[N];
+  shift<Model>(x, u, a, -1, 0.0f, s.eps, true, xp, up);
+  shift<Model>(x, u, a, -1, 0.0f, s.eps, false, xm, um);
+  integrate::step<Model>(p, xp, up, s.scheme, yp);
+  integrate::step<Model>(p, xm, um, s.scheme, ym);
+  const float dc = (Model::cost(p, xp, up) - Model::cost(p, xm, um))
+                   / s.den1;
+#pragma unroll
+  for (int r = 0; r < N; ++r) col[r] = (yp[r] - ym[r]) / s.den1;
+  return dc;
+}
+
+// Entry a of the final cost's gradient at x_T, with u_T = 0
+template <class Model>
+__device__ __forceinline__ float final_direction(
+    const typename Model::Params& p, const float xT[Model::N], int a,
+    const Stencil& s) {
+  constexpr int N = Model::N, M = Model::M;
+  float u0[M], xp[N], up[M], xm[N], um[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) u0[j] = 0.0f;
+  shift<Model>(xT, u0, a, -1, 0.0f, s.eps, true, xp, up);
+  shift<Model>(xT, u0, a, -1, 0.0f, s.eps, false, xm, um);
+  return (Model::final_cost(p, xp) - Model::final_cost(p, xm)) / s.den1;
+}
+
 // fx, fu of the discrete step and cx, cu, cxx, cxu, cuu of the running cost
 // at (x, u), every entry written (the symmetric blocks mirrored).
 template <class Model>
@@ -96,20 +132,15 @@ __device__ __forceinline__ void linearize(
   constexpr int N = Model::N, M = Model::M, NZ = N + M;
 #pragma unroll 1
   for (int a = 0; a < NZ; ++a) {
-    float xp[N], up[M], xm[N], um[M], yp[N], ym[N];
-    shift<Model>(x, u, a, -1, 0.0f, s.eps, true, xp, up);
-    shift<Model>(x, u, a, -1, 0.0f, s.eps, false, xm, um);
-    integrate::step<Model>(p, xp, up, s.scheme, yp);
-    integrate::step<Model>(p, xm, um, s.scheme, ym);
-    const float dc = (Model::cost(p, xp, up) - Model::cost(p, xm, um))
-                     / s.den1;
+    float col[N];
+    const float dc = direction<Model>(p, x, u, a, s, col);
     if (a < N) {
 #pragma unroll
-      for (int r = 0; r < N; ++r) fx[r][a] = (yp[r] - ym[r]) / s.den1;
+      for (int r = 0; r < N; ++r) fx[r][a] = col[r];
       cx[a] = dc;
     } else {
 #pragma unroll
-      for (int r = 0; r < N; ++r) fu[r][a - N] = (yp[r] - ym[r]) / s.den1;
+      for (int r = 0; r < N; ++r) fu[r][a - N] = col[r];
       cu[a - N] = dc;
     }
   }
@@ -143,12 +174,7 @@ __device__ __forceinline__ void terminal(const typename Model::Params& p,
 #pragma unroll
   for (int j = 0; j < M; ++j) u0[j] = 0.0f;
 #pragma unroll 1
-  for (int a = 0; a < N; ++a) {
-    float xp[N], up[M], xm[N], um[M];
-    shift<Model>(xT, u0, a, -1, 0.0f, s.eps, true, xp, up);
-    shift<Model>(xT, u0, a, -1, 0.0f, s.eps, false, xm, um);
-    vx[a] = (Model::final_cost(p, xp) - Model::final_cost(p, xm)) / s.den1;
-  }
+  for (int a = 0; a < N; ++a) vx[a] = final_direction<Model>(p, xT, a, s);
 #pragma unroll 1
   for (int a = 0; a < N; ++a) {
 #pragma unroll 1

@@ -6,11 +6,17 @@
 // gain entries a half warp does not hold (kTeamWidth). The one-thread
 // iteration_kernel of kernels.cuh redesigned for this card. The models with
 // m·n ≥ 32 take iteration_warp.cuh's warp per lane; every custom model
-// keeps the one-thread kernel.
+// keeps the one-thread kernel. The same models' merged sweep
+// (sweep_packed, the split iteration) in its stencil and dual-number forms
+// is phase 0 below alone, on the same team (sweep_small_team_kernel, in
+// place of kernels.cuh sweep_kernel, which their closed forms keep:
+// sweep_team.cuh kSweepKind).
 //
 // Replaces: ilqr_tpu/ops/pallas_iter.py iteration_packed (_iter_kernel), as
 // kernels.cuh iteration_kernel does, on the same inputs, outputs and gain
-// buffer, with the same launcher names and signatures.
+// buffer, with the same launcher names and signatures; and
+// ilqr_tpu/ops/pallas_sweep.py sweep_packed (_kernel) for these models, as
+// kernels.cuh sweep_kernel does.
 // Bound on this card: as the one-thread kernel's, latency first. One thread
 // per lane left two warps on an SM at B = 8192 (one block of 64 each), and
 // used 16 of the 132 SMs at B = 1024, so every dependent instruction's
@@ -76,6 +82,20 @@ constexpr int kMinBlocks = 4;
 constexpr int kMinBlocks32 = 2;
 template <int W>
 constexpr int kMinBlocksOf = W == kTeam ? kMinBlocks : kMinBlocks32;
+// The split-sweep team kernel (sweep_small_team_kernel, below) takes the
+// same two constants: it holds no line-search candidates, but phase 0 sets
+// its registers. Timed on an H100 (700 W) at phase 3's shapes, two
+// readings each, min blocks 2 / 3 / 4 / 5 / 6 at W = 16: acrobot fd (B =
+// 8192) 4.14-4.23 / 4.20-4.30 / 3.42-3.57 / 3.62-3.63 / 4.01-4.10 ms,
+// acrobot analytic 1.30-1.32 / 1.28-1.31 / 1.27-1.35 / 1.23-1.33 /
+// 1.41-1.46, cartpole fd 0.72-0.81 / 0.75-0.80 / 0.79 / 0.80-0.88 /
+// 0.86-0.89, cartpole jvp + RK4 1.27 / 1.29-1.34 / 1.40-1.41 / 1.42-1.51 /
+// 1.50-1.52, pendulum fd 0.36-0.37 / 0.38 / 0.39-0.40 / 0.33-0.35 /
+// 0.33-0.37; 1 / 2 / 3 at W = 32: point_mass_3d fd 1.26-1.35 / 1.27-1.49 /
+// 1.53-1.56 (3 spills 468 B), its jvp + RK4 1.10-1.16 / 1.09-1.20 /
+// 1.33-1.36, power_mass fd 0.40-0.43 / 0.41-0.45 / 0.42-0.43. No count
+// wins every row beyond the others' spread; 4 and 2 take acrobot's fd row,
+// the largest, and the rest overlap.
 
 // The team of W threads of this thread: half a warp or the warp
 template <int W>
@@ -315,45 +335,21 @@ __device__ __forceinline__ Jvp<W> spread(sweep::Jvp d, const TeamOf<W>& tm) {
   return {d, tm};
 }
 
+// Phase 0, the merged linearize + backward sweep of one lane, on its team:
+// the gains of every step into k_out and K_out (thread q stores entry q of
+// a row), V_T from xterm; returns the carry, the same on every thread of
+// the team. A team that runs Tl = 0 steps (a lane past B) stores nothing.
+// The whole-iteration team kernel and the split-sweep team kernel both run
+// it.
 template <class Model, bool kLimits, class Deriv, int W>
-__global__ void __launch_bounds__(kBlock, kMinBlocksOf<W>)
-iteration_team_kernel(const float* __restrict__ params, int pstride,
-                      const float* __restrict__ x0,
-                      const float* __restrict__ xs,
-                      const float* __restrict__ xterm,
-                      const float* __restrict__ us,
-                      const float* __restrict__ Kold,
-                      const float* __restrict__ kold,
-                      const float* __restrict__ alphas, int A,
-                      const float* __restrict__ lam,
-                      const float* __restrict__ cprev,
-                      const float* __restrict__ live,
-                      float* __restrict__ xs_out, float* __restrict__ us_out,
-                      float* __restrict__ xfin, float* __restrict__ k_out,
-                      float* __restrict__ K_out, float* __restrict__ lscost,
-                      float* __restrict__ alpha_sel, float* __restrict__ acc,
-                      float* __restrict__ dcost,
-                      float* __restrict__ expected,
-                      float* __restrict__ div_out,
-                      float* __restrict__ gnorm_out, float* gains,
-                      float z_min, float tol_grad, float lam_grad_term, int T,
-                      int B_, int clamp, int scheme, Deriv d) {
+__device__ __forceinline__ sweep::Carry<Model> sweep_phase(
+    const TeamOf<W>& tm, const typename Model::Params& p,
+    const float* __restrict__ xs, const float* __restrict__ xterm,
+    const float* __restrict__ us, float lm, int Tl, size_t B, int ln,
+    float* __restrict__ k_out, float* __restrict__ K_out, const Deriv& d) {
   constexpr int N = Model::N, M = Model::M, G = M * (N + 1);
   static_assert(G <= W, "a team stores a gain row, one entry a thread");
-  static_assert(fused::kMaxA <= W, "a team holds every candidate");
-  const TeamOf<W> tm = team_of<W>();
-  const int lane = blockIdx.x * (kBlock / W) + threadIdx.x / W;
-  const bool valid = lane < B_;
-  const int ln = valid ? lane : B_ - 1;  // where a team past B reads
-  const int Tl = valid ? T : 0;          // … and the steps it runs
-  const bool writer = valid && tm.rank == 0;
-  const size_t B = B_;
-  const typename Model::Params p = fused::load_lane<Model>(params, pstride,
-                                                           ln);
   const auto dd = spread(d, tm);
-
-  // phase 0: merged linearize + backward sweep, the gains into k_out, K_out
-  const float lm = lam[ln];
   sweep::Carry<Model> c;
   {
     float xT[N];
@@ -427,6 +423,48 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
     else if (tm.rank < G)
       K_out[(static_cast<size_t>(t) * M * N + tm.rank - M) * B + ln] = v;
   }
+  return c;
+}
+
+template <class Model, bool kLimits, class Deriv, int W>
+__global__ void __launch_bounds__(kBlock, kMinBlocksOf<W>)
+iteration_team_kernel(const float* __restrict__ params, int pstride,
+                      const float* __restrict__ x0,
+                      const float* __restrict__ xs,
+                      const float* __restrict__ xterm,
+                      const float* __restrict__ us,
+                      const float* __restrict__ Kold,
+                      const float* __restrict__ kold,
+                      const float* __restrict__ alphas, int A,
+                      const float* __restrict__ lam,
+                      const float* __restrict__ cprev,
+                      const float* __restrict__ live,
+                      float* __restrict__ xs_out, float* __restrict__ us_out,
+                      float* __restrict__ xfin, float* __restrict__ k_out,
+                      float* __restrict__ K_out, float* __restrict__ lscost,
+                      float* __restrict__ alpha_sel, float* __restrict__ acc,
+                      float* __restrict__ dcost,
+                      float* __restrict__ expected,
+                      float* __restrict__ div_out,
+                      float* __restrict__ gnorm_out, float* gains,
+                      float z_min, float tol_grad, float lam_grad_term, int T,
+                      int B_, int clamp, int scheme, Deriv d) {
+  constexpr int N = Model::N, M = Model::M, G = M * (N + 1);
+  static_assert(fused::kMaxA <= W, "a team holds every candidate");
+  const TeamOf<W> tm = team_of<W>();
+  const int lane = blockIdx.x * (kBlock / W) + threadIdx.x / W;
+  const bool valid = lane < B_;
+  const int ln = valid ? lane : B_ - 1;  // where a team past B reads
+  const int Tl = valid ? T : 0;          // … and the steps it runs
+  const bool writer = valid && tm.rank == 0;
+  const size_t B = B_;
+  const typename Model::Params p = fused::load_lane<Model>(params, pstride,
+                                                           ln);
+
+  // phase 0: merged linearize + backward sweep, the gains into k_out, K_out
+  const float lm = lam[ln];
+  const sweep::Carry<Model> c = sweep_phase<Model, kLimits, Deriv, W>(
+      tm, p, xs, xterm, us, lm, Tl, B, ln, k_out, K_out, d);
   // the gain rows the team stored, visible to every thread of it
   __syncwarp(tm.mask);
   const float gn = c.gacc * static_cast<float>(1.0 / T);
@@ -454,6 +492,39 @@ iteration_team_kernel(const float* __restrict__ params, int pstride,
     acc[lane] = s.accepted;
     dcost[lane] = s.dcost;
     expected[lane] = s.expected;
+  }
+}
+
+// sweep_packed of the same models (their split iteration, iter_kernel=
+// "split") with the stencils or the dual numbers: phase 0 alone, on the
+// whole-iteration kernel's team and blocks, then dv, div and gnorm from
+// thread 0 of each team. Replaces kernels.cuh sweep_kernel for these
+// models and forms, on the same inputs and outputs, with the same launcher
+// names and signatures (fused::launch_model_sweep, sweep_team.cuh).
+template <class Model, bool kLimits, class Deriv, int W>
+__global__ void __launch_bounds__(kBlock, kMinBlocksOf<W>)
+sweep_small_team_kernel(const float* __restrict__ params, int pstride,
+                        const float* __restrict__ xs,
+                        const float* __restrict__ xterm,
+                        const float* __restrict__ us,
+                        const float* __restrict__ lam,
+                        float* __restrict__ k_out, float* __restrict__ K_out,
+                        float* __restrict__ dv, float* __restrict__ div,
+                        float* __restrict__ gnorm, int T, int B_, Deriv d) {
+  const TeamOf<W> tm = team_of<W>();
+  const int lane = blockIdx.x * (kBlock / W) + threadIdx.x / W;
+  const bool valid = lane < B_;
+  const int ln = valid ? lane : B_ - 1;  // where a team past B reads
+  const size_t B = B_;
+  const typename Model::Params p = fused::load_lane<Model>(params, pstride,
+                                                           ln);
+  const sweep::Carry<Model> c = sweep_phase<Model, kLimits, Deriv, W>(
+      tm, p, xs, xterm, us, lam[ln], valid ? T : 0, B, ln, k_out, K_out, d);
+  if (valid && tm.rank == 0) {
+    dv[lane] = c.dv0;
+    dv[B + lane] = c.dv1;
+    div[lane] = c.div;
+    gnorm[lane] = c.gacc * static_cast<float>(1.0 / T);
   }
 }
 

@@ -59,6 +59,51 @@ __device__ __forceinline__ void seed2(const float x[Model::N],
     ud[j] = {{u[j], basis(N + j, b)}, {basis(N + j, a), 0.0f}};
 }
 
+// Direction a of (x, u), the states first: column a of the discrete step's
+// Jacobian (fx | fu) into col, and entry a of the running cost's gradient
+// (cx | cu) returned, from one first-order dual pass
+template <class Model>
+__device__ __forceinline__ float direction(const typename Model::Params& p,
+                                           const float x[Model::N],
+                                           const float u[Model::M], int a,
+                                           int scheme, float col[Model::N]) {
+  constexpr int N = Model::N, M = Model::M;
+  D1 xd[N], ud[M], y[N];
+  seed1<Model>(x, u, a, xd, ud);
+  integrate::step<Model, D1>(p, xd, ud, scheme, y);
+  const float dc = Model::cost(p, xd, ud).d;
+#pragma unroll
+  for (int r = 0; r < N; ++r) col[r] = y[r].d;
+  return dc;
+}
+
+// The second derivative of the running cost (or, kRunning false, the final
+// cost, which ignores u) along the pair (a, b): one second-order pass
+template <class Model, bool kRunning>
+__device__ __forceinline__ float second(const typename Model::Params& p,
+                                        const float x[Model::N],
+                                        const float u[Model::M], int a,
+                                        int b) {
+  constexpr int N = Model::N, M = Model::M;
+  D2 xd[N], ud[M];
+  seed2<Model>(x, u, a, b, xd, ud);
+  if constexpr (kRunning) return Model::cost(p, xd, ud).d.d;
+  return Model::final_cost(p, xd).d.d;
+}
+
+// Entry a of the final cost's gradient at x_T, with u_T = 0
+template <class Model>
+__device__ __forceinline__ float final_direction(
+    const typename Model::Params& p, const float xT[Model::N], int a) {
+  constexpr int N = Model::N, M = Model::M;
+  float u0[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) u0[j] = 0.0f;
+  D1 xd[N], ud[M];
+  seed1<Model>(xT, u0, a, xd, ud);
+  return Model::final_cost(p, xd).d;
+}
+
 // fx, fu of the discrete step and cx, cu, cxx, cxu, cuu of the running cost
 // at (x, u), every entry written (the symmetric blocks mirrored).
 template <class Model>
@@ -71,17 +116,15 @@ __device__ __forceinline__ void linearize(
   constexpr int N = Model::N, M = Model::M, NZ = N + M;
 #pragma unroll 1
   for (int a = 0; a < NZ; ++a) {
-    D1 xd[N], ud[M], y[N];
-    seed1<Model>(x, u, a, xd, ud);
-    integrate::step<Model, D1>(p, xd, ud, scheme, y);
-    const float dc = Model::cost(p, xd, ud).d;
+    float col[N];
+    const float dc = direction<Model>(p, x, u, a, scheme, col);
     if (a < N) {
 #pragma unroll
-      for (int r = 0; r < N; ++r) fx[r][a] = y[r].d;
+      for (int r = 0; r < N; ++r) fx[r][a] = col[r];
       cx[a] = dc;
     } else {
 #pragma unroll
-      for (int r = 0; r < N; ++r) fu[r][a - N] = y[r].d;
+      for (int r = 0; r < N; ++r) fu[r][a - N] = col[r];
       cu[a - N] = dc;
     }
   }
@@ -89,9 +132,7 @@ __device__ __forceinline__ void linearize(
   for (int a = 0; a < NZ; ++a) {
 #pragma unroll 1
     for (int b = a; b < NZ; ++b) {
-      D2 xd[N], ud[M];
-      seed2<Model>(x, u, a, b, xd, ud);
-      const float h = Model::cost(p, xd, ud).d.d;
+      const float h = second<Model, true>(p, x, u, a, b);
       if (b < N) {
         cxx[a][b] = h;
         cxx[b][a] = h;
@@ -117,18 +158,12 @@ __device__ __forceinline__ void terminal(const typename Model::Params& p,
 #pragma unroll
   for (int j = 0; j < M; ++j) u0[j] = 0.0f;
 #pragma unroll 1
-  for (int a = 0; a < N; ++a) {
-    D1 xd[N], ud[M];
-    seed1<Model>(xT, u0, a, xd, ud);
-    vx[a] = Model::final_cost(p, xd).d;
-  }
+  for (int a = 0; a < N; ++a) vx[a] = final_direction<Model>(p, xT, a);
 #pragma unroll 1
   for (int a = 0; a < N; ++a) {
 #pragma unroll 1
     for (int b = a; b < N; ++b) {
-      D2 xd[N], ud[M];
-      seed2<Model>(xT, u0, a, b, xd, ud);
-      const float h = Model::final_cost(p, xd).d.d;
+      const float h = second<Model, false>(p, xT, u0, a, b);
       vxx[a][b] = h;
       vxx[b][a] = h;
     }

@@ -23,7 +23,12 @@
 //    sweep_team.cuh's sweep (iteration_warp.cuh); no package model keeps
 //    iteration_kernel;
 //  - the merged sweep (sweep_packed) of the models with m·n ≥ 32 is a warp
-//    per lane (sweep_team.cuh); every other model keeps sweep_kernel.
+//    per lane (sweep_team.cuh), the stencil and dual-number sweeps of the
+//    models with a team iteration (m·n < 32) the same team as their whole
+//    iteration, its phase 0 alone (iteration_team.cuh
+//    sweep_small_team_kernel); their closed-form sweeps (faster on one
+//    thread a lane, sweep_team.cuh kSweepKind) and every custom model's
+//    keep sweep_kernel.
 //
 // The integrator (Euler or RK4, integrate.cuh) is a runtime argument of
 // every kernel. The sweep and whole-iteration kernels are templates on the
@@ -462,20 +467,6 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
-template <class Model, class Deriv>
-inline int launch_sweep(const void* params, int pstride, const void* xs,
-                        const void* xterm, const void* us, const void* lam,
-                        void* k, void* K, void* dv, void* div, void* gnorm,
-                        int T, int B, int use_limits, Deriv d,
-                        void* stream) {
-  return launch(use_limits ? sweep_kernel<Model, true, Deriv>
-                           : sweep_kernel<Model, false, Deriv>,
-                B, stream, (const float*)params, pstride, (const float*)xs,
-                (const float*)xterm, (const float*)us, (const float*)lam,
-                (float*)k, (float*)K, (float*)dv, (float*)div, (float*)gnorm,
-                T, B, d);
-}
-
 }  // namespace fused
 
 // The line search as a team of 16 threads per lane and the launch that
@@ -500,8 +491,11 @@ inline int launch_sweep(const void* params, int pstride, const void* xs,
 // compile time (fused::launch_model_linesearch, launch_model_sweep,
 // launch_whole_iteration): the line search's team kernel
 // (linesearch_team.cuh; linesearch_kernel for a custom model); the sweep's
-// sweep_kernel, or the warp kernel of sweep_team.cuh where fused::TeamSweep
-// picks it (m·n ≥ 32, custom models excepted); the whole iteration's
+// warp kernel of sweep_team.cuh where fused::TeamSweep picks it (m·n ≥ 32,
+// custom models excepted), the team kernel of iteration_team.cuh
+// (sweep_small_team_kernel) for the stencils and dual numbers where the
+// model has kTeamIteration, else sweep_kernel (the closed forms of those
+// models, custom models; fused::kSweepKind); the whole iteration's
 // iteration_kernel, the team kernel of iteration_team.cuh where the model
 // has kTeamIteration (16 threads a lane for acrobot, cartpole, pendulum; 32
 // for double_integrator, bicycle, power_mass, point_mass_3d), or the warp
@@ -510,8 +504,8 @@ inline int launch_sweep(const void* params, int pstride, const void* xs,
 // ilqr_<NAME>_{sweep,iteration}[_fd|_jvp]_blocks_per_sm(use_limits,
 // int* threads, int* smem_bytes): the blocks of that kernel an SM holds,
 // and the threads and dynamic shared memory of each; -1 where a CUDA call
-// fails; and ilqr_<NAME>_iteration[_fd|_jvp]_lane_threads(): the threads a
-// lane of the whole-iteration kernel (1, 16 or 32).
+// fails; and ilqr_<NAME>_{sweep,iteration}[_fd|_jvp]_lane_threads(): the
+// threads a lane of that kernel (1, 16 or 32).
 // ILQR_FUSED_LAUNCHERS instantiates the four analytic kernels; a model
 // whose kernels take nvcc minutes (the quadrotor's 81-candidate QP) puts
 // ILQR_SPLIT_LAUNCHERS (rollout, sweep, line search) and
@@ -614,6 +608,9 @@ inline int launch_sweep(const void* params, int pstride, const void* xs,
       int use_limits, int* threads, int* smem_bytes) {                       \
     return fused::sweep_blocks_per_sm<MODEL, DERIV>(use_limits, threads,     \
                                                     smem_bytes);             \
+  }                                                                          \
+  extern "C" int ilqr_##NAME##_sweep##SUFFIX##_lane_threads() {              \
+    return fused::sweep_lane_threads<MODEL, DERIV>();                        \
   }
 
 #define ILQR_SPLIT_LAUNCHERS(NAME, MODEL)                                      \

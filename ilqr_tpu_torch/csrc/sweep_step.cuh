@@ -81,6 +81,29 @@ struct FiniteDiff {
       float vx[Model::N], float vxx[Model::N][Model::N]) const {
     fd::terminal<Model>(p, xT, s, vx, vxx);
   }
+  // the units of linearize and terminal one at a time (derivs.cuh): a
+  // direction of (x, u), a pair of the running (or final) cost's Hessian,
+  // a direction of the final cost's gradient
+  template <class Model>
+  __device__ __forceinline__ float direction(const typename Model::Params& p,
+                                             const float x[Model::N],
+                                             const float u[Model::M], int a,
+                                             float col[Model::N]) const {
+    return fd::direction<Model>(p, x, u, a, s, col);
+  }
+  template <class Model, bool kRunning>
+  __device__ __forceinline__ float second(const typename Model::Params& p,
+                                          const float x[Model::N],
+                                          const float u[Model::M], int a,
+                                          int b) const {
+    return fd::second<Model, kRunning>(p, x, u, a, b, s);
+  }
+  template <class Model>
+  __device__ __forceinline__ float final_direction(
+      const typename Model::Params& p, const float xT[Model::N],
+      int a) const {
+    return fd::final_direction<Model>(p, xT, a, s);
+  }
 };
 struct Jvp {
   static constexpr bool kDense = true;
@@ -99,6 +122,27 @@ struct Jvp {
       const typename Model::Params& p, const float xT[Model::N],
       float vx[Model::N], float vxx[Model::N][Model::N]) const {
     jvp::terminal<Model>(p, xT, vx, vxx);
+  }
+  // the units of linearize and terminal one at a time (as FiniteDiff's)
+  template <class Model>
+  __device__ __forceinline__ float direction(const typename Model::Params& p,
+                                             const float x[Model::N],
+                                             const float u[Model::M], int a,
+                                             float col[Model::N]) const {
+    return jvp::direction<Model>(p, x, u, a, scheme, col);
+  }
+  template <class Model, bool kRunning>
+  __device__ __forceinline__ float second(const typename Model::Params& p,
+                                          const float x[Model::N],
+                                          const float u[Model::M], int a,
+                                          int b) const {
+    return jvp::second<Model, kRunning>(p, x, u, a, b);
+  }
+  template <class Model>
+  __device__ __forceinline__ float final_direction(
+      const typename Model::Params& p, const float xT[Model::N],
+      int a) const {
+    return jvp::final_direction<Model>(p, xT, a);
   }
 };
 

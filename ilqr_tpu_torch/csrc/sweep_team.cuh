@@ -2,7 +2,11 @@
 // 32 threads per lane, one warp, for the models that take the split
 // iteration (m·n ≥ 32: the quadrotor, n = 12, m = 4, and the m ≥ 5 models,
 // n = 6, 5 ≤ m ≤ 24): the one-thread sweep_kernel of kernels.cuh redesigned
-// for this card. Every other model and every custom model keeps that one.
+// for this card. The models with m·n < 32 run their stencil and
+// dual-number sweeps on the team of their whole iteration (iteration_team.cuh
+// sweep_small_team_kernel) and their closed-form sweep on one thread a
+// lane, as every custom model does. fused::launch_model_sweep, at the end
+// of this file, picks among the three at compile time (kSweepKind).
 // The same models' whole iteration runs this sweep as its phase 0
 // (sweep_lane, iteration_warp.cuh).
 //
@@ -1178,25 +1182,6 @@ inline int prepare(size_t& smem) {
   return err;
 }
 
-template <class Model, class Deriv>
-inline int launch_sweep(const void* params, int pstride, const void* xs,
-                        const void* xterm, const void* us, const void* lam,
-                        void* k, void* K, void* dv, void* div, void* gnorm,
-                        int T, int B, int use_limits, Deriv d, void* stream) {
-  size_t smem = 0;
-  const int err =
-      use_limits ? prepare<Model, sweep_team_kernel<Model, true, Deriv>>(smem)
-                 : prepare<Model, sweep_team_kernel<Model, false, Deriv>>(smem);
-  if (err != 0) return err;
-  auto kernel = use_limits ? sweep_team_kernel<Model, true, Deriv>
-                           : sweep_team_kernel<Model, false, Deriv>;
-  kernel<<<(B + kLanes - 1) / kLanes, kBlock, smem, (cudaStream_t)stream>>>(
-      (const float*)params, pstride, (const float*)xs, (const float*)xterm,
-      (const float*)us, (const float*)lam, (float*)k, (float*)K, (float*)dv,
-      (float*)div, (float*)gnorm, T, B, d);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace sweep_team
 
 namespace fused {
@@ -1205,8 +1190,8 @@ namespace fused {
 // m·n ≥ 32, which take the split iteration (fused._use_iter_kernel), where
 // the team covers them (m ≥ 4, n + m ≤ 32: every such model of the package).
 // A model opts out with static constexpr bool kTeamSweep = false, as every
-// custom model does (custom.cuh DensePattern); every other model keeps the
-// one-thread kernel.
+// custom model does (custom.cuh DensePattern); the other models' dense
+// sweeps take the team of their whole iteration (kSweepKind below).
 template <class Model>
 constexpr bool kTeamSweepRule = Model::M >= 4 &&
                                 Model::M * Model::N >= 32 &&
@@ -1220,14 +1205,79 @@ struct TeamSweep<Model, std::void_t<decltype(Model::kTeamSweep)>> {
   static constexpr bool value = Model::kTeamSweep && kTeamSweepRule<Model>;
 };
 
-// The sweep launch of ILQR_SPLIT_LAUNCHERS, ILQR_FD_SWEEP_LAUNCHER and
-// ILQR_JVP_SWEEP_LAUNCHER: the model's one kernel, chosen at compile time
-template <class Model, class Deriv, class... Args>
-inline int launch_model_sweep(Args... args) {
-  if constexpr (TeamSweep<Model>::value)
-    return sweep_team::launch_sweep<Model, Deriv>(args...);
+// The kernel of a model's merged sweep: the warp where TeamSweep picks it
+// (m·n ≥ 32), the team of the model's whole iteration where it has one
+// (TeamIteration; 16 threads a lane or 32, team::kTeamWidth) and the
+// derivatives are dense (the stencils, the dual numbers: their sides,
+// passes and Hessian pairs spread over the team), else the one-thread
+// kernel: custom models, and the closed forms (Analytic), of which the team
+// spreads only Model::jac while each of its threads runs the whole Riccati
+// step. Timed on an H100 (700 W) against the one-thread kernel, parent and
+// change in turns, four passes each (tools/sweep_ab.py): the team's closed
+// forms 0.48× on acrobot (B = 8192, T = 499: 1.31-1.40 ms against
+// 0.61-0.71), 0.72-0.95× on the m = 2-3 models and pendulum, 1.11× on
+// cartpole (B = 1024); its dense forms 1.34-3.79× but acrobot's jvp + RK4
+// (0.98×, where one thread a lane already fills the card).
+template <class Model, class Deriv>
+constexpr int kSweepKind = TeamSweep<Model>::value ? 2
+                           : TeamIteration<Model>::value && Deriv::kDense
+                               ? 1
+                               : 0;
+
+template <class Model, bool kLimits, class Deriv>
+constexpr auto sweep_kernel_of() {
+  if constexpr (kSweepKind<Model, Deriv> == 2)
+    return sweep_team::sweep_team_kernel<Model, kLimits, Deriv>;
+  else if constexpr (kSweepKind<Model, Deriv> == 1)
+    return team::sweep_small_team_kernel<Model, kLimits, Deriv,
+                                         team::kTeamWidth<Model>>;
   else
-    return launch_sweep<Model, Deriv>(args...);
+    return sweep_kernel<Model, kLimits, Deriv>;
+}
+
+// The launch geometry of that kernel: threads and lanes a block, dynamic
+// shared memory (with the allowance the warp kernel needs, set once);
+// returns the status of that call
+template <class Model, bool kLimits, class Deriv>
+inline int sweep_geometry(int& threads, int& lanes, size_t& smem) {
+  smem = 0;
+  if constexpr (kSweepKind<Model, Deriv> == 2) {
+    threads = sweep_team::kBlock;
+    lanes = sweep_team::kLanes;
+    return sweep_team::prepare<
+        Model, sweep_team::sweep_team_kernel<Model, kLimits, Deriv>>(smem);
+  } else if constexpr (kSweepKind<Model, Deriv> == 1) {
+    threads = team::kBlock;
+    lanes = team::kBlock / team::kTeamWidth<Model>;
+  } else {
+    threads = kBlock;
+    lanes = kBlock;
+  }
+  return 0;
+}
+
+// The sweep launch of ILQR_SPLIT_LAUNCHERS, ILQR_FD_SWEEP_LAUNCHER and
+// ILQR_JVP_SWEEP_LAUNCHER: the model's one kernel, chosen at compile time,
+// with limits (the box QP) or without
+template <class Model, class Deriv>
+inline int launch_model_sweep(const void* params, int pstride, const void* xs,
+                              const void* xterm, const void* us,
+                              const void* lam, void* k, void* K, void* dv,
+                              void* div, void* gnorm, int T, int B,
+                              int use_limits, Deriv d, void* stream) {
+  int threads = 0, lanes = 1;
+  size_t smem = 0;
+  const int err =
+      use_limits ? sweep_geometry<Model, true, Deriv>(threads, lanes, smem)
+                 : sweep_geometry<Model, false, Deriv>(threads, lanes, smem);
+  if (err != 0) return err;
+  const auto kernel = use_limits ? sweep_kernel_of<Model, true, Deriv>()
+                                 : sweep_kernel_of<Model, false, Deriv>();
+  kernel<<<(B + lanes - 1) / lanes, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)params, pstride, (const float*)xs, (const float*)xterm,
+      (const float*)us, (const float*)lam, (float*)k, (float*)K, (float*)dv,
+      (float*)div, (float*)gnorm, T, B, d);
+  return (int)cudaGetLastError();
 }
 
 // Blocks an SM holds at once of the sweep kernel that launch_model_sweep
@@ -1235,35 +1285,28 @@ inline int launch_model_sweep(Args... args) {
 // where a CUDA call fails
 template <class Model, class Deriv>
 inline int sweep_blocks_per_sm(int use_limits, int* threads, int* smem_bytes) {
-  int n = 0;
-  cudaError_t err;
-  if constexpr (TeamSweep<Model>::value) {
-    size_t smem = 0;
-    if ((use_limits
-             ? sweep_team::prepare<
-                   Model, sweep_team::sweep_team_kernel<Model, true, Deriv>>(
-                   smem)
-             : sweep_team::prepare<
-                   Model, sweep_team::sweep_team_kernel<Model, false, Deriv>>(
-                   smem)) != 0)
-      return -1;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n,
-        use_limits ? sweep_team::sweep_team_kernel<Model, true, Deriv>
-                   : sweep_team::sweep_team_kernel<Model, false, Deriv>,
-        sweep_team::kBlock, smem);
-    *threads = sweep_team::kBlock;
-    *smem_bytes = static_cast<int>(smem);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n,
-        use_limits ? sweep_kernel<Model, true, Deriv>
-                   : sweep_kernel<Model, false, Deriv>,
-        kBlock, 0);
-    *threads = kBlock;
-    *smem_bytes = 0;
-  }
-  return err == cudaSuccess ? n : -1;
+  int n = 0, lanes = 1;
+  size_t smem = 0;
+  const int err =
+      use_limits ? sweep_geometry<Model, true, Deriv>(*threads, lanes, smem)
+                 : sweep_geometry<Model, false, Deriv>(*threads, lanes, smem);
+  if (err != 0) return -1;
+  *smem_bytes = static_cast<int>(smem);
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n,
+      use_limits ? sweep_kernel_of<Model, true, Deriv>()
+                 : sweep_kernel_of<Model, false, Deriv>(),
+      *threads, smem);
+  return occ == cudaSuccess ? n : -1;
+}
+
+// Threads a lane of the sweep kernel that launch_model_sweep launches: 1
+// (the one-thread kernel), 16 or 32 (the team), 32 (the warp)
+template <class Model, class Deriv>
+constexpr int sweep_lane_threads() {
+  return kSweepKind<Model, Deriv> == 2   ? sweep_team::kTeam
+         : kSweepKind<Model, Deriv> == 1 ? team::kTeamWidth<Model>
+                                         : 1;
 }
 
 }  // namespace fused

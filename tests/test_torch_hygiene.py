@@ -360,6 +360,104 @@ def test_team_sweep_trait_follows_the_route_rule(name):
         assert model.m >= 4 and model.n + model.m <= 32, (model.n, model.m)
 
 
+@pytest.mark.parametrize("name", sorted(kernel_rollout.FUSED_KERNEL_MODELS))
+def test_sweep_pick_follows_the_route_rule(name):
+    """The merged sweep's kernel, picked at compile time
+    (fused::kSweepKind in csrc/sweep_team.cuh): the warp per lane where
+    fused::TeamSweep holds (m·n ≥ 32, the models that iter_kernel="auto"
+    sends to the split iteration), in every form; else, where the model
+    declares kTeamIteration, the team of its whole iteration (csrc/
+    iteration_team.cuh sweep_small_team_kernel, at team::kTeamWidth) for
+    the dense derivatives (the stencils, the dual numbers) and the
+    one-thread sweep_kernel for the closed forms; else the one-thread
+    kernel, as for every custom model (custom.cuh: kTeamSweep false, no
+    kTeamIteration). chip_smoke.launched_kernel names the same kernel for
+    each form, and its team width is the whole iteration's
+    (TEAM_ITERATION)."""
+    import re
+
+    import chip_smoke
+    from ilqr_tpu_torch import fused
+
+    csrc = _build.CSRC
+    text = (csrc / "sweep_team.cuh").read_text()
+    pick = re.search(r"kSweepKind = ([^;]*);", text).group(1)
+    assert pick.split() == ["TeamSweep<Model>::value", "?", "2", ":",
+                            "TeamIteration<Model>::value", "&&",
+                            "Deriv::kDense", "?", "1", ":", "0"]
+    step = (csrc / "sweep_step.cuh").read_text()
+    dense = dict(re.findall(r"struct (Analytic|FiniteDiff|Jvp) \{\s*static "
+                            r"constexpr bool kDense = (\w+);", step))
+    assert dense == {"Analytic": "false", "FiniteDiff": "true",
+                     "Jvp": "true"}
+    body = text[text.index("constexpr auto sweep_kernel_of()"):]
+    body = body[:body.index("\n}\n")]
+    assert [k.split("<")[0] for k in re.findall(
+        r"return ([\w:]+<[^;]*);", body)] == [
+        "sweep_team::sweep_team_kernel", "team::sweep_small_team_kernel",
+        "sweep_kernel"]
+    assert "team::kTeamWidth<Model>" in body
+    launch = text[text.index("inline int launch_model_sweep("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "sweep_kernel_of<Model, true, Deriv>()" in launch
+    assert "sweep_kernel_of<Model, false, Deriv>()" in launch
+    kernels = (csrc / "kernels.cuh").read_text()
+    for macro in ("ILQR_SPLIT_LAUNCHERS", "ILQR_FD_SWEEP_LAUNCHER",
+                  "ILQR_JVP_SWEEP_LAUNCHER"):
+        block = kernels[kernels.index(f"#define {macro}("):]
+        block = block[:block.index("\n\n")]
+        assert "fused::launch_model_sweep<MODEL," in block, macro
+    model = get_model(name)
+    split = not fused._use_iter_kernel(model, SolverConfig())
+    team = "static constexpr bool kTeamIteration = true;" in _model_header(
+        name)
+    assert split != team   # every package model has a team iteration or warp
+    for form in ("analytic", "fd", "jvp"):
+        want = ("sweep_team_kernel" if split else "sweep_kernel"
+                if form == "analytic" else "sweep_small_team_kernel")
+        assert chip_smoke.launched_kernel("sweep", model, form) == want
+    if team:
+        assert chip_smoke.TEAM_ITERATION[name] == TEAM_ITERATION[name]
+    custom = (csrc / "custom.cuh").read_text()
+    assert "static constexpr bool kTeamSweep = false;" in custom
+    assert "bool kTeamIteration" not in custom
+
+
+@pytest.mark.parametrize("name", sorted(kernel_derivs.DERIVS_KERNEL_MODELS))
+def test_derivs_launcher_launches_the_entry_kernel(name):
+    """Every model's ilqr_<model>_derivs (ILQR_DERIVS_LAUNCHER, a custom
+    model's too) launches csrc/derivs.cuh's derivs_entry_kernel and nothing
+    else: the kernel that kept a (t, lane)'s entries in local arrays is
+    gone, each thread walks a running row's n + m directions and
+    (n + m)(n + m + 1)/2 pairs (the terminal row's n + n(n + 1)/2 are
+    fewer) and stores each as it is made, and the launcher has its
+    occupancy entry point beside it. chip_smoke names the kernel and holds
+    it bit for bit."""
+    import re
+
+    import chip_smoke
+
+    text = (_build.CSRC / "derivs.cuh").read_text()
+    assert "derivs_kernel<" not in text and "derivs_kernel(" not in text
+    launch = text[text.index("int launch_derivs("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert re.findall(r"(\w+)<Model, sweep::\w+><<<", launch) == [
+        "derivs_entry_kernel", "derivs_entry_kernel"]
+    macro = text[text.index("#define ILQR_DERIVS_LAUNCHER"):]
+    assert "derivs::launch_derivs<MODEL>" in macro
+    assert f"ilqr_##NAME##_derivs_blocks_per_sm(int fd" in macro
+    model = get_model(name)
+    nz = model.n + model.m
+    running = nz + nz * (nz + 1) // 2
+    terminal = model.n + model.n * (model.n + 1) // 2
+    assert terminal < running
+    assert chip_smoke.launched_kernel("derivs", model) == (
+        "derivs_entry_kernel")
+    assert chip_smoke.held_bitwise("derivs_entry_kernel")
+    unit = (_build.CSRC / f"derivs_{name}.cu").read_text()
+    assert f"ILQR_DERIVS_LAUNCHER({name}, " in unit
+
+
 def _model_header(name):
     """The traits header of ``name``'s kernel sources (the one csrc header
     its kernels_<model>.cu includes beside kernels.cuh)."""
@@ -581,8 +679,11 @@ def test_ptxas_table_files_rows_under_their_own_model():
     instantiations (kernels_<model>_fd.cu, kernels_<model>_iteration_fd.cu;
     FiniteDiff in the mangled name) are filed as sweep_kernel_fd and
     iteration_kernel_fd under their model, the dual-number ones (_jvp.cu;
-    Jvp) as <kernel>_jvp. derivs_<model>.cu's rows go to its model (the
-    stencil mode as derivs_kernel_fd), backward.cu's n = 2 rows to
+    Jvp) as <kernel>_jvp, the split sweep's team (sweep_small_team_kernel)
+    among them. derivs_<model>.cu's rows go to its model (the
+    derivative kernel's one thread per entry as derivs_entry_kernel, its
+    stencil mode as derivs_entry_kernel_fd; a tree's before it as
+    derivs_kernel), backward.cu's n = 2 rows to
     pendulum and its n = 4 rows to acrobot and cartpole, each instantiation
     of the backward kernel (a template on <N, VEC, WARPS>) under its own
     copy width and warps."""
@@ -604,13 +705,24 @@ def test_ptxas_table_files_rows_under_their_own_model():
         entry(bwd.format(4, 4, 2), 80, 0),
         entry(bwd.format(4, 1, 2), 96, 0),
         "ptxas log of derivs_acrobot.cu\n",
-        entry("_ZN12_GLOBAL__N_113derivs_kernelIN7acrobot5ModelEN5sweep3"
-              "JvpEEEvPKf", 64, 0),
-        entry("_ZN12_GLOBAL__N_113derivs_kernelIN7acrobot5ModelEN5sweep10"
-              "FiniteDiffEEEvPKf", 65, 0),
+        entry("_ZN6derivs19derivs_entry_kernelIN7acrobot5ModelEN5sweep3JvpEE"
+              "EvPKfiS6_S6_PfS7_S7_S7_S7_S7_S7_iiT0_", 64, 0),
+        entry("_ZN6derivs19derivs_entry_kernelIN7acrobot5ModelEN5sweep10"
+              "FiniteDiffEEEvPKfiS6_S6_PfS7_S7_S7_S7_S7_S7_iiT0_", 65, 0),
         "ptxas log of derivs_pendulum.cu\n",
-        entry("_ZN12_GLOBAL__N_113derivs_kernelIN8pendulum5ModelEN5sweep3"
-              "JvpEEEvPKf", 66, 16),
+        entry("_ZN6derivs19derivs_entry_kernelIN8pendulum5ModelEN5sweep3JvpEE"
+              "EvPKfiS6_S6_PfS7_S7_S7_S7_S7_S7_iiT0_", 66, 16),
+        "ptxas log of derivs_cartpole.cu\n",   # a tree before the entries
+        entry("_ZN12_GLOBAL__N_113derivs_kernelIN8cartpole5ModelEN5sweep3"
+              "JvpEEEvPKf", 67, 192),
+        "ptxas log of kernels_cartpole_fd.cu\n",
+        entry("_ZN4team23sweep_small_team_kernelIN8cartpole5ModelELb1EN5sweep"
+              "10FiniteDiffELi16EEEvPKfiS6_S6_S6_S6_PfS7_S7_S7_S7_iiT1_", 106,
+              0),
+        "ptxas log of kernels_point_mass_3d.cu\n",
+        entry("_ZN4team23sweep_small_team_kernelIN13point_mass_3d5ModelELb0EN5"
+              "sweep8AnalyticELi32EEEvPKfiS6_S6_S6_S6_PfS7_S7_S7_S7_iiT1_",
+              168, 24),
         "ptxas log of kernels.cu\n",
         entry("_ZN5fused12sweep_kernelIN7acrobot5ModelELb1EEEvPKf", 72, 32),
         "ptxas log of kernels_omni_thruster.cu\n",
@@ -654,11 +766,17 @@ def test_ptxas_table_files_rows_under_their_own_model():
         registers=205, stack_bytes=528, spill_stores=8, spill_loads=12,
         source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration.cu")
     assert t[("sweep_kernel", "acrobot", True)]["registers"] == 72
-    assert t[("derivs_kernel", "acrobot", None)]["registers"] == 64
-    assert t[("derivs_kernel_fd", "acrobot", None)]["registers"] == 65
-    assert t[("derivs_kernel", "pendulum", None)] == dict(
+    assert t[("derivs_entry_kernel", "acrobot", None)]["registers"] == 64
+    assert t[("derivs_entry_kernel_fd", "acrobot", None)]["registers"] == 65
+    assert t[("derivs_entry_kernel", "pendulum", None)] == dict(
         registers=66, stack_bytes=16, spill_stores=8, spill_loads=12,
         source="ilqr_tpu_torch/csrc/derivs_pendulum.cu")
+    assert t[("derivs_kernel", "cartpole", None)]["registers"] == 67
+    assert t[("sweep_small_team_kernel_fd", "cartpole", True)] == dict(
+        registers=106, stack_bytes=0, spill_stores=8, spill_loads=12,
+        source="ilqr_tpu_torch/csrc/kernels_cartpole_fd.cu")
+    assert t[("sweep_small_team_kernel", "point_mass_3d",
+              False)]["registers"] == 168
     wide, narrow = (chip_smoke.backward_geometry(16, 2),
                     chip_smoke.backward_geometry(4, 2))
     assert t[("backward_team_kernel", "acrobot", wide)]["registers"] == 80
@@ -674,4 +792,4 @@ def test_ptxas_table_files_rows_under_their_own_model():
         registers=206, stack_bytes=4720, spill_stores=8, spill_loads=12,
         source="ilqr_tpu_torch/csrc/kernels_quadrotor_iteration_fd.cu")
     assert t[("sweep_kernel_fd", "acrobot", False)]["registers"] == 92
-    assert len(t) == 20
+    assert len(t) == 23
