@@ -40,10 +40,14 @@ Phases (any failure raises and the script exits non-zero):
      kernel (csrc/backward.cuh, a team per lane fed by a cp.async ring;
      edge_cases "backward_team": cartpole's and pendulum's rows on a
      partial last block, T = 1, a NaN lane, lanes that latch div, clamped
-     controls, mixed λ), the line search of every model
+     controls, mixed λ), the line search of every model, custom ones too,
      as a team of 16 threads per lane (csrc/linesearch_team.cuh; edge_cases
      "linesearch_team": the pendulum, the quadrotor's RK4 reading,
-     thruster_ring24, those edges and the clamp flipped), the merged sweep
+     thruster_ring24, those edges and the clamp flipped), the custom
+     models' line search and whole iteration on the teams (the unicycle
+     and unicycle_heading, 16 threads a lane by the (n, m) rule of their
+     generated headers; edge_cases "custom_team": both models' line
+     search and dual-number iteration, the same edges), the merged sweep
      and the whole iteration of the split-route models (m·n ≥ 32: the
      quadrotor and the m ≥ 5 models) as a warp per lane
      (csrc/sweep_team.cuh, sweep_team_cases "sweep_team": thruster_ring's
@@ -55,8 +59,8 @@ Phases (any failure raises and the script exits non-zero):
      m·n < 32 models' stencils and dual numbers on the team of their
      whole iteration (sweep_small_team_kernel; sweep_team_cases
      "sweep_small_team": acrobot's stencils at B = 8192 / 8189, cartpole's
-     stencils and dual numbers, point_mass_3d's stencils, the warp
-     sweep's edges), and
+     stencils and dual numbers, point_mass_3d's stencils, the unicycle's
+     dual numbers, the warp sweep's edges), and
      the derivative kernel, a thread per (t, lane) storing each entry as it
      is made (csrc/derivs.cuh;
      derivs_edge_cases: acrobot's both modes at B = 8192, point_mass_3d,
@@ -263,6 +267,7 @@ from ilqr_tpu_torch.models import (
 from ilqr_tpu_torch.ops import (
     _build,
     boxqp,
+    codegen,
     kernel_backward,
     kernel_derivs,
     kernel_iter,
@@ -1646,8 +1651,10 @@ def launcher_occupancy():
     (a team or warp block is 128 threads, a one-thread block 64; only the
     warp kernels have dynamic shared memory; a sweep or whole-iteration
     launcher's ilqr_<model>_{sweep,iteration}[_fd|_jvp]_lane_threads is
-    TEAM_ITERATION's width for a team, 32 for the warp, 1 for the
-    one-thread kernel; the backward kernel's block, at the lanes of the
+    team_width's for a team, 32 for the warp, 1 for the one-thread
+    kernel; every custom library's line search and stencil and
+    dual-number sweep and iteration launchers (it has no closed forms) are
+    held the same way; the backward kernel's block, at the lanes of the
     model's row, is a whole number of warps with its stage ring in dynamic
     shared memory; the derivative kernel's block is 256 threads, 32 lanes
     by 8 entries, with none), where an SM holds no block of it, or where a
@@ -1676,16 +1683,20 @@ def launcher_occupancy():
         out[("backward_team_kernel", name, backward_geometry(
             copy.value, threads.value // 32))] = (blocks, threads.value,
                                                   smem.value)
-    for name in kernel_rollout.FUSED_KERNEL_MODELS:
+    fused_libs = [(name, get_model(name), lib, ("", "_fd", "_jvp"))
+                  for name in kernel_rollout.FUSED_KERNEL_MODELS]
+    fused_libs += [(name, model, _build.lib_for(model), ("_fd", "_jvp"))
+                   for name, model in custom_models().items()]
+    for name, model, mlib, all_forms in fused_libs:
         for kind in ("sweep", "iteration", "linesearch"):
-            forms = ("",) if kind == "linesearch" else ("", "_fd", "_jvp")
+            forms = ("",) if kind == "linesearch" else all_forms
             for suffix in forms:
-                kernel = launched_kernel(kind, get_model(name),
+                kernel = launched_kernel(kind, model,
                                          suffix.lstrip("_") or "analytic")
                 warp = kernel in ("sweep_team_kernel",
                                   "iteration_warp_kernel")
                 fname = f"ilqr_{name}_{kind}{suffix}_blocks_per_sm"
-                fn = getattr(lib, fname)
+                fn = getattr(mlib, fname)
                 fn.argtypes = ([ptr] * 2 if kind == "linesearch"
                                else [ctypes.c_int, ptr, ptr])
                 fn.restype = ctypes.c_int
@@ -1703,10 +1714,10 @@ def launcher_occupancy():
                     out[(kernel + suffix, name, limits)] = (
                         blocks, threads.value, smem.value)
                 if kind != "linesearch":
-                    width = getattr(lib, f"ilqr_{name}_{kind}{suffix}"
-                                         "_lane_threads")
+                    width = getattr(mlib, f"ilqr_{name}_{kind}{suffix}"
+                                          "_lane_threads")
                     width.restype = ctypes.c_int
-                    want = (TEAM_ITERATION.get(name, 0) if is_team(kernel)
+                    want = (team_width(model) if is_team(kernel)
                             and not warp else 32 if warp else 1)
                     if width() != want:
                         raise RuntimeError(
@@ -2630,8 +2641,8 @@ def team_cases(dev):
 # non-positive pivot), per-lane params (each lane's goal moved) and T = 1.
 # By builder: the warp per lane (csrc/sweep_team.cuh) and the team of the
 # model's whole iteration (csrc/iteration_team.cuh sweep_small_team_kernel,
-# the stencil and dual-number forms: 16 threads a lane for acrobot and
-# cartpole, 32 for point_mass_3d).
+# the stencil and dual-number forms: 16 threads a lane for acrobot,
+# cartpole and the custom unicycle, 32 for point_mass_3d).
 SWEEP_EDGES = ("partial_block", "nan_lane", "div_lanes", "per_lane", "T1")
 SWEEP_EDGE_T = 4
 SWEEP_EDGE_ROWS = {   # builder: row → (case builder, the case's label)
@@ -2653,7 +2664,9 @@ SWEEP_EDGE_ROWS = {   # builder: row → (case builder, the case's label)
         "sweep_packed/cartpole/jvp": (
             "jvp", "sweep_packed/cartpole/jvp (rk4)"),
         "sweep_packed/point_mass_3d/fd": (
-            "fd", "sweep_packed/point_mass_3d/fd (euler)")},
+            "fd", "sweep_packed/point_mass_3d/fd (euler)"),
+        "sweep_packed/unicycle": (
+            "custom", "sweep_packed/unicycle (jvp, euler)")},
 }
 
 
@@ -2674,34 +2687,48 @@ TEAM_ITERATION = {"acrobot": 16, "cartpole": 16, "pendulum": 16,
                   "point_mass_3d": 32}
 
 
+def team_width(model) -> int:
+    """Threads a lane of ``model``'s whole iteration on the team of
+    csrc/iteration_team.cuh, 0 where it has none: TEAM_ITERATION's for the
+    package's models, and for a custom model the (n, m) rule of its
+    generated header (ops/codegen.team_width; 1 there is the one-thread
+    kernel)."""
+    if kernel_rollout.kernel_owner(model) is None:
+        return TEAM_ITERATION.get(model.name, 0)
+    width = codegen.team_width(model.n, model.m)
+    return width if width > 1 else 0
+
+
 def launched_kernel(kind, model, form="analytic") -> str:
     """The kernel that ``model``'s ``kind`` launcher launches, by the
     compile-time picks of csrc/kernels.cuh (launcher_occupancy checks them
-    on the card): the backward kernel's team (csrc/backward.cuh) and the
-    derivative kernel's thread per (t, lane) (csrc/derivs.cuh) for
-    every model, custom ones too; for the package's models the line
-    search's team (csrc/linesearch_team.cuh), the whole iteration's team
-    (csrc/iteration_team.cuh) for TEAM_ITERATION, and its merged sweep's
-    in the stencil and dual-number forms (``form`` "fd" or "jvp"; the
-    closed forms, "analytic", keep one thread a lane: csrc/sweep_team.cuh
-    kSweepKind), and where team_sweep the sweep's and the whole
-    iteration's warp (csrc/sweep_team.cuh, csrc/iteration_warp.cuh);
-    otherwise, and for every custom model, the one-thread kernel."""
+    on the card): the backward kernel's team (csrc/backward.cuh), the
+    derivative kernel's thread per (t, lane) (csrc/derivs.cuh) and the line
+    search's team (csrc/linesearch_team.cuh) for every model, custom ones
+    too; the whole iteration's team (csrc/iteration_team.cuh) where
+    team_width is not 0 (TEAM_ITERATION, and the custom models inside the
+    rule of csrc/custom.cuh team_iteration), and its merged sweep's in the
+    stencil and dual-number forms (``form`` "fd" or "jvp"; the closed
+    forms, "analytic", keep one thread a lane: csrc/sweep_team.cuh
+    kSweepKind); for the package's models where team_sweep the sweep's and
+    the whole iteration's warp (csrc/sweep_team.cuh,
+    csrc/iteration_warp.cuh); otherwise, as for a custom model outside the
+    team's rule, the one-thread kernel."""
     if kind == "backward":
         return "backward_team_kernel"
     if kind == "derivs":
         return "derivs_entry_kernel"
-    if kernel_rollout.kernel_owner(model) is None:
-        if kind == "linesearch":
-            return "linesearch_team_kernel"
-        if kind == "iteration" and model.name in TEAM_ITERATION:
-            return "iteration_team_kernel"
-        if (kind == "sweep" and model.name in TEAM_ITERATION
-                and form != "analytic"):
-            return "sweep_small_team_kernel"
-        if kind in ("sweep", "iteration") and team_sweep(model):
-            return {"sweep": "sweep_team_kernel",
-                    "iteration": "iteration_warp_kernel"}[kind]
+    if kind == "linesearch":
+        return "linesearch_team_kernel"
+    if kind == "iteration" and team_width(model):
+        return "iteration_team_kernel"
+    if kind == "sweep" and team_width(model) and form != "analytic":
+        return "sweep_small_team_kernel"
+    if (kind in ("sweep", "iteration")
+            and kernel_rollout.kernel_owner(model) is None
+            and team_sweep(model)):
+        return {"sweep": "sweep_team_kernel",
+                "iteration": "iteration_warp_kernel"}[kind]
     return f"{kind}_kernel"
 
 
@@ -2777,7 +2804,10 @@ def sweep_team_cases(dev, which):
 # The edge cases of the line search's team (csrc/linesearch_team.cuh), the
 # 16-thread whole iteration of cartpole and pendulum and the 32-thread one of
 # the m = 2-3 models (csrc/iteration_team.cuh), the warp iteration
-# (csrc/iteration_warp.cuh) and the backward kernel's team
+# (csrc/iteration_warp.cuh), the custom models' line search and whole
+# iteration on those teams (16 threads a lane for the unicycle and
+# unicycle_heading: generated Params, arrays where the package's models hold
+# scalars) and the backward kernel's team
 # (csrc/backward.cuh), each derived from a phase-3 row's inputs (row →
 # (case builder, the case's label)): a partial last block (B = 1021: 5
 # lanes in the last block of 8, 1 in the last of 4), A = 1 and A = 7
@@ -2822,13 +2852,22 @@ EDGE_ROWS = {
             "fd", "iteration_packed/power_mass/fd (euler)"),
         "iteration_packed/bicycle/jvp": (
             "jvp", "iteration_packed/bicycle/jvp (rk4)")},
+    "custom_team": {
+        "linesearch_packed/unicycle": (
+            "custom", "linesearch_packed/unicycle (euler)"),
+        "linesearch_packed/unicycle_heading": (
+            "custom", "linesearch_packed/unicycle_heading (euler)"),
+        "iteration_packed/unicycle": (
+            "custom", "iteration_packed/unicycle (jvp, euler)"),
+        "iteration_packed/unicycle_heading": (
+            "custom", "iteration_packed/unicycle_heading (jvp, euler)")},
     "backward_team": {
         "backward_sweep_packed/cartpole": (
             "split", "backward_sweep_packed/cartpole"),
         "backward_sweep_packed/pendulum": (
             "split", "backward_sweep_packed/pendulum")}}
 EDGE_T = {"linesearch_team": None, "iteration_team": 40, "iteration_warp": 4,
-          "iteration_team32": 40}
+          "iteration_team32": 40, "custom_team": 40}
 BACKWARD_EDGES = ("partial_block", "T1", "nan_lane", "div_lanes", "clamped",
                   "mixed_lam")
 # argument positions by kernel: x0, the state trajectory, x_T, the other
@@ -4329,14 +4368,13 @@ def custom_cases(dev, name):
                                       integ)
             return step * T * B + rest * B
 
-        suffix = "_jvp" if kind in ("sweep", "iteration") else ""
+        suffix = f"_{mode}" if kind in ("sweep", "iteration") else ""
+        kernel = launched_kernel(kind, model, mode)
         out[label] = Case(op, plain, args, ops, f"at B={B} T={T} A={A}",
                           unread, dict(
-                              row=row, group=group,
-                              kernel=launched_kernel(kind, model)
-                              + suffix, model=name, limits=True, T=T,
-                              bitwise=held_bitwise(
-                                  launched_kernel(kind, model)),
+                              row=row, group=group, kernel=kernel + suffix,
+                              model=name, limits=True, T=T,
+                              bitwise=held_bitwise(kernel),
                               effort=effort(kind, T, n, m)
                               * (8 if mode == "jvp" and kind in (
                                   "sweep", "iteration") else 1),
@@ -5443,6 +5481,9 @@ def main() -> int:
               f"{e.get('stack_bytes')} B stack, {e.get('spill_stores')} B "
               f"spill stores, {e.get('spill_loads')} B spill loads")
     occupancy = launcher_occupancy()
+    widths = {name: team_width(model) for name, model in [
+        (name, get_model(name)) for name in kernel_rollout.FUSED_KERNEL_MODELS]
+        + list(customs.items())}
     for (kernel, model_name, limits), (blocks, threads, smem) in sorted(
             occupancy.items(), key=lambda kv: str(kv[0])):
         if not held_bitwise(kernel):
@@ -5455,8 +5496,8 @@ def main() -> int:
                 if kernel == "backward_team_kernel"
                 else "a thread per (t, lane) storing each entry as it is made, "
                 "256 lanes of one step a block" if kernel.startswith("derivs_entry_kernel")
-                else f"a team of {TEAM_ITERATION[model_name]} threads per "
-                f"lane, {128 // TEAM_ITERATION[model_name]} lanes a block"
+                else f"a team of {widths[model_name]} threads per "
+                f"lane, {128 // widths[model_name]} lanes a block"
                 if kernel.startswith(("iteration_team_kernel",
                                       "sweep_small_team_kernel"))
                 else "a team of 16 threads per lane, 8 lanes a block")

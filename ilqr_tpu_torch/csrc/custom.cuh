@@ -7,17 +7,27 @@
 
 namespace custom {
 
+// Whether a custom model's whole iteration (and with it its split sweep in
+// the dense forms, sweep_team.cuh kSweepKind) is the team of
+// iteration_team.cuh: where m·n < 32 and a warp holds the stencil's
+// 2(n + m) sides and the m(n + 1) gain entries of a step one a thread, as
+// for the package's team models; team::kTeamWidth then takes 16 or 32
+// threads a lane. Outside the rule (m = 1 with n ≥ 16, m = 3 with n = 10,
+// and every m·n ≥ 32) a custom model keeps the one-thread iteration_kernel
+// and sweep_kernel of kernels.cuh. The line search is the team of
+// linesearch_team.cuh for every model.
+__host__ __device__ constexpr bool team_iteration(int n, int m) {
+  return m * n < 32 && 2 * (n + m) <= 32 && m * (n + 1) <= 32;
+}
+
 // Every entry of the Jacobians and cost Hessians live: a custom model runs
 // the dense derivative policies only (sweep_step.cuh FiniteDiff and Jvp,
 // which fold nothing), so no entry is structurally constant.
 struct DensePattern {
-  // the merged sweep, the whole iteration and the line search stay the
-  // one-thread kernels (sweep_team.cuh TeamSweep, iteration_warp.cuh,
-  // linesearch_team.cuh TeamLineSearch; no kTeamIteration): the team
-  // kernels are held against their plain versions for the package's models
-  // only
+  // the warp per lane of the m·n ≥ 32 models (sweep_team.cuh TeamSweep,
+  // iteration_warp.cuh) is not taken: such a custom model keeps the
+  // one-thread sweep and iteration
   static constexpr bool kTeamSweep = false;
-  static constexpr bool kTeamLineSearch = false;
   __host__ __device__ static constexpr char a_kind(int, int) { return 'x'; }
   __host__ __device__ static constexpr char b_kind(int, int) { return 'x'; }
   __host__ __device__ static constexpr char cxx_kind(int, int) { return 'x'; }

@@ -3,10 +3,13 @@
 // (W = 16) for acrobot, cartpole and pendulum (m = 1, n = 4, 4, 2), a whole
 // warp (W = 32) for double_integrator, bicycle, power_mass (m = 2, n = 4)
 // and point_mass_3d (m = 3, n = 6), whose stencil sides, Hessian pairs or
-// gain entries a half warp does not hold (kTeamWidth). The one-thread
+// gain entries a half warp does not hold (kTeamWidth), and every custom
+// model (ops/codegen.py) inside custom.cuh's team_iteration rule (m·n < 32,
+// 2(n + m) ≤ 32, m(n + 1) ≤ 32: the unicycle and unicycle_heading of
+// examples/custom_model.py on half a warp). The one-thread
 // iteration_kernel of kernels.cuh redesigned for this card. The models with
-// m·n ≥ 32 take iteration_warp.cuh's warp per lane; every custom model
-// keeps the one-thread kernel. The same models' merged sweep
+// m·n ≥ 32 take iteration_warp.cuh's warp per lane; a custom model outside
+// the rule keeps the one-thread kernel. The same models' merged sweep
 // (sweep_packed, the split iteration) in its stencil and dual-number forms
 // is phase 0 below alone, on the same team (sweep_small_team_kernel, in
 // place of kernels.cuh sweep_kernel, which their closed forms keep:
@@ -368,7 +371,9 @@ __device__ __forceinline__ sweep::Carry<Model> sweep_phase(
   if (Tl > 0) load_xu(Tl - 1, xn, un);
   // under the closed forms, thread r evaluates Model::jac at step t − r
   // for each block of W steps t, t − 1, …, and each step takes the
-  // live entries of its A and Bu from that thread
+  // live entries of its A and Bu from that thread (a discarded branch
+  // under the dense forms, the only ones of a custom model, which has no
+  // Model::jac)
   [[maybe_unused]] float a_own[N * N], bu_own[N * M];
   for (int t = Tl - 1; t >= 0; --t) {
     float x[N], u[M];
@@ -536,7 +541,8 @@ namespace fused {
 // with a static constexpr bool kTeamIteration = true (acrobot.cuh,
 // cartpole.cuh, pendulum.cuh on half a warp; double_integrator.cuh,
 // bicycle.cuh, power_mass.cuh, point_mass_3d.cuh on a warp,
-// team::kTeamWidth); the team's limits hold for it (above).
+// team::kTeamWidth; a generated header by custom::team_iteration(N, M));
+// the team's limits hold for it (above).
 template <class Model, class = void>
 struct TeamIteration {
   static constexpr bool value = false;

@@ -117,7 +117,8 @@ namespace fused {
 // The kernel of a model's whole iteration: the team where the model asks
 // for it (TeamIteration; 16 threads a lane or 32, team::kTeamWidth), the
 // warp where its merged sweep is the warp's (TeamSweep: m·n ≥ 32, custom
-// models excepted), else the one-thread kernel
+// models excepted), else the one-thread kernel (a custom model outside
+// custom::team_iteration's rule)
 template <class Model>
 constexpr int kIterationKind = TeamIteration<Model>::value ? 1
                                : TeamSweep<Model>::value   ? 2

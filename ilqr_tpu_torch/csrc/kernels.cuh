@@ -11,24 +11,24 @@
 // stay in registers, or in local memory where a large model (the quadrotor,
 // n = 12, m = 4) needs more than the 255 registers a thread may hold. Lanes
 // are independent, so no block waits for another. Three kernels no longer
-// follow this layout for the package's models; custom models (ops/codegen.py)
-// keep the one-thread kernels below throughout:
-//  - the line search (linesearch_packed) of every model is a team of 16
-//    threads per lane (linesearch_team.cuh), in place of linesearch_kernel;
+// follow this layout:
+//  - the line search (linesearch_packed) of every model, custom ones too,
+//    is a team of 16 threads per lane (linesearch_team.cuh);
 //  - the whole iteration (iteration_packed) of acrobot, cartpole and
 //    pendulum is a team of 16 threads per lane (iteration_team.cuh), that
 //    of double_integrator, bicycle, power_mass and point_mass_3d (m = 2-3)
 //    the same team at 32 threads per lane, that of the models with
 //    m·n ≥ 32 (the quadrotor and the m ≥ 5 models) a warp per lane running
-//    sweep_team.cuh's sweep (iteration_warp.cuh); no package model keeps
-//    iteration_kernel;
+//    sweep_team.cuh's sweep (iteration_warp.cuh); a custom model
+//    (ops/codegen.py) takes the team at 16 or 32 threads where its n and m
+//    fit it (custom.cuh team_iteration), else iteration_kernel below;
 //  - the merged sweep (sweep_packed) of the models with m·n ≥ 32 is a warp
 //    per lane (sweep_team.cuh), the stencil and dual-number sweeps of the
-//    models with a team iteration (m·n < 32) the same team as their whole
-//    iteration, its phase 0 alone (iteration_team.cuh
+//    models with a team iteration (m·n < 32, custom ones included) the same
+//    team as their whole iteration, its phase 0 alone (iteration_team.cuh
 //    sweep_small_team_kernel); their closed-form sweeps (faster on one
-//    thread a lane, sweep_team.cuh kSweepKind) and every custom model's
-//    keep sweep_kernel.
+//    thread a lane, sweep_team.cuh kSweepKind) and the custom models
+//    outside the team's rule keep sweep_kernel.
 //
 // The integrator (Euler or RK4, integrate.cuh) is a runtime argument of
 // every kernel. The sweep and whole-iteration kernels are templates on the
@@ -316,69 +316,6 @@ sweep_kernel(const float* __restrict__ params, int pstride,
 }
 
 // ---------------------------------------------------------------------------
-// linesearch_packed (line search + iteration epilogue)
-//
-// Replaces: ilqr_tpu/ops/pallas_rollout.py linesearch_packed (_ls_kernel).
-// Bound on this card: operations — A = 11 candidate model steps per
-// lane-step against one read of the shared rows; the emit pass adds one
-// write of the post-accept state.
-// Design: the TPU's (A+1, T) grid becomes one thread looping over its two
-// phases; the A candidate states stay with the thread, so every shared row
-// (u, x̄, k, K) is read once per timestep for all candidates.
-// ---------------------------------------------------------------------------
-template <class Model>
-__global__ void __launch_bounds__(kBlock)
-linesearch_kernel(const float* __restrict__ params, int pstride,
-                  const float* __restrict__ x0, const float* __restrict__ us,
-                  const float* __restrict__ xsr,
-                  const float* __restrict__ xterm,
-                  const float* __restrict__ K, const float* __restrict__ k,
-                  const float* __restrict__ Kold,
-                  const float* __restrict__ kold,
-                  const float* __restrict__ alphas, int A,
-                  const float* __restrict__ dv,
-                  const float* __restrict__ cprev,
-                  const float* __restrict__ gate,
-                  const float* __restrict__ keep, float* __restrict__ xs_out,
-                  float* __restrict__ us_out, float* __restrict__ xfin,
-                  float* __restrict__ k_out, float* __restrict__ K_out,
-                  float* __restrict__ lscost, float* __restrict__ alpha_sel,
-                  float* __restrict__ acc, float* __restrict__ dcost,
-                  float* __restrict__ expected, float z_min, int T, int B_,
-                  int clamp, int scheme) {
-  constexpr int N = Model::N, M = Model::M;
-  const int lane = lane_index();
-  if (lane >= B_) return;
-  const size_t B = B_;
-  const typename Model::Params p = load_lane<Model>(params, pstride, lane);
-  float al[kMaxA];
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) al[a] = (a < A) ? alphas[a] : 0.0f;
-  float x0v[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) x0v[i] = x0[i * B + lane];
-  const rollout::Gains<Model> g{k, K, M * B, M * N * B, B};
-
-  float cand[kMaxA];
-  rollout::candidate_costs<Model, kMaxA>(p, x0v, us, xsr, g, al, A, T, B,
-                                         lane, clamp != 0, scheme, cand);
-  const rollout::Selection s = rollout::select<kMaxA>(
-      cand, al, A, cprev[lane], dv[lane], dv[B + lane], z_min);
-  // the step is taken only through the outer gate (back_ok & ~grad_term &
-  // live, computed by the solver from the sweep's outputs)
-  const bool take = s.accepted * gate[lane] > 0.5f;
-  const bool keepm = keep[lane] > 0.5f;
-  rollout::emit<Model>(scheme, p, x0v, us, xsr, xterm, g, kold, Kold,
-                       s.alpha, take, keepm, T, B, lane, clamp != 0, xs_out,
-                       us_out, k_out, K_out, xfin);
-  lscost[lane] = s.cost;
-  alpha_sel[lane] = s.alpha;
-  acc[lane] = s.accepted;
-  dcost[lane] = s.dcost;
-  expected[lane] = s.expected;
-}
-
-// ---------------------------------------------------------------------------
 // iteration_packed (one whole solver iteration)
 //
 // Replaces: ilqr_tpu/ops/pallas_iter.py iteration_packed (_iter_kernel).
@@ -469,9 +406,9 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
 
 }  // namespace fused
 
-// The line search as a team of 16 threads per lane and the launch that
-// picks a model's line-search kernel; the whole iteration as a team of 16
-// threads per lane (Model::kTeamIteration); the merged sweep as a warp per
+// The line search as a team of 16 threads per lane and its launch; the
+// whole iteration as a team of 16 or 32 threads per lane
+// (Model::kTeamIteration); the merged sweep as a warp per
 // lane (the models with m·n ≥ 32, fused::TeamSweep) and the launch that
 // picks a model's sweep kernel; the whole iteration of those models as a
 // warp per lane and the launch that picks a model's whole-iteration kernel
@@ -490,16 +427,18 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
 // Each launcher instantiates the model's one kernel for its work, chosen at
 // compile time (fused::launch_model_linesearch, launch_model_sweep,
 // launch_whole_iteration): the line search's team kernel
-// (linesearch_team.cuh; linesearch_kernel for a custom model); the sweep's
-// warp kernel of sweep_team.cuh where fused::TeamSweep picks it (m·n ≥ 32,
-// custom models excepted), the team kernel of iteration_team.cuh
+// (linesearch_team.cuh) for every model; the sweep's warp kernel of
+// sweep_team.cuh where fused::TeamSweep picks it (m·n ≥ 32, custom models
+// excepted), the team kernel of iteration_team.cuh
 // (sweep_small_team_kernel) for the stencils and dual numbers where the
 // model has kTeamIteration, else sweep_kernel (the closed forms of those
-// models, custom models; fused::kSweepKind); the whole iteration's
-// iteration_kernel, the team kernel of iteration_team.cuh where the model
-// has kTeamIteration (16 threads a lane for acrobot, cartpole, pendulum; 32
-// for double_integrator, bicycle, power_mass, point_mass_3d), or the warp
-// kernel of iteration_warp.cuh where TeamSweep picks it. Beside each stand
+// models, custom models outside the team's rule; fused::kSweepKind); the
+// whole iteration's team kernel of iteration_team.cuh where the model has
+// kTeamIteration (16 threads a lane for acrobot, cartpole, pendulum; 32
+// for double_integrator, bicycle, power_mass, point_mass_3d; 16 or 32 for
+// a custom model inside custom::team_iteration's rule), the warp kernel of
+// iteration_warp.cuh where TeamSweep picks it, else iteration_kernel (the
+// custom models outside the team's rule). Beside each stand
 // ilqr_<NAME>_linesearch_blocks_per_sm(int* threads, int* smem_bytes) and
 // ilqr_<NAME>_{sweep,iteration}[_fd|_jvp]_blocks_per_sm(use_limits,
 // int* threads, int* smem_bytes): the blocks of that kernel an SM holds,
@@ -512,8 +451,9 @@ inline int launch(Kernel kernel, int B, void* stream, Args... args) {
 // ILQR_ITERATION_LAUNCHER in two sources, which compile in parallel.
 // ILQR_ROLLOUT_LAUNCHERS instantiates the rollout (both kernels: the full
 // output, ilqr_<NAME>_rollout, and the other modes,
-// ilqr_<NAME>_rollout_modes) and the line search alone: a custom model (ops/codegen.py) has no closed-form derivatives,
-// so its sweep and iteration come from the dense policies only.
+// ilqr_<NAME>_rollout_modes) and the line search alone: a custom model
+// (ops/codegen.py) has no closed-form derivatives, so its sweep and
+// iteration come from the dense policies only.
 // ILQR_FD_LAUNCHERS instantiates the stencil sweep and iteration kernels,
 // ilqr_<NAME>_sweep_fd and ilqr_<NAME>_iteration_fd, in a source of their
 // own (ILQR_FD_SWEEP_LAUNCHER and ILQR_FD_ITERATION_LAUNCHER apart for the

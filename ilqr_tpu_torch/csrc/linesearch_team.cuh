@@ -1,24 +1,24 @@
 // linesearch_packed (the line search + iteration epilogue) as a team of
-// kTeam = 16 threads per lane, for every model of the package: the
-// one-thread linesearch_kernel of kernels.cuh redesigned for this card. A
-// custom model keeps that one (Model::kTeamLineSearch = false, custom.cuh).
+// kTeam = 16 threads per lane, for every model of the package and every
+// custom model (ops/codegen.py): the line search's one kernel, in place of
+// the one-thread kernel that earlier trees ran.
 // The team's two phases (line_search below) are also phases 1-2 of both
 // team whole-iteration kernels: iteration_team.cuh's 16 threads per lane
 // and iteration_warp.cuh's warp per lane.
 //
 // Replaces: ilqr_tpu/ops/pallas_rollout.py linesearch_packed (_ls_kernel),
-// as kernels.cuh linesearch_kernel does, on the same inputs and outputs,
-// with the same launcher name and signature.
-// Bound on this card: latency, as the one-thread kernel's. One thread per
-// lane in blocks of 64 used 16 of the 132 SMs at B = 1024 and advanced its
-// lane's A = 11 candidates in series on that thread, all A states at once
-// in its registers (the quadrotor's 1.5 KB of spills, ring24's 4 KB).
+// on its inputs and outputs (launcher ilqr_<model>_linesearch).
+// Bound on this card: latency. The one-thread design of earlier trees (one
+// thread per lane in blocks of 64) used 16 of the 132 SMs at B = 1024 and
+// advanced its lane's A = 11 candidates in series on that thread, all A
+// states at once in its registers (the quadrotor's 1.5 KB of spills,
+// ring24's 4 KB).
 // Design: a team of kTeam threads, half a warp, serves one lane; a block of
 // kBlock = 128 threads serves kLanes = 8 lanes, so B = 1024 is 128 blocks.
 //  - Phase 1: thread a < A advances candidate a alone; the shared rows (u,
 //    x̄, k, K) of a time step are read by the team at one address; the A
 //    costs are gathered by __shfl_sync and every thread runs
-//    rollout::select on them, with the one-thread kernel's strict <.
+//    rollout::select on them, with the plain version's strict <.
 //    Each candidate stores its state at the start of each of S ≤ kTeam
 //    segments of the horizon into a scratch.
 //  - Phase 2: where a step is taken, thread s rolls out segment s of the
@@ -33,14 +33,13 @@
 // passed would change the launcher's signature for all 14 models and the
 // custom models' libraries, and cost one more allocation per launch; xs_out
 // costs neither. (The whole-iteration kernels use their gain buffer.)
-// Every output value is computed by one thread with the one-thread kernel's
-// operations in its order (--fmad=false); no sum is split across threads, so
-// the results are that kernel's bit for bit. A team whose lane lies past B
+// Every output value is computed by one thread with the plain version's
+// operations in its order (ops/kernel_rollout.linesearch_plain;
+// --fmad=false); no sum is split across threads, so the results are the
+// plain version's bit for bit. A team whose lane lies past B
 // (the last block's) reads lane B − 1, runs no time step and writes
 // nothing; it still meets every shuffle of its own team.
 #pragma once
-
-#include <type_traits>
 
 #include "kernels.cuh"
 
@@ -350,32 +349,13 @@ linesearch_team_kernel(const float* __restrict__ params, int pstride,
 
 namespace fused {
 
-// Whether a model's line search is the team kernel: every model of the
-// package; a model opts out with static constexpr bool kTeamLineSearch =
-// false, as every custom model does (custom.cuh DensePattern), and keeps
-// the one-thread kernel.
-template <class Model, class = void>
-struct TeamLineSearch {
-  static constexpr bool value = true;
-};
-template <class Model>
-struct TeamLineSearch<Model,
-                      std::void_t<decltype(Model::kTeamLineSearch)>> {
-  static constexpr bool value = Model::kTeamLineSearch;
-};
-
-// The line-search launch of ILQR_ROLLOUT_LAUNCHERS: the model's one kernel,
-// chosen at compile time
+// The line-search launch of ILQR_ROLLOUT_LAUNCHERS: the team kernel
 template <class Model, class... Args>
 inline int launch_model_linesearch(int B, void* stream, Args... args) {
-  if constexpr (TeamLineSearch<Model>::value) {
-    team::linesearch_team_kernel<Model>
-        <<<(B + team::kLanes - 1) / team::kLanes, team::kBlock, 0,
-           (cudaStream_t)stream>>>(args...);
-    return (int)cudaGetLastError();
-  } else {
-    return launch(linesearch_kernel<Model>, B, stream, args...);
-  }
+  team::linesearch_team_kernel<Model>
+      <<<(B + team::kLanes - 1) / team::kLanes, team::kBlock, 0,
+         (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 // Blocks an SM holds at once of the line-search kernel that
@@ -384,16 +364,9 @@ inline int launch_model_linesearch(int B, void* stream, Args... args) {
 template <class Model>
 inline int linesearch_blocks_per_sm(int* threads, int* smem_bytes) {
   int n = 0;
-  cudaError_t err;
-  if constexpr (TeamLineSearch<Model>::value) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, team::linesearch_team_kernel<Model>, team::kBlock, 0);
-    *threads = team::kBlock;
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, linesearch_kernel<Model>, kBlock, 0);
-    *threads = kBlock;
-  }
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, team::linesearch_team_kernel<Model>, team::kBlock, 0);
+  *threads = team::kBlock;
   *smem_bytes = 0;
   return err == cudaSuccess ? n : -1;
 }

@@ -4,8 +4,11 @@
 // n = 6, 5 ≤ m ≤ 24): the one-thread sweep_kernel of kernels.cuh redesigned
 // for this card. The models with m·n < 32 run their stencil and
 // dual-number sweeps on the team of their whole iteration (iteration_team.cuh
-// sweep_small_team_kernel) and their closed-form sweep on one thread a
-// lane, as every custom model does. fused::launch_model_sweep, at the end
+// sweep_small_team_kernel), a custom model's too where it has one
+// (custom.cuh team_iteration), and their closed-form sweep on one thread a
+// lane, as a custom model outside that rule does in every form (a custom
+// model with m·n ≥ 32 does not take this warp). fused::launch_model_sweep,
+// at the end
 // of this file, picks among the three at compile time (kSweepKind).
 // The same models' whole iteration runs this sweep as its phase 0
 // (sweep_lane, iteration_warp.cuh).
@@ -1190,8 +1193,10 @@ namespace fused {
 // m·n ≥ 32, which take the split iteration (fused._use_iter_kernel), where
 // the team covers them (m ≥ 4, n + m ≤ 32: every such model of the package).
 // A model opts out with static constexpr bool kTeamSweep = false, as every
-// custom model does (custom.cuh DensePattern); the other models' dense
-// sweeps take the team of their whole iteration (kSweepKind below).
+// custom model does (custom.cuh DensePattern: a generated model with
+// m·n ≥ 32 keeps the one-thread sweep and iteration); the other models'
+// dense sweeps take the team of their whole iteration where they have one
+// (kSweepKind below), custom models' included.
 template <class Model>
 constexpr bool kTeamSweepRule = Model::M >= 4 &&
                                 Model::M * Model::N >= 32 &&
@@ -1210,9 +1215,9 @@ struct TeamSweep<Model, std::void_t<decltype(Model::kTeamSweep)>> {
 // (TeamIteration; 16 threads a lane or 32, team::kTeamWidth) and the
 // derivatives are dense (the stencils, the dual numbers: their sides,
 // passes and Hessian pairs spread over the team), else the one-thread
-// kernel: custom models, and the closed forms (Analytic), of which the team
-// spreads only Model::jac while each of its threads runs the whole Riccati
-// step. Timed on an H100 (700 W) against the one-thread kernel, parent and
+// kernel: custom models outside custom::team_iteration's rule, and the
+// closed forms (Analytic), of which the team spreads only Model::jac while
+// each of its threads runs the whole Riccati step. Timed on an H100 (700 W) against the one-thread kernel, parent and
 // change in turns, four passes each (tools/sweep_ab.py): the team's closed
 // forms 0.48× on acrobot (B = 8192, T = 499: 1.31-1.40 ms against
 // 0.61-0.71), 0.72-0.95× on the m = 2-3 models and pendulum, 1.11× on

@@ -478,6 +478,10 @@ namespace custom_model {{
 struct Model : custom::DensePattern {{
   static constexpr int N = {rec.n};
   static constexpr int M = {rec.m};
+  // the whole iteration, and the split sweep of the stencils and dual
+  // numbers, on the team of iteration_team.cuh where N and M fit it, else
+  // on one thread a lane (custom.cuh team_iteration)
+  static constexpr bool kTeamIteration = custom::team_iteration(N, M);
 
   // Packed params (ops/kernel_rollout.pack_params): the params leaves in
   // field order, then dt.
@@ -516,6 +520,23 @@ struct Model : custom::DensePattern {{
 
 }}  // namespace custom_model
 """
+
+
+def team_width(n: int, m: int) -> int:
+    """Threads a lane of the whole iteration and of the stencil and
+    dual-number split sweep of a custom model with ``n`` states and ``m``
+    controls, by the compile-time rule of its generated header: where
+    csrc/custom.cuh ``team_iteration`` admits (n, m) (m·n < 32, 2(n + m) ≤
+    32, m(n + 1) ≤ 32), the team of csrc/iteration_team.cuh at its
+    ``team::kTeamWidth`` — 16 where half a warp holds the stencil's
+    2(n + m) sides, the (n + m)(n + m + 1)/2 cost-Hessian pairs and the
+    m(n + 1) gain entries one a thread, else 32; outside it 1, the
+    one-thread kernels."""
+    if not (m * n < 32 and 2 * (n + m) <= 32 and m * (n + 1) <= 32):
+        return 1
+    nz = n + m
+    half = 2 * nz <= 16 and nz * (nz + 1) // 2 <= 16 and m * (n + 1) <= 16
+    return 16 if half else 32
 
 
 @functools.lru_cache(maxsize=None)

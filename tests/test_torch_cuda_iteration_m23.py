@@ -139,16 +139,48 @@ def test_team32_iteration_is_launched(dev, name):
 
 @pytest.mark.cuda
 def test_custom_model_keeps_one_thread_iteration(dev):
-    """A registered custom model's whole iteration stays the one-thread
-    kernel (custom.cuh declares no kTeamIteration)."""
+    """A registered custom model outside the team's rule (n = 10, m = 3:
+    m(n + 1) = 33 gain entries, more than a warp's threads; csrc/custom.cuh
+    team_iteration) keeps the one-thread whole iteration and split sweep,
+    and its kernel equals the plain version bit for bit; the example's
+    unicycle, inside the rule, takes the 16-thread team
+    (tests/test_torch_cuda_custom_team.py holds it)."""
     import ctypes
 
     from ilqr_tpu_torch.examples import custom_model as tcm
+    from ilqr_tpu_torch.models import get_model, list_models, register
     from ilqr_tpu_torch.ops import _build
+    from test_torch_custom_team import dense_model
 
+    name = "dense_n10_m3"
+    if name not in list_models():
+        register(dense_model(10, 3, name))
+    model = get_model(name)
     uni, _head = tcm.register_models()
-    lib = _build.lib_for(uni)
-    for suffix in ("_fd", "_jvp"):
-        width = getattr(lib, f"ilqr_{uni.name}_iteration{suffix}_lane_threads")
-        width.restype = ctypes.c_int
-        assert width() == 1
+    for m, want in ((model, 1), (uni, 16)):
+        lib = _build.lib_for(m)
+        for kind in ("iteration", "sweep"):
+            for suffix in ("_fd", "_jvp"):
+                width = getattr(lib, f"ilqr_{m.name}_{kind}{suffix}"
+                                     "_lane_threads")
+                width.restype = ctypes.c_int
+                assert width() == want, (m.name, kind, suffix)
+    rng = np.random.default_rng(3)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    B, T, n, k = 37, 6, model.n, model.m
+    pp = kernel_rollout.pack_params(model.default_params(), DT, dev)
+    x0, us = f(0.3 * rng.normal(size=(n, B))), f(0.5 * rng.normal(
+        size=(T, k, B)))
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    xs, _u, xT, c0 = kernel_rollout.rollout_plain(
+        model, "euler", True, pp, x0, us, zeros(T, n, B), zeros(T, k, n, B))
+    args = (model, "euler", True, pp, x0, xs.contiguous(), xT.contiguous(),
+            us, f(rng.normal(size=(T, k, B))),
+            f(rng.normal(size=(T, k, n, B))),
+            f(rng.choice([1e-6, 1.0, 10.0], size=B)), c0.contiguous(),
+            f(rng.uniform(size=B) > 0.3), f(CFG.alphas))
+    kw = dict(mode="jvp", use_limits=True, z_min=CFG.z_min,
+              tol_grad=CFG.tol_grad, lambda_grad_term=CFG.lambda_grad_term)
+    got = kernel_iter.iteration_packed(*args, **kw)
+    torch.cuda.synchronize()
+    _equal(got, kernel_iter.iteration_plain(*args, **kw))

@@ -370,10 +370,11 @@ def test_sweep_pick_follows_the_route_rule(name):
     iteration_team.cuh sweep_small_team_kernel, at team::kTeamWidth) for
     the dense derivatives (the stencils, the dual numbers) and the
     one-thread sweep_kernel for the closed forms; else the one-thread
-    kernel, as for every custom model (custom.cuh: kTeamSweep false, no
-    kTeamIteration). chip_smoke.launched_kernel names the same kernel for
-    each form, and its team width is the whole iteration's
-    (TEAM_ITERATION)."""
+    kernel. A custom model never takes the warp (custom.cuh: kTeamSweep
+    false) and takes the team by the kTeamIteration of its generated
+    header (custom::team_iteration; tests/test_torch_custom_team.py).
+    chip_smoke.launched_kernel names the same kernel for each form, and its
+    team width is the whole iteration's (TEAM_ITERATION)."""
     import re
 
     import chip_smoke
@@ -421,6 +422,7 @@ def test_sweep_pick_follows_the_route_rule(name):
     custom = (csrc / "custom.cuh").read_text()
     assert "static constexpr bool kTeamSweep = false;" in custom
     assert "bool kTeamIteration" not in custom
+    assert "constexpr bool team_iteration(int n, int m)" in custom
 
 
 @pytest.mark.parametrize("name", sorted(kernel_derivs.DERIVS_KERNEL_MODELS))
@@ -491,8 +493,10 @@ def test_team_iteration_trait_holds_to_the_team_limits(name):
     sides, the (n + m)(n + m + 1)/2 cost-Hessian pairs and the m(n + 1) gain
     entries fit it one a thread, and every team model lies inside the
     warp's limits (sides and gain entries one a thread, pairs in rounds).
-    A custom model declares no kTeamIteration, so it keeps the one-thread
-    kernel."""
+    A custom model's generated header declares kTeamIteration by
+    custom::team_iteration, the same limits at 32 threads with m·n < 32
+    (tests/test_torch_custom_team.py holds it over a grid of n and m);
+    custom.cuh declares no kTeamIteration of its own."""
     import re
 
     from ilqr_tpu_torch import fused
@@ -501,8 +505,11 @@ def test_team_iteration_trait_holds_to_the_team_limits(name):
     team = "static constexpr bool kTeamIteration = true;" in text
     assert team == (name in TEAM_ITERATION), name
     assert "kTeamIteration = false" not in text
-    assert "bool kTeamIteration" not in (
-        _build.CSRC / "custom.cuh").read_text()
+    custom = (_build.CSRC / "custom.cuh").read_text()
+    assert "bool kTeamIteration" not in custom
+    assert re.search(r"constexpr bool team_iteration\(int n, int m\) \{\s*"
+                     r"return m \* n < 32 && 2 \* \(n \+ m\) <= 32 && "
+                     r"m \* \(n \+ 1\) <= 32;", custom)
     rule = re.search(r"constexpr int kTeamWidth =([^;]*);", (
         _build.CSRC / "iteration_team.cuh").read_text()).group(1).split()
     assert rule == [
@@ -555,22 +562,34 @@ def test_warp_iteration_follows_the_route_rule(name):
 @pytest.mark.parametrize("name", sorted(kernel_rollout.FUSED_KERNEL_MODELS))
 def test_team_linesearch_covers_every_model(name):
     """The line search runs as a team of 16 threads per lane
-    (csrc/linesearch_team.cuh) for every model of the package: the trait
-    fused::TeamLineSearch is true unless a model says otherwise, no model
-    header does, and every ILQR_ROLLOUT_LAUNCHERS line search goes through
-    launch_model_linesearch; custom models opt out (custom.cuh DensePattern,
-    kTeamLineSearch = false). A team holds every candidate: the kernels'
-    most, kMaxA, is at most its 16 threads."""
+    (csrc/linesearch_team.cuh) for every model of the package and every
+    custom model: launch_model_linesearch and linesearch_blocks_per_sm take
+    the team with no choice to make, no model header, custom.cuh or
+    generated header opts out (there is no TeamLineSearch trait), every
+    ILQR_ROLLOUT_LAUNCHERS line search goes through
+    launch_model_linesearch, and the one-thread linesearch_kernel is gone
+    from csrc/. A team holds every candidate: the kernels' most, kMaxA, is
+    at most its 16 threads."""
     import re
 
     csrc = _build.CSRC
     team = (csrc / "linesearch_team.cuh").read_text()
-    default = re.search(r"struct TeamLineSearch \{\s*static constexpr bool "
-                        r"value = (\w+);", team)
-    assert default and default.group(1) == "true"
+    for fn in ("inline int launch_model_linesearch(",
+               "inline int linesearch_blocks_per_sm("):
+        body = team[team.index(fn):]
+        body = body[:body.index("\n}\n")]
+        assert "team::linesearch_team_kernel<Model>" in body, fn
+        assert "if constexpr" not in body and "linesearch_kernel<" not in body
+    for f in csrc.glob("*.cu*"):
+        text = f.read_text()
+        assert "TeamLineSearch" not in text, f.name
+        assert not re.search(r"\blinesearch_kernel\b", text), f.name
     assert "kTeamLineSearch" not in _model_header(name)
-    assert ("static constexpr bool kTeamLineSearch = false;"
-            in (csrc / "custom.cuh").read_text())
+    from ilqr_tpu_torch.examples import custom_model as tcm
+    from ilqr_tpu_torch.ops import codegen
+
+    assert "kTeamLineSearch" not in codegen.emit_header(
+        codegen.record(tcm.UNICYCLE))
     kernels = (csrc / "kernels.cuh").read_text()
     launchers = kernels[kernels.index("#define ILQR_ROLLOUT_LAUNCHERS"):]
     launchers = launchers[:launchers.index("#define ILQR_SWEEP_BLOCKS")]

@@ -45,11 +45,17 @@ def load_tree(root: Path, tag: str, sources=None):
     """The package of ``root`` with a library of its csrc ``sources`` built
     (every csrc/*.cu where None; the package's own nvcc flags, under its
     build/ilqr_tpu_torch/<tag>-<the sources' hash>) and bound in place of
-    the whole library; the change's chip_smoke.py as a module. Returns
-    (_build, the library's path, chip_smoke)."""
+    the whole library; the change's chip_smoke.py as a module. A tree
+    whose generated headers declare no team rule (before the custom
+    models' team kernels) gets ops.codegen.team_width = 1, its custom
+    models' one-thread kernels, for chip_smoke's names. Returns (_build,
+    the library's path, chip_smoke)."""
     sys.path.insert(0, str(root))
     import ilqr_tpu_torch
-    from ilqr_tpu_torch.ops import _build
+    from ilqr_tpu_torch.ops import _build, codegen
+
+    if not hasattr(codegen, "team_width"):
+        codegen.team_width = lambda n, m: 1
 
     if Path(ilqr_tpu_torch.__file__).resolve().parents[1] != root:
         raise RuntimeError(f"imported {ilqr_tpu_torch.__file__}, not "
@@ -112,17 +118,20 @@ def regs_blocks(regs: int, block: int = 64) -> int:
     return min(32, 2048 // block, 65536 // (per_warp * warps))
 
 
-def occupancy(lib, fname: str, limits, registers: int):
+def occupancy(lib, fname: str, limits, registers: int, three=None):
     """(blocks an SM holds, threads a block, dynamic shared memory bytes a
     block) of the kernel that a launcher launches: from the tree's entry
     point ``fname`` (ilqr_<model>_<kernel>[_fd|_jvp]_blocks_per_sm; use_limits
     first unless ``limits`` is None, then the threads and the bytes), from
     the one-argument form that trees before the line-search team gave
     acrobot's team iteration (blocks of 128), else from the kernel's
-    ``registers`` (one-thread blocks of 64)."""
+    ``registers`` (one-thread blocks of 64). ``three``: whether the entry
+    point takes the threads and bytes (a custom model's library: True),
+    else told by the library."""
     fn = getattr(lib, fname, None)
-    three = (hasattr(lib, "ilqr_acrobot_linesearch_blocks_per_sm")
-             or "_sweep" in fname)
+    if three is None:
+        three = (hasattr(lib, "ilqr_acrobot_linesearch_blocks_per_sm")
+                 or "_sweep" in fname)
     if fn is not None and three:
         ptr = ctypes.POINTER(ctypes.c_int)
         fn.argtypes = ([] if limits is None else [ctypes.c_int]) + [ptr] * 2
@@ -158,6 +167,72 @@ def time_rows(smoke, dev, rows, reading):
     del cases
     torch.cuda.empty_cache()
     return {row: out[row] for row in rows}
+
+
+def custom_ptxas(build, smoke, name: str, key_of) -> dict:
+    """:func:`ptxas_text` of the custom model ``name``'s library (phase 15's
+    models, chip_smoke.custom_models; built here if it is not yet), its
+    keys ``key_of(source, mangled name)``."""
+    model = smoke.custom_models()[name]
+    build.build_model(model)
+    return ptxas_text(build.model_build_log(model), key_of)
+
+
+def custom_reading(build, smoke, kind: str, ptx: dict):
+    """The ``reading`` of :func:`time_rows` for a custom model's ``kind``
+    rows ("iteration", "sweep", "linesearch"; rows name/form[/…]): ptxas's
+    figures of the row's kernel from ``ptx`` (name → :func:`custom_ptxas`
+    keyed by form and limits, or by "linesearch") and the occupancy of its
+    launcher in the model's library."""
+    forms = {"jvp": "jvp", "jvp_rk4": "jvp", "fd": "fd", "euler": None,
+             "rk4": None}
+
+    def reading(row, case):
+        name, form = row.split("/")[:2]
+        mode = forms[form]
+        model = smoke.custom_models()[name]
+        if mode is None:   # the line search
+            p = ptx[name].get("linesearch", {})
+            fname, limits = f"ilqr_{name}_linesearch_blocks_per_sm", None
+        else:
+            p = ptx[name].get(f"{mode}/limits=True", {})
+            fname, limits = f"ilqr_{name}_{kind}_{mode}_blocks_per_sm", True
+        blocks, threads, smem = occupancy(build.lib_for(model), fname,
+                                          limits, p.get("registers", 255),
+                                          three=True)
+        return dict(p, blocks_per_sm=blocks, block_threads=threads,
+                    smem_per_block=smem)
+
+    return reading
+
+
+def custom_key(kind: str):
+    """The key_of of :func:`custom_ptxas` for ``kind``'s kernels (one-thread
+    or team): the line search's "linesearch", else form and limits."""
+    def key_of(source, name):
+        if kind == "linesearch":
+            return "linesearch" if "linesearch" in name else None
+        if f"{kind}_" in name and source in ("fd.cu", "jvp.cu"):
+            return f"{form_of(name)}/limits={'Lb1E' in name}"
+        return None
+    return key_of
+
+
+def custom_fleet(smoke, dev, name: str, variant: str, label: str) -> dict:
+    """chip_smoke.py phase 15(b)'s fleet (``name`` "unicycle", B = 1024,
+    T = 80, max_iter 40, one of CUSTOM_VARIANTS; or unicycle_heading, one
+    of HEADING_VARIANTS): a warm-up, one timed solve with its launches,
+    and one profiled solve for the device's busy share."""
+    model, params, cfg, T, dt, u0, x0 = smoke.custom_problem(name)
+    cfg = cfg.replace(**(smoke.CUSTOM_VARIANTS if name == "unicycle"
+                         else smoke.HEADING_VARIANTS)[variant])
+    init = smoke._initial_costs(dev, model, smoke.kernel_rollout.pack_params(
+        params, dt, dev), T, u0, x0)
+    out, _cost = smoke._custom_fleet(dev, name, variant, x0, u0, init)
+    out["profile"] = smoke.profile_solve(
+        label, lambda x0_, u0_: smoke.solve_batch_fused(
+            model, params, cfg, dt, x0_, u0_), out["wall_s"], x0, u0)
+    return out
 
 
 def path_reading(out: dict, kernel: str) -> dict:

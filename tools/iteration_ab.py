@@ -33,11 +33,20 @@ process of its own on that tree's package, take:
     analytic, the stencils and analytic + RK4, with limits and without the
     first two); the merged-route gauges of phases 8-9 (the quadrotor,
     thruster_ring, omni_thruster with limits and without, free_flyer: T =
-    80, max_iter 40, iter_kernel="merged").
+    80, max_iter 40, iter_kernel="merged");
+  - the custom models of chip_smoke.py phase 15 (their own libraries,
+    built from their generated headers in each tree): the unicycle's
+    iteration_packed rows (B = 1024, T = 80, A = 11: the dual numbers with
+    Euler and RK4, the stencils with Euler) and unicycle_heading's (dual
+    numbers, Euler), and phase 15(b)'s fleet of B = 1024 unicycles through
+    the whole iteration (analytic Euler and RK4, which run the dual
+    numbers, and fd Euler) and unicycle_heading's merged route; --only
+    unicycle takes them alone.
 
-The change's first pass also runs tests/test_torch_cuda_team.py and
-tests/test_torch_cuda_iteration_warp.py (the team and warp kernels against
-iteration_plain on the card, bit for bit). The passes' readings go to FILE
+The change's first pass also runs tests/test_torch_cuda_team.py,
+tests/test_torch_cuda_iteration_m23.py, tests/test_torch_cuda_iteration_warp.py
+and tests/test_torch_cuda_custom_team.py (the team and warp kernels against
+their plain versions on the card, bit for bit). The passes' readings go to FILE
 as JSON (default build/iteration_ab.json) and a summary is printed; the
 passes, builds and checks are tools/_ab.py's. Needs one CUDA device.
 
@@ -103,6 +112,14 @@ for _name in FREE23:
         ("jvp", _name), f"iteration_packed/{_name}/jvp/unconstrained (rk4)")
     ROWS[f"{_name}/analytic/unconstrained"] = (
         ("model", _name), f"iteration_packed/{_name}/unconstrained")
+# the custom models (phase 15): row → (case builder, label), by form
+CUSTOM_ROWS = {
+    "unicycle/jvp": "iteration_packed/unicycle (jvp, euler)",
+    "unicycle/jvp_rk4": "iteration_packed/unicycle (jvp, rk4)",
+    "unicycle/fd": "iteration_packed/unicycle (fd, euler)",
+    "unicycle_heading/jvp": "iteration_packed/unicycle_heading (jvp, euler)"}
+for _row, _label in CUSTOM_ROWS.items():
+    ROWS[_row] = (("custom", _row.split("/")[0]), _label)
 FREE = dict(use_control_limits=False, clamp_forward=False)
 JVP = dict(deriv_mode="analytic", integrator="rk4")
 # path: (model, "flagship", "analytic" (run_model_path) or "cli"
@@ -125,6 +142,12 @@ for _name, _extra in (("quadrotor", {}), ("thruster_ring", {}),
                       ("free_flyer", {})):
     PATHS[f"{_name}/merged"] = (_name.split("/")[0], "analytic",
                                 dict(_extra, iter_kernel="merged"))
+
+
+for _variant in ("analytic_euler", "analytic_rk4", "fd_euler"):
+    PATHS[f"unicycle/fleet/{_variant}"] = ("unicycle", "fleet", _variant)
+PATHS["unicycle_heading/fleet/merged"] = ("unicycle_heading", "fleet",
+                                          "merged")
 
 
 def _iteration_key(source: str, name: str):
@@ -152,8 +175,15 @@ def worker(root: Path, tag: str, check: bool) -> dict:
     res["compile_seconds"] = json.loads(
         (lib.parent / "compile_seconds.json").read_text())
 
+    custom = {name: _ab.custom_ptxas(_build, smoke, name,
+                                     _ab.custom_key("iteration"))
+              for name in smoke.CUSTOM_MODELS}
+    custom_reading = _ab.custom_reading(_build, smoke, "iteration", custom)
+
     def reading(row, case):
         name, form = row.split("/")[:2]
+        if name in custom:
+            return custom_reading(row, case)
         kind = {"analytic": "analytic", "fd": "fd", "fd_rk4": "fd",
                 "jvp_rk4": "jvp"}[form]
         limits = not row.endswith("/unconstrained")
@@ -175,7 +205,8 @@ def worker(root: Path, tag: str, check: bool) -> dict:
                          + [str(CHANGE / "tests" / f) for f in (
                              "test_torch_cuda_team.py",
                              "test_torch_cuda_iteration_m23.py",
-                             "test_torch_cuda_iteration_warp.py")])
+                             "test_torch_cuda_iteration_warp.py",
+                             "test_torch_cuda_custom_team.py")])
         if rc != 0:
             raise AssertionError(f"the team and warp iteration tests: "
                                  f"pytest exit {rc}")
@@ -185,7 +216,9 @@ def worker(root: Path, tag: str, check: bool) -> dict:
     for path, (name, kind, extra) in PATHS.items():
         label = f"[{tag}] {path}"
         kernel_iter.iteration_packed.launches = 0
-        if kind == "flagship":
+        if kind == "fleet":
+            out = _ab.custom_fleet(smoke, dev, name, extra, label)
+        elif kind == "flagship":
             model, params, cfg = smoke.flagship()
             out = smoke.run_main_path(dev, model, params, cfg)
             out["profile"] = smoke.profile_solve(

@@ -29,11 +29,17 @@ package, take:
     fd + RK4 CLI batch solve at max_iter FD_WIDE_ITERS; thruster_ring's,
     free_flyer's and omni_thruster's analytic paths (phase 9) and fd CLI
     batch solves at max_iter M5_FD_ITERS; acrobot's fd + RK4 batch solve on
-    the split sweep (sweep_kernel="split", B = 8192, max_iter 20).
+    the split sweep (sweep_kernel="split", B = 8192, max_iter 20);
+  - the custom models of chip_smoke.py phase 15 (their own libraries, built
+    from their generated headers in each tree): the unicycle's
+    linesearch_packed rows (B = 1024, T = 80, A = 11; Euler and RK4) and
+    unicycle_heading's (Euler), and phase 15(b)'s fleet of B = 1024
+    unicycles on the split iteration (analytic Euler: the dual-number sweep
+    and the line search); --only unicycle takes them alone.
 
 The change's first pass also runs tests/test_torch_cuda_linesearch_team.py
-(the team kernel against linesearch_plain on the card for every model, bit
-for bit). The readings go to FILE as JSON (default
+and tests/test_torch_cuda_custom_team.py (the team kernels against their
+plain versions on the card for every model, bit for bit). The readings go to FILE as JSON (default
 build/linesearch_ab.json) and a summary is printed. The passes, builds and
 checks are tools/_ab.py's. Needs one CUDA device.
 """
@@ -66,6 +72,14 @@ PATHS = {"quadrotor/analytic": ("quadrotor", "analytic", {}, None),
 for _name in ("thruster_ring", "free_flyer", "omni_thruster"):
     PATHS[f"{_name}/analytic"] = (_name, "analytic", {}, None)
     PATHS[f"{_name}/fd"] = (_name, "cli", {}, None)
+CUSTOM_ROWS = {"unicycle/euler": "linesearch_packed/unicycle (euler)",
+               "unicycle/rk4": "linesearch_packed/unicycle (rk4)",
+               "unicycle_heading/euler":
+                   "linesearch_packed/unicycle_heading (euler)"}
+for _row, _label in CUSTOM_ROWS.items():
+    ROWS[_row] = (("custom", _row.split("/")[0]), _label)
+PATHS["unicycle/fleet/analytic_euler_split"] = (
+    "unicycle", "fleet", "analytic_euler_split", None)
 PATHS["acrobot/fd_rk4_split"] = (
     "acrobot", "cli", dict(integrator="rk4", sweep_kernel="split",
                            max_iter=20), "B_MAIN")
@@ -94,8 +108,15 @@ def worker(root: Path, tag: str, check: bool) -> dict:
         (lib.parent / "compile_seconds.json").read_text())
     ptx = _ab.ptxas(lib.parent / "ptxas.log", _linesearch_key)
 
+    custom = {name: _ab.custom_ptxas(_build, smoke, name,
+                                     _ab.custom_key("linesearch"))
+              for name in smoke.CUSTOM_MODELS}
+    custom_reading = _ab.custom_reading(_build, smoke, "linesearch", custom)
+
     def reading(row, case):
         name = row.split("/")[0]
+        if name in custom:
+            return custom_reading(row, case)
         p = ptx.get(name, {})
         blocks, threads, smem = _ab.occupancy(
             _build.library(), f"ilqr_{name}_linesearch_blocks_per_sm", None,
@@ -109,9 +130,10 @@ def worker(root: Path, tag: str, check: bool) -> dict:
         import pytest
 
         t0 = time.perf_counter()
-        rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q",
-                          str(CHANGE / "tests"
-                              / "test_torch_cuda_linesearch_team.py")])
+        rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q"]
+                         + [str(CHANGE / "tests" / f) for f in (
+                             "test_torch_cuda_linesearch_team.py",
+                             "test_torch_cuda_custom_team.py")])
         if rc != 0:
             raise AssertionError(f"tests/test_torch_cuda_linesearch_team.py: "
                                  f"pytest exit {rc}")
@@ -121,7 +143,9 @@ def worker(root: Path, tag: str, check: bool) -> dict:
     for path, (name, kind, extra, lanes) in PATHS.items():
         label = f"[{tag}] {path}"
         kernel_rollout.linesearch_packed.launches = 0
-        if kind == "cli":
+        if kind == "fleet":
+            out = _ab.custom_fleet(smoke, dev, name, extra, label)
+        elif kind == "cli":
             depth = ({} if "max_iter" in extra else dict(
                 max_iter=smoke.FD_WIDE_ITERS if name == "quadrotor"
                 else smoke.M5_FD_ITERS))

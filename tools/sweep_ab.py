@@ -41,11 +41,19 @@ process of its own on that tree's package, take:
     80, max_iter 40); for the m·n < 32 models with iter_kernel="split", the
     CLI's fd batch solves of cartpole, power_mass and pendulum (B = 1024,
     uncut) and the acrobot flagship (phase 4's problem and draws, B = 8192,
-    T = 499, max_iter 100: a warm-up, two timed solves and a profiled one).
+    T = 499, max_iter 100: a warm-up, two timed solves and a profiled one);
+    for the custom models of chip_smoke.py phase 15 (their own libraries,
+    built from their generated headers in each tree; the sweep on the team
+    of their whole iteration), the unicycle's sweep_packed rows (B = 1024,
+    T = 80: the dual numbers with Euler and RK4, the stencils with Euler)
+    and phase 15(b)'s fleet of B = 1024 unicycles on the split iteration
+    (analytic Euler: the dual-number sweep); --only unicycle takes them
+    alone.
 
-The change's first pass also runs tests/test_torch_cuda_sweep_team.py and
-tests/test_torch_cuda_sweep_small_team.py (the team kernels against
-sweep_plain on the card, bit for bit). The readings go to FILE as JSON
+The change's first pass also runs tests/test_torch_cuda_sweep_team.py,
+tests/test_torch_cuda_sweep_small_team.py and
+tests/test_torch_cuda_custom_team.py (the team kernels against their plain
+versions on the card, bit for bit). The readings go to FILE as JSON
 (default build/sweep_ab.json) and a summary is printed. The passes, builds
 and checks are tools/_ab.py's. Needs one CUDA device.
 """
@@ -73,6 +81,11 @@ ROWS = {f"{name}/{form}": (builder, key)
             ("fd", "fd", f"sweep_packed/{name}/fd (euler)"),
             ("jvp_rk4", "jvp", f"sweep_packed/{name}/jvp (rk4)"))}
 ROWS["acrobot/analytic"] = ("acrobot", "sweep_packed")
+CUSTOM_ROWS = {"unicycle/jvp": "sweep_packed/unicycle (jvp, euler)",
+               "unicycle/jvp_rk4": "sweep_packed/unicycle (jvp, rk4)",
+               "unicycle/fd": "sweep_packed/unicycle (fd, euler)"}
+for _row, _label in CUSTOM_ROWS.items():
+    ROWS[_row] = ("custom", _label)
 ROWS["acrobot/fd_rk4"] = ("fd", "sweep_packed/acrobot/fd (rk4)")
 ROWS["quadrotor/fd_rk4"] = ("fd", "sweep_packed/quadrotor/fd (rk4)")
 ROWS["omni_thruster/analytic/unconstrained"] = (
@@ -96,6 +109,8 @@ PATHS = {"thruster_ring/fd": ("thruster_ring", "fd", {}),
          "acrobot/flagship/split": ("acrobot", "flagship", {})}
 for _name in ("cartpole", "power_mass", "pendulum"):
     PATHS[f"{_name}/fd/split"] = (_name, "fd", dict(iter_kernel="split"))
+PATHS["unicycle/fleet/analytic_euler_split"] = ("unicycle", "fleet",
+                                                "analytic_euler_split")
 SWEEP_KERNELS = ("sweep_kernel", "sweep_team_kernel", "sweep_small_team_kernel")
 
 
@@ -152,8 +167,15 @@ def worker(root: Path, tag: str, check: bool) -> dict:
         (lib.parent / "compile_seconds.json").read_text())
     ptx = _ab.ptxas(lib.parent / "ptxas.log", _sweep_key)
 
+    custom = {name: _ab.custom_ptxas(_build, smoke, name,
+                                     _ab.custom_key("sweep"))
+              for name in smoke.CUSTOM_MODELS}
+    custom_reading = _ab.custom_reading(_build, smoke, "sweep", custom)
+
     def reading(row, case):
         name, form = row.split("/")[:2]
+        if name in custom:
+            return custom_reading(row, case)
         kind = {"analytic": "analytic", "fd": "fd", "fd_rk4": "fd",
                 "jvp_rk4": "jvp"}[form]
         limits = not row.endswith("/unconstrained")
@@ -176,7 +198,8 @@ def worker(root: Path, tag: str, check: bool) -> dict:
         rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q"]
                          + [str(CHANGE / "tests" / f) for f in (
                              "test_torch_cuda_sweep_team.py",
-                             "test_torch_cuda_sweep_small_team.py")])
+                             "test_torch_cuda_sweep_small_team.py",
+                             "test_torch_cuda_custom_team.py")])
         if rc != 0:
             raise AssertionError(f"the team sweep tests: pytest exit {rc}")
         res["edge_cases"] = dict(bitwise=True,
@@ -184,7 +207,9 @@ def worker(root: Path, tag: str, check: bool) -> dict:
 
     for path, (name, kind, extra) in PATHS.items():
         label = f"[{tag}] {path}"
-        if kind == "flagship":
+        if kind == "fleet":
+            out = _ab.custom_fleet(smoke, dev, name, extra, label)
+        elif kind == "flagship":
             out = flagship_split(smoke, label)
         elif kind == "fd":
             depth = (dict(max_iter=smoke.FD_WIDE_ITERS)
